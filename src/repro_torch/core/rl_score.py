@@ -1,0 +1,70 @@
+"""The anti-affinity Resource-Load score and LOADSCORE (§3.2, Algorithm 1)
+— counterpart of ``repro.core.rl_score``.
+
+    RL(r, L_j, C_j) = (r · L_j) / Σ_k C_jk²
+    loadScore_j = (1-α)·RL_j/(RL_j+RL_p) + α·(D_j+d_j)/(D_j+d_j+D_p+d_p)
+
+Lower is better.  The arithmetic follows the reference as XLA:CPU runs it
+(see :mod:`repro_torch._arith`): the products ``r·L`` and ``Σ C²`` are
+fused multiply-add chains, ``RL_j / (ΣRL + ε)`` is evaluated as
+``(r·L_j) / (ΣC_j² · (ΣRL + ε))``, and the α-mix is one fused
+multiply-add (on the duration term when the RL term falls back to 0.5).
+"""
+from __future__ import annotations
+
+import torch
+
+from .._arith import dot_fma, fma
+
+_EPS = 1e-9  # guards 0/0 when both candidates are fully idle
+
+
+def rl(r: torch.Tensor, L: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """Eq. 1 for one (task, server) pair: r, L, C are [K]."""
+    return dot_fma(r, L) / dot_fma(C, C)
+
+
+def _mix(rl_num, rl_den, rl_sum, D, d_sum, alpha, fold_fallback: bool):
+    """One candidate's normalized score from its RL numerator/denominator.
+    In the batched form (``fold_fallback``) the reference folds the
+    constant ``0.5·(1-α)`` where the RL term falls back to 0.5 and
+    contracts the duration term instead; the pair form does not."""
+    half = torch.full_like(D, 0.5)
+    rl_ok = rl_sum > _EPS
+    rl_frac = torch.where(rl_ok, rl_num / (rl_den * (rl_sum + _EPS)), half)
+    d_frac = torch.where(d_sum > _EPS, D / (d_sum + _EPS), half)
+    one_m = 1.0 - alpha
+    score = fma(rl_frac, one_m, d_frac * alpha)
+    if fold_fallback:
+        score = torch.where(rl_ok, score, fma(d_frac, alpha, half * one_m))
+    return score
+
+
+def _alpha(alpha, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(alpha, dtype=torch.float32, device=like.device)
+
+
+def load_score_pair(r, L_a, L_b, D_a, D_b, C_a, C_b, alpha):
+    """LOADSCORE for candidates A and B of one task.  ``D_a``/``D_b``
+    already include the task's own duration on the candidate.  Returns
+    (score_A, score_B); the lower one wins."""
+    alpha = _alpha(alpha, r)
+    num_a, den_a = dot_fma(r, L_a), dot_fma(C_a, C_a)
+    num_b, den_b = dot_fma(r, L_b), dot_fma(C_b, C_b)
+    rl_sum = num_a / den_a + num_b / den_b
+    d_sum = D_a + D_b
+    return (_mix(num_a, den_a, rl_sum, D_a, d_sum, alpha, False),
+            _mix(num_b, den_b, rl_sum, D_b, d_sum, alpha, False))
+
+
+def load_score_batched(r: torch.Tensor, L_ab: torch.Tensor,
+                       D_ab: torch.Tensor, C_ab: torch.Tensor,
+                       alpha) -> torch.Tensor:
+    """r [T, K], L_ab [T, 2, K], D_ab [T, 2], C_ab [T, 2, K] → [T, 2]."""
+    alpha = _alpha(alpha, r)
+    num = dot_fma(r[:, None, :], L_ab)                          # [T, 2]
+    den = dot_fma(C_ab, C_ab)                                   # [T, 2]
+    rl_ab = num / den
+    rl_sum = rl_ab[:, :1] + rl_ab[:, 1:]
+    d_sum = D_ab[:, :1] + D_ab[:, 1:]
+    return _mix(num, den, rl_sum, D_ab, d_sum, alpha, True)

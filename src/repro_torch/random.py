@@ -1,0 +1,90 @@
+"""JAX-compatible counter-based PRNG (threefry2x32) on torch tensors.
+
+Bit-exact with ``jax.random`` under ``jax_threefry_partitionable=True``
+(the JAX 0.9 default), so the port draws the reference's candidates from
+the same seeds:
+
+* ``PRNGKey(s)``          = (s >> 32, s & 0xFFFFFFFF)
+* ``fold_in(key, d)``     = threefry2x32(key, (0, d))
+* ``split(key, n)[i]``    = threefry2x32(key, (0, i))
+* ``uniform(key, (n,))[i] = unit(y0 ^ y1)`` with
+  ``(y0, y1) = threefry2x32(key, (0, i))`` and ``unit`` the f32 mantissa
+  fill ``bitcast((bits >> 9) | 0x3F800000) - 1``.
+
+A key is an int64 tensor whose last axis holds the two 32-bit words; every
+function broadcasts over leading axes (a ``[T, 2]`` block of keys gives
+``[T, ...]`` results).  The uint32 arithmetic runs on int64 masked with
+``0xFFFFFFFF`` because torch's uint32 operator coverage is thin.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._device import resolve_device
+
+MASK32 = 0xFFFFFFFF
+# threefry2x32 rotation schedule and key-parity constant (Salmon et al.,
+# as in jax._src.prng).
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) | (v >> (32 - r))) & MASK32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """20-round threefry2x32 on int64 tensors holding uint32 values."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    a = (x0 + ks[0]) & MASK32
+    b = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & MASK32
+            b = _rotl(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & MASK32
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return a, b
+
+
+def PRNGKey(seed: int, *, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` as an int64 ``[2]`` tensor."""
+    dev = resolve_device(device)
+    seed = int(seed)
+    hi = (seed >> 32) & MASK32 if seed >= 0 else 0
+    return torch.tensor([hi, seed & MASK32], dtype=torch.int64, device=dev)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in`` broadcast over ``key[..., 2]`` and ``data``
+    (an integer tensor, e.g. a block of task ids)."""
+    data = torch.as_tensor(data, device=key.device).to(torch.int64) & MASK32
+    k0, k1 = key[..., 0], key[..., 1]
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(data), data)
+    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``key[..., 2]`` → ``[..., num, 2]``."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    k0, k1 = key[..., 0, None], key[..., 1, None]
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(i), i)
+    return torch.stack((y0, y1), dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """32-bit random words ``[..., *shape]`` (int64 holding uint32)."""
+    shape = tuple(shape)
+    count = 1
+    for s in shape:
+        count *= s
+    i = torch.arange(count, dtype=torch.int64, device=key.device)
+    k0, k1 = key[..., 0, None], key[..., 1, None]
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(i), i)
+    return (y0 ^ y1).reshape(key.shape[:-1] + shape)
+
+
+def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in [0, 1) as float32."""
+    bits = (random_bits(key, shape) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0

@@ -1,0 +1,42 @@
+"""Carry the simulator's state across between the JAX reference and the
+port.
+
+A scheduler has no weights: its state is the batched driver's carry (the
+per-server unit clocks, ring buffers, cached views, unflushed deltas and
+the message ledger).  :func:`carry_from_numpy` turns the reference's
+``_Carry`` leaves, as numpy arrays keyed by field name, into the port's
+:class:`~repro_torch.sim.engine._Carry`; :func:`carry_to_numpy` does the
+reverse.  With them both packages can continue one run from the same
+state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .engine import _Carry
+
+
+def carry_from_numpy(leaves: dict, device=None) -> _Carry:
+    """``{field: ndarray}`` → :class:`_Carry` on ``device`` (default: the
+    CPU, since the leaves live on the host).  Every field of ``_Carry``
+    except the optional ``push_at`` must be present; dtypes are kept
+    (float32, int32, bool)."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    missing = [f for f in _Carry._fields
+               if f != "push_at" and f not in leaves]
+    if missing:
+        raise KeyError(f"carry leaves missing: {missing}")
+    vals = {}
+    for f in _Carry._fields:
+        a = leaves.get(f)
+        vals[f] = (None if a is None else
+                   torch.from_numpy(np.array(a, copy=True)).to(device))
+    return _Carry(**vals)
+
+
+def carry_to_numpy(carry: _Carry) -> dict:
+    """:class:`_Carry` → ``{field: ndarray}`` (``push_at`` omitted when
+    absent), the form :func:`carry_from_numpy` takes."""
+    return {f: v.detach().cpu().numpy()
+            for f, v in carry._asdict().items() if v is not None}
