@@ -5,11 +5,14 @@ and names so each module has an obvious counterpart.  It imports ``torch``
 and numpy only — never ``jax`` and nothing of ``repro``.
 
 Ported so far: the batched decision-block driver for the ``random``,
-``dodoor`` and ``one_plus_beta`` policies without dynamics
-(:func:`repro_torch.sim.simulate`), its inputs (clusters and the
-FunctionBench/Azure traces), the Algorithm-1 core, a bit-exact port of
-JAX's partitionable threefry PRNG, and the sparse-gather decision kernel
-as hand-written CUDA for Hopper (``kernels/csrc``).
+``dodoor`` and ``one_plus_beta`` policies (:func:`repro_torch.sim.simulate`)
+with server dynamics (outages, churn, stragglers, store outages), the
+scenario engine (:mod:`repro_torch.sim.scenarios`) and its arrival
+processes, the inputs (clusters and the FunctionBench/Azure traces), the
+Algorithm-1 core, a bit-exact port of JAX's partitionable threefry PRNG
+and its exponential draws, and the sparse-gather decision kernel in its
+plain and masked forms as hand-written CUDA for Hopper
+(``kernels/csrc``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that argument they raise.

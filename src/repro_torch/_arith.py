@@ -14,25 +14,42 @@ matches both:
   simplifier — callers write that form directly;
 * a row sum over a long axis is evaluated as sequential sums of column
   chunks (32 wide for the ring buffer's 256 slots), then a sequential sum
-  of the chunk totals — :func:`row_sum`.
+  of the chunk totals — :func:`row_sum`;
+* float32 ``log1p`` is XLA:CPU's own expansion, neither correctly rounded
+  nor torch's: a rational function for small arguments and a polynomial
+  ``log`` after a mantissa/exponent split otherwise — :func:`log1p`.
 
 These were measured against ``jax.jit`` on the CPU backend (JAX 0.9) and
 are pinned by ``tests/test_torch_core.py``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _CHUNK = 32
+# float64 bits below a float32 mantissa (29), and their midpoint pattern.
+_MID_MASK = (1 << 29) - 1
+_MID_BIT = 1 << 28
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def fma(a, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` with one rounding.  The product of two float32
-    values is exact in float64, so only the final sum rounds twice (to
-    float64, then float32); that differs from a true FMA only when the
-    float64 sum lands exactly on a float32 rounding midpoint."""
-    out = a.double() * b.double() + c.double()
-    return out.float()
+    values is exact in float64; the float64 sum rounds once, and where it
+    lands exactly on a float32 rounding midpoint it is moved one float64
+    step towards its rounding error (Two-Sum), so that the float32
+    rounding sees which side of the midpoint the exact sum lies on."""
+    dev = next(x.device for x in (a, b, c) if isinstance(x, torch.Tensor))
+    a, b, c = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+               for x in (a, b, c))
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    mid = (s.view(torch.int64) & _MID_MASK) == _MID_BIT
+    s = torch.where(mid & (err != 0), torch.nextafter(s, s + err), s)
+    return s.float()
 
 
 def dot_fma(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -73,3 +90,61 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
     for part in parts[1:]:
         total = total + part
     return total
+
+
+def _f32(bits: int) -> float:
+    return float(np.uint32(bits).view(np.float32))
+
+
+# XLA:CPU's float32 log1p: a Cephes rational function for |x| below
+# sqrt(2)-1 (coefficients highest power first), and otherwise log(1 + x)
+# by Eigen's float log polynomial.
+_SMALL_MAX = _f32(0x3ED413CD)
+_DEN = tuple(map(_f32, (0x3F800000, 0x417101AD, 0x42A6185B, 0x435DC32D,
+                        0x439A8CA3, 0x43586D8A, 0x42707982)))
+_NUM = tuple(map(_f32, (0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C,
+                        0x4273CC76, 0x426473AD, 0x41A05101)))
+_SQRTHF = _f32(0x3F3504F3)
+_LOG_P = tuple(map(_f32, (0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A,   # a-chain
+                          0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50,   # b-chain
+                          0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA)))  # c-chain
+_LN2_LO, _LN2_HI = _f32(0xB95E8083), _f32(0x3F318000)
+_FLT_MIN = _f32(0x00800000)
+
+
+def _log_poly(y: torch.Tensor) -> torch.Tensor:
+    """float32 log(y) for y > 0 finite, as XLA:CPU evaluates it."""
+    y = torch.clamp_min(y, _FLT_MIN)
+    bits = y.view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)   # [0.5, 1)
+    lo = m < _SQRTHF
+    x = (m - 1.0) + torch.where(lo, m, torch.zeros_like(m))
+    e = torch.where(lo, e - 1.0, e)
+    z = x * x
+    x3 = z * x
+    a0, a1, a2, b0, b1, b2, c0, c1, c2 = _LOG_P
+    a = fma(fma(a0, x, a1), x, a2)
+    b = fma(fma(b0, x, b1), x, b2)
+    c = fma(fma(c0, x, c1), x, c2)
+    t = fma(x3, fma(x3, a, b), c)
+    t = fma(x3, t, e * _LN2_LO)
+    r = fma(-0.5, z, x) + t
+    return fma(e, _LN2_HI, r)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log1p`` for x in (-1, +inf) as XLA:CPU computes it (the
+    reference's ``jax.random.exponential`` is ``-log1p(-u)``).  Its
+    contractions into fused multiply-adds were read from the compiled
+    kernel; pinned against ``jax.random.exponential`` by
+    ``tests/test_torch_random.py``."""
+    z2 = x * x
+    den = torch.full_like(x, _DEN[0])
+    for coef in _DEN[1:]:
+        den = fma(den, x, coef)
+    num = torch.full_like(x, _NUM[0])
+    for coef in _NUM[1:]:
+        num = fma(num, x, coef)
+    small = fma(z2, -0.5, (x * z2) * (num / den)) + x
+    return torch.where(x.abs() < _SMALL_MAX, small, _log_poly(1.0 + x))

@@ -2,7 +2,8 @@
 (counterpart of ``repro.core.prefilter``).
 
 A server is a candidate for a task iff its total capacity admits the
-task's demand in every resource dimension.  Candidates are drawn with
+task's demand in every resource dimension (and, under server dynamics, it
+is not inside a down window: :func:`avail_rows`).  Candidates are drawn with
 replacement, uniformly over the feasible servers, by inverse CDF over the
 mask's prefix count — one threefry uniform per draw, bit-identical to the
 reference.  With no feasible server the draw falls back to uniform over
@@ -25,6 +26,16 @@ def feasible_mask(r: torch.Tensor, C: torch.Tensor,
     if affinity is not None:
         ok = ok & affinity
     return ok
+
+
+def avail_rows(down0: torch.Tensor, down1: torch.Tensor,
+               now: torch.Tensor) -> torch.Tensor:
+    """Availability from per-server down windows [N, W] (``+inf`` pads) at
+    ``now`` [T] → bool [T, N]: no window with ``down0 <= now < down1`` —
+    the reference engine's ``_avail_rows``, ANDed into the capacity mask
+    when a run has down windows."""
+    t = now[:, None, None]
+    return ~((down0[None] <= t) & (t < down1[None])).any(dim=-1)
 
 
 def sample_feasible_batch(keys: torch.Tensor, mask: torch.Tensor,

@@ -7,7 +7,8 @@ public wrapper with a launch counter) and ``ref.py`` (the plain-torch
 version the CPU runs and the card is held against).
 
 * ``dodoor_choice`` — K1, the sparse-gather sample → score → select kernel
-  of the batched driver's decision step.
+  of the batched driver's decision step, and K2, its masked form with
+  down-window availability in the prefilter (one CUDA template).
 """
 from . import dodoor_choice
 

@@ -1,13 +1,21 @@
-// Sparse-gather Dodoor decision kernel for Hopper (sm_90a).
+// Sparse-gather Dodoor decision kernels for Hopper (sm_90a).
 //
-// Replaces the TPU kernel K1 of the JAX reference,
-// src/repro/kernels/dodoor_choice/kernel.py::dodoor_fused_sparse_pallas
-// (body _fused_sparse_kernel).  For every task of a decision block it
-// computes what sample_feasible_batch followed by the two-stage
+// Replaces two TPU kernels of the JAX reference,
+// src/repro/kernels/dodoor_choice/kernel.py:
+//   K1 dodoor_fused_sparse_pallas         (unmasked), and
+//   K2 dodoor_fused_sparse_masked_pallas  (down-window availability),
+// both with the body _fused_sparse_kernel.  For every task of a decision
+// block they compute what sample_feasible_batch followed by the two-stage
 // Algorithm-1 score computes in the reference:
-//   capacity prefilter -> inclusive prefix count -> two threefry uniforms
-//   -> inverse-CDF ranks (uniform over all N when nothing is feasible)
+//   prefilter -> inclusive prefix count -> two threefry uniforms
+//   -> inverse-CDF ranks (uniform over all N when nothing is admissible)
 //   -> candidate rows and d_types[t, node_type[c]] -> loadScore -> choice.
+// The prefilter is the capacity test, and for K2 also availability: server
+// j is up at the task's time now_t iff no window w of its [N, Wd] planes
+// has down0[j,w] <= now_t < down1[j,w] (+inf pads match nothing).  Both
+// kernels are one template, instantiated on the availability predicate;
+// K2 evaluates it in the warp's stride, so no [T, N] availability plane
+// exists on the card.
 //
 // Design.  One warp per task.  The TPU kernel gathers candidate rows with
 // a one-hot matmul because the TPU has no usable gather unit; here lane 0
@@ -18,9 +26,10 @@
 // lanemask_lt)) reaches each rank.
 //
 // Bound.  Per task the work is O(N*K) compares plus up to two passes over
-// N; the bytes are the server arrays (L, D, C, node_type: 24 B a server),
-// which stay resident in the 50 MB L2 across the block's tasks, plus about
-// 60 B of task input and output.  At the main path's shapes the kernel is
+// N (K2: 2*Wd more compares a server); the bytes are the server arrays
+// (L, D, C, node_type: 24 B a server; K2: 8*Wd B of windows), which stay
+// resident in the 50 MB L2 across the block's tasks, plus about 60 B of
+// task input and output.  At the main path's shapes the kernels are
 // bounded by the compare/count work, not by memory traffic.
 //
 // Arithmetic.  The score follows the reference as XLA:CPU executes it:
@@ -69,13 +78,48 @@ __device__ __forceinline__ float unit_float(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
-__device__ __forceinline__ bool feasible(const float2* C, int j, int N,
-                                         float r0, float r1) {
+// The down-window planes of K2 ([N, Wd] row-major) and the tasks' times.
+struct Windows {
+  const float* down0;
+  const float* down1;
+  const float* now;
+  int Wd;
+};
+
+// Availability predicates, bound to one task.  K1: every server is up.
+struct AllUp {
+  __device__ AllUp(const Windows&, long long) {}
+  __device__ bool operator()(int) const { return true; }
+};
+
+// K2: up iff no down window covers the task's time (IEEE compares, so the
+// +inf pads and a leave's +inf end behave as in the reference).
+struct WindowsUp {
+  const float* d0;
+  const float* d1;
+  float now;
+  int Wd;
+  __device__ WindowsUp(const Windows& w, long long t)
+      : d0(w.down0), d1(w.down1), now(w.now[t]), Wd(w.Wd) {}
+  __device__ bool operator()(int j) const {
+    const float* a = d0 + static_cast<long long>(j) * Wd;
+    const float* b = d1 + static_cast<long long>(j) * Wd;
+    bool down = false;
+    for (int w = 0; w < Wd; ++w) down |= (a[w] <= now) && (now < b[w]);
+    return !down;
+  }
+};
+
+template <class Up>
+__device__ __forceinline__ bool admissible(const float2* C, const Up& up,
+                                           int j, int N, float r0,
+                                           float r1) {
   if (j >= N) return false;
   const float2 c = C[j];
-  return r0 <= c.x && r1 <= c.y;
+  return r0 <= c.x && r1 <= c.y && up(j);
 }
 
+template <class Up>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 dodoor_fused_sparse_kernel(const long long* __restrict__ keys,
                            const float* __restrict__ r,
@@ -84,6 +128,7 @@ dodoor_fused_sparse_kernel(const long long* __restrict__ keys,
                            const float* __restrict__ L,
                            const float* __restrict__ D,
                            const float* __restrict__ C,
+                           Windows windows,
                            int T, int N, int TT, float alpha,
                            int* __restrict__ choice,
                            int* __restrict__ cand,
@@ -95,11 +140,12 @@ dodoor_fused_sparse_kernel(const long long* __restrict__ keys,
   const float2* C2 = reinterpret_cast<const float2*>(C);
   const float r0 = r[2 * t];
   const float r1 = r[2 * t + 1];
+  const Up up(windows, t);
 
-  // Pass 1: number of feasible servers.
+  // Pass 1: number of admissible servers.
   int count = 0;
   for (int base = 0; base < N; base += 32) {
-    const bool ok = feasible(C2, base + lane, N, r0, r1);
+    const bool ok = admissible(C2, up, base + lane, N, r0, r1);
     count += __popc(__ballot_sync(kFull, ok));
   }
   const bool any_ok = count > 0;
@@ -114,8 +160,8 @@ dodoor_fused_sparse_kernel(const long long* __restrict__ keys,
   const int tgt0 = min(static_cast<int>(u0 * kkf), kk - 1) + 1;
   const int tgt1 = min(static_cast<int>(u1 * kkf), kk - 1) + 1;
 
-  // Pass 2: the server where the inclusive feasible count reaches each
-  // rank.  With nothing feasible the count is the position itself.
+  // Pass 2: the server where the inclusive admissible count reaches each
+  // rank.  With nothing admissible the count is the position itself.
   int c0 = tgt0 - 1;
   int c1 = tgt1 - 1;
   if (any_ok) {
@@ -124,7 +170,7 @@ dodoor_fused_sparse_kernel(const long long* __restrict__ keys,
     const unsigned lanemask_lt = (1u << lane) - 1u;
     int seen = 0;
     for (int base = 0; base < N && (c0 < 0 || c1 < 0); base += 32) {
-      const bool ok = feasible(C2, base + lane, N, r0, r1);
+      const bool ok = admissible(C2, up, base + lane, N, r0, r1);
       const unsigned m = __ballot_sync(kFull, ok);
       const int incl = seen + __popc(m & lanemask_lt) + 1;
       const unsigned h0 = __ballot_sync(kFull, ok && incl == tgt0);
@@ -170,25 +216,51 @@ dodoor_fused_sparse_kernel(const long long* __restrict__ keys,
   choice[t] = sa > sb ? c1 : c0;  // Algorithm 1, line 11: ties keep A
 }
 
+template <class Up>
+int launch(const void* keys, const void* r, const void* d_types,
+           const void* node_type, const void* L, const void* D,
+           const void* C, Windows windows, int T, int N, int TT,
+           float alpha, void* choice, void* cand, void* scores,
+           void* stream) {
+  if (T > 0) {
+    const int threads = kWarpsPerBlock * 32;
+    const int blocks = (T + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    dodoor_fused_sparse_kernel<Up><<<blocks, threads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(keys), static_cast<const float*>(r),
+        static_cast<const float*>(d_types),
+        static_cast<const int*>(node_type), static_cast<const float*>(L),
+        static_cast<const float*>(D), static_cast<const float*>(C), windows,
+        T, N, TT, alpha, static_cast<int*>(choice), static_cast<int*>(cand),
+        static_cast<float*>(scores));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// K1.  Launches on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int dodoor_fused_sparse_launch(
     const void* keys, const void* r, const void* d_types,
     const void* node_type, const void* L, const void* D, const void* C,
     int T, int N, int TT, float alpha, void* choice, void* cand,
     void* scores, void* stream) {
-  if (T > 0) {
-    const int threads = kWarpsPerBlock * 32;
-    const int blocks = (T + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    dodoor_fused_sparse_kernel<<<blocks, threads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(keys), static_cast<const float*>(r),
-        static_cast<const float*>(d_types),
-        static_cast<const int*>(node_type), static_cast<const float*>(L),
-        static_cast<const float*>(D), static_cast<const float*>(C), T, N,
-        TT, alpha, static_cast<int*>(choice), static_cast<int*>(cand),
-        static_cast<float*>(scores));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<AllUp>(keys, r, d_types, node_type, L, D, C,
+                       Windows{nullptr, nullptr, nullptr, 0}, T, N, TT,
+                       alpha, choice, cand, scores, stream);
+}
+
+// K2: K1 with down0, down1 [N, Wd] and now [T] (float32) in the prefilter.
+extern "C" int dodoor_fused_sparse_masked_launch(
+    const void* keys, const void* r, const void* d_types,
+    const void* node_type, const void* L, const void* D, const void* C,
+    const void* down0, const void* down1, const void* now, int T, int N,
+    int TT, int Wd, float alpha, void* choice, void* cand, void* scores,
+    void* stream) {
+  return launch<WindowsUp>(
+      keys, r, d_types, node_type, L, D, C,
+      Windows{static_cast<const float*>(down0),
+              static_cast<const float*>(down1),
+              static_cast<const float*>(now), Wd},
+      T, N, TT, alpha, choice, cand, scores, stream);
 }

@@ -1,9 +1,10 @@
-"""Public wrapper of the sparse-gather decision kernel (K1).
+"""Public wrapper of the sparse-gather decision kernels K1 and K2.
 
-``dodoor_fused_sparse`` keeps the JAX wrapper's signature.  Tensors on the
-CPU go to the plain version (``ref.py``); CUDA tensors are checked and go
-to the CUDA kernel, or the call raises — there is no fallback.
-``LAUNCHES`` counts kernel launches, one per call that reaches the card.
+``dodoor_fused_sparse`` keeps the JAX wrapper's signature, with the
+down-window planes in place of its ``avail`` plane.  Tensors on the CPU go
+to the plain version (``ref.py``); CUDA tensors are checked and go to the
+CUDA kernel, or the call raises — there is no fallback.  ``LAUNCHES``
+counts kernel launches by kernel name, one per call that reaches the card.
 """
 from __future__ import annotations
 
@@ -29,25 +30,37 @@ def _check(name, t, dtype, shape):
 
 
 def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
-                        alpha: float = 0.5):
+                        alpha: float = 0.5, *, down0=None, down1=None,
+                        now=None):
     """Sample → score → select for one decision block.
 
     keys [T, 2] int64 per-task candidate keys (uint32 words, the first key
     of ``split(fold_in(base, task_id))``); r [T, K] demands; d_types
     [T, TT] per-node-type estimated durations; node_type [N] int32 server
     types (each in [0, TT)); L [N, K], D [N] the cached view; C [N, K]
-    capacities.  K is 2 (cores, memory).
+    capacities.  K is 2 (cores, memory).  With ``down0``, ``down1``
+    [N, Wd] float32 down-window planes (``+inf`` pads) and ``now`` [T]
+    float32 task times, a server inside a down window at its task's time
+    is not admissible (the masked kernel K2, counted under
+    ``"dodoor_fused_sparse_masked"``).
 
     Returns (choice [T] int32, cand [T, 2] int32, scores [T, 2] float32).
     """
-    tensors = (keys, r, d_types, node_type, L, D, C)
+    windows = (down0, down1, now)
+    masked = down0 is not None
+    if masked != (down1 is not None) or masked != (now is not None):
+        raise ValueError("dodoor_fused_sparse: pass down0, down1 and now "
+                         "together")
+    tensors = (keys, r, d_types, node_type, L, D, C) + (
+        windows if masked else ())
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"dodoor_fused_sparse: tensors on several devices "
                          f"{sorted(map(str, devices))}")
     device = devices.pop()
     if device.type == "cpu":
-        return dodoor_fused_sparse_ref(*tensors, alpha=alpha)
+        return dodoor_fused_sparse_ref(keys, r, d_types, node_type, L, D, C,
+                                       alpha, *windows)
     if device.type != "cuda":
         raise ValueError(f"dodoor_fused_sparse: unsupported device {device}")
     T, K = r.shape
@@ -64,10 +77,15 @@ def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
     _check("C", C, torch.float32, (N, K))
     if N < 1 or d_types.shape[1] < 1:
         raise ValueError("dodoor_fused_sparse: needs N ≥ 1 and TT ≥ 1")
+    if masked:
+        _check("down0", down0, torch.float32, (N, down0.shape[1]))
+        _check("down1", down1, torch.float32, down0.shape)
+        _check("now", now, torch.float32, (T,))
     choice = torch.empty((T,), dtype=torch.int32, device=device)
     cand = torch.empty((T, 2), dtype=torch.int32, device=device)
     scores = torch.empty((T, 2), dtype=torch.float32, device=device)
     launch_dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C, alpha,
-                               choice, cand, scores)
-    LAUNCHES["dodoor_fused_sparse"] += 1
+                               choice, cand, scores, *windows)
+    LAUNCHES["dodoor_fused_sparse_masked" if masked
+             else "dodoor_fused_sparse"] += 1
     return choice, cand, scores

@@ -9,7 +9,9 @@ the same seeds:
 * ``split(key, n)[i]``    = threefry2x32(key, (0, i))
 * ``uniform(key, (n,))[i] = unit(y0 ^ y1)`` with
   ``(y0, y1) = threefry2x32(key, (0, i))`` and ``unit`` the f32 mantissa
-  fill ``bitcast((bits >> 9) | 0x3F800000) - 1``.
+  fill ``bitcast((bits >> 9) | 0x3F800000) - 1``;
+* ``exponential(key, shape) = -log1p(-uniform(key, shape))`` with
+  XLA:CPU's float32 ``log1p`` (:func:`repro_torch._arith.log1p`).
 
 A key is an int64 tensor whose last axis holds the two 32-bit words; every
 function broadcasts over leading axes (a ``[T, 2]`` block of keys gives
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ._arith import log1p
 from ._device import resolve_device
 
 MASK32 = 0xFFFFFFFF
@@ -88,3 +91,9 @@ def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in [0, 1) as float32."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.exponential(key, shape)``: unit-rate exponential
+    draws as float32, bit-exact with the compiled reference."""
+    return -log1p(-uniform(key, shape))

@@ -1,17 +1,26 @@
-"""repro_torch.sim — cluster models, the batched decision-block engine,
-message accounting, metrics and carry conversion.  Counterpart of
-``repro.sim`` for the ported slice."""
+"""repro_torch.sim — cluster models, the batched decision-block engine
+with server dynamics, the scenario engine, message accounting, metrics and
+carry conversion.  Counterpart of ``repro.sim`` for the ported slices."""
 from .cluster import (CMAX, NODE_TYPES, TESTBED_TYPES, ClusterSpec,
                       make_homogeneous, make_scaled, make_testbed)
-from .engine import EngineConfig, SimResult, simulate
+from .engine import CacheFaults, Dynamics, EngineConfig, SimResult, simulate
 from .messages import (RpcModel, cache_messages_per_decision,
                        expected_messages_per_task, per_decision_messages)
-from .metrics import Summary, resource_violations, summarize
+from .metrics import (Summary, mean_in_system, phase_summaries,
+                      resource_violations, summarize, summarize_window,
+                      utilization_stats)
+from .scenarios import (Scenario, random_churn, random_outages,
+                        random_stragglers, rolling_restart, run_scenario,
+                        run_scenario_grid, scenario_workload)
 from .state import carry_from_numpy, carry_to_numpy
 
 __all__ = ["CMAX", "NODE_TYPES", "TESTBED_TYPES", "ClusterSpec",
            "make_homogeneous", "make_scaled", "make_testbed",
-           "EngineConfig", "SimResult", "simulate", "RpcModel",
-           "cache_messages_per_decision", "expected_messages_per_task",
-           "per_decision_messages", "Summary", "resource_violations",
-           "summarize", "carry_from_numpy", "carry_to_numpy"]
+           "CacheFaults", "Dynamics", "EngineConfig", "SimResult",
+           "simulate", "RpcModel", "cache_messages_per_decision",
+           "expected_messages_per_task", "per_decision_messages", "Summary",
+           "mean_in_system", "phase_summaries", "resource_violations",
+           "summarize", "summarize_window", "utilization_stats", "Scenario",
+           "random_churn", "random_outages", "random_stragglers",
+           "rolling_restart", "run_scenario", "run_scenario_grid",
+           "scenario_workload", "carry_from_numpy", "carry_to_numpy"]

@@ -11,20 +11,26 @@ each block it
 2. draws candidates and picks servers: Random draws one feasible server;
    Dodoor and (1+β) go through the sparse-gather decision kernel
    (:func:`repro_torch.kernels.dodoor_choice.dodoor_fused_sparse` — the CUDA
-   kernel on the card, its plain version on the CPU);
+   kernel on the card, its plain version on the CPU), in its masked form
+   (K2) when the run's :class:`Dynamics` has down windows;
 3. commits the placements in server-parallel FCFS rounds
    (:func:`_commit_rounds`): round ``k`` commits the k-th task of every
    server at once;
 4. applies the scheduler flushes and, at a full block's end, the data-store
-   push, and keeps the four-field message ledger.
+   push (unless a store outage covers it), and keeps the four-field
+   message ledger.
 
-Only the no-dynamics configuration is ported: no outage/churn/straggler
-windows, no retries, no DAGs, no tracing.  In the reference those windows
-are inert here (the availability plane is all ones, ``_gate_start`` is the
-identity and ``_slow_stretch`` multiplies by exactly 1.0), so they are
-left out and the remaining arithmetic is unchanged.  Placements and the
-message ledger match the reference's ``use_kernel=False`` batched driver
-exactly on the CPU; see ``tests/test_torch_engine.py``.
+Server dynamics (the scenario engine's cluster axis) lower to ``[n, W]``
+float32 window planes (:class:`_Win`, ``+inf`` pads): down windows
+(outages, joins, leaves) mask candidate sampling, outage and join windows
+freeze FCFS starts to the window end, straggler windows stretch durations,
+and store-outage windows suppress the push.  A predicate whose planes hold
+no window is skipped: it would be the identity (``_gate_start``) or a
+product with exactly 1.0 (``_slow_stretch``).  Retries, cache faults, DAGs
+and tracing are not ported.  Placements, timestamps and the message ledger
+match the reference's ``use_kernel=False`` batched driver exactly on the
+CPU; see ``tests/test_torch_engine.py`` and
+``tests/test_torch_scenarios.py``.
 
 The server execution model (per-core and per-memory-unit free-at times,
 the in-flight ring buffer, channel contention, co-location interference)
@@ -35,6 +41,7 @@ with ``.item()`` (a host sync) and loops in Python.
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -42,7 +49,7 @@ import torch
 
 from .._arith import fma, row_sum
 from .._device import resolve_device
-from ..core.prefilter import feasible_mask, inverse_cdf_draws
+from ..core.prefilter import avail_rows, feasible_mask, inverse_cdf_draws
 from ..core.types import PrequalParams
 from ..kernels.dodoor_choice import dodoor_fused_sparse
 from ..random import PRNGKey, fold_in, split, uniform
@@ -55,9 +62,11 @@ POLICIES = ("random", "dodoor", "one_plus_beta")
 class EngineConfig(NamedTuple):
     """Cluster-level knobs (Require line of Algorithm 1 + §6.1 RPC setup),
     named as the reference's.  Fields of features the port does not run
-    yet (``outage_ms``, ``retry``, ``locality``, ``trace``) must keep their
-    defaults; ``prequal.s_pool`` sizes the carry's (unused) probe pools so
-    the carry matches the reference's leaf for leaf."""
+    yet (``retry``, ``locality``, ``trace``) must keep their defaults;
+    ``outage_ms`` is deprecated and routed into
+    ``Dynamics(store_outages=...)``; ``prequal.s_pool`` sizes the carry's
+    (unused) probe pools so the carry matches the reference's leaf for
+    leaf."""
 
     policy: str = "dodoor"          # random | dodoor | one_plus_beta
     num_schedulers: int = 5         # §6.1: 5 scheduler services
@@ -69,7 +78,7 @@ class EngineConfig(NamedTuple):
     rbuf_slots: int = 256           # in-flight ring buffer per server
     mem_units: int = 64             # memory discretization per server
     interference: float = 0.3       # co-location slowdown factor
-    outage_ms: tuple = ()
+    outage_ms: tuple = ()           # deprecated: a data-store outage window
     rpc: RpcModel = RpcModel()
     prequal: PrequalParams = PrequalParams()
     retry: object = None
@@ -110,6 +119,228 @@ class SimResult(NamedTuple):
     @property
     def msgs_per_task(self) -> float:
         return self.msgs_total / max(1, self.server.shape[0])
+
+
+class CacheFaults(NamedTuple):
+    """Cache-degradation injection for the data-store push channel, as the
+    reference's spec (``Dynamics.cache_faults``).  The port lowers and
+    validates it, but its per-scheduler views are not ported (ROADMAP §1
+    item 7): a run with one raises."""
+
+    loss_rate: float = 0.0          # per-scheduler iid delivery-loss prob
+    loss_windows: tuple = ()        # ((t0, t1), ...): all pushes lost inside
+    delay_ms: float = 0.0           # snapshot lag (truth as of now − delay)
+    seed: int = 0                   # loss-draw stream
+
+
+class Dynamics(NamedTuple):
+    """Declarative server-dynamics timelines — all times in ms, all fields
+    tuples so the spec is hashable.
+
+    outages:       ``((server, t0, t1), ...)`` — server unavailable on
+                   [t0, t1): masked out of candidate sampling, and a task
+                   whose FCFS start falls inside the window starts at t1.
+    joins:         ``((server, t_join), ...)`` — unavailable on
+                   [0, t_join) (inert when ``t_join <= 0``).
+    leaves:        ``((server, t_leave), ...)`` — unavailable on
+                   [t_leave, ∞): masked from sampling but not start-gated
+                   (queued work drains).
+    slowdowns:     ``((server, t0, t1, mult), ...)`` — a task *starting*
+                   inside [t0, t1) runs ``mult``× its interference-stretched
+                   duration.
+    store_outages: ``((t0, t1), ...)`` — data-store outage windows: a push
+                   inside one is suppressed (no messages, views go stale).
+    cache_faults:  optional :class:`CacheFaults` (not ported: raises).
+
+    When every feasible server is down the draw falls back to uniform over
+    the whole fleet, as for an all-infeasible task."""
+
+    outages: tuple = ()
+    joins: tuple = ()
+    leaves: tuple = ()
+    slowdowns: tuple = ()
+    store_outages: tuple = ()
+    cache_faults: CacheFaults | None = None
+
+    @property
+    def has_down_windows(self) -> bool:
+        return bool(self.outages or self.joins or self.leaves)
+
+    def merge(self, *others: "Dynamics") -> "Dynamics":
+        """Concatenate timelines; ``cache_faults`` is not a timeline: the
+        first non-None spec wins, and two distinct specs raise."""
+        ds = (self,) + others
+        vals = {}
+        for f in self._fields:
+            if f == "cache_faults":
+                cfs = [d.cache_faults for d in ds
+                       if d.cache_faults is not None]
+                if len(set(cfs)) > 1:
+                    raise ValueError(
+                        "merge() saw two distinct cache_faults specs — "
+                        "compose loss windows inside one CacheFaults")
+                vals[f] = cfs[0] if cfs else None
+            else:
+                vals[f] = tuple(w for d in ds for w in getattr(d, f))
+        return Dynamics(**vals)
+
+
+class _Win(NamedTuple):
+    """The window planes a :class:`Dynamics` spec lowers to, leaf for leaf
+    the reference's.  Empty slots hold ``+inf`` starts (a window
+    [+inf, +inf) matches no timestamp) and 1.0 multipliers.  ``down*``
+    masks candidate sampling (outages ∪ joins ∪ leaves); ``gate*`` also
+    freezes FCFS starts (outages ∪ joins)."""
+
+    down0: torch.Tensor      # [n, Wd] unavailability window starts
+    down1: torch.Tensor      # [n, Wd] window ends
+    gate0: torch.Tensor      # [n, Wg] start-freezing window starts
+    gate1: torch.Tensor      # [n, Wg] ends
+    slow0: torch.Tensor      # [n, Ws] straggler window starts
+    slow1: torch.Tensor      # [n, Ws] ends
+    slow_mult: torch.Tensor  # [n, Ws] duration multipliers
+    store0: torch.Tensor     # [Wo] data-store outage starts
+    store1: torch.Tensor     # [Wo] ends
+    closs0: torch.Tensor     # [Wc] cache-delivery loss window starts
+    closs1: torch.Tensor     # [Wc] ends
+    cache_rate: torch.Tensor   # [] per-scheduler iid push-loss probability
+    cache_delay: torch.Tensor  # [] push snapshot lag (ms)
+    cache_seed: torch.Tensor   # [] int32 loss-draw stream
+
+    @property
+    def widths(self) -> tuple:
+        return (self.down0.shape[1], self.gate0.shape[1],
+                self.slow0.shape[1], self.store0.shape[0],
+                self.closs0.shape[0])
+
+
+def _pack_windows(rows: dict, n: int, width: int, fill):
+    """[n, width] start/end (+ optional payload) planes from per-server
+    window lists, sorted by start so :func:`_gate_start`'s chained
+    resolution is exact for non-overlapping windows."""
+    out = [np.full((n, width), f, np.float32) for f in fill]
+    for srv, wins in rows.items():
+        for wi, entry in enumerate(sorted(wins)):
+            for a, v in zip(out, entry):
+                a[srv, wi] = v
+    return out
+
+
+def _lower_dynamics(dynamics, n: int, widths: tuple | None = None,
+                    device="cpu") -> _Win:
+    """Lower a :class:`Dynamics` spec to :class:`_Win` planes on
+    ``device``, with the reference's validation.  ``widths=(Wd, Wg, Ws,
+    Wo, Wc)`` overrides the minimal pad widths; padding never changes
+    results (empty windows are inert)."""
+    dynamics = dynamics if dynamics is not None else Dynamics()
+    if not isinstance(dynamics, Dynamics):
+        raise TypeError(f"dynamics must be a Dynamics spec, "
+                        f"got {type(dynamics).__name__}")
+    servers = [int(e[0]) for field in ("outages", "joins", "leaves",
+                                       "slowdowns")
+               for e in getattr(dynamics, field)]
+    for srv in servers:
+        if not 0 <= srv < n:
+            raise ValueError(f"dynamics server {srv} outside fleet of {n}")
+    down: dict = {}
+    gate: dict = {}
+    for srv, t0, t1 in dynamics.outages:
+        down.setdefault(int(srv), []).append((float(t0), float(t1)))
+        gate.setdefault(int(srv), []).append((float(t0), float(t1)))
+    for srv, t in dynamics.joins:
+        if float(t) <= 0.0:
+            continue                  # present from the start: inert
+        down.setdefault(int(srv), []).append((0.0, float(t)))
+        gate.setdefault(int(srv), []).append((0.0, float(t)))
+    for srv, t in dynamics.leaves:
+        # sampling mask only: a leaver drains, so no start gate
+        down.setdefault(int(srv), []).append((float(t), np.inf))
+    slow: dict = {}
+    for srv, t0, t1, mult in dynamics.slowdowns:
+        slow.setdefault(int(srv), []).append(
+            (float(t0), float(t1), float(mult)))
+    for wins in down.values():
+        if any(t1 <= t0 for t0, t1 in wins):
+            raise ValueError("dynamics window needs t1 > t0")
+    for wins in slow.values():
+        if any(t1 <= t0 or mult <= 0 for t0, t1, mult in wins):
+            raise ValueError("slowdown needs t1 > t0 and mult > 0")
+    if any(t1 <= t0 for t0, t1 in dynamics.store_outages):
+        raise ValueError("store outage needs t1 > t0")
+    cfault = dynamics.cache_faults
+    if cfault is not None:
+        if not isinstance(cfault, CacheFaults):
+            raise TypeError("cache_faults must be a CacheFaults spec")
+        if not 0.0 <= cfault.loss_rate <= 1.0:
+            raise ValueError("cache_faults.loss_rate must be in [0, 1]")
+        if cfault.delay_ms < 0.0:
+            raise ValueError("cache_faults.delay_ms must be ≥ 0")
+        if any(t1 <= t0 for t0, t1 in cfault.loss_windows):
+            raise ValueError("cache loss window needs t1 > t0")
+
+    wd = max(1, max((len(v) for v in down.values()), default=0))
+    wg = max(1, max((len(v) for v in gate.values()), default=0))
+    ws = max(1, max((len(v) for v in slow.values()), default=0))
+    wo = max(1, len(dynamics.store_outages))
+    wc = max(1, len(cfault.loss_windows) if cfault is not None else 0)
+    if widths is not None:
+        need = (wd, wg, ws, wo, wc)
+        if any(w < r for w, r in zip(widths, need)):
+            raise ValueError(f"widths {widths} < required {need}")
+        wd, wg, ws, wo, wc = widths
+
+    d0, d1 = _pack_windows(down, n, wd, (np.inf, np.inf))
+    g0, g1 = _pack_windows(gate, n, wg, (np.inf, np.inf))
+    s0, s1, sm = _pack_windows(slow, n, ws, (np.inf, np.inf, 1.0))
+    o0 = np.full((wo,), np.inf, np.float32)
+    o1 = np.full((wo,), np.inf, np.float32)
+    for wi, (t0, t1) in enumerate(sorted(dynamics.store_outages)):
+        o0[wi], o1[wi] = t0, t1
+    c0 = np.full((wc,), np.inf, np.float32)
+    c1 = np.full((wc,), np.inf, np.float32)
+    rate, delay, cseed = 0.0, 0.0, 0
+    if cfault is not None:
+        for wi, (t0, t1) in enumerate(sorted(cfault.loss_windows)):
+            c0[wi], c1[wi] = t0, t1
+        rate, delay, cseed = (cfault.loss_rate, cfault.delay_ms,
+                              int(cfault.seed))
+    planes = (d0, d1, g0, g1, s0, s1, sm, o0, o1, c0, c1)
+    return _Win(*(torch.from_numpy(a).to(device) for a in planes),
+                cache_rate=torch.tensor(np.float32(rate), device=device),
+                cache_delay=torch.tensor(np.float32(delay), device=device),
+                cache_seed=torch.tensor(np.int32(cseed), device=device))
+
+
+def _gate_start(win: _Win, start: torch.Tensor) -> torch.Tensor:
+    """Push a start time [n] (one per server row) landing inside a gate
+    window to the window's end; the unrolled loop resolves chains of
+    non-overlapping sorted windows, in the reference's order."""
+    g0, g1 = win.gate0, win.gate1                    # [n, Wg]
+    for _ in range(g0.shape[1]):
+        inwin = (g0 <= start[:, None]) & (start[:, None] < g1)
+        start = torch.where(inwin, g1, start[:, None]).max(dim=1).values
+    return start
+
+
+def _slow_stretch(win: _Win, start: torch.Tensor) -> torch.Tensor:
+    """Straggler multiplier [n] for a start time per server row — the
+    product of the matching windows' factors, in window order."""
+    s0, s1, sm = win.slow0, win.slow1, win.slow_mult
+    stretch = torch.ones_like(start)
+    for w in range(s0.shape[1]):
+        inwin = (s0[:, w] <= start) & (start < s1[:, w])
+        stretch = stretch * torch.where(inwin, sm[:, w], 1.0)
+    return stretch
+
+
+def _suppress_push(win: _Win, now: torch.Tensor) -> torch.Tensor:
+    """Whether a data-store push firing at ``now`` [k] is suppressed: a
+    store-outage window covers it.  (The reference ORs in the legacy
+    ``EngineConfig.outage_ms`` window; :func:`simulate` routes that window
+    into ``store_outages``, so here it is always empty.)"""
+    t = now[:, None]
+    store0, store1 = win.store0.to(now.device), win.store1.to(now.device)
+    return ((store0 <= t) & (t < store1)).any(dim=-1)
 
 
 class _Carry(NamedTuple):
@@ -160,12 +391,29 @@ class _Ctx(NamedTuple):
     cores_per: torch.Tensor    # [n] int32
     mem_unit: torch.Tensor     # [n] float32 MB per memory unit
     base_key: torch.Tensor     # [2] PRNGKey(seed)
+    stretch: torch.Tensor      # [(CMAX+1)²] interference stretch table
+    win: _Win                  # the dynamics' window planes
+    masked: bool               # down windows: masked sampling (K2)
+    gated: bool                # some gate window exists
+    slowed: bool               # some straggler window exists
 
 
 def _make_dyn(cfg: EngineConfig, device) -> _Dyn:
     vals = (cfg.beta, cfg.interference, cfg.rpc.hop_ms,
             cfg.rpc.chan_ms, cfg.rpc.push_block_ms, cfg.rpc.compute_ms)
     return _Dyn(*(torch.tensor(np.float32(v), device=device) for v in vals))
+
+
+def _stretch_table(dyn: _Dyn) -> torch.Tensor:
+    """The commit's interference stretch ``1 + interference·clip(busy /
+    cores, 0, 1)`` — one fused multiply-add in the reference — for every
+    (cores, busy) pair in [0, CMAX]², flattened cores-major.  Tabulated
+    once per run, it is one gather per commit round instead of the
+    float64 emulation of a fused multiply-add."""
+    g = torch.arange(CMAX + 1, dtype=torch.float32,
+                     device=dyn.interference.device)
+    frac = (g[None, :] / g[:, None]).clamp(0.0, 1.0)
+    return fma(dyn.interference, frac, torch.ones_like(frac)).reshape(-1)
 
 
 def _cluster_arrays(cluster: ClusterSpec, mem_units: int, device):
@@ -179,12 +427,21 @@ def _cluster_arrays(cluster: ClusterSpec, mem_units: int, device):
 
 
 def _make_ctx(cluster: ClusterSpec, cfg: EngineConfig, seed: int,
-              device) -> _Ctx:
+              device, dynamics: Dynamics | None = None) -> _Ctx:
+    """``masked`` follows the spec, as the reference's kernel choice does:
+    a spec with down windows launches the masked kernel even where they
+    are inert (a join at t=0)."""
     C, node_type, cores_per, mem_unit = _cluster_arrays(
         cluster, cfg.mem_units, device)
-    return _Ctx(cfg=cfg, dyn=_make_dyn(cfg, device), C=C,
-                node_type=node_type, cores_per=cores_per, mem_unit=mem_unit,
-                base_key=PRNGKey(seed, device=device))
+    win = _lower_dynamics(dynamics, cluster.num_servers, device=device)
+    dyn = _make_dyn(cfg, device)
+    return _Ctx(cfg=cfg, dyn=dyn, C=C, node_type=node_type,
+                cores_per=cores_per, mem_unit=mem_unit,
+                base_key=PRNGKey(seed, device=device),
+                stretch=_stretch_table(dyn), win=win,
+                masked=dynamics is not None and dynamics.has_down_windows,
+                gated=bool(torch.isfinite(win.gate0).any()),
+                slowed=bool(torch.isfinite(win.slow0).any()))
 
 
 def _init_carry(cfg: EngineConfig, n: int, cores_per: torch.Tensor) -> _Carry:
@@ -272,18 +529,21 @@ def _queue_ranks(j: torch.Tensor, valid: torch.Tensor):
 
 
 def _commit_rounds(carry: _Carry, valid, now, j, cores, mem_mb, dur_raw,
-                   d_est_j, extra_lat, dyn: _Dyn, cores_per, mem_unit,
-                   MU: int, occ, rounds: int):
+                   d_est_j, extra_lat, ctx: _Ctx, occ, rounds: int):
     """Server-parallel FCFS commit of the block's valid tasks.
 
     Every row a commit reads or writes belongs to the task's own server,
     so the per-server chains are independent and round ``k`` commits the
     k-th task of every server at once.  Unit rows stay sorted ascending:
     the c-th earliest free core is a gather and the update a shift-merge
-    (:func:`_sorted_fill`).  Returns ``(carry, outs)``, ``outs`` [7, b]
+    (:func:`_sorted_fill`).  A start inside a gate window moves to the
+    window's end, and a straggler window stretches the duration after the
+    interference stretch.  Returns ``(carry, outs)``, ``outs`` [7, b]
     with rows start, finish, enqueue, sched_ms, the overwritten ring slot's
     old release and old duration, and the slot index.  The ring buffer is
     updated in place."""
+    dyn, cores_per, mem_unit = ctx.dyn, ctx.cores_per, ctx.mem_unit
+    MU = ctx.cfg.mem_units
     n = cores_per.shape[0]
     bsz = j.shape[0]
     dev = j.device
@@ -291,6 +551,7 @@ def _commit_rounds(carry: _Carry, valid, now, j, cores, mem_mb, dur_raw,
     rows = torch.arange(n, device=dev)
     cores_f = cores_per.to(torch.float32)
     pad = CMAX - cores_per
+    stretch_row = cores_per.long() * (CMAX + 1)
     R = carry.rb_release.shape[1]
     slot_iota = torch.arange(R, device=dev)[None, :]
     rb_rel, rb_cpu, rb_mem, rb_dur = (carry.rb_release, carry.rb_cpu,
@@ -328,11 +589,12 @@ def _commit_rounds(carry: _Carry, valid, now, j, cores, mem_mb, dur_raw,
         mem_gate = mf.gather(1, (mu_need - 1)[:, None])[:, 0]
         start = torch.maximum(torch.maximum(enqueue_t, prev_start),
                               torch.maximum(core_gate, mem_gate))
+        if ctx.gated:
+            start = _gate_start(ctx.win, start)         # down-window freeze
         busy = (cf > start[:, None]).sum(dim=-1) - pad
-        frac = busy.to(torch.float32) / cores_f
-        # 1 + interference·frac is one fused multiply-add in the reference.
-        dur = dur_s * fma(dyn.interference, frac.clamp(0.0, 1.0),
-                          torch.ones_like(frac))
+        dur = dur_s * ctx.stretch[stretch_row + busy]
+        if ctx.slowed:
+            dur = dur * _slow_stretch(ctx.win, start)   # straggler windows
         finish = start + dur
 
         has_c = has[:, None]
@@ -392,7 +654,7 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
     """One decision block: select, commit, flush, and (``push``) the
     data-store push at the block's end.  ``draws`` is the block's slice of
     :func:`_task_draws`; ``push`` is known on the host: only a full block
-    reaches the b-th decision."""
+    reaches the b-th decision, and a store outage suppresses it."""
     idx, r_sub, r_exec_t, d_est_t, d_act_t, submit, task_id, valid = blk
     cfg, dyn = ctx.cfg, ctx.dyn
     S = cfg.num_schedulers
@@ -403,12 +665,18 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
     sched = idx % S
 
     extra_lat = torch.zeros((bsz,), dtype=torch.float32, device=dev)
+    win = ctx.win
     if cfg.policy == "random":
-        j = inverse_cdf_draws(feasible_mask(r_sub, ctx.C), draws[0])[:, 0]
+        mask = feasible_mask(r_sub, ctx.C)
+        if ctx.masked:
+            mask = mask & avail_rows(win.down0, win.down1, now)
+        j = inverse_cdf_draws(mask, draws[0])[:, 0]
     else:
+        windows = (dict(down0=win.down0, down1=win.down1, now=now)
+                   if ctx.masked else {})
         two, cand2, _ = dodoor_fused_sparse(
             draws[0], r_sub, d_est_t, ctx.node_type, carry.view_L,
-            carry.view_D, ctx.C, alpha=cfg.alpha)
+            carry.view_D, ctx.C, alpha=cfg.alpha, **windows)
         if cfg.policy == "one_plus_beta":
             j = torch.where(draws[1] < dyn.beta, two, cand2[:, 0])
         else:
@@ -424,9 +692,7 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
     dest_t = d_est_t[tt, nt_j]
     occ, rounds = _queue_ranks(j, valid)
     carry, outs = _commit_rounds(carry, valid, now, j, cores_t, mem_t,
-                                 dur_t, dest_t, extra_lat, dyn,
-                                 ctx.cores_per, ctx.mem_unit, cfg.mem_units,
-                                 occ, rounds)
+                                 dur_t, dest_t, extra_lat, ctx, occ, rounds)
 
     n_valid = valid.sum()
     zero = torch.zeros_like(n_valid)
@@ -471,7 +737,9 @@ def _simulate_batched(xs, ctx: _Ctx, carry0: _Carry | None = None,
     cfg = ctx.cfg
     carry = carry0 if carry0 is not None else _init_carry(
         cfg, ctx.C.shape[0], ctx.cores_per)
-    push_at = xs[7][:, -1].cpu().numpy()      # only full blocks push
+    # Only full blocks push, and not inside a store outage.
+    push_at = (xs[7][:, -1].cpu()
+               & ~_suppress_push(ctx.win, xs[5][:, -1].cpu())).numpy()
     draws = _task_draws(ctx, xs[6])
     nb = xs[0].shape[0]
     per_block = []
@@ -489,14 +757,15 @@ def _simulate_batched(xs, ctx: _Ctx, carry0: _Carry | None = None,
 def _blocked_inputs(workload, b: int, device):
     """The workload as [nb, b, ...] decision blocks: the ragged tail is
     edge-padded and masked by ``valid``.  Azure's per-type planes are
-    broadcast views, so every field goes through ``np.ascontiguousarray``
-    before it reaches torch."""
+    broadcast views and arrival planes are read-only, so every field is
+    made a contiguous writable array before it reaches torch."""
     m = workload.r_submit.shape[0]
     nb = -(-m // b)
     pad = nb * b - m
 
     def prep(a):
-        a = np.ascontiguousarray(a)
+        a = np.require(a, requirements=("C", "W"))   # sampled planes are
+                                                     # read-only: copy them
         if pad:
             a = np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1), mode="edge")
         return torch.from_numpy(a.reshape((nb, b) + a.shape[1:])).to(device)
@@ -537,10 +806,8 @@ def _not_ported(cfg: EngineConfig, mode: str, dynamics, dag) -> None:
         later = (f"policy {cfg.policy!r}", 5)
     elif cfg.policy not in POLICIES:
         raise ValueError(f"unknown policy {cfg.policy!r}")
-    elif dynamics is not None:
-        later = ("dynamics", 6)
-    elif cfg.outage_ms:
-        later = ("outage_ms", 6)
+    elif dynamics is not None and dynamics.cache_faults is not None:
+        later = ("Dynamics.cache_faults", 7)
     elif cfg.retry is not None:
         later = ("retry", 7)
     elif dag is not None:
@@ -562,17 +829,32 @@ def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
 
     ``device`` defaults to the GPU; pass ``device="cpu"`` to run on the
     CPU.  On ``cuda`` the dodoor and (1+β) decisions launch the CUDA
-    decision kernel once per block.  ``mode``, ``dynamics`` and ``dag``
-    exist for signature parity with the reference: only
-    ``mode="batched"`` without dynamics or a DAG is ported, and the
-    ``random``, ``dodoor`` and ``one_plus_beta`` policies."""
+    decision kernel once per block: its masked form (K2) when
+    ``dynamics`` has down windows, K1 otherwise.  ``dynamics`` is a
+    :class:`Dynamics` spec (outages, churn, stragglers, store outages).
+    ``mode`` and ``dag`` exist for signature parity with the reference:
+    only ``mode="batched"`` without a DAG is ported, and the ``random``,
+    ``dodoor`` and ``one_plus_beta`` policies."""
+    if dynamics is not None and not isinstance(dynamics, Dynamics):
+        raise TypeError(f"dynamics must be a Dynamics spec, got "
+                        f"{type(dynamics).__name__}")
     _not_ported(cfg, mode, dynamics, dag)
     _validate_config(cfg)
+    if cfg.outage_ms:
+        warnings.warn(
+            "EngineConfig.outage_ms is deprecated — use "
+            "Dynamics(store_outages=((t0, t1),)); simulate() routes the "
+            "scalar window through the store-outage timeline.",
+            DeprecationWarning, stacklevel=2)
+        legacy = Dynamics(store_outages=(
+            (float(cfg.outage_ms[0]), float(cfg.outage_ms[1])),))
+        dynamics = legacy if dynamics is None else dynamics.merge(legacy)
+        cfg = cfg._replace(outage_ms=())
     dev = resolve_device(device)
     if int(np.max(cluster.node_type)) >= workload.d_est.shape[1]:
         raise ValueError("cluster node types exceed the workload's "
                          "per-type duration columns")
-    ctx = _make_ctx(cluster, cfg, seed, dev)
+    ctx = _make_ctx(cluster, cfg, seed, dev, dynamics)
     m = workload.r_submit.shape[0]
     xs = _blocked_inputs(workload, cfg.b, dev)
     msgs, outs = _simulate_batched(xs, ctx)

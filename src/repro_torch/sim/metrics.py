@@ -1,7 +1,11 @@
 """Metric aggregation for simulation results (the paper's §6.2 metrics) —
-the part of ``repro.sim.metrics`` the ported slice needs: :class:`Summary`,
-:func:`summarize` and the capacity invariant :func:`resource_violations`.
-Numpy only; the bodies are the reference's.
+the part of ``repro.sim.metrics`` the ported slices need: :class:`Summary`,
+:func:`summarize`, the per-phase views of the scenario engine
+(:func:`summarize_window`, :func:`phase_summaries`,
+:func:`mean_in_system`), :func:`utilization_stats` and the capacity
+invariant :func:`resource_violations`.  Numpy only; the bodies are the
+reference's, less the retry fields (no retries are ported: every task
+completes on its first try).
 
 1) RPC counts processed by all schedulers;
 2) cluster throughput = processed requests / experiment wall time;
@@ -115,6 +119,86 @@ def utilization_timeline(res: SimResult, cluster: ClusterSpec,
     cpu /= cluster.C[None, :, 0]
     mem /= cluster.C[None, :, 1]
     return times / 1e3, cpu, mem
+
+
+def summarize_window(res: SimResult, t0_ms: float, t1_ms: float) -> Summary:
+    """:func:`summarize` restricted to tasks *submitted* in [t0, t1) — the
+    per-phase view the scenario engine needs (burst vs lull, during vs
+    after an outage).  Throughput uses the window length; an empty window
+    returns a zero Summary (num_tasks=0)."""
+    sel = (res.submit_ms >= t0_ms) & (res.submit_ms < t1_ms)
+    cnt = int(sel.sum())
+    wall_s = max((t1_ms - t0_ms) / 1e3, 1e-9)
+    if cnt == 0:
+        return Summary(policy=res.policy, num_tasks=0, msgs_total=0,
+                       msgs_per_task=0.0, throughput_tps=0.0,
+                       makespan_mean_ms=0.0, makespan_p95_ms=0.0,
+                       sched_mean_ms=0.0, sched_p95_ms=0.0,
+                       wait_mean_ms=0.0, wall_time_s=wall_s,
+                       goodput_tps=0.0, retries_per_task=0.0,
+                       wasted_ms_total=0.0, failure_rate=0.0)
+    mk = res.makespan_ms[sel]
+    sched = res.sched_ms[sel]
+    wait = res.wait_ms[sel]
+    # The ledger is aggregate-only; attribute it uniformly per task so
+    # msgs_per_task stays comparable across phases of one run.
+    m_all = max(1, res.server.shape[0])
+    per_task = res.msgs_total / m_all
+    return Summary(
+        policy=res.policy, num_tasks=cnt,
+        msgs_total=int(round(per_task * cnt)), msgs_per_task=per_task,
+        throughput_tps=cnt / wall_s,
+        makespan_mean_ms=float(mk.mean()),
+        makespan_p95_ms=float(np.percentile(mk, 95)),
+        sched_mean_ms=float(sched.mean()),
+        sched_p95_ms=float(np.percentile(sched, 95)),
+        wait_mean_ms=float(wait.mean()),
+        wall_time_s=wall_s,
+        goodput_tps=cnt / wall_s,
+        msgs_base=int(round(res.msgs_base / m_all * cnt)),
+        msgs_probe=int(round(res.msgs_probe / m_all * cnt)),
+        msgs_push=int(round(res.msgs_push / m_all * cnt)),
+        msgs_flush=int(round(res.msgs_flush / m_all * cnt)),
+    )
+
+
+def phase_summaries(res: SimResult, edges_ms) -> list:
+    """[(t0, t1, Summary), ...] over consecutive windows between
+    ``edges_ms`` — e.g. ``[0, outage_start, outage_end, horizon]`` gives
+    before/during/after summaries of an outage scenario."""
+    edges = [float(e) for e in edges_ms]
+    if len(edges) < 2 or any(b <= a for a, b in zip(edges, edges[1:])):
+        raise ValueError("edges_ms must be ≥ 2 strictly increasing times")
+    return [(a, b, summarize_window(res, a, b))
+            for a, b in zip(edges, edges[1:])]
+
+
+def mean_in_system(res: SimResult, t0_ms: float, t1_ms: float) -> float:
+    """Time-averaged number of tasks in the system (enqueued, not yet
+    finished) over [t0, t1) — cluster-wide; divide by n for the per-server
+    queue length."""
+    if t1_ms <= t0_ms:
+        raise ValueError("need t1_ms > t0_ms")
+    lo = np.maximum(res.enqueue_ms, t0_ms)
+    hi = np.minimum(res.finish_ms, t1_ms)
+    return float(np.clip(hi - lo, 0.0, None).sum(dtype=np.float64)
+                 / (t1_ms - t0_ms))
+
+
+def utilization_stats(res: SimResult, cluster: ClusterSpec,
+                      dt_ms: float = 10_000.0):
+    """The Fig. 5/7 quantities: cluster-wide mean and variance of per-server
+    utilization at each sample, averaged over the busy portion of the run."""
+    times, cpu, mem = utilization_timeline(res, cluster, dt_ms)
+    busy = cpu.mean(axis=1) > 1e-6
+    if not busy.any():
+        return dict(cpu_mean=0.0, cpu_var=0.0, mem_mean=0.0, mem_var=0.0)
+    return dict(
+        cpu_mean=float(cpu[busy].mean()),
+        cpu_var=float(cpu[busy].var(axis=1).mean()),
+        mem_mean=float(mem[busy].mean()),
+        mem_var=float(mem[busy].var(axis=1).mean()),
+    )
 
 
 def resource_violations(res: SimResult, cluster: ClusterSpec,

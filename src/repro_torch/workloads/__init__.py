@@ -1,5 +1,12 @@
 """repro_torch.workloads — the Azure VM trace (§6.2) and FunctionBench
-(§6.3) synthesizers, numpy-only copies of the reference's."""
+(§6.3) synthesizers (numpy-only copies of the reference's) and the arrival
+processes of the scenario engine."""
 from . import azure, functionbench
+from .arrivals import (BatchArrivals, DiurnalArrivals, OnOffArrivals,
+                       PoissonArrivals, arrival_times, arrival_times_grid,
+                       mean_qps, poisson_arrivals, round_robin_scheduler)
 
-__all__ = ["azure", "functionbench"]
+__all__ = ["azure", "functionbench", "poisson_arrivals",
+           "round_robin_scheduler", "PoissonArrivals", "OnOffArrivals",
+           "DiurnalArrivals", "BatchArrivals", "arrival_times",
+           "arrival_times_grid", "mean_qps"]

@@ -175,8 +175,10 @@ NOT_PORTED = [
     (dict(), dict(mode="sequential"), "item 5"),
     (dict(policy="pot"), dict(), "item 5"),
     (dict(policy="prequal"), dict(), "item 5"),
-    (dict(), dict(dynamics=object()), "item 6"),
-    (dict(outage_ms=(1.0, 2.0)), dict(), "item 6"),
+    (dict(), dict(dynamics=teng.Dynamics(
+        cache_faults=teng.CacheFaults(0.1))), "item 7"),
+    (dict(), dict(mode="sequential", dynamics=teng.Dynamics(
+        outages=((0, 1.0, 2.0),))), "item 5"),
     (dict(retry=object()), dict(), "item 7"),
     (dict(), dict(dag=object()), "item 7"),
     (dict(locality=object()), dict(), "item 7"),

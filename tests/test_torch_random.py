@@ -1,5 +1,6 @@
 """The port's threefry PRNG (``repro_torch.random``) is bit-exact against
-``jax.random`` under the partitionable layout JAX runs by default."""
+``jax.random`` under the partitionable layout JAX runs by default, and so
+is its ``exponential`` (XLA:CPU's float32 ``log1p``)."""
 import numpy as np
 import pytest
 
@@ -62,6 +63,34 @@ def test_split_num_bit_exact(num):
     kt = trand.fold_in(trand.PRNGKey(7, device="cpu"), 99)
     assert np.array_equal(_key_np(jax.random.split(kj, num)),
                           trand.split(kt, num).numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 12345])
+def test_exponential_bit_exact_over_a_million_draws(seed):
+    """``jax.random.exponential`` is ``-log1p(-u)`` with XLA:CPU's own
+    float32 ``log1p``; torch's ``log1p`` differs from it in about 7 % of
+    these draws by one ulp, the port's rewrite in none."""
+    kj = jax.random.fold_in(jax.random.PRNGKey(seed), 0x0A21)
+    ej = np.asarray(jax.jit(lambda k: jax.random.exponential(
+        k, (1_000_000,)))(kj))
+    kt = trand.fold_in(trand.PRNGKey(seed, device="cpu"), 0x0A21)
+    et = trand.exponential(kt, (1_000_000,))
+    assert et.dtype == torch.float32
+    assert np.array_equal(ej.view(np.int32), et.numpy().view(np.int32))
+    shaped = trand.exponential(kt, (3, 2)).numpy()
+    assert np.array_equal(shaped, np.asarray(jax.random.exponential(
+        kj, (3, 2))))
+
+
+def test_log1p_bit_exact_across_its_domain():
+    from repro_torch._arith import log1p
+
+    x = np.concatenate([
+        np.linspace(-0.9999, 4.0, 300_001, dtype=np.float32),
+        np.float32(10.0) ** np.linspace(-9, 7, 50_001, dtype=np.float32)])
+    ref = np.asarray(jax.jit(jax.numpy.log1p)(x))
+    got = log1p(torch.from_numpy(x)).numpy()
+    assert np.array_equal(ref.view(np.int32), got.view(np.int32))
 
 
 def test_uniform_is_in_unit_interval():
