@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only 8,9]
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs seven phases; any failure raises and exits non-zero:
+package, and runs twelve phases; any failure raises and exits non-zero
+(``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
    kernels/csrc`` with ``nvcc`` (one process per source, all at once);
@@ -37,7 +38,31 @@ package, and runs seven phases; any failure raises and exits non-zero:
    windows and one K1 launch per block otherwise;
 7. scale with dynamics — the point of phase 4 under node churn and 2 000
    outage windows, with the checks of phase 6 (the capacity check sampled
-   200 times over the run) and the ledger against its closed form.
+   200 times over the run) and the ledger against its closed form;
+8. locality kernel — holds K3, the locality form of K1 and of K2, against
+   its plain version at (T, N, P) = (50, 100, 8), (50, 100, 40),
+   (50, 100, 100) (three padded windows in the parent sum) and
+   (500, 10 000, 8), with parents on about three quarters of the P slots,
+   non-integer MB and γ/bandwidth = 0.7/1.3: candidates, scores and
+   choices exact; with γ = 0 each form equals K1 (K2) bit for bit;
+9. DAG testbed — the frontier loop on the testbed (FunctionBench m=2400
+   at 60 qps, b=50): the chain, fan-out and map-reduce shapes of the DAG
+   benchmark without a LocalityModel and with γ = 2, a layered DAG under
+   γ/bandwidth = 0.7/1.3, and map-reduce under γ = 2 and 25 outages (the
+   masked K3); each against its CPU run (placements as in phase 3, then
+   the ledger and every time plane exact), no start before a parent's
+   finish plus the edge delay, one launch per block of every wave, and
+   fewer parent bytes moved at γ = 2 for fan-out and map-reduce;
+10. DAG scale — fan-out (width 8) at 10 000 servers over the Azure trace
+   of phase 4 under γ = 2: three waves, 400 K3 launches, against the CPU
+   run;
+11. retries testbed — the densest point of the fault benchmark (25
+   outages, FunctionBench m=3000 at 60 qps on the testbed) under the
+   default, the aggressive and a hard-capacity retry policy: every plane
+   (attempts, failed and wasted_ms included) and the ledger equal to the
+   CPU run's, one K2 launch per block of every wave;
+12. retries scale — phase 7's point under the default retry policy,
+   checked as phase 11.
 
 It prints the card's name and power limit, every phase's wall time, a
 JSON line of per-kernel measurements, and as its last line
@@ -65,7 +90,14 @@ KERNEL_REPLACES = {
     "dodoor_fused_sparse": "src/repro/kernels/dodoor_choice/kernel.py:455",
     "dodoor_fused_sparse_masked":
         "src/repro/kernels/dodoor_choice/kernel.py:510",
+    "dodoor_fused_sparse_locality":
+        "src/repro/kernels/dodoor_choice/kernel.py:436",
+    "dodoor_fused_sparse_masked_locality":
+        "src/repro/kernels/dodoor_choice/kernel.py:436",
 }
+#: K3's penalty per remote MB in phase 8: γ/bandwidth = 0.7/1.3, which is
+#: not a power of two, so a wrong rounding of the penalty shows.
+GAMMA_BW = float(np.float32(0.7 / 1.3))
 
 
 def check(cond, msg: str) -> None:
@@ -150,14 +182,30 @@ def kernel_windows(torch, T: int, N: int, seed: int):
     return win.down0, win.down1, torch.from_numpy(now).cuda()
 
 
-def kernel_phase(torch, T: int, N: int, masked: bool = False) -> dict:
-    """K1 (or K2, ``masked``) against its plain version on the card, then
-    both timed; returns the measurements of the kernels JSON line."""
+def kernel_parents(torch, T: int, N: int, P: int, seed: int):
+    """K3's parent planes: psrv in [-1, N) with about a quarter -1 pads
+    (the first column on the fleet's first four servers, so some
+    candidates hold a parent), and non-integer MB, 0 at the pads."""
+    rng = np.random.RandomState(seed)
+    psrv = rng.randint(0, N, (T, P)).astype(np.int32)
+    psrv[rng.rand(T, P) < 0.25] = -1
+    psrv[:, 0] = rng.randint(0, 4, T)
+    pbytes = rng.uniform(0.1, 9.0, (T, P)).astype(np.float32)
+    pbytes[psrv < 0] = 0.0
+    return (torch.from_numpy(psrv).cuda(), torch.from_numpy(pbytes).cuda())
+
+
+def kernel_phase(torch, T: int, N: int, masked: bool = False,
+                 P: int = 0) -> dict:
+    """K1 (or K2, ``masked``; K3 in either form with ``P`` parents)
+    against its plain version on the card, then both timed; returns the
+    measurements of the kernels JSON line."""
     from repro_torch.kernels.dodoor_choice import (dodoor_fused_sparse,
                                                    dodoor_fused_sparse_ref)
     from repro_torch.core.prefilter import avail_rows
 
-    name = "dodoor_fused_sparse_masked" if masked else "dodoor_fused_sparse"
+    name = ("dodoor_fused_sparse" + ("_masked" if masked else "")
+            + ("_locality" if P else ""))
     args = kernel_inputs(torch, T, N, seed=T + N)
     kw = {}
     if masked:
@@ -168,6 +216,10 @@ def kernel_phase(torch, T: int, N: int, masked: bool = False) -> dict:
               f"{1.0 - float(up.float().mean()):.3f} of (task, server) "
               f"pairs down, {int((~up).all(1).sum())} rows all down",
               flush=True)
+    base_kw = dict(kw)
+    if P:
+        psrv, pbytes = kernel_parents(torch, T, N, P, seed=T + N + P)
+        kw.update(psrv=psrv, pbytes=pbytes, gamma_bw=GAMMA_BW)
     choice, cand, scores = dodoor_fused_sparse(*args, alpha=0.5, **kw)
     torch.cuda.synchronize()
     p_choice, p_cand, p_scores = dodoor_fused_sparse_ref(*args, alpha=0.5,
@@ -179,11 +231,24 @@ def kernel_phase(torch, T: int, N: int, masked: bool = False) -> dict:
           f"{name} T={T} N={N}: candidates differ in "
           f"{int((cand != p_cand).any(1).sum())} rows")
     check(np.isfinite(scores).all(), f"{name} T={T} N={N}: non-finite")
+    if P:
+        # K3: the penalty is one fused multiply-add on the plain version's
+        # arithmetic, so scores and choices are exact.
+        check(np.array_equal(scores, p_scores) and np.array_equal(
+            choice, p_choice), f"{name} T={T} N={N} P={P}: scores differ "
+            f"by up to {np.abs(scores - p_scores).max()}")
+        # With γ = 0, K3 is K1 (K2) bit for bit.
+        zero = dodoor_fused_sparse(*args, alpha=0.5,
+                                   **dict(kw, gamma_bw=0.0))
+        plain = dodoor_fused_sparse(*args, alpha=0.5, **base_kw)
+        check(all(torch.equal(a, b) for a, b in zip(zero, plain)),
+              f"{name} with gamma 0 differs from its form without "
+              f"parents at T={T} N={N} P={P}")
     np.testing.assert_allclose(scores, p_scores, rtol=1e-6, atol=0.0)
     near_tie = np.abs(p_scores[:, 0] - p_scores[:, 1]) <= 1e-6
     check(np.array_equal(choice[~near_tie], p_choice[~near_tie]),
           f"{name} T={T} N={N}: choices differ away from near-ties")
-    if masked:
+    if masked and not P:
         # With every window at +inf, K2 is K1 bit for bit.
         inf = torch.full_like(kw["down0"], float("inf"))
         k2 = dodoor_fused_sparse(*args, alpha=0.5, down0=inf, down1=inf,
@@ -203,16 +268,18 @@ def kernel_phase(torch, T: int, N: int, masked: bool = False) -> dict:
     nbytes = (T * (16 + 4 * K + 4 * TT + 20) + N * (4 * K + 4 + 4 * K + 4)
               + (N * Wd * 8 + T * 4 if masked else 0))
     # K capacity compares and one count per (task, server); K2 adds two
-    # window compares per window.
-    ops = T * N * (K + 1 + 2 * Wd)
+    # window compares per window; K3 a compare and an add per parent and
+    # candidate, and reads the [T, P] server ids and MB.
+    ops = T * N * (K + 1 + 2 * Wd) + 2 * T * P * 2
+    nbytes += T * P * 8
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / FP32_OPS_PER_S * 1e3
-    row = dict(name=name, T=T, N=N, ms=ms, plain_ms=plain_ms,
+    row = dict(name=name, T=T, N=N, P=P, ms=ms, plain_ms=plain_ms,
                bound_ms=max(byte_ms, op_ms),
                bound_by="bytes" if byte_ms > op_ms else "operations",
                max_abs_err=float(np.abs(scores - p_scores).max()),
                near_ties=int(near_tie.sum()))
-    print(f"kernel {name} T={T} N={N}: {ms * 1e3:.3f} us, "
+    print(f"kernel {name} T={T} N={N} P={P}: {ms * 1e3:.3f} us, "
           f"plain {plain_ms * 1e3:.3f} us, bound {row['bound_ms'] * 1e3:.4f}"
           f" us ({row['bound_by']}), max |dscore| {row['max_abs_err']:.3g}",
           flush=True)
@@ -220,11 +287,12 @@ def kernel_phase(torch, T: int, N: int, masked: bool = False) -> dict:
 
 
 def first_divergence_ok(gpu, cpu, wl, cluster, seed: int = 0,
-                        dynamics=None) -> bool:
+                        dynamics=None, order=None) -> bool:
     """Placements equal, or the first divergent task picked one of its
     two sampled candidates on both devices (a near-tie flip).  Under down
     windows the candidates are drawn over the servers that are feasible
-    and up at the task's submit time."""
+    and up at the task's (effective) submit time.  ``order`` is the
+    decision order of a task graph's tasks (default: index order)."""
     if (gpu.server == cpu.server).all():
         return True
     import torch
@@ -234,13 +302,14 @@ def first_divergence_ok(gpu, cpu, wl, cluster, seed: int = 0,
     from repro_torch.random import PRNGKey, fold_in, split
     from repro_torch.sim.engine import _lower_dynamics
 
-    i = int(np.argmax(gpu.server != cpu.server))
+    order = np.arange(gpu.server.shape[0]) if order is None else order
+    i = int(order[np.argmax(gpu.server[order] != cpu.server[order])])
     key = fold_in(PRNGKey(seed, device="cpu"), torch.tensor(i))
     mask = feasible_mask(torch.from_numpy(wl.r_submit[i]),
                          torch.from_numpy(cluster.C))
     if dynamics is not None and dynamics.has_down_windows:
         win = _lower_dynamics(dynamics, cluster.num_servers)
-        now = torch.tensor([float(wl.submit_ms[i])], dtype=torch.float32)
+        now = torch.tensor([float(cpu.submit_ms[i])], dtype=torch.float32)
         mask = mask & avail_rows(win.down0, win.down1, now)[0]
     cand = set(sample_feasible(split(key)[0], mask, 2).tolist())
     print(f"  placements diverge first at task {i}: gpu "
@@ -253,7 +322,7 @@ def ledger(res):
     return (res.msgs_base, res.msgs_probe, res.msgs_push, res.msgs_flush)
 
 
-def timed_run(torch, wl, cluster, cfg, dynamics=None):
+def timed_run(torch, wl, cluster, cfg, dynamics=None, dag=None):
     """One run on the card; returns (result, wall s, launches by kernel),
     the launch counts set to 0 just before the run and read just after."""
     from repro_torch.kernels.dodoor_choice import LAUNCHES
@@ -262,7 +331,8 @@ def timed_run(torch, wl, cluster, cfg, dynamics=None):
     LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = simulate(wl, cluster, cfg, device="cuda", dynamics=dynamics)
+    res = simulate(wl, cluster, cfg, device="cuda", dynamics=dynamics,
+                   dag=dag)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return res, wall, dict(LAUNCHES)
@@ -485,8 +555,224 @@ def scale_dynamics_phase(torch, m: int = 200_000) -> int:
     return counts["dodoor_fused_sparse_masked"]
 
 
-def main() -> int:
+TIME_PLANES = ("submit_ms", "enqueue_ms", "start_ms", "finish_ms",
+               "sched_ms", "cores", "mem_mb")
+
+
+def wave_blocks(sizes, b: int) -> int:
+    """Decision blocks of a wave loop: Σ over waves of ⌈wave / b⌉."""
+    return int(sum(-(-int(w) // b) for w in sizes if w))
+
+
+def dag_check(name, gpu, cpu, wl, cluster, plan, dynamics=None) -> bool:
+    """A task graph's card run against its CPU run: placements exact, or
+    the first divergence in decision order (level, then effective submit
+    time, then index) a candidate flip; the ledger exact; and, where the
+    placements are equal, every time plane exact.  Also: no task starts
+    before a parent's finish plus the edge delay.  Returns whether the
+    placements were equal."""
+    order = np.lexsort((np.arange(plan.m), cpu.submit_ms, plan.level))
+    check(first_divergence_ok(gpu, cpu, wl, cluster, dynamics=dynamics,
+                              order=order),
+          f"{name}: placements diverge beyond a candidate flip")
+    check(ledger(gpu) == ledger(cpu),
+          f"{name}: ledger {ledger(gpu)} != cpu {ledger(cpu)}")
+    same = bool((gpu.server == cpu.server).all())
+    if same:
+        for f in TIME_PLANES:
+            check(np.array_equal(getattr(gpu, f), getattr(cpu, f)),
+                  f"{name}: {f} differs from the cpu run")
+    v = np.repeat(np.arange(plan.m), np.diff(plan.par_indptr))
+    gate = (gpu.finish_ms[plan.par_idx].astype(np.float64)
+            + plan.par_delay)
+    check((gpu.start_ms[v] >= gate - 1e-3).all(),
+          f"{name}: a task starts before a parent's finish + delay")
+    check(np.isfinite(gpu.finish_ms).all(), f"{name}: non-finite finish")
+    return same
+
+
+def dag_phase(torch, m: int = 2400) -> int:
+    """Phase 9: the shapes of the DAG benchmark on the testbed, each
+    without a LocalityModel and with γ = 2; a layered DAG under γ/bw =
+    0.7/1.3 with non-integer MB; map-reduce under γ = 2 and outages (the
+    masked K3).  Returns the masked K3's launches."""
+    from repro_torch.sim import (EngineConfig, LocalityModel, make_testbed,
+                                 random_outages, simulate, summarize_dag)
+    from repro_torch.workloads import (ChainDAG, FanOutDAG, LayeredDAG,
+                                       MapReduceDAG, dag_plan,
+                                       functionbench)
+
+    tb = make_testbed()
+    wl = functionbench.synthesize(m=m, qps=60.0, seed=0)
+    H = float(wl.submit_ms[-1])
+    outages = random_outages(tb.num_servers, 25, 0.6 * H,
+                             mean_down_ms=0.15 * H, seed=7)
+    # benchmarks/bench_dags.py:35-44
+    chain = ChainDAG(edge_delay_ms=0.2, edge_bytes_mb=4.0)
+    fanout = FanOutDAG(width=8, edge_delay_ms=0.5, edge_bytes_mb=8.0)
+    mapred = MapReduceDAG(mappers=8, reducers=2, edge_delay_ms=0.5,
+                          edge_bytes_mb=8.0)
+    layered = LayeredDAG(width=8, density=0.25, edge_delay_ms=0.5,
+                         edge_bytes_mb=3.3)
+    g2 = LocalityModel(gamma=2.0)
+    runs = [("chain", chain, None, None), ("chain", chain, g2, None),
+            ("fanout", fanout, None, None), ("fanout", fanout, g2, None),
+            ("mapreduce", mapred, None, None),
+            ("mapreduce", mapred, g2, None),
+            ("layered", layered, LocalityModel(0.7, 1.3), None),
+            ("mapreduce+outages", mapred, g2, outages)]
+    moved = {}
+    masked_launches = 0
+    for shape, spec, loc, dyn in runs:
+        name = f"{shape} {'no model' if loc is None else loc}"
+        cfg = EngineConfig(policy="dodoor", b=50, locality=loc)
+        plan = dag_plan(spec, m)
+        gpu, wall, counts = timed_run(torch, wl, tb, cfg, dyn, spec)
+        cpu = simulate(wl, tb, cfg, device="cpu", dynamics=dyn, dag=spec)
+        same = dag_check(name, gpu, cpu, wl, tb, plan, dyn)
+        kernel = ("dodoor_fused_sparse" + ("_masked" if dyn else "")
+                  + ("_locality" if loc else ""))
+        blocks = wave_blocks(np.bincount(plan.level), cfg.b)
+        check(counts == {kernel: blocks},
+              f"{name}: launches {counts}, want {kernel}: {blocks}")
+        masked_launches += counts.get("dodoor_fused_sparse_masked_locality",
+                                      0)
+        s = summarize_dag(gpu, plan)
+        moved[(shape, loc is not None)] = s["bytes_moved_mb"]
+        print(f"dag {name}: m={m} b={cfg.b} waves {plan.num_levels} "
+              f"{m / wall:.1f} decisions/s (wall {wall:.3f} s), launches "
+              f"{counts}, equal to cpu: {same}, summarize_dag "
+              f"{json.dumps(s)}", flush=True)
+    for shape in ("fanout", "mapreduce"):
+        check(moved[(shape, True)] < moved[(shape, False)],
+              f"{shape}: gamma 2 moved {moved[(shape, True)]} MB, no "
+              f"model {moved[(shape, False)]} MB")
+    return masked_launches
+
+
+def dag_scale_phase(torch) -> int:
+    """Phase 10: fan-out at 10⁴ servers under γ = 2 — three waves of
+    20 000 roots, 160 000 children and 20 000 sinks, P = 8."""
+    from repro_torch.sim import (EngineConfig, LocalityModel, make_scaled,
+                                 simulate, summarize_dag)
+    from repro_torch.workloads import FanOutDAG, azure, dag_plan
+
+    cl = make_scaled(10_000)
+    wl = azure.synthesize(m=200_000, qps=400.0)
+    spec = FanOutDAG(width=8, edge_delay_ms=0.5, edge_bytes_mb=8.0)
+    cfg = EngineConfig(policy="dodoor", b=500,
+                       locality=LocalityModel(gamma=2.0))
+    m = wl.r_submit.shape[0]
+    plan = dag_plan(spec, m)
+    gpu, wall, counts = timed_run(torch, wl, cl, cfg, dag=spec)
+    blocks = wave_blocks(np.bincount(plan.level), cfg.b)
+    check(counts == {"dodoor_fused_sparse_locality": blocks},
+          f"dag scale: launches {counts}, want {blocks}")
+    admits = (wl.r_submit <= cl.C[gpu.server]).all(axis=1)
+    check(admits.all(), f"dag scale: {int((~admits).sum())} tasks on "
+          "servers whose capacity does not admit them")
+    t0 = time.perf_counter()
+    cpu = simulate(wl, cl, cfg, device="cpu", dag=spec)
+    cpu_wall = time.perf_counter() - t0
+    same = dag_check("dag scale", gpu, cpu, wl, cl, plan)
+    s = summarize_dag(gpu, plan)
+    print(f"dag scale: n={cl.num_servers} m={m} b={cfg.b} waves "
+          f"{np.bincount(plan.level).tolist()} P={plan.max_parents} "
+          f"{m / wall:.1f} decisions/s (wall {wall:.3f} s), launches "
+          f"{counts}, equal to cpu: {same} (cpu run {cpu_wall:.1f} s), "
+          f"bytes moved {s['bytes_moved_mb']:.1f} of "
+          f"{s['bytes_total_mb']:.1f} MB, critical path "
+          f"{s['critical_path_ms']:.1f} ms", flush=True)
+    return counts["dodoor_fused_sparse_locality"]
+
+
+def retry_check(name, gpu, cpu, counts, b: int, masked: bool) -> None:
+    """A retry run on the card equals its CPU run in every plane, and the
+    decision kernel launched once per block of every wave."""
+    check(np.array_equal(gpu.server, cpu.server),
+          f"{name}: placements differ from the cpu run")
+    for f in TIME_PLANES + ("attempts", "failed", "wasted_ms"):
+        check(np.array_equal(getattr(gpu, f), getattr(cpu, f)),
+              f"{name}: {f} differs from the cpu run")
+    check(ledger(gpu) == ledger(cpu),
+          f"{name}: ledger {ledger(gpu)} != cpu {ledger(cpu)}")
+    waves = [int((gpu.attempts >= a).sum())
+             for a in range(1, int(gpu.attempts.max()) + 1)]
+    kernel = "dodoor_fused_sparse_masked" if masked else "dodoor_fused_sparse"
+    want = {kernel: wave_blocks(waves, b)}
+    check(counts == want, f"{name}: launches {counts}, want {want} "
+          f"(waves {waves})")
+
+
+def retry_phase(torch) -> None:
+    """Phase 11: the densest point of the fault benchmark (25 outages on
+    the testbed) under the default, the aggressive and a hard-capacity
+    retry policy."""
+    from repro_torch.sim import (EngineConfig, RetryPolicy, fault_stats,
+                                 make_testbed, random_outages, simulate,
+                                 time_to_recover_ms)
+    from repro_torch.workloads import functionbench
+
+    tb = make_testbed()
+    wl = functionbench.synthesize(m=3000, qps=60.0, seed=0)
+    H = float(wl.submit_ms[-1])
+    dyn = random_outages(tb.num_servers, 25, 0.6 * H,
+                         mean_down_ms=0.15 * H, seed=7)
+    # benchmarks/bench_faults.py:39-41, and a queue cap of 2 × cores.
+    policies = (("default", RetryPolicy()),
+                ("aggressive", RetryPolicy(max_attempts=5, backoff_ms=50.0,
+                                           backoff_mult=1.5)),
+                ("reject2", RetryPolicy(reject_queue_factor=2.0)))
+    for pname, rp in policies:
+        cfg = EngineConfig(policy="dodoor", b=50, retry=rp)
+        gpu, wall, counts = timed_run(torch, wl, tb, cfg, dyn)
+        cpu = simulate(wl, tb, cfg, device="cpu", dynamics=dyn)
+        retry_check(f"retry {pname}", gpu, cpu, counts, cfg.b, True)
+        m = wl.r_submit.shape[0]
+        print(f"retry {pname}: m={m} b={cfg.b} {m / wall:.1f} decisions/s "
+              f"(wall {wall:.3f} s), launches {counts}, equal to cpu: "
+              f"True, fault_stats {json.dumps(fault_stats(gpu))}, "
+              f"time_to_recover_ms {time_to_recover_ms(gpu, dyn):.3f}, "
+              f"ledger {ledger(gpu)}", flush=True)
+
+
+def retry_scale_phase(torch, m: int = 200_000) -> None:
+    """Phase 12: phase 7's point (10⁴ servers, churn and outages) under
+    the default retry policy, against the CPU run."""
+    from repro_torch.sim import (EngineConfig, RetryPolicy, fault_stats,
+                                 make_scaled, random_churn, random_outages,
+                                 simulate, time_to_recover_ms)
+    from repro_torch.workloads import azure
+
+    cl = make_scaled(10_000)
+    n = cl.num_servers
+    wl = azure.synthesize(m=m, qps=400.0)
+    H = float(wl.submit_ms[-1])
+    dyn = random_churn(n, 0.15, 0.15, H).merge(
+        random_outages(n, n // 5, 0.6 * H, mean_down_ms=0.2 * H))
+    cfg = EngineConfig(policy="dodoor", b=500, retry=RetryPolicy())
+    gpu, wall, counts = timed_run(torch, wl, cl, cfg, dyn)
+    t0 = time.perf_counter()
+    cpu = simulate(wl, cl, cfg, device="cpu", dynamics=dyn)
+    cpu_wall = time.perf_counter() - t0
+    retry_check("retry scale", gpu, cpu, counts, cfg.b, True)
+    print(f"retry scale: n={n} m={m} b={cfg.b} {m / wall:.1f} decisions/s "
+          f"(wall {wall:.3f} s), launches {counts}, equal to cpu: True "
+          f"(cpu run {cpu_wall:.1f} s), fault_stats "
+          f"{json.dumps(fault_stats(gpu))}, time_to_recover_ms "
+          f"{time_to_recover_ms(gpu, dyn):.3f}", flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated phase numbers (2-12) to run after "
+                         "the build; a partial run prints no result line")
+    only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -506,6 +792,8 @@ def main() -> int:
     walls = {}
 
     def phase(name, fn, *args):
+        if only and int(name.split()[0]) not in only:
+            return None
         t = time.perf_counter()
         out = fn(torch, *args)
         walls[name] = time.perf_counter() - t
@@ -522,10 +810,25 @@ def main() -> int:
     phase("6 scenario testbed", scenario_phase)
     launches["dodoor_fused_sparse_masked"] = phase(
         "7 scale with dynamics", scale_dynamics_phase)
+    k3 = phase("8 kernel K3", lambda tc: [
+        kernel_phase(tc, T, N, masked=masked, P=P)
+        for masked in (False, True)
+        for T, N, P in ((50, 100, 8), (50, 100, 40), (50, 100, 100),
+                        (500, 10_000, 8))])
+    launches["dodoor_fused_sparse_masked_locality"] = phase(
+        "9 dag testbed", dag_phase)
+    launches["dodoor_fused_sparse_locality"] = phase(
+        "10 dag scale", dag_scale_phase)
+    phase("11 retries testbed", retry_phase)
+    phase("12 retries scale", retry_scale_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
+    if only:
+        print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "
+              "result)", flush=True)
+        return 0
 
     kernels = []
-    for big in (k1[-1], k2[-1]):
+    for big in (k1[-1], k2[-1], k3[3], k3[-1]):
         kernels.append({
             "name": big["name"], "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES[big["name"]],

@@ -12,9 +12,10 @@ matches both:
   chain of such contractions starting from ``x0 * y0`` — :func:`dot_fma`;
 * ``(a / b) / c`` is rewritten to ``a / (b * c)`` by the algebraic
   simplifier — callers write that form directly;
-* a row sum over a long axis is evaluated as sequential sums of column
-  chunks (32 wide for the ring buffer's 256 slots), then a sequential sum
-  of the chunk totals — :func:`row_sum`;
+* a row sum over more than 32 columns is rewritten into a 32-wide,
+  32-stride window sum over the row padded evenly on both sides, then a
+  sum of the window totals (again windowed while there are more than 32
+  of them); each sum runs left to right — :func:`row_sum`;
 * float32 ``log1p`` is XLA:CPU's own expansion, neither correctly rounded
   nor torch's: a rational function for small arguments and a polynomial
   ``log`` after a mantissa/exponent split otherwise — :func:`log1p`.
@@ -61,35 +62,40 @@ def dot_fma(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def row_windows(W: int) -> list:
+    """The column bounds ``[(a, b), ...]`` of XLA:CPU's 32-wide windows
+    over a row of ``W`` > 32 columns: ``ceil(W/32)`` windows over the row
+    padded with ``pad // 2`` zeros in front and the rest behind (``pad``
+    rounds W up to a multiple of 32), so the first and last windows hold
+    fewer real columns."""
+    n = -(-W // _CHUNK)
+    lo = (n * _CHUNK - W) // 2
+    edges = [max(0, k * _CHUNK - lo) for k in range(n)] + [W]
+    return list(zip(edges[:-1], edges[1:]))
+
+
 def row_sum(x: torch.Tensor) -> torch.Tensor:
-    """float32 sum over the last axis in XLA:CPU's order: the row splits
-    into ``ceil(W/32)`` contiguous chunks of ``ceil(W / ceil(W/32))``
-    columns (the last one shorter), each summed left to right, then the
-    chunk totals left to right.  That order was measured for widths up to
-    64 and for multiples of 32; other widths raise."""
-    W = x.shape[-1]
-    if W > 64 and W % _CHUNK:
-        raise ValueError(f"row_sum: width {W} has no measured XLA order "
-                         "(use a multiple of 32, or at most 64)")
-    n_chunks = -(-W // _CHUNK)
-    width = -(-W // n_chunks)
-    if W % width == 0:                 # equal chunks: sum them side by side
-        cols = x.unflatten(-1, (n_chunks, width))
-        acc = cols[..., 0]
-        for i in range(1, width):
-            acc = acc + cols[..., i]
-        parts = acc.unbind(-1)
-    else:
-        parts = []
-        for c0 in range(0, W, width):
-            acc = x[..., c0]
-            for i in range(c0 + 1, min(c0 + width, W)):
-                acc = acc + x[..., i]
-            parts.append(acc)
-    total = parts[0]
-    for part in parts[1:]:
-        total = total + part
-    return total
+    """float32 sum over the last axis in XLA:CPU's order.  Up to 32
+    columns it is a left-to-right sum.  A wider row is first reduced to
+    its :func:`row_windows` totals, each summed left to right (XLA's tree
+    reduction rewrite: a reduce-window of size and stride 32), and those
+    totals are summed the same way — read from the optimized HLO and
+    pinned by ``tests/test_torch_core.py`` for widths up to 5000."""
+    while x.shape[-1] > _CHUNK:
+        W = x.shape[-1]
+        if W % _CHUNK == 0:          # no padding: sum the windows side by side
+            x = _seq_sum(x.unflatten(-1, (W // _CHUNK, _CHUNK)))
+        else:
+            x = torch.stack([_seq_sum(x[..., a:b])
+                             for a, b in row_windows(W)], dim=-1)
+    return _seq_sum(x)
 
 
 def _f32(bits: int) -> float:

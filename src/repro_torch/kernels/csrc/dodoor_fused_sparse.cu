@@ -1,21 +1,23 @@
 // Sparse-gather Dodoor decision kernels for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of the JAX reference,
+// Replaces the TPU kernels of the JAX reference,
 // src/repro/kernels/dodoor_choice/kernel.py:
-//   K1 dodoor_fused_sparse_pallas         (unmasked), and
-//   K2 dodoor_fused_sparse_masked_pallas  (down-window availability),
-// both with the body _fused_sparse_kernel.  For every task of a decision
+//   K1 dodoor_fused_sparse_pallas         (unmasked),
+//   K2 dodoor_fused_sparse_masked_pallas  (down-window availability), and
+//   K3 either of them with the locality operands psrv/pbytes,
+// all with the body _fused_sparse_kernel.  For every task of a decision
 // block they compute what sample_feasible_batch followed by the two-stage
 // Algorithm-1 score computes in the reference:
 //   prefilter -> inclusive prefix count -> two threefry uniforms
 //   -> inverse-CDF ranks (uniform over all N when nothing is admissible)
-//   -> candidate rows and d_types[t, node_type[c]] -> loadScore -> choice.
+//   -> candidate rows and d_types[t, node_type[c]] -> loadScore
+//   -> (K3) + gamma_bw * remote parent MB -> choice.
 // The prefilter is the capacity test, and for K2 also availability: server
 // j is up at the task's time now_t iff no window w of its [N, Wd] planes
-// has down0[j,w] <= now_t < down1[j,w] (+inf pads match nothing).  Both
-// kernels are one template, instantiated on the availability predicate;
-// K2 evaluates it in the warp's stride, so no [T, N] availability plane
-// exists on the card.
+// has down0[j,w] <= now_t < down1[j,w] (+inf pads match nothing).  All
+// kernels are one template, instantiated on the availability predicate
+// and on the locality term; K2 evaluates availability in the warp's
+// stride, so no [T, N] availability plane exists on the card.
 //
 // Design.  One warp per task.  The TPU kernel gathers candidate rows with
 // a one-hot matmul because the TPU has no usable gather unit; here lane 0
@@ -26,11 +28,12 @@
 // lanemask_lt)) reaches each rank.
 //
 // Bound.  Per task the work is O(N*K) compares plus up to two passes over
-// N (K2: 2*Wd more compares a server); the bytes are the server arrays
-// (L, D, C, node_type: 24 B a server; K2: 8*Wd B of windows), which stay
-// resident in the 50 MB L2 across the block's tasks, plus about 60 B of
-// task input and output.  At the main path's shapes the kernels are
-// bounded by the compare/count work, not by memory traffic.
+// N (K2: 2*Wd more compares a server; K3: a compare and a sum per parent
+// and candidate); the bytes are the server arrays (L, D, C, node_type:
+// 24 B a server; K2: 8*Wd B of windows), which stay resident in the 50 MB
+// L2 across the block's tasks, plus about 60 B of task input and output
+// (K3: 8*P B more).  At the main path's shapes the kernels are bounded by
+// the compare/count work, not by memory traffic.
 //
 // Arithmetic.  The score follows the reference as XLA:CPU executes it:
 // r.L and sum(C^2) are fused multiply-add chains, RL_a/(RL_a+RL_b+eps) is
@@ -38,7 +41,10 @@
 // one fused multiply-add (on the duration term when the RL term falls back
 // to 0.5), and divisions are IEEE.  The build passes
 // -fmad=false so that no other product is contracted, and fmaf marks the
-// places where the reference contracts.
+// places where the reference contracts.  K3's penalty is one more such
+// place: s = fmaf(gamma_bw, rem, s), with rem summed over the P parents in
+// the reference's row order (repro_torch/_arith.py row_sum).  With
+// gamma_bw = 0 that adds +0, so K3 then equals K1/K2 bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -110,6 +116,78 @@ struct WindowsUp {
   }
 };
 
+// The parent planes of K3 ([T, P] row-major: server ids with -1 pads and
+// output MB with 0 pads) and the penalty per remote MB.
+struct ParentPlanes {
+  const int* psrv;
+  const float* pbytes;
+  int P;
+  float gamma_bw;
+};
+
+// Locality terms, bound to one task.  K1 and K2: none.
+struct NoParents {
+  __device__ NoParents(const ParentPlanes&, long long) {}
+  __device__ float operator()(int, float s) const { return s; }
+};
+
+// Levels of XLA:CPU's tree reduction: a row of more than 32 values becomes
+// the totals of 32-wide windows over the row padded evenly on both sides
+// (lo zeros in front), until at most 32 values are left.  32^6 > 2^30.
+constexpr int kMaxLevels = 6;
+
+// K3: the candidate's score plus gamma_bw times the MB of parent output
+// held on other servers (a -1 pad never equals a candidate, and adds 0).
+// The P terms are summed in the reference's order (repro_torch/_arith.py
+// row_sum): each level-0 window left to right, and the window totals fed
+// in order through the upper levels (an upper window is closed at its
+// last element), the last level left to right.  Up to 32 parents are one
+// window; up to 1024 need no upper level.
+struct Parents {
+  const int* ps;
+  const float* pb;
+  int P;
+  float g;
+  int levels;             // windowed levels (rows longer than 32)
+  int width[kMaxLevels];  // row length at each windowed level
+  int lo[kMaxLevels];     // front padding at each windowed level
+  __device__ Parents(const ParentPlanes& p, long long t)
+      : ps(p.psrv + t * p.P), pb(p.pbytes + t * p.P), P(p.P),
+        g(p.gamma_bw), levels(0) {
+    for (int w = P; w > 32 && levels < kMaxLevels; w = (w + 31) / 32) {
+      width[levels] = w;
+      lo[levels] = (((w + 31) / 32) * 32 - w) / 2;
+      ++levels;
+    }
+  }
+  __device__ float term(int i, int c) const {
+    return pb[i] * static_cast<float>(ps[i] != c);
+  }
+  __device__ float operator()(int c, float s) const {
+    const int span = levels ? 32 : P;
+    const int lo0 = levels ? lo[0] : 0;
+    float acc[kMaxLevels];
+    float total = 0.0f;
+    for (int a = 0, k = 0; a < P; ++k) {
+      const int b = min(P, (k + 1) * span - lo0);
+      float v = term(a, c);
+      for (int i = a + 1; i < b; ++i) v = v + term(i, c);
+      a = b;
+      int idx = k;  // v is element k of level 1
+      int l = 1;
+      for (; l < levels; ++l) {
+        const int pos = idx + lo[l];
+        acc[l] = (idx == 0 || pos % 32 == 0) ? v : acc[l] + v;
+        if (idx != width[l] - 1 && (pos + 1) % 32 != 0) break;
+        v = acc[l];
+        idx = pos / 32;
+      }
+      if (l >= levels) total = idx == 0 ? v : total + v;
+    }
+    return fmaf(g, total, s);
+  }
+};
+
 template <class Up>
 __device__ __forceinline__ bool admissible(const float2* C, const Up& up,
                                            int j, int N, float r0,
@@ -119,7 +197,7 @@ __device__ __forceinline__ bool admissible(const float2* C, const Up& up,
   return r0 <= c.x && r1 <= c.y && up(j);
 }
 
-template <class Up>
+template <class Up, class Loc>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 dodoor_fused_sparse_kernel(const long long* __restrict__ keys,
                            const float* __restrict__ r,
@@ -128,7 +206,7 @@ dodoor_fused_sparse_kernel(const long long* __restrict__ keys,
                            const float* __restrict__ L,
                            const float* __restrict__ D,
                            const float* __restrict__ C,
-                           Windows windows,
+                           Windows windows, ParentPlanes parents,
                            int T, int N, int TT, float alpha,
                            int* __restrict__ choice,
                            int* __restrict__ cand,
@@ -209,6 +287,9 @@ dodoor_fused_sparse_kernel(const long long* __restrict__ keys,
     sa = fmaf(dfa, alpha, half_rest);
     sb = fmaf(dfb, alpha, half_rest);
   }
+  const Loc loc(parents, t);
+  sa = loc(c0, sa);
+  sb = loc(c1, sb);
   cand[2 * t] = c0;
   cand[2 * t + 1] = c1;
   scores[2 * t] = sa;
@@ -216,25 +297,41 @@ dodoor_fused_sparse_kernel(const long long* __restrict__ keys,
   choice[t] = sa > sb ? c1 : c0;  // Algorithm 1, line 11: ties keep A
 }
 
-template <class Up>
+template <class Up, class Loc>
 int launch(const void* keys, const void* r, const void* d_types,
            const void* node_type, const void* L, const void* D,
-           const void* C, Windows windows, int T, int N, int TT,
-           float alpha, void* choice, void* cand, void* scores,
-           void* stream) {
+           const void* C, Windows windows, ParentPlanes parents, int T,
+           int N, int TT, float alpha, void* choice, void* cand,
+           void* scores, void* stream) {
   if (T > 0) {
     const int threads = kWarpsPerBlock * 32;
     const int blocks = (T + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    dodoor_fused_sparse_kernel<Up><<<blocks, threads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
+    dodoor_fused_sparse_kernel<Up, Loc><<<
+        blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const long long*>(keys), static_cast<const float*>(r),
         static_cast<const float*>(d_types),
         static_cast<const int*>(node_type), static_cast<const float*>(L),
         static_cast<const float*>(D), static_cast<const float*>(C), windows,
-        T, N, TT, alpha, static_cast<int*>(choice), static_cast<int*>(cand),
-        static_cast<float*>(scores));
+        parents, T, N, TT, alpha, static_cast<int*>(choice),
+        static_cast<int*>(cand), static_cast<float*>(scores));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+constexpr Windows kNoWindows{nullptr, nullptr, nullptr, 0};
+constexpr ParentPlanes kNoParents{nullptr, nullptr, 0, 0.0f};
+
+Windows windows_of(const void* down0, const void* down1, const void* now,
+                   int Wd) {
+  return Windows{static_cast<const float*>(down0),
+                 static_cast<const float*>(down1),
+                 static_cast<const float*>(now), Wd};
+}
+
+ParentPlanes parents_of(const void* psrv, const void* pbytes, int P,
+                        float gamma_bw) {
+  return ParentPlanes{static_cast<const int*>(psrv),
+                      static_cast<const float*>(pbytes), P, gamma_bw};
 }
 
 }  // namespace
@@ -245,9 +342,9 @@ extern "C" int dodoor_fused_sparse_launch(
     const void* node_type, const void* L, const void* D, const void* C,
     int T, int N, int TT, float alpha, void* choice, void* cand,
     void* scores, void* stream) {
-  return launch<AllUp>(keys, r, d_types, node_type, L, D, C,
-                       Windows{nullptr, nullptr, nullptr, 0}, T, N, TT,
-                       alpha, choice, cand, scores, stream);
+  return launch<AllUp, NoParents>(keys, r, d_types, node_type, L, D, C,
+                                  kNoWindows, kNoParents, T, N, TT, alpha,
+                                  choice, cand, scores, stream);
 }
 
 // K2: K1 with down0, down1 [N, Wd] and now [T] (float32) in the prefilter.
@@ -257,10 +354,36 @@ extern "C" int dodoor_fused_sparse_masked_launch(
     const void* down0, const void* down1, const void* now, int T, int N,
     int TT, int Wd, float alpha, void* choice, void* cand, void* scores,
     void* stream) {
-  return launch<WindowsUp>(
+  return launch<WindowsUp, NoParents>(
       keys, r, d_types, node_type, L, D, C,
-      Windows{static_cast<const float*>(down0),
-              static_cast<const float*>(down1),
-              static_cast<const float*>(now), Wd},
-      T, N, TT, alpha, choice, cand, scores, stream);
+      windows_of(down0, down1, now, Wd), kNoParents, T, N, TT, alpha,
+      choice, cand, scores, stream);
+}
+
+// K3 on K1: psrv [T, P] int32 and pbytes [T, P] float32, gamma_bw the
+// penalty per remote MB.
+extern "C" int dodoor_fused_sparse_locality_launch(
+    const void* keys, const void* r, const void* d_types,
+    const void* node_type, const void* L, const void* D, const void* C,
+    const void* psrv, const void* pbytes, int T, int N, int TT, int P,
+    float alpha, float gamma_bw, void* choice, void* cand, void* scores,
+    void* stream) {
+  return launch<AllUp, Parents>(
+      keys, r, d_types, node_type, L, D, C, kNoWindows,
+      parents_of(psrv, pbytes, P, gamma_bw), T, N, TT, alpha,
+      choice, cand, scores, stream);
+}
+
+// K3 on K2: the down windows and the parent planes together.
+extern "C" int dodoor_fused_sparse_masked_locality_launch(
+    const void* keys, const void* r, const void* d_types,
+    const void* node_type, const void* L, const void* D, const void* C,
+    const void* down0, const void* down1, const void* now, const void* psrv,
+    const void* pbytes, int T, int N, int TT, int Wd, int P, float alpha,
+    float gamma_bw, void* choice, void* cand, void* scores, void* stream) {
+  return launch<WindowsUp, Parents>(
+      keys, r, d_types, node_type, L, D, C,
+      windows_of(down0, down1, now, Wd),
+      parents_of(psrv, pbytes, P, gamma_bw), T, N, TT, alpha,
+      choice, cand, scores, stream);
 }

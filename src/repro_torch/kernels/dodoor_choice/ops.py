@@ -1,4 +1,4 @@
-"""Public wrapper of the sparse-gather decision kernels K1 and K2.
+"""Public wrapper of the sparse-gather decision kernels K1, K2 and K3.
 
 ``dodoor_fused_sparse`` keeps the JAX wrapper's signature, with the
 down-window planes in place of its ``avail`` plane.  Tensors on the CPU go
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from collections import Counter
 
+import numpy as np
 import torch
 
 from .kernel import launch_dodoor_fused_sparse
@@ -31,7 +32,8 @@ def _check(name, t, dtype, shape):
 
 def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
                         alpha: float = 0.5, *, down0=None, down1=None,
-                        now=None):
+                        now=None, psrv=None, pbytes=None,
+                        gamma_bw: float = 0.0):
     """Sample → score → select for one decision block.
 
     keys [T, 2] int64 per-task candidate keys (uint32 words, the first key
@@ -42,7 +44,12 @@ def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
     [N, Wd] float32 down-window planes (``+inf`` pads) and ``now`` [T]
     float32 task times, a server inside a down window at its task's time
     is not admissible (the masked kernel K2, counted under
-    ``"dodoor_fused_sparse_masked"``).
+    ``"dodoor_fused_sparse_masked"``).  With ``psrv`` [T, P] int32 (the
+    servers of each task's parents, −1 pads) and ``pbytes`` [T, P]
+    float32 (their output MB, 0 pads), each candidate's score gains
+    ``gamma_bw`` per MB held on another server (the locality kernel K3,
+    counted under ``"dodoor_fused_sparse_locality"`` or, with the
+    windows, ``"dodoor_fused_sparse_masked_locality"``).
 
     Returns (choice [T] int32, cand [T, 2] int32, scores [T, 2] float32).
     """
@@ -51,8 +58,13 @@ def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
     if masked != (down1 is not None) or masked != (now is not None):
         raise ValueError("dodoor_fused_sparse: pass down0, down1 and now "
                          "together")
+    local = psrv is not None
+    if local != (pbytes is not None):
+        raise ValueError("dodoor_fused_sparse: pass psrv and pbytes "
+                         "together")
+    parents = (psrv, pbytes)
     tensors = (keys, r, d_types, node_type, L, D, C) + (
-        windows if masked else ())
+        windows if masked else ()) + (parents if local else ())
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"dodoor_fused_sparse: tensors on several devices "
@@ -60,7 +72,8 @@ def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
     device = devices.pop()
     if device.type == "cpu":
         return dodoor_fused_sparse_ref(keys, r, d_types, node_type, L, D, C,
-                                       alpha, *windows)
+                                       alpha, *windows, psrv, pbytes,
+                                       gamma_bw)
     if device.type != "cuda":
         raise ValueError(f"dodoor_fused_sparse: unsupported device {device}")
     T, K = r.shape
@@ -81,11 +94,14 @@ def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
         _check("down0", down0, torch.float32, (N, down0.shape[1]))
         _check("down1", down1, torch.float32, down0.shape)
         _check("now", now, torch.float32, (T,))
+    if local:
+        _check("psrv", psrv, torch.int32, (T, psrv.shape[-1]))
+        _check("pbytes", pbytes, torch.float32, psrv.shape)
     choice = torch.empty((T,), dtype=torch.int32, device=device)
     cand = torch.empty((T, 2), dtype=torch.int32, device=device)
     scores = torch.empty((T, 2), dtype=torch.float32, device=device)
-    launch_dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C, alpha,
-                               choice, cand, scores, *windows)
-    LAUNCHES["dodoor_fused_sparse_masked" if masked
-             else "dodoor_fused_sparse"] += 1
+    name = launch_dodoor_fused_sparse(
+        keys, r, d_types, node_type, L, D, C, alpha, choice, cand, scores,
+        *windows, *parents, gamma_bw=float(np.float32(gamma_bw)))
+    LAUNCHES[name] += 1
     return choice, cand, scores

@@ -12,7 +12,9 @@ each block it
    Dodoor and (1+β) go through the sparse-gather decision kernel
    (:func:`repro_torch.kernels.dodoor_choice.dodoor_fused_sparse` — the CUDA
    kernel on the card, its plain version on the CPU), in its masked form
-   (K2) when the run's :class:`Dynamics` has down windows;
+   (K2) when the run's :class:`Dynamics` has down windows, and in its
+   locality form (K3) on the waves of a task graph under a
+   :class:`LocalityModel`;
 3. commits the placements in server-parallel FCFS rounds
    (:func:`_commit_rounds`): round ``k`` commits the k-th task of every
    server at once;
@@ -26,11 +28,17 @@ float32 window planes (:class:`_Win`, ``+inf`` pads): down windows
 freeze FCFS starts to the window end, straggler windows stretch durations,
 and store-outage windows suppress the push.  A predicate whose planes hold
 no window is skipped: it would be the identity (``_gate_start``) or a
-product with exactly 1.0 (``_slow_stretch``).  Retries, cache faults, DAGs
-and tracing are not ported.  Placements, timestamps and the message ledger
+product with exactly 1.0 (``_slow_stretch``).
+
+Two host wave loops run the block loop more than once over one carry: the
+task-graph frontier loop (:func:`_simulate_dag`, one wave per topological
+level) and the retry re-entry loop (:func:`_simulate_with_retries`, one
+wave per attempt).  Each wave restarts the scheduler round robin, the
+flush cadence and the push plan.  Per-scheduler cache-fault views and
+tracing are not ported.  Placements, timestamps and the message ledger
 match the reference's ``use_kernel=False`` batched driver exactly on the
-CPU; see ``tests/test_torch_engine.py`` and
-``tests/test_torch_scenarios.py``.
+CPU; see ``tests/test_torch_engine.py``, ``tests/test_torch_scenarios.py``,
+``tests/test_torch_dags.py`` and ``tests/test_torch_faults.py``.
 
 The server execution model (per-core and per-memory-unit free-at times,
 the in-flight ring buffer, channel contention, co-location interference)
@@ -53,17 +61,66 @@ from ..core.prefilter import avail_rows, feasible_mask, inverse_cdf_draws
 from ..core.types import PrequalParams
 from ..kernels.dodoor_choice import dodoor_fused_sparse
 from ..random import PRNGKey, fold_in, split, uniform
+from ..workloads.dags import dag_plan
 from .cluster import CMAX, ClusterSpec
 from .messages import RpcModel
 
 POLICIES = ("random", "dodoor", "one_plus_beta")
 
 
+class RetryPolicy(NamedTuple):
+    """Failure-and-recovery knobs (the re-entry layer), as the
+    reference's.
+
+    With a policy set on :class:`EngineConfig`, two failure paths open up:
+
+    * **kill** — a task still running on a server when a freeze window
+      (outage/join gate) *opens* is killed at the window start and
+      resubmitted;
+    * **rejection** — when ``reject_queue_factor > 0``, a server whose
+      in-flight count has reached ``factor × cores`` rejects the placement
+      outright (hard capacity) instead of queueing it.
+
+    A killed or rejected task re-enters the decision stream as a fresh
+    submission at ``fail_time + backoff_ms · backoff_mult^(k-1)`` after its
+    k-th failure, until ``max_attempts`` total submissions have been spent —
+    then it fails permanently.  Retried decisions pay the full scheduling
+    path again (messages, cache reads)."""
+
+    max_attempts: int = 3           # total submissions (first try included)
+    backoff_ms: float = 250.0       # delay before the first resubmission
+    backoff_mult: float = 2.0       # exponential backoff factor
+    reject_queue_factor: float = 0.0  # reject when rif ≥ factor·cores;
+                                      # ≤ 0 disables hard-capacity rejection
+
+
+class LocalityModel(NamedTuple):
+    """Data-locality term for Algorithm 1 (task-graph runs only), as the
+    reference's.
+
+    With a model set on :class:`EngineConfig`, the dodoor/(1+β) score of
+    a candidate server ``j`` gains
+
+        + gamma · bytes_remote(task, j) / bandwidth_mb_per_ms
+
+    where ``bytes_remote`` sums the task's parent-output MB held on
+    servers other than ``j``.  ``gamma = 0`` is bit-identical to no model
+    (the penalty term is ``+0.0``).  ``simulate`` requires a ``dag``
+    whenever a model is set."""
+
+    gamma: float = 1.0              # penalty weight (score units per ms)
+    bandwidth_mb_per_ms: float = 1.0  # effective network bandwidth
+
+    @property
+    def gamma_bw(self) -> float:
+        """The fused per-MB coefficient the score actually uses."""
+        return float(self.gamma) / float(self.bandwidth_mb_per_ms)
+
+
 class EngineConfig(NamedTuple):
     """Cluster-level knobs (Require line of Algorithm 1 + §6.1 RPC setup),
-    named as the reference's.  Fields of features the port does not run
-    yet (``retry``, ``locality``, ``trace``) must keep their defaults;
-    ``outage_ms`` is deprecated and routed into
+    named as the reference's.  ``trace`` (not ported yet) must keep its
+    default; ``outage_ms`` is deprecated and routed into
     ``Dynamics(store_outages=...)``; ``prequal.s_pool`` sizes the carry's
     (unused) probe pools so the carry matches the reference's leaf for
     leaf."""
@@ -81,8 +138,8 @@ class EngineConfig(NamedTuple):
     outage_ms: tuple = ()           # deprecated: a data-store outage window
     rpc: RpcModel = RpcModel()
     prequal: PrequalParams = PrequalParams()
-    retry: object = None
-    locality: object = None
+    retry: RetryPolicy | None = None      # kill/reject-and-retry waves
+    locality: LocalityModel | None = None  # parent-locality score term
     trace: bool = False
 
 
@@ -102,6 +159,11 @@ class SimResult(NamedTuple):
     msgs_push: int
     msgs_flush: int
     policy: str
+    # Recovery accounting — populated only by runs with cfg.retry set
+    # (None otherwise, so retry-disabled results are unchanged).
+    attempts: np.ndarray | None = None   # [m] int32 submissions per task
+    failed: np.ndarray | None = None     # [m] bool: permanently failed
+    wasted_ms: np.ndarray | None = None  # [m] killed-attempt execution ms
 
     @property
     def makespan_ms(self) -> np.ndarray:
@@ -370,8 +432,8 @@ class _Carry(NamedTuple):
 
 class _Dyn(NamedTuple):
     """The reference's traced float32 scalars, as 0-d float32 tensors
-    (α reaches the decision kernel as a float, like the reference's
-    kernel takes it)."""
+    (α and γ/bandwidth reach the decision kernel as floats, like the
+    reference's kernel takes them)."""
 
     beta: torch.Tensor
     interference: torch.Tensor
@@ -379,6 +441,8 @@ class _Dyn(NamedTuple):
     chan_ms: torch.Tensor
     push_block_ms: torch.Tensor
     compute_ms: torch.Tensor
+    reject_cap: torch.Tensor   # rif ≥ cap·cores rejects (+inf: never)
+    gamma_bw: torch.Tensor     # locality penalty per remote MB
 
 
 class _Ctx(NamedTuple):
@@ -398,9 +462,22 @@ class _Ctx(NamedTuple):
     slowed: bool               # some straggler window exists
 
 
+def _reject_cap(cfg: EngineConfig) -> float:
+    rp = cfg.retry
+    return (rp.reject_queue_factor
+            if rp is not None and rp.reject_queue_factor > 0 else np.inf)
+
+
+def _gamma_bw(cfg: EngineConfig) -> float:
+    """γ/bandwidth rounded once to float32, as the reference packs it."""
+    lm = cfg.locality
+    return float(np.float32(lm.gamma_bw if lm is not None else 0.0))
+
+
 def _make_dyn(cfg: EngineConfig, device) -> _Dyn:
     vals = (cfg.beta, cfg.interference, cfg.rpc.hop_ms,
-            cfg.rpc.chan_ms, cfg.rpc.push_block_ms, cfg.rpc.compute_ms)
+            cfg.rpc.chan_ms, cfg.rpc.push_block_ms, cfg.rpc.compute_ms,
+            _reject_cap(cfg), _gamma_bw(cfg))
     return _Dyn(*(torch.tensor(np.float32(v), device=device) for v in vals))
 
 
@@ -541,7 +618,16 @@ def _commit_rounds(carry: _Carry, valid, now, j, cores, mem_mb, dur_raw,
     interference stretch.  Returns ``(carry, outs)``, ``outs`` [7, b]
     with rows start, finish, enqueue, sched_ms, the overwritten ring slot's
     old release and old duration, and the slot index.  The ring buffer is
-    updated in place."""
+    updated in place.
+
+    Under a :class:`RetryPolicy` the commit has the reference's failure
+    paths: a server whose in-flight count has reached ``reject_cap ×
+    cores`` rejects the task (it writes no unit, ring slot or start), and
+    a gate window opening strictly inside (start, finish) kills the task
+    at the window's start (its units and ring slot are released then).
+    ``outs`` is then [9, b]: start and finish are the enqueue time for a
+    rejected task and finish is the kill time for a killed one, and rows
+    7 and 8 flag killed and rejected tasks (0/1)."""
     dyn, cores_per, mem_unit = ctx.dyn, ctx.cores_per, ctx.mem_unit
     MU = ctx.cfg.mem_units
     n = cores_per.shape[0]
@@ -558,7 +644,9 @@ def _commit_rounds(carry: _Carry, valid, now, j, cores, mem_mb, dur_raw,
                                       carry.rb_mem, carry.rb_dur)
     cf, mf = carry.core_free, carry.mem_free
     prev_start, chan_free = carry.prev_start, carry.chan_free
-    outs = torch.zeros((7, bsz + 1), dtype=torch.float32, device=dev)
+    retry = ctx.cfg.retry is not None
+    outs = torch.zeros((9 if retry else 7, bsz + 1), dtype=torch.float32,
+                       device=dev)
     j = j.long()
     for k in range(rounds):
         # This round's task on every server (index n is a dump slot).
@@ -581,6 +669,13 @@ def _commit_rounds(carry: _Carry, valid, now, j, cores, mem_mb, dur_raw,
         new_chan = torch.maximum(chan_free, now_s) + occupancy
         chan_free = torch.where(has, new_chan, chan_free)
         enqueue_t = now_s + sched_ms
+        if retry:
+            # Hard capacity: the channel above was paid, but a full
+            # server queues nothing.
+            rejected = has & (rif >= dyn.reject_cap * cores_f)
+            has_w = has & ~rejected
+        else:
+            has_w = has
 
         c_eff = torch.minimum(torch.clamp_min(cores_s, 1.0),
                               cores_f).to(torch.long)
@@ -596,26 +691,43 @@ def _commit_rounds(carry: _Carry, valid, now, j, cores, mem_mb, dur_raw,
         if ctx.slowed:
             dur = dur * _slow_stretch(ctx.win, start)   # straggler windows
         finish = start + dur
+        killed = torch.zeros_like(has)
+        rel = finish
+        if retry and ctx.gated:
+            # Kill at the first gate window that opens inside (start,
+            # finish); the kill time exceeds start, so rows stay sorted.
+            g0 = ctx.win.gate0
+            kt = torch.full_like(finish, float("inf"))
+            for wi in range(g0.shape[1]):
+                opens = (g0[:, wi] > start) & (g0[:, wi] < finish)
+                kt = torch.minimum(kt, torch.where(opens, g0[:, wi],
+                                                   float("inf")))
+            killed = has_w & torch.isfinite(kt)
+            rel = torch.where(killed, kt, finish)
 
-        has_c = has[:, None]
-        cf = torch.where(has_c, _sorted_fill(cf, c_eff, finish), cf)
-        mf = torch.where(has_c, _sorted_fill(mf, mu_need, finish), mf)
-        prev_start = torch.where(has, start, prev_start)
+        has_c = has_w[:, None]
+        cf = torch.where(has_c, _sorted_fill(cf, c_eff, rel), cf)
+        mf = torch.where(has_c, _sorted_fill(mf, mu_need, rel), mf)
+        prev_start = torch.where(has_w, start, prev_start)
 
         # Ring slot: first index of the row minimum (the earliest release).
         rb_min = rb_rel.min(dim=-1, keepdim=True).values
         slot = torch.where(rb_rel == rb_min, slot_iota, R).min(dim=-1).values
         old_rel = rb_rel[rows, slot]
         old_dur = rb_dur[rows, slot]
-        rb_rel[rows, slot] = torch.where(has, finish, old_rel)
-        rb_cpu[rows, slot] = torch.where(has, cores_s, rb_cpu[rows, slot])
-        rb_mem[rows, slot] = torch.where(has, mem_s, rb_mem[rows, slot])
-        rb_dur[rows, slot] = torch.where(has, dest_s, old_dur)
+        rb_rel[rows, slot] = torch.where(has_w, rel, old_rel)
+        rb_cpu[rows, slot] = torch.where(has_w, cores_s, rb_cpu[rows, slot])
+        rb_mem[rows, slot] = torch.where(has_w, mem_s, rb_mem[rows, slot])
+        rb_dur[rows, slot] = torch.where(has_w, dest_s, old_dur)
 
         t_out = torch.where(has, t, bsz)                 # bsz is a dump
-        outs[:, t_out] = torch.stack([start, finish, enqueue_t, sched_ms,
-                                      old_rel, old_dur,
-                                      slot.to(torch.float32)])
+        plane = [start, finish, enqueue_t, sched_ms, old_rel, old_dur,
+                 slot.to(torch.float32)]
+        if retry:
+            plane[0] = torch.where(rejected, enqueue_t, start)
+            plane[1] = torch.where(rejected, enqueue_t, rel)
+            plane += [killed.to(torch.float32), rejected.to(torch.float32)]
+        outs[:, t_out] = torch.stack(plane)
     carry = carry._replace(core_free=cf, mem_free=mf, prev_start=prev_start,
                            chan_free=chan_free)
     return carry, outs[:, :bsz]
@@ -654,8 +766,12 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
     """One decision block: select, commit, flush, and (``push``) the
     data-store push at the block's end.  ``draws`` is the block's slice of
     :func:`_task_draws`; ``push`` is known on the host: only a full block
-    reaches the b-th decision, and a store outage suppresses it."""
-    idx, r_sub, r_exec_t, d_est_t, d_act_t, submit, task_id, valid = blk
+    reaches the b-th decision, and a store outage suppresses it.  On a
+    task-graph wave under a :class:`LocalityModel`, ``blk`` ends with the
+    parent planes (psrv [b, P], pbytes [b, P]), which dodoor and (1+β)
+    pass to the decision kernel (K3); random ignores them, as the
+    reference's random branch does."""
+    idx, r_sub, r_exec_t, d_est_t, d_act_t, submit, task_id, valid = blk[:8]
     cfg, dyn = ctx.cfg, ctx.dyn
     S = cfg.num_schedulers
     bsz = idx.shape[0]
@@ -672,11 +788,14 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
             mask = mask & avail_rows(win.down0, win.down1, now)
         j = inverse_cdf_draws(mask, draws[0])[:, 0]
     else:
-        windows = (dict(down0=win.down0, down1=win.down1, now=now)
-                   if ctx.masked else {})
+        extra = (dict(down0=win.down0, down1=win.down1, now=now)
+                 if ctx.masked else {})
+        if len(blk) > 8:
+            extra.update(psrv=blk[8], pbytes=blk[9],
+                         gamma_bw=_gamma_bw(cfg))
         two, cand2, _ = dodoor_fused_sparse(
             draws[0], r_sub, d_est_t, ctx.node_type, carry.view_L,
-            carry.view_D, ctx.C, alpha=cfg.alpha, **windows)
+            carry.view_D, ctx.C, alpha=cfg.alpha, **extra)
         if cfg.policy == "one_plus_beta":
             j = torch.where(draws[1] < dyn.beta, two, cand2[:, 0])
         else:
@@ -708,6 +827,9 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
                          & (tt[None, :] >= tt[:, None])
                          & do_flush[None, :]).any(dim=1)
         survives = valid & ~flushed_after
+        if cfg.retry is not None:
+            # A rejected placement queued nothing, so reports no delta.
+            survives = survives & ~(outs[8] > 0.5)
         add = _add_in_task_order(carry.pending, sched, j, delta, survives,
                                  occ, rounds)
         sched_flushed = torch.zeros((S + 1,), dtype=torch.bool, device=dev)
@@ -724,16 +846,19 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
         [2 * n_valid, zero, zero + n_push, n_flush]).to(torch.int32)
     carry = carry._replace(msgs=msgs)
     out = (j.to(torch.int32), outs[0], outs[1], outs[2], outs[3], cores_t,
-           mem_t)
+           mem_t) + tuple(outs[7:])              # (killed, rejected)
     return carry, out
 
 
 def _simulate_batched(xs, ctx: _Ctx, carry0: _Carry | None = None,
                       return_carry: bool = False):
     """The block loop over ``xs`` = (idx, r_sub, r_exec, d_est, d_act,
-    submit, task_id, valid), each [nb, b, ...].  Returns ``(carry, outs)``
-    when ``return_carry``, else ``(msgs, outs)``; ``outs`` is the tuple
-    (server, start, finish, enqueue, sched_ms, cores, mem), each [nb, b]."""
+    submit, task_id, valid), each [nb, b, ...], and on a locality wave
+    (psrv, pbytes) [nb, b, P].  Returns ``(carry, outs)`` when
+    ``return_carry``, else ``(msgs, outs)``; ``outs`` is the tuple
+    (server, start, finish, enqueue, sched_ms, cores, mem), each [nb, b],
+    and under a :class:`RetryPolicy` also (killed, rejected).  The wave
+    loops pass the previous wave's carry as ``carry0``."""
     cfg = ctx.cfg
     carry = carry0 if carry0 is not None else _init_carry(
         cfg, ctx.C.shape[0], ctx.cores_per)
@@ -779,10 +904,8 @@ def _blocked_inputs(workload, b: int, device):
 
 
 def _validate_config(cfg: EngineConfig) -> None:
-    if cfg.rbuf_slots < 1 or (cfg.rbuf_slots > 64 and cfg.rbuf_slots % 32):
-        raise ValueError(f"rbuf_slots={cfg.rbuf_slots}: the ring-buffer sum "
-                         "reproduces the reference's order for at most 64 "
-                         "slots or a multiple of 32")
+    if cfg.rbuf_slots < 1:
+        raise ValueError(f"rbuf_slots={cfg.rbuf_slots} must be ≥ 1")
     if cfg.b < 1 or cfg.flush_every < 1:
         raise ValueError(
             f"b={cfg.b} and flush_every={cfg.flush_every} must be ≥ 1")
@@ -792,9 +915,26 @@ def _validate_config(cfg: EngineConfig) -> None:
             raise ValueError(
                 f"flush_every={cfg.flush_every} violates the §4.1 mini-batch "
                 f"bound 2b/num_schedulers = {bound}")
+    if cfg.retry is not None:
+        rp = cfg.retry
+        if not isinstance(rp, RetryPolicy):
+            raise TypeError("EngineConfig.retry must be a RetryPolicy")
+        if rp.max_attempts < 1:
+            raise ValueError("retry.max_attempts must be ≥ 1")
+        if rp.backoff_ms < 0.0 or rp.backoff_mult <= 0.0:
+            raise ValueError(
+                "retry needs backoff_ms ≥ 0 and backoff_mult > 0")
+    if cfg.locality is not None:
+        lm = cfg.locality
+        if not isinstance(lm, LocalityModel):
+            raise TypeError("EngineConfig.locality must be a LocalityModel")
+        if lm.gamma < 0.0:
+            raise ValueError("locality.gamma must be ≥ 0")
+        if lm.bandwidth_mb_per_ms <= 0.0:
+            raise ValueError("locality.bandwidth_mb_per_ms must be > 0")
 
 
-def _not_ported(cfg: EngineConfig, mode: str, dynamics, dag) -> None:
+def _not_ported(cfg: EngineConfig, mode: str, dynamics) -> None:
     """Raise for every input whose path is not ported yet, naming the
     ROADMAP §1 item that will port it."""
     later = None
@@ -808,18 +948,187 @@ def _not_ported(cfg: EngineConfig, mode: str, dynamics, dag) -> None:
         raise ValueError(f"unknown policy {cfg.policy!r}")
     elif dynamics is not None and dynamics.cache_faults is not None:
         later = ("Dynamics.cache_faults", 7)
-    elif cfg.retry is not None:
-        later = ("retry", 7)
-    elif dag is not None:
-        later = ("dag", 7)
-    elif cfg.locality is not None:
-        later = ("locality", 7)
     elif cfg.trace:
         later = ("trace", 7)
     if later is not None:
         raise NotImplementedError(
             f"{later[0]} is not ported to repro_torch yet (ROADMAP.md §1, "
             f"item {later[1]})")
+
+
+_TASK_FIELDS = ("r_submit", "r_exec", "d_est", "d_act")
+#: Rows of :func:`_run_wave`'s float outputs, after the server column.
+_START, _FINISH, _ENQ, _SCHED, _CORES, _MEM, _KILLED, _REJECTED = range(8)
+
+
+def _task_planes(workload, device) -> tuple:
+    """The workload's per-task planes (r_submit, r_exec, d_est, d_act) on
+    ``device``, uploaded once per run; each wave gathers its rows."""
+    return tuple(
+        torch.from_numpy(np.require(getattr(workload, f),
+                                    requirements=("C", "W"))).to(device)
+        for f in _TASK_FIELDS)
+
+
+def _wave_inputs(planes, idx, submit_w, task_id, b: int, device,
+                 parents=()):
+    """One wave as the block loop's ``xs``, built as the reference's wave
+    loops build it: the tasks ``idx`` (original indices, in decision
+    order) with their submit times ``submit_w`` and task ids, edge-padded
+    to whole blocks of ``b`` and masked by ``valid``.  The wave-local
+    index ``arange`` restarts the scheduler round robin and the flush
+    cadence.  ``parents`` is the locality pair (psrv, pbytes) [w, P]."""
+    mw = idx.shape[0]
+    nb = -(-mw // b)
+    pad = nb * b - mw
+
+    def edge(a):
+        a = np.ascontiguousarray(a)
+        if pad:
+            a = np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1),
+                       mode="edge")
+        return torch.from_numpy(a).to(device)
+
+    def blocks(t):
+        return t.reshape((nb, b) + tuple(t.shape[1:]))
+
+    rows = edge(idx.astype(np.int64))
+    ids = torch.arange(nb * b, device=device)
+    return ((blocks(ids),) + tuple(blocks(p[rows]) for p in planes)
+            + (blocks(edge(submit_w)), blocks(edge(task_id.astype(np.int64))),
+               blocks(ids < mw))
+            + tuple(blocks(edge(p)) for p in parents))
+
+
+def _run_wave(xs, ctx: _Ctx, carry: _Carry | None, mw: int):
+    """The block loop over one wave from ``carry`` (None: the t=0 carry).
+    Returns the carry, the wave's servers [mw] and its float outputs
+    [rows, mw] on the host (rows indexed by ``_START`` … ``_REJECTED``)."""
+    carry, outs = _simulate_batched(xs, ctx, carry0=carry,
+                                    return_carry=True)
+    j = outs[0].reshape(-1)[:mw].cpu().numpy()
+    rest = torch.stack(outs[1:]).reshape(len(outs) - 1, -1)[:, :mw]
+    return carry, j, rest.cpu().numpy()
+
+
+def _result(server, planes: dict, submit_ms, carry: _Carry, cfg, **rec):
+    msgs = carry.msgs.cpu().numpy()
+    return SimResult(
+        server=server, submit_ms=submit_ms, enqueue_ms=planes["enq"],
+        start_ms=planes["start"], finish_ms=planes["finish"],
+        sched_ms=planes["sched"], cores=planes["cores"],
+        mem_mb=planes["mem"], msgs_base=int(msgs[0]),
+        msgs_probe=int(msgs[1]), msgs_push=int(msgs[2]),
+        msgs_flush=int(msgs[3]), policy=cfg.policy, **rec)
+
+
+def _record(server, planes: dict, idx, j_w, outs_w) -> None:
+    server[idx] = j_w
+    for k, row in (("start", _START), ("finish", _FINISH), ("enq", _ENQ),
+                   ("sched", _SCHED), ("cores", _CORES), ("mem", _MEM)):
+        planes[k][idx] = outs_w[row]
+
+
+def _empty_planes(m: int) -> dict:
+    return {k: np.zeros(m, np.float32)
+            for k in ("start", "finish", "enq", "sched", "cores", "mem")}
+
+
+def _simulate_dag(workload, ctx: _Ctx, plan, device) -> SimResult:
+    """The frontier loop: run a task graph level by level, one wave per
+    longest-path topological level, so every task's parents have finished
+    (and their servers are known to the locality term) before it is
+    submitted.  A task's *effective* submit time is ``max(trace submit,
+    max_p(finish[p] + edge_delay))``, in float64 from the float32
+    finishes, and a wave's decisions run in that order (original index
+    breaks ties).  The carry threads from wave to wave; wave-local
+    cadences restart per wave.  Under a :class:`LocalityModel` each wave
+    carries its tasks' parent servers and output MB (−1 / 0 pads) into
+    the decision kernel.  The result's ``submit_ms`` holds the effective
+    submit times."""
+    cfg = ctx.cfg
+    m = plan.m
+    loc_on = cfg.locality is not None and plan.max_parents > 0
+    planes = _task_planes(workload, device)
+    server = np.zeros(m, np.int32)
+    fin = _empty_planes(m)
+    eff_submit = np.zeros(m, np.float32)
+    submit0 = np.asarray(workload.submit_ms).astype(np.float64)
+    by_level = np.argsort(plan.level, kind="stable")
+    ends = np.cumsum(np.bincount(plan.level, minlength=plan.num_levels))
+    carry = None
+    for lo, hi in zip(np.concatenate([[0], ends[:-1]]), ends):
+        sel = by_level[lo:hi]
+        par = plan.parents_pad[sel]                          # [w, P]
+        fin_par = np.where(
+            par >= 0, fin["finish"][np.maximum(par, 0)].astype(np.float64),
+            -np.inf)
+        ready = np.maximum(
+            submit0[sel],
+            np.max(fin_par + plan.pdelay_pad[sel], axis=1, initial=-np.inf))
+        order = np.lexsort((sel, ready))
+        idx = sel[order]
+        submit_w = ready[order].astype(np.float32)
+        parents = ()
+        if loc_on:
+            pidx = plan.parents_pad[idx]
+            parents = (np.where(pidx >= 0, server[np.maximum(pidx, 0)],
+                                -1).astype(np.int32),
+                       plan.pbytes_pad[idx])
+        xs = _wave_inputs(planes, idx, submit_w, idx, cfg.b, device,
+                          parents)
+        carry, j_w, outs_w = _run_wave(xs, ctx, carry, idx.shape[0])
+        _record(server, fin, idx, j_w, outs_w)
+        eff_submit[idx] = submit_w
+    return _result(server, fin, eff_submit, carry, cfg)
+
+
+def _simulate_with_retries(workload, ctx: _Ctx, device) -> SimResult:
+    """The re-entry queue: run the decision stream in *waves*.  Wave 1 is
+    the whole workload.  Tasks killed by a gate window or rejected at hard
+    capacity re-enter as wave k+1 at ``fail_time + backoff_ms ·
+    backoff_mult^(k-1)`` (float64, then float32), ordered by that time
+    with the original index breaking ties, under task ids ``index +
+    (k-1)·m`` (fresh decision randomness).  The carry threads from wave
+    to wave; wave-local cadences restart per wave.  A task still failing
+    after ``max_attempts`` submissions fails permanently; its recorded
+    finish is its last kill or reject time.  ``wasted_ms`` sums the
+    killed attempts' execution time in float64."""
+    cfg = ctx.cfg
+    rp = cfg.retry
+    m = workload.r_submit.shape[0]
+    planes = _task_planes(workload, device)
+    server = np.zeros(m, np.int32)
+    fin = _empty_planes(m)
+    attempts = np.zeros(m, np.int32)
+    wasted = np.zeros(m, np.float64)
+    idx = np.arange(m)
+    submit_w = np.asarray(workload.submit_ms).astype(np.float32)
+    carry = None
+    for a in range(1, rp.max_attempts + 1):
+        task_id = (idx + (a - 1) * m).astype(np.int32)
+        xs = _wave_inputs(planes, idx, submit_w, task_id, cfg.b, device)
+        carry, j_w, outs_w = _run_wave(xs, ctx, carry, idx.shape[0])
+        _record(server, fin, idx, j_w, outs_w)
+        attempts[idx] = a
+        killed = outs_w[_KILLED] > 0.5
+        wasted[idx[killed]] += (outs_w[_FINISH] - outs_w[_START])[
+            killed].astype(np.float64)
+        fail_w = killed | (outs_w[_REJECTED] > 0.5)
+        if not fail_w.any():
+            idx = idx[:0]
+            break
+        t_retry = (outs_w[_FINISH][fail_w].astype(np.float64)
+                   + rp.backoff_ms * (rp.backoff_mult ** (a - 1)))
+        idx = idx[fail_w]
+        order = np.lexsort((idx, t_retry))
+        idx = idx[order]
+        submit_w = t_retry[order].astype(np.float32)
+    failed = np.zeros(m, bool)
+    failed[idx] = True
+    return _result(server, fin, np.asarray(workload.submit_ms), carry, cfg,
+                   attempts=attempts, failed=failed,
+                   wasted_ms=wasted.astype(np.float32))
 
 
 def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
@@ -830,16 +1139,37 @@ def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
     ``device`` defaults to the GPU; pass ``device="cpu"`` to run on the
     CPU.  On ``cuda`` the dodoor and (1+β) decisions launch the CUDA
     decision kernel once per block: its masked form (K2) when
-    ``dynamics`` has down windows, K1 otherwise.  ``dynamics`` is a
+    ``dynamics`` has down windows, K1 otherwise, and on a task graph under
+    ``cfg.locality`` the locality form (K3) of either.  ``dynamics`` is a
     :class:`Dynamics` spec (outages, churn, stragglers, store outages).
-    ``mode`` and ``dag`` exist for signature parity with the reference:
-    only ``mode="batched"`` without a DAG is ported, and the ``random``,
-    ``dodoor`` and ``one_plus_beta`` policies."""
+
+    ``dag`` is a spec of :mod:`repro_torch.workloads.dags` (or a
+    :class:`~repro_torch.workloads.dags.DagPlan`): the tasks then run
+    through the frontier loop (:func:`_simulate_dag`) and ``submit_ms``
+    holds their effective submit times; an edgeless DAG is the plain run.
+    ``cfg.locality`` needs a dag.  ``cfg.retry`` runs the re-entry wave
+    loop (:func:`_simulate_with_retries`), and the result carries
+    ``attempts``, ``failed`` and ``wasted_ms``; it does not compose with a
+    dag, as in the reference.  Only ``mode="batched"`` is ported, for the
+    ``random``, ``dodoor`` and ``one_plus_beta`` policies."""
     if dynamics is not None and not isinstance(dynamics, Dynamics):
         raise TypeError(f"dynamics must be a Dynamics spec, got "
                         f"{type(dynamics).__name__}")
-    _not_ported(cfg, mode, dynamics, dag)
+    _not_ported(cfg, mode, dynamics)
     _validate_config(cfg)
+    m = workload.r_submit.shape[0]
+    plan = None
+    if dag is not None:
+        plan = dag_plan(dag, m)
+        if cfg.retry is not None:
+            raise NotImplementedError(
+                "dag together with a RetryPolicy: both own the host-side "
+                "wave loop — run task-graph workloads without retries, or "
+                "retries without a dag.")
+    elif cfg.locality is not None:
+        raise ValueError(
+            "EngineConfig.locality needs a dag: the penalty reads parent "
+            "placements, which only task-graph workloads carry.")
     if cfg.outage_ms:
         warnings.warn(
             "EngineConfig.outage_ms is deprecated — use "
@@ -855,7 +1185,10 @@ def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
         raise ValueError("cluster node types exceed the workload's "
                          "per-type duration columns")
     ctx = _make_ctx(cluster, cfg, seed, dev, dynamics)
-    m = workload.r_submit.shape[0]
+    if plan is not None and plan.num_edges:
+        return _simulate_dag(workload, ctx, plan, dev)
+    if cfg.retry is not None:
+        return _simulate_with_retries(workload, ctx, dev)
     xs = _blocked_inputs(workload, cfg.b, dev)
     msgs, outs = _simulate_batched(xs, ctx)
     host = [o.reshape(-1)[:m].cpu().numpy() for o in outs]

@@ -2,10 +2,11 @@
 the part of ``repro.sim.metrics`` the ported slices need: :class:`Summary`,
 :func:`summarize`, the per-phase views of the scenario engine
 (:func:`summarize_window`, :func:`phase_summaries`,
-:func:`mean_in_system`), :func:`utilization_stats` and the capacity
-invariant :func:`resource_violations`.  Numpy only; the bodies are the
-reference's, less the retry fields (no retries are ported: every task
-completes on its first try).
+:func:`mean_in_system`), :func:`utilization_stats`, the capacity
+invariant :func:`resource_violations`, the failure layer's
+:func:`fault_stats` and :func:`time_to_recover_ms`, and the task-graph
+:func:`dag_stats` and :func:`summarize_dag`.  Numpy only; the bodies are
+the reference's.
 
 1) RPC counts processed by all schedulers;
 2) cluster throughput = processed requests / experiment wall time;
@@ -60,6 +61,28 @@ class Summary(NamedTuple):
                 f"sched_p95={self.sched_p95_ms:6.2f}ms")
 
 
+def _recovery_metrics(res: SimResult, wall_s: float, sel=None) -> dict:
+    """The failure-layer Summary fields from a result's recovery arrays
+    (a run without a RetryPolicy: goodput is throughput, the rest zero).
+    Goodput counts tasks that completed on their *first* attempt."""
+    if res.attempts is None:
+        m = res.server.shape[0] if sel is None else int(np.sum(sel))
+        return dict(goodput_tps=m / max(wall_s, 1e-9),
+                    retries_per_task=0.0, wasted_ms_total=0.0,
+                    failure_rate=0.0)
+    att = res.attempts if sel is None else res.attempts[sel]
+    fail = res.failed if sel is None else res.failed[sel]
+    waste = res.wasted_ms if sel is None else res.wasted_ms[sel]
+    m = att.shape[0]
+    first_try = int(((att == 1) & ~fail).sum())
+    return dict(
+        goodput_tps=first_try / max(wall_s, 1e-9),
+        retries_per_task=float((att - 1).mean()) if m else 0.0,
+        wasted_ms_total=float(waste.sum(dtype=np.float64)),
+        failure_rate=float(fail.mean()) if m else 0.0,
+    )
+
+
 def summarize(res: SimResult) -> Summary:
     mk = res.makespan_ms
     wall_s = float(res.finish_ms.max() - res.submit_ms.min()) / 1e3
@@ -75,8 +98,7 @@ def summarize(res: SimResult) -> Summary:
         sched_p95_ms=float(np.percentile(res.sched_ms, 95)),
         wait_mean_ms=float(res.wait_ms.mean()),
         wall_time_s=wall_s,
-        # No retries are ported: every task completes on its first try.
-        goodput_tps=res.server.shape[0] / max(wall_s, 1e-9),
+        **_recovery_metrics(res, wall_s),
         msgs_base=res.msgs_base, msgs_probe=res.msgs_probe,
         msgs_push=res.msgs_push, msgs_flush=res.msgs_flush,
     )
@@ -154,7 +176,7 @@ def summarize_window(res: SimResult, t0_ms: float, t1_ms: float) -> Summary:
         sched_p95_ms=float(np.percentile(sched, 95)),
         wait_mean_ms=float(wait.mean()),
         wall_time_s=wall_s,
-        goodput_tps=cnt / wall_s,
+        **_recovery_metrics(res, wall_s, sel),
         msgs_base=int(round(res.msgs_base / m_all * cnt)),
         msgs_probe=int(round(res.msgs_probe / m_all * cnt)),
         msgs_push=int(round(res.msgs_push / m_all * cnt)),
@@ -171,6 +193,91 @@ def phase_summaries(res: SimResult, edges_ms) -> list:
         raise ValueError("edges_ms must be ≥ 2 strictly increasing times")
     return [(a, b, summarize_window(res, a, b))
             for a, b in zip(edges, edges[1:])]
+
+
+def fault_stats(res: SimResult) -> dict:
+    """The failure layer's scalar accounting for one run: retry counts,
+    wasted (killed-execution) work, permanent failures, and goodput
+    (degenerate zeros when the run carried no RetryPolicy)."""
+    wall_s = float(res.finish_ms.max() - res.submit_ms.min()) / 1e3
+    out = _recovery_metrics(res, wall_s)
+    if res.attempts is None:
+        out.update(num_retried=0, num_failed=0, max_attempts=1)
+    else:
+        out.update(num_retried=int((res.attempts > 1).sum()),
+                   num_failed=int(res.failed.sum()),
+                   max_attempts=int(res.attempts.max()))
+    return out
+
+
+def dag_stats(res: SimResult, plan) -> dict:
+    """Task-graph accounting for one run against its :class:`DagPlan`.
+
+    critical_path_ms — the realized longest chain: ``cp[v] = (finish[v] −
+    start[v]) + max_p(cp[p] + edge_delay)``, maximized over sinks.
+    dag_makespan_ms — last finish minus first (effective) submit.
+    frontier_width_mean/max — tasks per topological level.
+    bytes_moved_mb — Σ edge payload over edges whose endpoints landed on
+    *different* servers (what the LocalityModel charges for);
+    locality_frac — the fraction of edge payload that stayed local
+    (1.0 for an edgeless plan).
+    """
+    m = res.server.shape[0]
+    if plan.m != m:
+        raise ValueError(f"plan built for m={plan.m}, result has {m}")
+    dur = (res.finish_ms - res.start_ms).astype(np.float64)
+    cp = np.zeros(m, np.float64)
+    # level order: parents are always in strictly lower levels.
+    for t in np.argsort(plan.level, kind="stable"):
+        lo, hi = plan.par_indptr[t], plan.par_indptr[t + 1]
+        best = 0.0
+        if hi > lo:
+            best = float(
+                (cp[plan.par_idx[lo:hi]] + plan.par_delay[lo:hi]).max())
+        cp[t] = dur[t] + best
+    widths = np.bincount(plan.level, minlength=plan.num_levels)
+    if plan.num_edges:
+        u = plan.par_idx
+        v = np.repeat(np.arange(m), np.diff(plan.par_indptr))
+        remote = res.server[u] != res.server[v]
+        total = float(plan.par_bytes.sum(dtype=np.float64))
+        moved = float(plan.par_bytes[remote].sum(dtype=np.float64))
+    else:
+        total = moved = 0.0
+    return dict(
+        critical_path_ms=float(cp.max()) if m else 0.0,
+        dag_makespan_ms=float(res.finish_ms.max() - res.submit_ms.min()),
+        frontier_width_mean=float(widths.mean()) if plan.num_levels else 0.0,
+        frontier_width_max=int(widths.max()) if plan.num_levels else 0,
+        num_levels=int(plan.num_levels),
+        num_edges=int(plan.num_edges),
+        bytes_moved_mb=moved,
+        bytes_total_mb=total,
+        locality_frac=1.0 - (moved / total if total > 0.0 else 0.0),
+    )
+
+
+def summarize_dag(res: SimResult, plan) -> dict:
+    """:func:`summarize` as a dict, widened with :func:`dag_stats`."""
+    out = summarize(res)._asdict()
+    out.update(dag_stats(res, plan))
+    return out
+
+
+def time_to_recover_ms(res: SimResult, dynamics) -> float:
+    """Time from the last finite outage-window end until the last
+    *retried* task completes — how long the cluster takes to drain the
+    re-entry backlog an outage created.  0.0 when nothing was retried, no
+    window ended, or the backlog drained before the window closed."""
+    ends = [float(t1) for _, _, t1 in getattr(dynamics, "outages", ())
+            if np.isfinite(t1)]
+    if not ends or res.attempts is None:
+        return 0.0
+    retried = (res.attempts > 1) & ~res.failed
+    if not retried.any():
+        return 0.0
+    last_end = max(ends)
+    return float(max(0.0, res.finish_ms[retried].max() - last_end))
 
 
 def mean_in_system(res: SimResult, t0_ms: float, t1_ms: float) -> float:

@@ -37,7 +37,8 @@ class Scenario(NamedTuple):
     dynamics:
         the server/store timeline (:class:`Dynamics`).
     dag:
-        optional task-graph spec (not ported: a scenario with one raises).
+        optional task-graph spec (:mod:`repro_torch.workloads.dags`) run
+        through the frontier loop.
     """
 
     name: str = "steady"

@@ -91,7 +91,9 @@ def test_dot_fma_matches_short_contraction():
 
 
 @pytest.mark.parametrize("n,w", [(20, 256), (1000, 256), (7, 64), (5, 40),
-                                 (9, 33), (4, 96), (3, 512)])
+                                 (9, 33), (4, 96), (3, 512), (6, 65),
+                                 (6, 70), (5, 100), (4, 200), (3, 1100),
+                                 (2, 5000)])
 def test_row_sum_matches_xla_order(n, w):
     rng = np.random.RandomState(n)
     x = (rng.rand(n, w) * 6e5).astype(np.float32)

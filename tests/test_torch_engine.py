@@ -1,7 +1,8 @@
 """The port's batched Dodoor driver against the JAX reference's two-stage
 batched driver (``use_kernel=False``) on the CPU: placements, the
 four-field message ledger and every timestamp bit-exact; the carry handed
-across mid-run; and the inputs that are not ported yet refused."""
+across mid-run; the inputs that are not ported yet refused, and bad
+inputs refused with the reference's errors."""
 import numpy as np
 import pytest
 
@@ -171,6 +172,21 @@ def test_summary_matches_reference(fb_small, small_testbed, sim_cache,
     assert tsim.resource_violations(got, torch_inputs["testbed"]) == 0
 
 
+@pytest.mark.parametrize("slots", (40, 100))
+def test_matches_jax_at_ring_widths_off_32(slots, fb_small, small_testbed,
+                                           torch_inputs):
+    """A ring buffer whose width is no multiple of 32 is summed in the
+    reference's padded-window order."""
+    ref = jsim.simulate(fb_small, small_testbed,
+                        jsim.EngineConfig(policy="dodoor", b=10,
+                                          rbuf_slots=slots),
+                        mode="batched", use_kernel=False)
+    got = tsim.simulate(torch_inputs["fb"], torch_inputs["testbed"],
+                        tsim.EngineConfig(policy="dodoor", b=10,
+                                          rbuf_slots=slots), device="cpu")
+    assert_parity(ref, got, timestamps_exact=True)
+
+
 NOT_PORTED = [
     (dict(), dict(mode="sequential"), "item 5"),
     (dict(policy="pot"), dict(), "item 5"),
@@ -179,9 +195,6 @@ NOT_PORTED = [
         cache_faults=teng.CacheFaults(0.1))), "item 7"),
     (dict(), dict(mode="sequential", dynamics=teng.Dynamics(
         outages=((0, 1.0, 2.0),))), "item 5"),
-    (dict(retry=object()), dict(), "item 7"),
-    (dict(), dict(dag=object()), "item 7"),
-    (dict(locality=object()), dict(), "item 7"),
     (dict(trace=True), dict(), "item 7"),
 ]
 
@@ -194,8 +207,37 @@ def test_unported_inputs_raise(cfg_kw, call_kw, item, torch_inputs):
                       device="cpu", **call_kw)
 
 
+#: Inputs of the retry, dag and locality paths (ported) that the
+#: reference refuses: (config kwargs, call kwargs, error, message).
+BAD_INPUTS = [
+    (dict(retry=object()), dict(), TypeError, "RetryPolicy"),
+    (dict(), dict(dag=object()), TypeError, "unknown DAG spec"),
+    (dict(locality="LocalityModel"), dict(), ValueError, "needs a dag"),
+]
+
+
+@pytest.mark.parametrize("cfg_kw,call_kw,error,match", BAD_INPUTS,
+                         ids=("retry", "dag", "locality"))
+def test_bad_inputs_raise_the_reference_error(cfg_kw, call_kw, error, match,
+                                              fb_small, small_testbed,
+                                              torch_inputs):
+    """A retry policy that is not one, a dag that is no spec, and a
+    LocalityModel without a dag raise the reference's error."""
+    def config(pkg):
+        kw = {k: (pkg.LocalityModel() if v == "LocalityModel" else v)
+              for k, v in cfg_kw.items()}
+        return pkg.EngineConfig(**kw)
+
+    with pytest.raises(error, match=match):
+        jsim.simulate(fb_small, small_testbed, config(jsim), mode="batched",
+                      use_kernel=False, **call_kw)
+    with pytest.raises(error, match=match):
+        tsim.simulate(torch_inputs["fb"], torch_inputs["testbed"],
+                      config(tsim), device="cpu", **call_kw)
+
+
 def test_bad_config_rejected(torch_inputs):
-    for kw in (dict(b=0), dict(flush_every=9, b=10), dict(rbuf_slots=100),
+    for kw in (dict(b=0), dict(flush_every=9, b=10), dict(rbuf_slots=0),
                dict(policy="nope")):
         with pytest.raises(ValueError):
             tsim.simulate(torch_inputs["fb"], torch_inputs["testbed"],
