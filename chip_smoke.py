@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs twelve phases; any failure raises and exits non-zero
+package, and runs fifteen phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
@@ -62,7 +62,34 @@ package, and runs twelve phases; any failure raises and exits non-zero
    (attempts, failed and wasted_ms included) and the ledger equal to the
    CPU run's, one K2 launch per block of every wave;
 12. retries scale — phase 7's point under the default retry policy,
-   checked as phase 11.
+   checked as phase 11;
+13. K5 — the two-stage selection kernel against its plain version at
+   (T, N) = (50, 100), (2048, 100) and (500, 10 000), with identical
+   candidates and exact ties (which keep A): choices and scores exact;
+   then ``dodoor_select_batch(use_kernel=True)`` on the card against
+   ``use_kernel=False`` on the card and against the same call on the
+   CPU, one K5 launch per call; then the library decision loop (below)
+   through ``dodoor_select_batch(use_kernel=True)``;
+14. K4 — the dense megakernel in both forms against its plain version at
+   (50, 100), (500, 10 000) and (1024, 10 000): candidates, choices and
+   scores exact; K4 on ``d = d_types[:, node_type]`` equal to K1 and
+   K4-masked with ``avail = avail_rows(windows)`` (phase 5's windows,
+   all-down rows included) equal to K2 bit for bit; then the library
+   loop through ``dodoor_fused`` without and with an availability plane,
+   on the testbed and at 10 000 servers;
+15. K6 — the RL score matrix against its plain version at (T, N, K) =
+   (2048, 100, 2), (500, 10 000, 2), (1024, 10 000, 2) and (384, 257, 8):
+   exact; ``torch.mm(r, L.T) * inv`` timed beside it as the library
+   call; then the library loop recording each block's score matrix.
+
+The library loop is a scheduler written against the library API: the
+FunctionBench trace on the testbed (m=4000, b=50) or the Azure trace at
+10 000 servers (m=20 000, b=500), placed block by block against a cache
+view that each block's placements update (in float64, rounded once, so
+the card and the CPU hold the same view).  Each run on the card is held
+to the same run on the CPU (placements, and for K6 every score matrix,
+exact), with the launch counts set to 0 just before it and read just
+after: one launch per block.
 
 It prints the card's name and power limit, every phase's wall time, a
 JSON line of per-kernel measurements, and as its last line
@@ -86,6 +113,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dodoor_fused_sparse.cu"
+KERNEL_SOURCES = {"rl_score_matrix": "src/repro_torch/kernels/csrc/rl_score.cu"}
 KERNEL_REPLACES = {
     "dodoor_fused_sparse": "src/repro/kernels/dodoor_choice/kernel.py:455",
     "dodoor_fused_sparse_masked":
@@ -94,6 +122,10 @@ KERNEL_REPLACES = {
         "src/repro/kernels/dodoor_choice/kernel.py:436",
     "dodoor_fused_sparse_masked_locality":
         "src/repro/kernels/dodoor_choice/kernel.py:436",
+    "dodoor_choice": "src/repro/kernels/dodoor_choice/kernel.py:175",
+    "dodoor_fused": "src/repro/kernels/dodoor_choice/kernel.py:280",
+    "dodoor_fused_masked": "src/repro/kernels/dodoor_choice/kernel.py:313",
+    "rl_score_matrix": "src/repro/kernels/rl_score/kernel.py:38",
 }
 #: K3's penalty per remote MB in phase 8: γ/bandwidth = 0.7/1.3, which is
 #: not a power of two, so a wrong rounding of the penalty shows.
@@ -137,6 +169,26 @@ def event_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def row_of(name, T, N, ms, plain_ms, nbytes, ops, max_abs_err,
+           library_ms=None, **extra):
+    """A kernels-line row: the bound is the larger of the bytes at the
+    memory rate and the operations at the float32 rate."""
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / FP32_OPS_PER_S * 1e3
+    row = dict(name=name, T=T, N=N, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(byte_ms, op_ms),
+               bound_by="bytes" if byte_ms > op_ms else "operations",
+               max_abs_err=max_abs_err, library_ms=library_ms, **extra)
+    lib = ("" if row["library_ms"] is None
+           else f", library {row['library_ms'] * 1e3:.3f} us")
+    shape = " ".join(f"{k}={v}" for k, v in dict(T=T, N=N, **extra).items())
+    print(f"kernel {name} {shape}: {ms * 1e3:.3f} us, plain "
+          f"{plain_ms * 1e3:.3f} us{lib}, bound {row['bound_ms'] * 1e3:.4f} "
+          f"us ({row['bound_by']}), max |dscore| {max_abs_err:.3g}",
+          flush=True)
+    return row
 
 
 def kernel_inputs(torch, T: int, N: int, seed: int):
@@ -272,18 +324,9 @@ def kernel_phase(torch, T: int, N: int, masked: bool = False,
     # candidate, and reads the [T, P] server ids and MB.
     ops = T * N * (K + 1 + 2 * Wd) + 2 * T * P * 2
     nbytes += T * P * 8
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / FP32_OPS_PER_S * 1e3
-    row = dict(name=name, T=T, N=N, P=P, ms=ms, plain_ms=plain_ms,
-               bound_ms=max(byte_ms, op_ms),
-               bound_by="bytes" if byte_ms > op_ms else "operations",
-               max_abs_err=float(np.abs(scores - p_scores).max()),
-               near_ties=int(near_tie.sum()))
-    print(f"kernel {name} T={T} N={N} P={P}: {ms * 1e3:.3f} us, "
-          f"plain {plain_ms * 1e3:.3f} us, bound {row['bound_ms'] * 1e3:.4f}"
-          f" us ({row['bound_by']}), max |dscore| {row['max_abs_err']:.3g}",
-          flush=True)
-    return row
+    return row_of(name, T, N, ms, plain_ms, nbytes, ops,
+                  float(np.abs(scores - p_scores).max()), P=P,
+                  near_ties=int(near_tie.sum()))
 
 
 def first_divergence_ok(gpu, cpu, wl, cluster, seed: int = 0,
@@ -763,6 +806,306 @@ def retry_scale_phase(torch, m: int = 200_000) -> None:
           f"{time_to_recover_ms(gpu, dyn):.3f}", flush=True)
 
 
+def same(name, got, want) -> None:
+    """Every tensor of ``got`` equal to its partner in ``want``."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(torch_equal(a, b), f"{name}: output {i} differs (max "
+              f"{float((a.double() - b.double().to(a.device)).abs().max())})")
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a.cpu() == b.cpu()).all())
+
+
+def pair_inputs(torch, T: int, N: int, seed: int):
+    """K5's operands at the main path's shapes: kernel_inputs' demands and
+    view, candidates drawn uniformly, rows 1-4 with two identical
+    candidates, and rows 5-8 on servers 0 and 1, which hold identical
+    rows and durations (an exact tie: A must win)."""
+    _, r, _, _, L, D, C = kernel_inputs(torch, T, N, seed)
+    L, D, C = L.clone(), D.clone(), C.clone()
+    L[1], D[1], C[1] = L[0], D[0], C[0]
+    rng = np.random.RandomState(seed)
+    cand = rng.randint(0, N, (T, 2)).astype(np.int32)
+    d_cand = rng.uniform(100, 2e4, (T, 2)).astype(np.float32)
+    cand[1:5, 1] = cand[1:5, 0]
+    cand[5:9] = (0, 1)
+    d_cand[5:9, 1] = d_cand[5:9, 0]
+    return (r, torch.from_numpy(cand).cuda(),
+            torch.from_numpy(d_cand).cuda(), L, D, C)
+
+
+def k5_phase(torch, T: int, N: int) -> dict:
+    """K5 against its plain version on the card, then both timed."""
+    from repro_torch.kernels.dodoor_choice import (dodoor_choice,
+                                                   dodoor_choice_ref)
+
+    args = pair_inputs(torch, T, N, seed=T + N)
+    choice, scores = dodoor_choice(*args, alpha=0.5)
+    torch.cuda.synchronize()
+    p_choice, p_scores = dodoor_choice_ref(*args, alpha=0.5)
+    same(f"dodoor_choice T={T} N={N}", (choice, scores), (p_choice, p_scores))
+    check(bool((choice[5:9] == 0).all()), "dodoor_choice: a tie took B")
+    check(bool(torch.isfinite(scores).all()), "dodoor_choice: non-finite")
+    ms = event_ms(torch, lambda: dodoor_choice(*args, alpha=0.5))
+    plain_ms = event_ms(torch, lambda: dodoor_choice_ref(*args, alpha=0.5))
+    # Per task r, cand, d_cand in (24 B) and choice, scores out (12 B);
+    # per server touched L, C and D (20 B).  About 30 operations a task.
+    servers = int(torch.unique(args[1]).numel())
+    return row_of("dodoor_choice", T, N, ms, plain_ms,
+                  T * 36 + servers * 20, T * 30,
+                  float((scores - p_scores).abs().max()))
+
+
+def select_batch_check(torch, T: int, N: int) -> None:
+    """``dodoor_select_batch(use_kernel=True)`` on the card: one K5 launch,
+    choices equal to ``use_kernel=False`` on the card and to the same
+    call on the CPU."""
+    from repro_torch.core import (DodoorParams, SchedulerView,
+                                  dodoor_select_batch)
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.random import PRNGKey
+
+    _, r, d_types, node_type, L, D, C = kernel_inputs(torch, T, N, T * N)
+    d = d_types[:, node_type.long()].contiguous()
+    view = SchedulerView(L=L, D=D, rif=torch.zeros_like(D), C=C)
+    key = PRNGKey(N, device="cuda")
+    params = DodoorParams()
+    LAUNCHES.clear()
+    got = dodoor_select_batch(key, r, d, view, params, use_kernel=True)
+    torch.cuda.synchronize()
+    check(dict(LAUNCHES) == {"dodoor_choice": 1},
+          f"select_batch: launches {dict(LAUNCHES)}")
+    two_stage = dodoor_select_batch(key, r, d, view, params)
+    cpu = dodoor_select_batch(
+        key.cpu(), r.cpu(), d.cpu(),
+        SchedulerView(*(t.cpu() for t in view)), params, use_kernel=True)
+    check(torch_equal(got, two_stage), f"select_batch T={T} N={N}: "
+          "use_kernel=True differs from use_kernel=False")
+    check(torch_equal(got, cpu), f"select_batch T={T} N={N}: the card "
+          "differs from the cpu")
+    print(f"  dodoor_select_batch T={T} N={N}: use_kernel=True equal to "
+          "use_kernel=False and to the cpu, 1 K5 launch", flush=True)
+
+
+def k4_phase(torch, T: int, N: int, masked: bool) -> dict:
+    """K4 (K4-masked) against its plain version, and against K1 (K2) on
+    the expanded plane; then both timed."""
+    from repro_torch.core.prefilter import avail_rows
+    from repro_torch.kernels.dodoor_choice import (dodoor_fused,
+                                                   dodoor_fused_ref,
+                                                   dodoor_fused_sparse)
+
+    name = "dodoor_fused" + ("_masked" if masked else "")
+    keys, r, d_types, node_type, L, D, C = kernel_inputs(torch, T, N,
+                                                         seed=T + N)
+    d = d_types[:, node_type.long()].contiguous()
+    kw, sparse_kw = {}, {}
+    if masked:
+        down0, down1, now = kernel_windows(torch, T, N, seed=N)
+        kw["avail"] = avail_rows(down0, down1, now).float()
+        sparse_kw = dict(down0=down0, down1=down1, now=now)
+        check(bool((kw["avail"][1:3] == 0).all()), "rows 1-2 not all down")
+    args = (keys, r, d, L, D, C)
+    got = dodoor_fused(*args, alpha=0.5, **kw)
+    torch.cuda.synchronize()
+    plain = dodoor_fused_ref(*args, 0.5, kw.get("avail"))
+    same(f"{name} T={T} N={N}", got, plain)
+    sparse = dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
+                                 alpha=0.5, **sparse_kw)
+    same(f"{name} against its sparse form T={T} N={N}", got, sparse)
+    cand = got[1]
+    check(bool(((cand >= 0) & (cand < N)).all()), f"{name}: bad candidate")
+    ms = event_ms(torch, lambda: dodoor_fused(*args, alpha=0.5, **kw))
+    plain_ms = event_ms(
+        torch, lambda: dodoor_fused_ref(*args, 0.5, kw.get("avail")))
+    # Per task the key, demand and the two durations the function needs
+    # in (32 B), choice, candidates and scores out (20 B); per server L, D
+    # and C (20 B); the masked form reads the whole availability row.
+    # K capacity compares and a count per (task, server), one more
+    # compare masked.
+    nbytes = T * 52 + N * 20 + (T * N * 4 if masked else 0)
+    ops = T * N * (2 + 1 + (1 if masked else 0))
+    return row_of(name, T, N, ms, plain_ms, nbytes, ops,
+                  float((got[2] - plain[2]).abs().max()))
+
+
+def k6_phase(torch, T: int, N: int, K: int) -> dict:
+    """K6 against its plain version, then both and ``torch.mm(r, L.T) *
+    inv`` timed."""
+    from repro_torch.kernels.rl_score import (rl_score_matrix,
+                                              rl_score_matrix_ref)
+
+    rng = np.random.RandomState(T + N + K)
+    r, L, C = (torch.from_numpy(a).cuda() for a in (
+        (rng.rand(T, K) * 8).astype(np.float32),
+        (rng.rand(N, K) * 100).astype(np.float32),
+        (1.0 + rng.rand(N, K) * 100).astype(np.float32)))
+    got = rl_score_matrix(r, L, C)
+    torch.cuda.synchronize()
+    plain = rl_score_matrix_ref(r, L, C)
+    same(f"rl_score_matrix T={T} N={N} K={K}", (got,), (plain,))
+    check(bool(torch.isfinite(got).all()), "rl_score_matrix: non-finite")
+    inv = 1.0 / (C * C).sum(1)
+    Lt = L.t()
+    ms = event_ms(torch, lambda: rl_score_matrix(r, L, C))
+    plain_ms = event_ms(torch, lambda: rl_score_matrix_ref(r, L, C))
+    lib_ms = event_ms(torch, lambda: torch.mm(r, Lt) * inv)
+    # (T + 2N)·K + N floats in (the reciprocal norms are computed in the
+    # call), T·N out; 2K operations an output, 2K + 1 a server.
+    return row_of("rl_score_matrix", T, N, ms, plain_ms,
+                  ((T + 2 * N) * K + T * N) * 4,
+                  T * N * 2 * K + N * (2 * K + 1),
+                  float((got - plain).abs().max()), library_ms=lib_ms, K=K)
+
+
+def library_loop(torch, device: str, route: str, wl, cl, b: int,
+                 dynamics=None):
+    """A scheduler written against the library API: the trace's tasks in
+    blocks of ``b`` (task ``i`` keyed by the first key of
+    ``split(fold_in(PRNGKey(0), i))``) against a cache view that each
+    block's placements update.  ``route``: "select" places through
+    ``dodoor_select_batch(use_kernel=True)`` (K5); "fused" through
+    ``dodoor_fused`` (K4, or K4-masked with the availability of
+    ``dynamics``' windows at each task's submit time); "rl" through
+    ``dodoor_select_batch(use_kernel=False)``, recording each block's
+    ``rl_score_matrix`` against the view (K6).  The view is updated in
+    float64, where the block's sums are exact, and rounded once, so the
+    card and the CPU hold the same view.  Returns (placements, the score
+    matrices or None, wall s)."""
+    from repro_torch.core import (DodoorParams, SchedulerView,
+                                  dodoor_select_batch)
+    from repro_torch.core.prefilter import avail_rows
+    from repro_torch.kernels.dodoor_choice import dodoor_fused
+    from repro_torch.kernels.rl_score import rl_score_matrix
+    from repro_torch.random import PRNGKey, fold_in, split
+    from repro_torch.sim.engine import _lower_dynamics
+
+    dev = torch.device(device)
+    m = wl.r_submit.shape[0]
+    r_all = torch.tensor(wl.r_submit, device=dev)
+    d_est = torch.tensor(wl.d_est, device=dev)
+    submit = torch.tensor(wl.submit_ms, dtype=torch.float32, device=dev)
+    nt = torch.from_numpy(np.asarray(cl.node_type, np.int64)).to(dev)
+    C = torch.from_numpy(np.asarray(cl.C, np.float32)).to(dev)
+    n = C.shape[0]
+    L = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    D = torch.zeros((n,), dtype=torch.float32, device=dev)
+    ids = torch.arange(m, device=dev)
+    keys = split(fold_in(PRNGKey(0, device=dev), ids))[:, 0].contiguous()
+    win = (None if dynamics is None
+           else _lower_dynamics(dynamics, n, device=device))
+    params = DodoorParams()
+    placed, mats = [], []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, m, b):
+        hi = min(m, lo + b)
+        r, k = r_all[lo:hi], keys[lo:hi]
+        d = d_est[lo:hi][:, nt]                                  # [T, n]
+        view = SchedulerView(L=L, D=D, rif=torch.zeros_like(D), C=C)
+        if route == "select":
+            j = dodoor_select_batch(None, r, d, view, params, keys=k,
+                                    use_kernel=True)
+        elif route == "fused":
+            avail = None
+            if win is not None:
+                avail = avail_rows(win.down0, win.down1,
+                                   submit[lo:hi]).float()
+            j = dodoor_fused(k, r, d, L, D, C, params.alpha,
+                             avail=avail)[0]
+        else:
+            mats.append(rl_score_matrix(r, L, C))
+            j = dodoor_select_batch(None, r, d, view, params, keys=k)
+        jl = j.long()
+        dj = d.gather(1, jl[:, None])[:, 0]
+        L = L.double().index_add_(0, jl, r.double()).float()
+        D = D.double().index_add_(0, jl, dj.double()).float()
+        placed.append(j)
+    out = torch.cat(placed)
+    mats = torch.cat(mats).cpu() if mats else None
+    out = out.cpu().numpy()
+    return out, mats, time.perf_counter() - t0
+
+
+def library_phase(torch, route: str, kernel: str, scale: bool = False,
+                  dynamics: bool = False) -> int:
+    """The library loop on the card against the same loop on the CPU, its
+    launches counted; returns the kernel's launches."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.sim import (make_scaled, make_testbed, random_churn,
+                                 random_outages)
+    from repro_torch.workloads import azure, functionbench
+
+    if scale:
+        cl, b = make_scaled(10_000), 500
+        wl = azure.synthesize(m=20_000, qps=400.0)
+    else:
+        cl, b = make_testbed(), 50
+        wl = functionbench.synthesize(m=4000, qps=60.0)
+    dyn = None
+    if dynamics:
+        n, H = cl.num_servers, float(wl.submit_ms[-1])
+        dyn = random_churn(n, 0.15, 0.15, H, seed=11).merge(
+            random_outages(n, max(2, n // 5), 0.6 * H,
+                           mean_down_ms=0.2 * H, seed=7))
+    m = wl.r_submit.shape[0]
+    blocks = -(-m // b)
+    LAUNCHES.clear()
+    gpu, gmats, wall = library_loop(torch, "cuda", route, wl, cl, b, dyn)
+    counts = dict(LAUNCHES)
+    cpu, cmats, cpu_wall = library_loop(torch, "cpu", route, wl, cl, b, dyn)
+    name = f"library {route} {'scale' if scale else 'testbed'}" + (
+        " under churn and outages" if dynamics else "")
+    check(counts == {kernel: blocks},
+          f"{name}: launches {counts}, want {kernel}: {blocks}")
+    check(np.array_equal(gpu, cpu), f"{name}: placements differ from the "
+          f"cpu run at {int((gpu != cpu).sum())} tasks")
+    if gmats is not None:
+        check(torch.equal(gmats, cmats), f"{name}: score matrices differ")
+    C = np.asarray(cl.C)
+    fits = (wl.r_submit[:, None, :] <= C[None]).all(-1).any(1)
+    admits = (wl.r_submit <= C[gpu]).all(1)
+    check((admits | ~fits).all(), f"{name}: a task on a server that does "
+          "not admit it")
+    print(f"{name}: n={cl.num_servers} m={m} b={b} {m / wall:.1f} "
+          f"decisions/s (wall {wall:.3f} s, cpu {cpu_wall:.1f} s), "
+          f"launches {counts}, placements equal to cpu: True, distinct "
+          f"servers {len(np.unique(gpu))}", flush=True)
+    return counts[kernel]
+
+
+def k5_family_phase(torch) -> tuple:
+    rows = [k5_phase(torch, T, N)
+            for T, N in ((50, 100), (2048, 100), (500, 10_000))]
+    for T, N in ((2048, 100), (500, 10_000)):
+        select_batch_check(torch, T, N)
+    return rows, library_phase(torch, "select", "dodoor_choice")
+
+
+def k4_family_phase(torch) -> tuple:
+    rows = [k4_phase(torch, T, N, masked)
+            for masked in (False, True)
+            for T, N in ((50, 100), (500, 10_000), (1024, 10_000))]
+    launches = {
+        "dodoor_fused": library_phase(torch, "fused", "dodoor_fused"),
+        "dodoor_fused_masked": library_phase(
+            torch, "fused", "dodoor_fused_masked", dynamics=True)}
+    library_phase(torch, "fused", "dodoor_fused", scale=True)
+    library_phase(torch, "fused", "dodoor_fused_masked", scale=True,
+                  dynamics=True)
+    return rows, launches
+
+
+def k6_family_phase(torch) -> tuple:
+    rows = [k6_phase(torch, T, N, K)
+            for T, N, K in ((2048, 100, 2), (500, 10_000, 2),
+                            (1024, 10_000, 2), (384, 257, 8))]
+    return rows, library_phase(torch, "rl", "rl_score_matrix")
+
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -770,7 +1113,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-12) to run after "
+                    help="comma-separated phase numbers (2-15) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -821,21 +1164,31 @@ def main(argv=None) -> int:
         "10 dag scale", dag_scale_phase)
     phase("11 retries testbed", retry_phase)
     phase("12 retries scale", retry_scale_phase)
+    k5 = phase("13 kernel K5", k5_family_phase)
+    k4 = phase("14 kernel K4", k4_family_phase)
+    k6 = phase("15 kernel K6", k6_family_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "
               "result)", flush=True)
         return 0
 
+    launches["dodoor_choice"] = k5[1]
+    launches.update(k4[1])
+    launches["rl_score_matrix"] = k6[1]
     kernels = []
-    for big in (k1[-1], k2[-1], k3[3], k3[-1]):
+    # Each kernel's row at its largest shape (K6 at K = 2).
+    for big in (k1[-1], k2[-1], k3[3], k3[-1], k5[0][-1], k4[0][2],
+                k4[0][-1], k6[0][2]):
         kernels.append({
-            "name": big["name"], "route": "cuda", "source": KERNEL_SOURCE,
+            "name": big["name"], "route": "cuda",
+            "source": KERNEL_SOURCES.get(big["name"], KERNEL_SOURCE),
             "replaces": KERNEL_REPLACES[big["name"]],
             "launches": launches[big["name"]],
             "max_abs_err": big["max_abs_err"], "ms": big["ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-            "bound_by": big["bound_by"], "library_ms": None})
+            "bound_by": big["bound_by"],
+            "library_ms": big.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@
     RL(r, L_j, C_j) = (r · L_j) / Σ_k C_jk²
     loadScore_j = (1-α)·RL_j/(RL_j+RL_p) + α·(D_j+d_j)/(D_j+d_j+D_p+d_p)
 
-Lower is better.  The arithmetic follows the reference as XLA:CPU runs it
+Lower is better.  :func:`rl_score_matrix` is Eq. 1 for a block of tasks
+against every server (the kernel K6 computes it on the card).  The
+arithmetic follows the reference as XLA:CPU runs it
 (see :mod:`repro_torch._arith`): the products ``r·L`` and ``Σ C²`` are
 fused multiply-add chains, ``RL_j / (ΣRL + ε)`` is evaluated as
 ``(r·L_j) / (ΣC_j² · (ΣRL + ε))``, and the α-mix is one fused
@@ -22,6 +24,21 @@ _EPS = 1e-9  # guards 0/0 when both candidates are fully idle
 def rl(r: torch.Tensor, L: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Eq. 1 for one (task, server) pair: r, L, C are [K]."""
     return dot_fma(r, L) / dot_fma(C, C)
+
+
+def rl_score_matrix(r: torch.Tensor, L: torch.Tensor,
+                    C: torch.Tensor) -> torch.Tensor:
+    """Batched Eq. 1: tasks r [T, K] × servers L, C [N, K] → scores
+    [T, N], ``score[t, j] = (r_t · L_j) · (1 / Σ_k C_jk²)``.
+
+    Both K-long sums are fused multiply-add chains in k order, as the
+    reference's kernel computes them (bit for bit against the jitted
+    ``repro.kernels.rl_score.rl_score_matrix``).  At K = 2, the width the
+    simulator uses, this is also the reference's core form bit for bit;
+    at other widths XLA:CPU lowers that form's ``r @ L.T`` in a
+    shape-dependent order (ROADMAP hazard P4)."""
+    inv = 1.0 / dot_fma(C, C)                                   # [N]
+    return dot_fma(r[:, None, :], L[None, :, :]) * inv[None, :]
 
 
 def _mix(rl_num, rl_den, rl_sum, D, d_sum, alpha, fold_fallback: bool):

@@ -1,33 +1,39 @@
-"""Public wrapper of the sparse-gather decision kernels K1, K2 and K3.
+"""Public wrappers of the decision kernels K1–K5.
 
-``dodoor_fused_sparse`` keeps the JAX wrapper's signature, with the
-down-window planes in place of its ``avail`` plane.  Tensors on the CPU go
-to the plain version (``ref.py``); CUDA tensors are checked and go to the
-CUDA kernel, or the call raises — there is no fallback.  ``LAUNCHES``
-counts kernel launches by kernel name, one per call that reaches the card.
+They keep the JAX wrappers' signatures without ``block_t``/``interpret``:
+the CUDA kernels have no tile size to choose (one warp per task for the
+fused kernels, one thread per task for K5) and pad nothing.
+``dodoor_fused_sparse`` takes the down-window planes in place of its
+``avail`` plane.  Tensors on the CPU go to the plain versions
+(``ref.py``); CUDA tensors are checked and go to the CUDA kernel, or the
+call raises — there is no fallback.  ``LAUNCHES`` counts kernel launches
+by kernel name, one per call that reaches the card.  K1–K5 take K = 2
+resource dimensions (cores, memory), as the simulator has; any other K
+raises on the card.
 """
 from __future__ import annotations
-
-from collections import Counter
 
 import numpy as np
 import torch
 
-from .kernel import launch_dodoor_fused_sparse
-from .ref import dodoor_fused_sparse_ref
+from .._wrap import LAUNCHES, check, device_of
+from .kernel import (launch_dodoor_choice, launch_dodoor_fused,
+                     launch_dodoor_fused_sparse)
+from .ref import dodoor_choice_ref, dodoor_fused_ref, dodoor_fused_sparse_ref
 
-#: Kernel launches by kernel name; reset it to read one run's launches.
-LAUNCHES: Counter = Counter()
+
+def _two_dims(fn: str, K: int) -> None:
+    if K != 2:
+        raise ValueError(f"{fn}: the kernel takes K=2 resource dimensions, "
+                         f"got {K}")
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+def _server_view(L, D, C, N: int) -> None:
+    check("L", L, torch.float32, (N, 2))
+    check("D", D, torch.float32, (N,))
+    check("C", C, torch.float32, (N, 2))
+    if N < 1:
+        raise ValueError("the kernel needs N ≥ 1 servers")
 
 
 def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
@@ -65,38 +71,28 @@ def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
     parents = (psrv, pbytes)
     tensors = (keys, r, d_types, node_type, L, D, C) + (
         windows if masked else ()) + (parents if local else ())
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"dodoor_fused_sparse: tensors on several devices "
-                         f"{sorted(map(str, devices))}")
-    device = devices.pop()
+    device = device_of("dodoor_fused_sparse", tensors)
     if device.type == "cpu":
         return dodoor_fused_sparse_ref(keys, r, d_types, node_type, L, D, C,
                                        alpha, *windows, psrv, pbytes,
                                        gamma_bw)
-    if device.type != "cuda":
-        raise ValueError(f"dodoor_fused_sparse: unsupported device {device}")
     T, K = r.shape
     N = C.shape[0]
-    if K != 2:
-        raise ValueError(f"dodoor_fused_sparse: the kernel takes K=2 "
-                         f"resource dimensions, got {K}")
-    _check("keys", keys, torch.int64, (T, 2))
-    _check("r", r, torch.float32, (T, K))
-    _check("d_types", d_types, torch.float32, (T, d_types.shape[1]))
-    _check("node_type", node_type, torch.int32, (N,))
-    _check("L", L, torch.float32, (N, K))
-    _check("D", D, torch.float32, (N,))
-    _check("C", C, torch.float32, (N, K))
-    if N < 1 or d_types.shape[1] < 1:
-        raise ValueError("dodoor_fused_sparse: needs N ≥ 1 and TT ≥ 1")
+    _two_dims("dodoor_fused_sparse", K)
+    check("keys", keys, torch.int64, (T, 2))
+    check("r", r, torch.float32, (T, K))
+    check("d_types", d_types, torch.float32, (T, d_types.shape[1]))
+    check("node_type", node_type, torch.int32, (N,))
+    _server_view(L, D, C, N)
+    if d_types.shape[1] < 1:
+        raise ValueError("dodoor_fused_sparse: needs TT ≥ 1")
     if masked:
-        _check("down0", down0, torch.float32, (N, down0.shape[1]))
-        _check("down1", down1, torch.float32, down0.shape)
-        _check("now", now, torch.float32, (T,))
+        check("down0", down0, torch.float32, (N, down0.shape[1]))
+        check("down1", down1, torch.float32, down0.shape)
+        check("now", now, torch.float32, (T,))
     if local:
-        _check("psrv", psrv, torch.int32, (T, psrv.shape[-1]))
-        _check("pbytes", pbytes, torch.float32, psrv.shape)
+        check("psrv", psrv, torch.int32, (T, psrv.shape[-1]))
+        check("pbytes", pbytes, torch.float32, psrv.shape)
     choice = torch.empty((T,), dtype=torch.int32, device=device)
     cand = torch.empty((T, 2), dtype=torch.int32, device=device)
     scores = torch.empty((T, 2), dtype=torch.float32, device=device)
@@ -105,3 +101,73 @@ def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
         *windows, *parents, gamma_bw=float(np.float32(gamma_bw)))
     LAUNCHES[name] += 1
     return choice, cand, scores
+
+
+def dodoor_fused(keys, r, d, L, D, C, alpha: float = 0.5, *, avail=None):
+    """K4, the dense megakernel: sample → score → select for one decision
+    block, with the task's estimated duration on every server.
+
+    keys [T, 2] int64 per-task candidate keys (uint32 words); r [T, K]
+    demands; d [T, N] per-server durations; L [N, K], D [N] the cached
+    view; C [N, K] capacities; K = 2.  With ``avail`` [T, N] (bool or
+    float32; cast to float32 as the reference's wrapper does) a server
+    whose entry is not > 0 is not admissible (K4-masked, counted under
+    ``"dodoor_fused_masked"``).  Draws are ``sample_feasible_batch``'s
+    and the arithmetic is K1's, so on ``d = d_types[:, node_type]`` this
+    is :func:`dodoor_fused_sparse` bit for bit.
+
+    Returns (choice [T] int32, cand [T, 2] int32, scores [T, 2] float32).
+    """
+    tensors = (keys, r, d, L, D, C) + (() if avail is None else (avail,))
+    device = device_of("dodoor_fused", tensors)
+    if avail is not None:
+        avail = avail.to(torch.float32)
+    if device.type == "cpu":
+        return dodoor_fused_ref(keys, r, d, L, D, C, alpha, avail)
+    T, K = r.shape
+    N = C.shape[0]
+    _two_dims("dodoor_fused", K)
+    check("keys", keys, torch.int64, (T, 2))
+    check("r", r, torch.float32, (T, K))
+    check("d", d, torch.float32, (T, N))
+    _server_view(L, D, C, N)
+    if avail is not None:
+        check("avail", avail, torch.float32, (T, N))
+    choice = torch.empty((T,), dtype=torch.int32, device=device)
+    cand = torch.empty((T, 2), dtype=torch.int32, device=device)
+    scores = torch.empty((T, 2), dtype=torch.float32, device=device)
+    name = launch_dodoor_fused(keys, r, d, L, D, C, alpha, choice, cand,
+                               scores, avail)
+    LAUNCHES[name] += 1
+    return choice, cand, scores
+
+
+def dodoor_choice(r, cand, d_cand, L, D, C, alpha: float = 0.5):
+    """K5, the two-stage selection: score a block's pre-sampled candidate
+    pairs against one cache snapshot and pick.
+
+    r [T, K] demands; cand [T, 2] int32 candidate ids, each in [0, N) (not
+    checked on the card); d_cand [T, 2] the task's durations on them; L
+    [N, K], D [N], C [N, K]; K = 2.  The score is the reference kernel's
+    reciprocal form (:func:`dodoor_choice_ref`); ties keep A.  Counted
+    under ``"dodoor_choice"``.
+
+    Returns (choice [T] int32, scores [T, 2] float32).
+    """
+    device = device_of("dodoor_choice", (r, cand, d_cand, L, D, C))
+    if device.type == "cpu":
+        return dodoor_choice_ref(r, cand, d_cand, L, D, C, alpha)
+    T, K = r.shape
+    N = C.shape[0]
+    _two_dims("dodoor_choice", K)
+    check("r", r, torch.float32, (T, K))
+    check("cand", cand, torch.int32, (T, 2))
+    check("d_cand", d_cand, torch.float32, (T, 2))
+    _server_view(L, D, C, N)
+    choice = torch.empty((T,), dtype=torch.int32, device=device)
+    scores = torch.empty((T, 2), dtype=torch.float32, device=device)
+    name = launch_dodoor_choice(r, cand, d_cand, L, D, C,
+                                np.float32(alpha), np.float32(1.0 - alpha),
+                                choice, scores)
+    LAUNCHES[name] += 1
+    return choice, scores
