@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs fifteen phases; any failure raises and exits non-zero
+package, and runs nineteen phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
@@ -81,6 +81,31 @@ package, and runs fifteen phases; any failure raises and exits non-zero
    (2048, 100, 2), (500, 10 000, 2), (1024, 10 000, 2) and (384, 257, 8):
    exact; ``torch.mm(r, L.T) * inv`` timed beside it as the library
    call; then the library loop recording each block's score matrix.
+16. K7 — flash attention against ``attention_ref`` on the card at the
+   reference's seven float32 pins (GQA, Lq < Lk, decode, window 64,
+   ragged 100/200, non-causal D = 128; rtol 2e-4 / atol 2e-5) and its
+   bf16 pin (the float32 bound plus one bf16 rounding of the output),
+   then at tinyllama-1.1b's prefill (B, H, Hkv, L, D) = (4, 32, 4, 1024,
+   64) and decode (Lq = 1, Lk = 1024), timed beside the plain version and
+   ``scaled_dot_product_attention(enable_gqa=True)``, and the serving
+   decode: a float32 query over the prefix of a bf16 cache read in place,
+   the step's own key and value as the last row (timed);
+17. K8 — the SSD chunk kernel against ``ssd_chunk_ref`` (y_intra, H_out,
+   exp_s within rtol = atol = 2e-4) and ``ssd`` against the recurrence
+   ``ssd_ref`` at the reference's four pins, a 12-step chunk and
+   mamba2-1.3b's geometry at B = 2, L = 1024 (timed);
+18. tinyllama-1.1b serving at full width and depth, weights from a seed:
+   ``forward`` on 4 × 1024 tokens (finite logits, 22 K7 launches); four
+   128-token prompts through ``decode_step`` into a float32 cache (22
+   launches a step; logits within 1e-3 of the largest |logit| of
+   ``forward``'s on the prompts) and into the default bf16 cache (within
+   5e-2), then 32 greedy tokens on the bf16 cache; a 2-layer copy with
+   the same weights on the card against the CPU (within 1e-4 of the
+   largest |logit|); prefill and decode tokens/s;
+19. mamba2-1.3b serving, as phase 18 with ``forward`` on 2 × 1024 tokens
+   (48 K8 launches), ``decode_step`` launching no kernel (the one-token
+   recurrence, as in the reference), decode within 5e-3 and its default
+   cache float32.
 
 The library loop is a scheduler written against the library API: the
 FunctionBench trace on the testbed (m=4000, b=50) or the Azure trace at
@@ -113,7 +138,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dodoor_fused_sparse.cu"
-KERNEL_SOURCES = {"rl_score_matrix": "src/repro_torch/kernels/csrc/rl_score.cu"}
+KERNEL_SOURCES = {
+    "rl_score_matrix": "src/repro_torch/kernels/csrc/rl_score.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+}
 KERNEL_REPLACES = {
     "dodoor_fused_sparse": "src/repro/kernels/dodoor_choice/kernel.py:455",
     "dodoor_fused_sparse_masked":
@@ -126,6 +155,8 @@ KERNEL_REPLACES = {
     "dodoor_fused": "src/repro/kernels/dodoor_choice/kernel.py:280",
     "dodoor_fused_masked": "src/repro/kernels/dodoor_choice/kernel.py:313",
     "rl_score_matrix": "src/repro/kernels/rl_score/kernel.py:38",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:87",
+    "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:65",
 }
 #: K3's penalty per remote MB in phase 8: γ/bandwidth = 0.7/1.3, which is
 #: not a power of two, so a wrong rounding of the penalty shows.
@@ -1105,6 +1136,376 @@ def k6_family_phase(torch) -> tuple:
     return rows, library_phase(torch, "rl", "rl_score_matrix")
 
 
+# --------------------------------------------------------------------------
+# phases 16-19: the LM serving path (K7, K8, tinyllama-1.1b, mamba2-1.3b)
+# --------------------------------------------------------------------------
+
+#: K7 at the reference's pins (tests/test_kernels.py:534-541), then at
+#: tinyllama-1.1b's prefill and decode: (B, H, Hkv, Lq, Lk, D, causal,
+#: window).
+K7_PINS = [
+    (1, 2, 2, 128, 128, 64, True, None),
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 8, 2, 64, 256, 64, True, None),
+    (1, 2, 1, 1, 384, 64, True, None),
+    (1, 2, 2, 128, 256, 64, True, 64),
+    (1, 2, 2, 100, 200, 32, True, None),
+    (1, 2, 2, 64, 64, 128, False, None),
+]
+K7_PREFILL = (4, 32, 4, 1024, 1024, 64, True, None)
+K7_DECODE = (4, 32, 4, 1, 1024, 64, True, None)
+#: The serving decode: (B, H, Hkv, Lk, D, cache slots).
+K7_CACHE = (4, 32, 4, 1024, 64, 1152)
+#: K7's tolerances: the reference pin's in float32; for bf16 inputs the
+#: plain version gets the same rounded inputs, so the only extra error is
+#: one rounding of the output to bf16 (half a step, 2^-8 relative).
+K7_F32_TOL = dict(rtol=2e-4, atol=2e-5)
+K7_BF16_TOL = dict(rtol=2 ** -8 + 2e-4, atol=2e-5)
+#: K8 at the reference's pins (tests/test_kernels.py:569-573), a 12-step
+#: chunk, and mamba2-1.3b's geometry at B = 2, L = 1024: (B, L, H, P, G,
+#: S, chunk).
+K8_SHAPES = [
+    (1, 64, 2, 16, 1, 32, 32),
+    (2, 128, 4, 32, 2, 64, 64),
+    (1, 256, 2, 64, 1, 128, 64),
+    (1, 64, 4, 16, 4, 16, 16),
+    (2, 12, 2, 32, 1, 32, 12),
+    (2, 1024, 64, 64, 1, 128, 64),
+]
+#: Serving checks: decode logits against forward logits, and the 2-layer
+#: copy on the card against the CPU, as max |Δ| over max |logit| (the
+#: logits of a random-weight model are O(1); an elementwise rtol is
+#: meaningless on the near-zero ones).  Dense: the reference pin's rtol
+#: 1e-3; Mamba-2: its 5e-3 (recurrence against the chunked SSD).  The
+#: 2-layer copies differ only in summation order (cuBLAS, K7/K8 against
+#: MKL and the CPU forms): 1e-4.
+DECODE_TOL = {"dense": 1e-3, "ssm": 5e-3}
+CPU_COPY_TOL = 1e-4
+#: The default bf16 KV cache rounds K and V to 8 mantissa bits (relative
+#: error 2^-9 a value); over 22 layers that is ~1 % of the largest logit
+#: (0.45 % at the 3-layer smoke size on the CPU): 5e-2 leaves a margin.
+BF16_DECODE_TOL = 5e-2
+
+
+def no_tf32(torch) -> None:
+    """The comparisons below hold float32 to float32: no TF32 anywhere."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def close(name, got, want, rtol: float, atol: float) -> float:
+    """Raise unless |got − want| ≤ atol + rtol·|want| everywhere (and both
+    are finite); return max |got − want|."""
+    g, w = got.double().cpu(), want.double().cpu()
+    check(g.shape == w.shape, f"{name}: shape {tuple(g.shape)} against "
+          f"{tuple(w.shape)}")
+    check(bool(g.isfinite().all()), f"{name}: non-finite output")
+    err = (g - w).abs()
+    bad = err > atol + rtol * w.abs()
+    check(not bool(bad.any()), f"{name}: {int(bad.sum())} values outside "
+          f"rtol {rtol} / atol {atol} (max |Δ| {float(err.max()):.3g})")
+    return float(err.max())
+
+
+def k7_case(torch, B, H, Hkv, Lq, Lk, D, causal, window, dtype="float32",
+            timed: bool = False):
+    """K7 against ``attention_ref`` on the card; with ``timed`` also both
+    and ``scaled_dot_product_attention(enable_gqa=True)`` timed.  Returns
+    a kernels-line row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+
+    rng = np.random.RandomState(Lq + Lk)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32) * sc)
+               .cuda().to(dt) for s, sc in (((B, H, Lq, D), 0.5),
+                                            ((B, Hkv, Lk, D), 0.5),
+                                            ((B, Hkv, Lk, D), 1.0)))
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(got.dtype == dt, f"flash_attention: output dtype {got.dtype}")
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window)
+    shape = f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} D={D} causal={causal} " \
+            f"window={window} {dtype}"
+    tol = K7_BF16_TOL if dtype == "bfloat16" else K7_F32_TOL
+    err = close(f"flash_attention {shape}", got, want, **tol)
+    if not timed:
+        print(f"kernel flash_attention {shape}: max |Δ| {err:.3g} (within "
+              f"rtol {tol['rtol']} / atol {tol['atol']})", flush=True)
+        return None
+    ms = event_ms(torch, lambda: flash_attention(q, k, v, causal=causal,
+                                                 window=window))
+    plain_ms = event_ms(torch, lambda: attention_ref(q, k, v, causal=causal,
+                                                     window=window))
+    # SDPA's causal mask is top-left aligned: for one query against the
+    # whole cache the right-aligned causal mask is no mask at all.
+    lib_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal and Lq > 1, enable_gqa=True))
+    # The unmasked (query, key) pairs this call needs, 4·D flops each
+    # (q·k and p·v); q, k, v read once and o written once.
+    qpos = np.arange(Lq)[:, None] + (Lk - Lq)
+    kpos = np.arange(Lk)[None, :]
+    mask = np.ones((Lq, Lk), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    pairs = int(mask.sum())
+    nbytes = (2 * B * H * Lq + 2 * B * Hkv * Lk) * D * q.element_size()
+    return row_of("flash_attention", B * H, Lk, ms, plain_ms, nbytes,
+                  4 * B * H * pairs * D, err, library_ms=lib_ms, Lq=Lq, D=D,
+                  rep=H // Hkv)
+
+
+def k7_cache_case(torch, B, H, Hkv, Lk, D, slots):
+    """A serving decode step as ``attn_decode`` launches K7: a float32
+    query over the first Lk slots of a preallocated bf16 cache of
+    ``slots`` slots, read where it lies, with the step's own float32 key
+    and value as the last row; against the plain version on the card.
+    Timed; returns a row (no single library call casts the cache and
+    replaces a row, so no library time)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import _plain
+
+    rng = np.random.RandomState(Lk)
+    q = torch.from_numpy(rng.randn(B, H, 1, D).astype(np.float32) * 0.5)
+    kc, vc = (torch.from_numpy(rng.randn(B, Hkv, slots, D)
+                               .astype(np.float32) * sc).to(torch.bfloat16)
+              for sc in (0.5, 1.0))
+    kt, vt = (torch.from_numpy(rng.randn(B, Hkv, 1, D).astype(np.float32)
+                               * sc) for sc in (0.5, 1.0))
+    kc[:, :, Lk - 1:Lk], vc[:, :, Lk - 1:Lk] = kt, vt
+    q, kc, vc, kt, vt = (t.cuda() for t in (q, kc, vc, kt, vt))
+    k, v = kc[:, :, :Lk], vc[:, :, :Lk]
+    got = flash_attention(q, k, v, kv_last=(kt, vt))
+    want = _plain(q, k, v, causal=True, window=None, scale=D ** -0.5,
+                  kv_last=(kt, vt))
+    shape = (f"B={B} H={H} Hkv={Hkv} Lq=1 Lk={Lk} of {slots} D={D} float32 "
+             f"over a bfloat16 cache")
+    err = close(f"flash_attention {shape}", got, want, **K7_F32_TOL)
+    ms = event_ms(torch, lambda: flash_attention(q, k, v, kv_last=(kt, vt)))
+    plain_ms = event_ms(torch, lambda: _plain(
+        q, k, v, causal=True, window=None, scale=D ** -0.5,
+        kv_last=(kt, vt)))
+    # q, the last rows and o in float32; Lk - 1 bf16 keys and values.
+    nbytes = 4 * 2 * B * H * D + 4 * 2 * B * Hkv * D \
+        + 2 * 2 * B * Hkv * (Lk - 1) * D
+    return row_of("flash_attention", B * H, Lk, ms, plain_ms, nbytes,
+                  4 * B * H * Lk * D, err, Lq=1, D=D, rep=H // Hkv,
+                  cache="bfloat16")
+
+
+def k7_phase(torch) -> dict:
+    no_tf32(torch)
+    for shape in K7_PINS:
+        k7_case(torch, *shape)
+    k7_case(torch, 1, 2, 2, 128, 128, 64, True, None, dtype="bfloat16")
+    rows = [k7_case(torch, *K7_PREFILL, timed=True),
+            k7_case(torch, *K7_DECODE, timed=True),
+            k7_cache_case(torch, *K7_CACHE)]
+    return rows
+
+
+def ssd_inputs(B, L, H, P, G, S, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, L, H, P).astype(np.float32) * 0.5,
+            (0.01 + rng.rand(B, L, H)).astype(np.float32),
+            -(0.1 + rng.rand(H)).astype(np.float32),
+            rng.randn(B, L, G, S).astype(np.float32) * 0.3,
+            rng.randn(B, L, G, S).astype(np.float32) * 0.3)
+
+
+def k8_case(torch, B, L, H, P, G, S, chunk, timed: bool = False):
+    """K8 against ``ssd_chunk_ref`` on the card, and ``ssd`` (K8 plus the
+    inter-chunk scan) against the recurrence ``ssd_ref``; with ``timed``
+    K8 and its plain version timed.  Returns a kernels-line row or None."""
+    from repro_torch.kernels.ssd_chunk import (ssd, ssd_chunk, ssd_chunk_ref,
+                                               ssd_ref)
+
+    x, dt, A, Bm, Cm = (torch.from_numpy(a).cuda() for a in
+                        ssd_inputs(B, L, H, P, G, S, L + S))
+    NC, hpg = L // chunk, H // G
+    ops = [t.contiguous() for t in (
+        x.transpose(1, 2).reshape(B * H, NC, chunk, P),
+        dt.transpose(1, 2).reshape(B * H, NC, chunk) * A.repeat(B)[:, None,
+                                                                    None],
+        dt.transpose(1, 2).reshape(B * H, NC, chunk),
+        Bm.transpose(1, 2).reshape(B, G, NC, chunk, S),
+        Cm.transpose(1, 2).reshape(B, G, NC, chunk, S))]
+    got = ssd_chunk(*ops, heads_per_group=hpg)
+    torch.cuda.synchronize()
+    want = ssd_chunk_ref(*ops, heads_per_group=hpg)
+    shape = f"B={B} L={L} H={H} P={P} G={G} S={S} Q={chunk}"
+    err = max(close(f"ssd_chunk {shape} {name}", g, w, 2e-4, 2e-4)
+              for name, g, w in zip(("y_intra", "H_out", "exp_s"), got,
+                                    want))
+    y, h = ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    ry, rh = ssd_ref(x, dt, A, Bm, Cm)
+    ssd_err = max(close(f"ssd {shape} y", y, ry, 2e-4, 2e-4),
+                  close(f"ssd {shape} h", h, rh, 2e-4, 2e-4))
+    print(f"kernel ssd_chunk {shape}: max |Δ| {err:.3g} against the plain "
+          f"version, ssd against ssd_ref {ssd_err:.3g} (within rtol 2e-4 / "
+          f"atol 2e-4)", flush=True)
+    if not timed:
+        return None
+    ms = event_ms(torch, lambda: ssd_chunk(*ops, heads_per_group=hpg))
+    plain_ms = event_ms(torch, lambda: ssd_chunk_ref(*ops,
+                                                     heads_per_group=hpg))
+    BH = B * H
+    # x, delta, dt, B, C in; y_intra, H_out, exp_s out (float32).
+    nbytes = 4 * (BH * L * P + 2 * BH * L + 2 * B * G * L * S
+                  + BH * L * P + BH * NC * S * P + BH * L)
+    # The work the function needs: C·Bᵀ once per (batch, group, chunk)
+    # and, like G·x, only over the causal triangle of Q(Q+1)/2 pairs;
+    # the chunk state (B·w)ᵀ·x per (bh, chunk).
+    tri = chunk * (chunk + 1) // 2
+    ops_n = (B * G * NC * 2 * tri * S
+             + BH * NC * (2 * tri * P + 2 * chunk * S * P))
+    return row_of("ssd_chunk", BH, NC, ms, plain_ms, nbytes, ops_n, err,
+                  Q=chunk, P=P, S=S)
+
+
+def k8_phase(torch) -> list:
+    no_tf32(torch)
+    rows = [k8_case(torch, *shape, timed=shape == K8_SHAPES[-1])
+            for shape in K8_SHAPES]
+    return [r for r in rows if r is not None]
+
+
+def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
+    """A model of the repo at full width and depth on the card, weights
+    from a seed: ``forward`` on B × L tokens (finite logits, one
+    ``kernel`` launch a layer); four 128-token prompts fed through
+    ``decode_step`` (its logits against ``forward``'s on the prompts),
+    then 32 greedy tokens; and a 2-layer copy with the same weights on
+    the card against the CPU.  Returns the kernel's launches in the
+    forward and decode runs."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_map
+
+    no_tf32(torch)
+    cfg = ARCHS[name]
+    per_step = cfg.n_layers if cfg.family == "dense" else 0
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab, (B, L))).cuda()
+    registry.forward(cfg, params, {"tokens": tokens[:1, :64]})  # warm-up
+    torch.cuda.synchronize()
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    logits, _ = registry.forward(cfg, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_counts = dict(LAUNCHES)
+    check(fwd_counts == {kernel: cfg.n_layers}, f"{name} forward: launches "
+          f"{fwd_counts}, want {kernel}: {cfg.n_layers}")
+    check(tuple(logits.shape) == (B, L, cfg.vocab) and
+          bool(logits.isfinite().all()), f"{name} forward: logits "
+          f"{tuple(logits.shape)} not finite or of the wrong shape")
+
+    n_req, n_prompt, n_gen = 4, 128, 32
+    prompts = torch.from_numpy(rng.randint(0, cfg.vocab,
+                                           (n_req, n_prompt))).cuda()
+    ref, _ = registry.forward(cfg, params, {"tokens": prompts})
+    scale = float(ref.abs().max())
+
+    def feed(**kw):
+        """The prompts through ``decode_step`` from an empty cache (of
+        the model's default dtype unless ``kw`` names one).  Returns max
+        |decode − forward| over the prompt positions, the cache, the last
+        step's logits and the wall time a step."""
+        cache = registry.init_cache(cfg, n_req, n_prompt + n_gen,
+                                    device="cuda", **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = []
+        for t in range(n_prompt):
+            lg, cache = registry.decode_step(cfg, params, cache,
+                                             prompts[:, t:t + 1])
+            outs.append(lg)
+        torch.cuda.synchronize()
+        dec = torch.cat(outs, dim=1)
+        err = float((dec - ref).abs().max())
+        check(bool(dec.isfinite().all()), f"{name}: non-finite decode")
+        return err, cache, lg, (time.perf_counter() - t0) / n_prompt
+
+    LAUNCHES.clear()
+    # Float32 cache: decode against forward at the reference pin's bound.
+    dec_err, cache, lg, prompt_s = feed(dtype=torch.float32)
+    check(dec_err <= DECODE_TOL[cfg.family] * scale,
+          f"{name}: decode logits differ from forward by {dec_err:.3g} "
+          f"(max |logit| {scale:.3g}, bound {DECODE_TOL[cfg.family]} of it)")
+    steps = n_prompt
+    probe = registry.init_cache(cfg, 1, 1, device="cuda")
+    default = probe["k" if "k" in probe else "ssm"].dtype
+    bf16_err = None
+    if default != torch.float32:
+        # The default (bf16) KV cache, which serving uses: K and V are
+        # rounded to 8 bits of mantissa, so the bound is bf16's.
+        bf16_err, cache, lg, _ = feed()
+        check(bf16_err <= BF16_DECODE_TOL * scale,
+              f"{name}: decode with the {default} cache differs from "
+              f"forward by {bf16_err:.3g} (max |logit| {scale:.3g}, bound "
+              f"{BF16_DECODE_TOL} of it)")
+        steps += n_prompt
+    nxt = lg[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_gen):
+        lg, cache = registry.decode_step(cfg, params, cache, nxt)
+        nxt = lg[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    gen_s = (time.perf_counter() - t0) / n_gen
+    steps += n_gen
+    dec_counts = dict(LAUNCHES)
+    want = {kernel: per_step * steps} if per_step else {}
+    check(dec_counts == want, f"{name} decode: launches {dec_counts}, want "
+          f"{want}")
+
+    cfg2 = replace(cfg, n_layers=2)
+    p2 = dict(params, layers=tree_map(lambda a: a[:2], params["layers"]))
+    toks2 = prompts[:2]
+    LAUNCHES.clear()
+    gpu, _ = registry.forward(cfg2, p2, {"tokens": toks2})
+    torch.cuda.synchronize()
+    check(dict(LAUNCHES) == {kernel: 2}, f"{name} 2-layer copy: launches "
+          f"{dict(LAUNCHES)}")
+    t0 = time.perf_counter()
+    cpu, _ = registry.forward(cfg2, tree_map(lambda a: a.cpu(), p2),
+                              {"tokens": toks2.cpu()})
+    cpu_s = time.perf_counter() - t0
+    scale2 = float(cpu.abs().max())
+    cpu_err = float((gpu.cpu() - cpu).abs().max())
+    check(bool(gpu.isfinite().all()) and cpu_err <= CPU_COPY_TOL * scale2,
+          f"{name} 2-layer copy: card and CPU differ by {cpu_err:.3g} (max "
+          f"|logit| {scale2:.3g}, bound {CPU_COPY_TOL} of it)")
+    print(f"serving {name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"vocab={cfg.vocab}, init {init_s * 1e3:.1f} ms; forward B={B} "
+          f"L={L}: {fwd_s * 1e3:.1f} ms, {B * L / fwd_s:.1f} prefill "
+          f"tokens/s, "
+          f"launches {fwd_counts}; decode of {n_req} requests: "
+          f"{n_prompt} prompt steps {prompt_s * 1e3:.2f} ms a step "
+          f"(float32 cache), {n_gen} greedy steps {gen_s * 1e3:.2f} ms a "
+          f"step ({default} cache), {n_req / gen_s:.1f} decode tokens/s, "
+          f"launches {dec_counts} in {steps} steps; decode vs forward max "
+          f"|Δ| {dec_err:.3g} of max |logit| {scale:.3g} "
+          f"({dec_err / scale:.3g}; {default} cache: "
+          f"{'-' if bf16_err is None else f'{bf16_err / scale:.3g}'}); "
+          f"2-layer copy card vs CPU max |Δ| {cpu_err:.3g} of {scale2:.3g} "
+          f"({cpu_err / scale2:.3g}; CPU run {cpu_s:.1f} s)", flush=True)
+    return fwd_counts.get(kernel, 0) + dec_counts.get(kernel, 0)
+
 
 def main(argv=None) -> int:
     import argparse
@@ -1113,7 +1514,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-15) to run after "
+                    help="comma-separated phase numbers (2-19) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -1167,6 +1568,14 @@ def main(argv=None) -> int:
     k5 = phase("13 kernel K5", k5_family_phase)
     k4 = phase("14 kernel K4", k4_family_phase)
     k6 = phase("15 kernel K6", k6_family_phase)
+    k7 = phase("16 kernel K7", k7_phase)
+    k8 = phase("17 kernel K8", k8_phase)
+    launches["flash_attention"] = phase(
+        "18 serving tinyllama-1.1b", serving_phase, "tinyllama-1.1b",
+        "flash_attention", 4, 1024)
+    launches["ssd_chunk"] = phase(
+        "19 serving mamba2-1.3b", serving_phase, "mamba2-1.3b", "ssd_chunk",
+        2, 1024)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "
@@ -1177,9 +1586,10 @@ def main(argv=None) -> int:
     launches.update(k4[1])
     launches["rl_score_matrix"] = k6[1]
     kernels = []
-    # Each kernel's row at its largest shape (K6 at K = 2).
+    # Each kernel's row at its largest shape (K6 at K = 2; K7 at
+    # tinyllama-1.1b's prefill, K8 at mamba2-1.3b's forward).
     for big in (k1[-1], k2[-1], k3[3], k3[-1], k5[0][-1], k4[0][2],
-                k4[0][-1], k6[0][2]):
+                k4[0][-1], k6[0][2], k7[0], k8[0]):
         kernels.append({
             "name": big["name"], "route": "cuda",
             "source": KERNEL_SOURCES.get(big["name"], KERNEL_SOURCE),

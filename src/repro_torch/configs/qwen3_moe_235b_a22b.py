@@ -1,0 +1,10 @@
+"""qwen3-moe-235b-a22b [moe] — 128 experts top-8
+[hf:Qwen/Qwen3-30B-A3B; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-moe-235b-a22b", family="moe",
+    n_layers=94, d_model=4096, n_heads=64, n_kv=4, d_ff=1536,
+    vocab=151936, n_experts=128, top_k=8, moe_d_ff=1536,
+    head_dim=128, rope_theta=1e6, act="silu",
+)

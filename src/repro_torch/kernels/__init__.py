@@ -16,8 +16,15 @@ plain-torch version the CPU runs and the card is held against).
   ``core.dodoor_choice_batch(use_kernel=True)``).
 * ``rl_score`` — K6, the batched Eq.-1 score matrix
   (``rl_score_matrix``).
+* ``flash_attention`` — K7, online-softmax attention with causal and
+  local-window masks and grouped-query heads (``flash_attention``), which
+  every attention layer of the port's models launches on the card.
+* ``ssd_chunk`` — K8, the Mamba-2 SSD intra-chunk block (``ssd_chunk``),
+  with the chunked SSD around it (``ssd``) and the one-token update
+  (``ssd_decode_step``).
 """
-from . import dodoor_choice, rl_score
+from . import dodoor_choice, flash_attention, rl_score, ssd_chunk
 from ._wrap import LAUNCHES
 
-__all__ = ["LAUNCHES", "dodoor_choice", "rl_score"]
+__all__ = ["LAUNCHES", "dodoor_choice", "flash_attention", "rl_score",
+           "ssd_chunk"]

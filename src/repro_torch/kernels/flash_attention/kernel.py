@@ -1,0 +1,48 @@
+"""ctypes launcher of the CUDA flash-attention kernel K7
+(``kernels/csrc/flash_attention.cu``)."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import load
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_ARGTYPES = ((_P,) * 6 + (_I,) * 6 + (_L,) * 13
+             + (_I, _I, ctypes.c_float, _I, _I, _P))
+
+
+def launch_flash_attention(q, k, v, out, *, causal: bool, window,
+                           scale: float, kv_last=None) -> None:
+    """Enqueue K7 on the current stream of the tensors' device: q [B, H,
+    Lq, D] float32 or bfloat16; k, v [B, Hkv, Lk, D] of one of those
+    dtypes, read in q's; each with unit stride along D (any strides
+    elsewhere: a slice of a cache goes as it lies); out [B, H, Lq, D]
+    contiguous of q's dtype; ``kv_last``: None, or (k_last, v_last)
+    [B, Hkv, 1, D] of q's dtype with unit stride along D, which take the
+    place of key and value Lk − 1.  The wrapper in ``ops.py`` checks;
+    raises if the launch is refused."""
+    fn = load("flash_attention").flash_attention_launch
+    if fn.argtypes is None:          # first use of this library handle
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    B, H, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if kv_last is None:
+        last, last_strides = (None, None), (0,) * 4
+    else:
+        kl, vl = kv_last
+        last = (kl.data_ptr(), vl.data_ptr())
+        last_strides = (*kl.stride()[:2], *vl.stride()[:2])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *last,
+             B, H, Hkv, Lq, Lk, D, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], *last_strides, int(causal),
+             0 if window is None else window, float(scale),
+             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+             stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")

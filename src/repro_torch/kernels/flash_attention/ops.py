@@ -1,0 +1,89 @@
+"""Public wrapper of the flash-attention kernel K7.
+
+``flash_attention`` keeps the JAX wrapper's signature without its
+``block_q``/``block_k``/``interpret`` knobs.  The JAX wrapper left-pads
+queries and keys to block multiples and loops over the query heads of a
+GQA group; the CUDA kernel masks its own ragged edge and maps query head
+``h`` to key/value head ``h // rep`` inside one launch, so neither is
+carried over.  Tensors on the CPU go to the plain version (``ref.py``);
+CUDA tensors are checked and go to the kernel, or the call raises — there
+is no fallback.  Each call that reaches the card counts one
+``"flash_attention"`` in ``LAUNCHES``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .._wrap import LAUNCHES, device_of
+from .kernel import launch_flash_attention
+from .ref import attention_ref
+
+#: The head widths the kernel is built for.
+HEAD_DIMS = (32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _plain(q, k, v, *, causal, window, scale, kv_last):
+    """The plain version: keys and values cast to q's dtype, the last row
+    replaced, then the dense oracle."""
+    if kv_last is not None:
+        k = torch.cat([k[:, :, :-1].to(q.dtype), kv_last[0]], dim=2)
+        v = torch.cat([v[:, :, :-1].to(q.dtype), kv_last[1]], dim=2)
+    return attention_ref(q, k.to(q.dtype), v.to(q.dtype), causal=causal,
+                         window=window, scale=scale)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    scale=None, kv_last=None):
+    """Flash attention with the oracle's signature: q [B, H, Lq, D],
+    k/v [B, Hkv, Lk, D] (H divisible by Hkv).  Returns [B, H, Lq, D] in
+    q's dtype.  Queries are right-aligned against the keys (prefill with
+    Lq = Lk and decode with Lq = 1 against a cache are the same call);
+    ``window`` restricts query position i to keys (i − window, i].  q is
+    float32 or bfloat16 and k, v share either dtype: they are read in q's
+    dtype, as the reference reads its cache in the activations' dtype, and
+    accumulated in float32.  ``kv_last``: None, or (k_last, v_last)
+    [B, Hkv, 1, D] in q's dtype, which take the place of key and value
+    Lk − 1 (a decode step's own key and value, unrounded, over a cache of
+    another dtype).  On the card D is 32, 64 or 128, and every operand
+    must have unit stride along D (a slice of a preallocated cache is read
+    where it lies)."""
+    operands = (q, k, v) + (tuple(kv_last) if kv_last is not None else ())
+    device = device_of("flash_attention", operands)
+    B, H, Lq, D = q.shape
+    scale = scale if scale is not None else D ** -0.5
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or \
+            k.shape[3] != D:
+        raise ValueError(f"flash_attention: k and v must be [B, Hkv, Lk, D] "
+                         f"= [{B}, ·, ·, {D}], got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    Hkv = k.shape[1]
+    if kv_last is not None:
+        want = (B, Hkv, 1, D)
+        if any(tuple(t.shape) != want or t.dtype != q.dtype
+               for t in kv_last):
+            raise ValueError(f"flash_attention: kv_last must be two "
+                             f"{list(want)} tensors of q's dtype {q.dtype}")
+    if device.type == "cpu":
+        return _plain(q, k, v, causal=causal, window=window, scale=scale,
+                      kv_last=kv_last)
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"flash_attention: H={H} is not a multiple of "
+                         f"Hkv={Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes head widths "
+                         f"{HEAD_DIMS}, got {D}")
+    if q.dtype not in DTYPES or k.dtype not in DTYPES or v.dtype != k.dtype:
+        raise TypeError(f"flash_attention: q and k, v (one dtype) must each "
+                        f"be in {DTYPES}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if any(t.stride(3) != 1 for t in operands):
+        raise ValueError("flash_attention: q, k, v and kv_last need unit "
+                         "stride along D")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be ≥ 1, got {window}")
+    out = torch.empty((B, H, Lq, D), dtype=q.dtype, device=device)
+    launch_flash_attention(q, k, v, out, causal=causal, window=window,
+                           scale=scale, kv_last=kv_last)
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,113 @@
+"""Public SSD wrappers: the chunk kernel K8 (``ssd_chunk``), the chunked
+SSD around it (``ssd``: chunking, the inter-chunk state scan and the h_in
+correction, as torch ops like the reference's ``ops.py``) and the
+one-token update (``ssd_decode_step``, plain torch: the reference has no
+kernel for it either).
+
+``ssd_chunk`` sends tensors on the CPU to the plain version (``ref.py``);
+CUDA tensors are checked and go to the kernel, or the call raises — there
+is no fallback.  Each call that reaches the card counts one
+``"ssd_chunk"`` in ``LAUNCHES``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .._wrap import LAUNCHES, check, device_of
+from .kernel import launch_ssd_chunk
+from .ref import ssd_chunk_ref
+
+#: The largest chunk, head width and state width the kernel takes.
+MAX_Q, MAX_P, MAX_S = 64, 64, 128
+
+
+def ssd_chunk(x, delta, dtv, Bm, Cm, *, heads_per_group: int):
+    """The SSD intra-chunk block (see ``ref.ssd_chunk_ref``): x [BH, NC, Q,
+    P], delta/dtv [BH, NC, Q], Bm/Cm [B, G, NC, Q, S], all float32 →
+    (y_intra [BH,NC,Q,P], H_out [BH,NC,S,P], exp_s [BH,NC,Q]).  On the
+    card Q ≤ 64, P ≤ 64 and S ≤ 128 (any Q, so a sequence shorter than a
+    chunk is one short chunk)."""
+    device = device_of("ssd_chunk", (x, delta, dtv, Bm, Cm))
+    if device.type == "cpu":
+        return ssd_chunk_ref(x, delta, dtv, Bm, Cm,
+                             heads_per_group=heads_per_group)
+    BH, NC, Q, P = x.shape
+    Bb, G, _, _, S = Bm.shape
+    hpg = heads_per_group
+    if Bb < 1 or BH % Bb or (BH // Bb) != G * hpg:
+        raise ValueError(f"ssd_chunk: BH={BH} is not B·G·heads_per_group = "
+                         f"{Bb}·{G}·{hpg}")
+    if not (1 <= Q <= MAX_Q and 1 <= P <= MAX_P and 1 <= S <= MAX_S):
+        raise ValueError(f"ssd_chunk: the kernel takes Q ≤ {MAX_Q}, P ≤ "
+                         f"{MAX_P}, S ≤ {MAX_S}; got Q={Q}, P={P}, S={S}")
+    f32 = torch.float32
+    check("x", x, f32, (BH, NC, Q, P))
+    check("delta", delta, f32, (BH, NC, Q))
+    check("dtv", dtv, f32, (BH, NC, Q))
+    check("Bm", Bm, f32, (Bb, G, NC, Q, S))
+    check("Cm", Cm, f32, (Bb, G, NC, Q, S))
+    y = torch.empty((BH, NC, Q, P), dtype=f32, device=device)
+    Hs = torch.empty((BH, NC, S, P), dtype=f32, device=device)
+    exp_s = torch.empty((BH, NC, Q), dtype=f32, device=device)
+    launch_ssd_chunk(x, delta, dtv, Bm, Cm, y, Hs, exp_s,
+                     heads_per_group=hpg)
+    LAUNCHES["ssd_chunk"] += 1
+    return y, Hs, exp_s
+
+
+def ssd(x, dt, A, B, C, h0=None, *, chunk: int = 64):
+    """Chunked SSD with the oracle's signature (see ``ref.ssd_ref``): x
+    [B,L,H,P], dt [B,L,H], A [H], B/C [B,L,G,S].  L must be a multiple of
+    ``chunk`` (the model layer pads sequences).  Returns (y [B,L,H,P],
+    h [B,H,S,P] float32)."""
+    Bb, L, H, P = x.shape
+    G, S = B.shape[2], B.shape[3]
+    if L % chunk:
+        raise ValueError(f"ssd: L={L} is not a multiple of chunk={chunk}")
+    NC = L // chunk
+    hpg = H // G
+    f32 = torch.float32
+
+    # Layouts for the kernel: heads into the batch dim, chunked time.
+    xk = x.transpose(1, 2).reshape(Bb * H, NC, chunk, P)
+    dtk = dt.transpose(1, 2).reshape(Bb * H, NC, chunk)
+    delta = dtk * A.repeat(Bb)[:, None, None]          # A·dt per (b·H+h)
+    Bk = B.transpose(1, 2).reshape(Bb, G, NC, chunk, S)
+    Ck = C.transpose(1, 2).reshape(Bb, G, NC, chunk, S)
+    y_intra, H_out, exp_s = ssd_chunk(
+        *(t.to(f32).contiguous() for t in (xk, delta, dtk, Bk, Ck)),
+        heads_per_group=hpg)
+
+    # Inter-chunk state recurrence: h_c = decay_c · h_{c-1} + H_out_c, with
+    # decay_c = exp(Σ chunk deltas) = exp_s[..., -1]; keep the incoming
+    # state of every chunk.
+    h = (torch.zeros((Bb * H, S, P), dtype=f32, device=x.device)
+         if h0 is None else h0.reshape(Bb * H, S, P).to(f32))
+    decays = exp_s[:, :, -1, None, None]                # [BH, NC, 1, 1]
+    h_in = []
+    for c in range(NC):
+        h_in.append(h)
+        h = decays[:, c] * h + H_out[:, c]
+    h_in = torch.stack(h_in, dim=1)                      # [BH, NC, S, P]
+
+    # h_in correction: y_state[t] = exp(s_t) · C_t · h_in(chunk); C is per
+    # group, so heads fold as [B, G, hpg, ...] instead of repeating it.
+    y_state = torch.einsum("bgnqs,bghnsp->bghnqp", Ck.to(f32),
+                           h_in.reshape(Bb, G, hpg, NC, S, P))
+    y_state = y_state.reshape(Bb * H, NC, chunk, P) * exp_s[..., None]
+    y = (y_intra + y_state).reshape(Bb, H, L, P).transpose(1, 2)
+    return y.to(x.dtype), h.reshape(Bb, H, S, P)
+
+
+def ssd_decode_step(x_t, dt_t, A, B_t, C_t, h):
+    """Single-token SSD update (serving): x_t [B,H,P], dt_t [B,H], A [H],
+    B_t/C_t [B,G,S], h [B,H,S,P] → (y_t [B,H,P], h')."""
+    H = x_t.shape[1]
+    rep = H // B_t.shape[1]
+    Bh = B_t.repeat_interleave(rep, dim=1)        # [B,H,S]
+    Ch = C_t.repeat_interleave(rep, dim=1)
+    decay = torch.exp(A[None, :] * dt_t)          # [B,H]
+    h = (decay[..., None, None] * h
+         + dt_t[..., None, None] * Bh[..., None] * x_t[:, :, None, :])
+    y = torch.einsum("bhs,bhsp->bhp", Ch, h)
+    return y, h

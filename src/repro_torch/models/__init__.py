@@ -1,0 +1,12 @@
+"""repro_torch.models — the LM substrate's serving path on PyTorch: the
+dense transformer (GQA) and Mamba-2, with the reference's parameter trees
+and entry points (``registry``).  Attention layers launch the flash
+attention kernel K7 and Mamba-2 mixers the SSD chunk kernel K8 on the
+card; on the CPU they run the plain versions."""
+from . import common, convert, mamba2, registry, transformer
+from .convert import params_from_numpy
+from .registry import decode_step, forward, init_cache, init_params, module
+
+__all__ = ["common", "convert", "mamba2", "registry", "transformer",
+           "decode_step", "forward", "init_cache", "init_params", "module",
+           "params_from_numpy"]

@@ -1,0 +1,40 @@
+"""Parameters of the JAX reference, as numpy arrays, to the port's.
+
+The port keeps the reference's parameter tree: the same names, the layers
+stacked along axis 0, and dense weights in the ``x @ W`` layout
+``[d_in, d_out]`` — so no leaf is transposed or renamed, and a converted
+tree computes what the reference computes with the same numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..configs.base import ModelConfig
+from .registry import module
+
+
+def params_from_numpy(cfg: ModelConfig, tree, *, device=None):
+    """``tree``: the reference's ``init_params(cfg, key)`` pytree with
+    numpy (or array-like) leaves → the port's float32 parameters on
+    ``device`` (the card unless the caller asks for the CPU).  Raises ValueError
+    naming the leaf if the tree's keys or shapes differ from the port's
+    for ``cfg``."""
+    device = resolve_device(device)
+    want = module(cfg).init_params(cfg, torch.Generator(), device="meta")
+
+    def convert(path, got, spec):
+        if isinstance(spec, dict):
+            if not isinstance(got, dict) or set(got) != set(spec):
+                have = sorted(got) if isinstance(got, dict) else type(got)
+                raise ValueError(f"params_from_numpy: {path or 'the tree'} "
+                                 f"has keys {have}, want {sorted(spec)}")
+            return {k: convert(f"{path}/{k}", got[k], spec[k]) for k in spec}
+        arr = np.asarray(got)
+        if arr.shape != tuple(spec.shape):
+            raise ValueError(f"params_from_numpy: {path} has shape "
+                             f"{arr.shape}, want {tuple(spec.shape)}")
+        return torch.tensor(arr, dtype=torch.float32).to(device)
+
+    return convert("", tree, want)

@@ -446,7 +446,8 @@ def test_wrappers_reject_other_devices():
 
 
 def test_build_knows_the_rl_score_source():
-    assert _build.SOURCES == ("dodoor_fused_sparse", "rl_score")
+    assert _build.SOURCES == ("dodoor_fused_sparse", "rl_score",
+                              "flash_attention", "ssd_chunk")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build.library_path(name).name.startswith(name + "-")
