@@ -5,15 +5,15 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs nineteen phases; any failure raises and exits non-zero
+package, and runs twenty phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
    kernels/csrc`` with ``nvcc`` (one process per source, all at once);
 2. kernel — holds the sparse-gather decision kernel against its plain
    PyTorch version on the card, at T=50, N=100 and at T=500, N=10 000:
-   candidates exact, scores within rtol 1e-6, choices exact except where
-   the two scores are within 1e-6; times both with CUDA events;
+   candidates, scores and choices exact; times both with CUDA events;
+   then the edge cases of the decision template (below);
 3. testbed — the batched Dodoor driver on the paper's 100-server testbed
    under the Azure and FunctionBench traces (m=4000, b=50) on the card,
    against the same runs on the CPU: placements exact (or the first
@@ -28,7 +28,9 @@ package, and runs nineteen phases; any failure raises and exits non-zero
    against its plain version at the shapes of phase 2, with windows from
    ``random_outages`` merged with ``random_churn`` and rows whose every
    server is down (the fallback), as phase 2 checks K1; with every window
-   at +inf K2 must equal K1 bit for bit;
+   at +inf K2 must equal K1 bit for bit; K2 is timed on the window-major
+   planes made once, as the engine passes them; then the edge cases with
+   1, 8 and 11 windows (11: above the unrolled bound);
 6. scenario testbed — the six scenarios of the scenario benchmark and a
    "maintenance" scenario (rolling restart, stragglers, a store outage) on
    the 100-server testbed (FunctionBench m=4000 at 60 qps, b=50), each
@@ -44,7 +46,8 @@ package, and runs nineteen phases; any failure raises and exits non-zero
    (50, 100, 100) (three padded windows in the parent sum) and
    (500, 10 000, 8), with parents on about three quarters of the P slots,
    non-integer MB and γ/bandwidth = 0.7/1.3: candidates, scores and
-   choices exact; with γ = 0 each form equals K1 (K2) bit for bit;
+   choices exact; with γ = 0 each form equals K1 (K2) bit for bit; then
+   the edge cases with 8 and 40 parents, without windows and with 8;
 9. DAG testbed — the frontier loop on the testbed (FunctionBench m=2400
    at 60 qps, b=50): the chain, fan-out and map-reduce shapes of the DAG
    benchmark without a LocalityModel and with γ = 2, a layered DAG under
@@ -74,7 +77,8 @@ package, and runs nineteen phases; any failure raises and exits non-zero
    (50, 100), (500, 10 000) and (1024, 10 000): candidates, choices and
    scores exact; K4 on ``d = d_types[:, node_type]`` equal to K1 and
    K4-masked with ``avail = avail_rows(windows)`` (phase 5's windows,
-   all-down rows included) equal to K2 bit for bit; then the library
+   all-down rows included) equal to K2 bit for bit; the edge cases in
+   both forms (availability from 1, 8 and 11 windows); then the library
    loop through ``dodoor_fused`` without and with an availability plane,
    on the testbed and at 10 000 servers;
 15. K6 — the RL score matrix against its plain version at (T, N, K) =
@@ -105,7 +109,20 @@ package, and runs nineteen phases; any failure raises and exits non-zero
 19. mamba2-1.3b serving, as phase 18 with ``forward`` on 2 × 1024 tokens
    (48 K8 launches), ``decode_step`` launching no kernel (the one-token
    recurrence, as in the reference), decode within 5e-3 and its default
-   cache float32.
+   cache float32;
+20. profiled scale runs — phases 4 and 7's card runs once more under
+   ``torch.profiler`` (device activity): the decision kernel's total
+   device time and launches, the device's busy share of the wall time,
+   and the wall (inflated by the profiler); the timed runs of phases 4
+   and 7 stay unprofiled.
+
+The edge cases of the decision template (K1–K4 share it) hold the kernel
+to its plain version, every output exact, at (T, N) = (50, 1), (50, 31),
+(50, 33), (64, 1 000), (50, 10 007), (1, 100), (1, 10 007), (2 048, 100)
+and (2 048, 10 000), with edge rows: row 0 fits nowhere (the uniform
+fallback), rows 1-2 fall where every server is down (masked forms), row 3
+fits exactly one server, and row 4 exactly two, which its key draws as A
+and B: the first and the last admissible server.
 
 The library loop is a scheduler written against the library API: the
 FunctionBench trace on the testbed (m=4000, b=50) or the Azure trace at
@@ -117,7 +134,8 @@ exact), with the launch counts set to 0 just before it and read just
 after: one launch per block.
 
 It prints the card's name and power limit, every phase's wall time, a
-JSON line of per-kernel measurements, and as its last line
+``profile`` JSON line of phase 20's readings, a JSON line of per-kernel
+measurements, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -222,10 +240,11 @@ def row_of(name, T, N, ms, plain_ms, nbytes, ops, max_abs_err,
     return row
 
 
-def kernel_inputs(torch, T: int, N: int, seed: int):
-    """A decision block at the main path's shapes: the paper's testbed
-    (N=100) or a scaled fleet, task demands that include infeasible rows
-    (the uniform fallback), random cached loads and per-type durations."""
+def block_host(T: int, N: int, seed: int):
+    """A decision block at the main path's shapes, as numpy arrays: the
+    paper's testbed (N=100) or a scaled fleet, task demands that include
+    infeasible rows (the uniform fallback), random cached loads and
+    per-type durations."""
     from repro_torch.sim import make_scaled, make_testbed
 
     cl = make_testbed() if N == 100 else make_scaled(N)
@@ -238,11 +257,19 @@ def kernel_inputs(torch, T: int, N: int, seed: int):
     L = (rng.uniform(0, 2, size=(N, 2)) * cl.C).astype(np.float32)
     D = rng.uniform(0, 5e5, size=N).astype(np.float32)
     d_types = rng.uniform(100, 2e4, size=(T, 4)).astype(np.float32)
-    host = (keys.astype(np.int64), r, d_types,
+    return [keys.astype(np.int64), r, d_types,
             np.asarray(cl.node_type, np.int32), L, D,
-            np.asarray(cl.C, np.float32))
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            np.asarray(cl.C, np.float32)]
+
+
+def to_device(torch, host, device: str = "cuda"):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in host)
+
+
+def kernel_inputs(torch, T: int, N: int, seed: int):
+    """:func:`block_host` on the card."""
+    return to_device(torch, block_host(T, N, seed))
 
 
 def kernel_windows(torch, T: int, N: int, seed: int):
@@ -265,7 +292,8 @@ def kernel_windows(torch, T: int, N: int, seed: int):
     return win.down0, win.down1, torch.from_numpy(now).cuda()
 
 
-def kernel_parents(torch, T: int, N: int, P: int, seed: int):
+def kernel_parents(torch, T: int, N: int, P: int, seed: int,
+                   device: str = "cuda"):
     """K3's parent planes: psrv in [-1, N) with about a quarter -1 pads
     (the first column on the fleet's first four servers, so some
     candidates hold a parent), and non-integer MB, 0 at the pads."""
@@ -275,7 +303,149 @@ def kernel_parents(torch, T: int, N: int, P: int, seed: int):
     psrv[:, 0] = rng.randint(0, 4, T)
     pbytes = rng.uniform(0.1, 9.0, (T, P)).astype(np.float32)
     pbytes[psrv < 0] = 0.0
-    return (torch.from_numpy(psrv).cuda(), torch.from_numpy(pbytes).cuda())
+    return (torch.from_numpy(psrv).to(device),
+            torch.from_numpy(pbytes).to(device))
+
+
+#: Edge shapes at which phases 2, 5, 8 and 14 hold the decision template
+#: to its plain version, besides their main shapes: N = 1, 31, 33, 1 000
+#: and 10⁴ + 7 (no multiple of a segment), one task, 2 048 tasks.
+EDGE_SHAPES = ((50, 1), (50, 31), (50, 33), (64, 1000), (50, 10_007),
+               (1, 100), (1, 10_007), (2048, 100), (2048, 10_000))
+#: K2's window counts at the edge shapes: one, the largest the kernel
+#: unrolls (8), and one above it (a loop over the windows).
+EDGE_WD = (1, 8, 11)
+EDGE_H = 1e5
+
+
+def edge_servers(N: int) -> tuple:
+    """The first and the last server admissible to edge row 4."""
+    return min(5, N // 3), N - 1 - min(3, N // 3)
+
+
+def edge_host(T: int, N: int, seed: int):
+    """:func:`block_host` with edge rows (T ≥ 5): row 0 fits nowhere (the
+    uniform fallback); row 3 fits exactly one server and row 4 exactly
+    two, the first and the last admissible (:func:`edge_servers`), and
+    row 4's key draws them as A and B.  A lone task fits most servers."""
+    import torch
+
+    from repro_torch.core.prefilter import (feasible_mask,
+                                            sample_feasible_batch)
+
+    host = block_host(T, N, seed)
+    keys, r, C = host[0], host[1], host[6]
+    if T < 5:
+        r[0] = (1.0, 1e3)
+        return host
+    b0, b1 = edge_servers(N)
+    top = C.max(0)
+    C[b0], C[b1] = top + 1.0, top + 2.0
+    r[3], r[4] = top + 2.0, top + 1.0
+    # A key whose two ranks over row 4's two servers are 1 and 2.
+    rng = np.random.RandomState(seed)
+    tries = rng.randint(0, 2 ** 32, size=(64, 2), dtype=np.uint64)
+    tries = torch.from_numpy(tries.astype(np.int64))
+    mask = feasible_mask(torch.from_numpy(r[4:5]),
+                         torch.from_numpy(C)).expand(64, N)
+    cand = sample_feasible_batch(tries, mask, 2).numpy()
+    hit = np.flatnonzero((cand[:, 0] == b0) & (cand[:, 1] == b1))
+    keys[4] = tries[int(hit[0]) if hit.size else 0].numpy()
+    return host
+
+
+def edge_windows(T: int, N: int, Wd: int, seed: int):
+    """[N, Wd] down-window planes with ``Wd`` windows a server: random
+    spans within [0, H) (a fifth of them +inf pads, a twentieth leaves
+    with a +inf end) and, last, [1.1H, 1.2H) on every server; task times
+    in [0, H), rows 1-2 at 1.15H (every server down: the fallback) and
+    rows 3-4 at -1 (before every window)."""
+    H = EDGE_H
+    rng = np.random.RandomState(seed)
+    d0 = rng.uniform(0, H, (N, Wd)).astype(np.float32)
+    d1 = (d0 + rng.uniform(0, 0.3 * H, (N, Wd))).astype(np.float32)
+    d1[rng.rand(N, Wd) < 0.05] = np.inf
+    pad = rng.rand(N, Wd) < 0.2
+    d0[pad] = np.inf
+    d1[pad] = np.inf
+    d0[:, -1], d1[:, -1] = 1.1 * H, 1.2 * H
+    now = rng.uniform(0, H, T).astype(np.float32)
+    now[1:3] = 1.15 * H
+    now[3:5] = -1.0
+    return [d0, d1, now]
+
+
+def edge_case(torch, form: str, T: int, N: int, Wd: int = 0, P: int = 0,
+              device: str = "cuda"):
+    """Operands of one edge case of the template, for ``form`` "sparse"
+    (K1; K2 with ``Wd`` windows; K3 with ``P`` parents) or "dense" (K4;
+    K4-masked with ``Wd`` windows' availability): (positional,
+    keyword) arguments of the form's wrapper, which its plain version
+    takes too."""
+    from repro_torch.core.prefilter import avail_rows
+
+    seed = T + N + Wd + P
+    keys, r, d_types, nt, L, D, C = to_device(
+        torch, edge_host(T, N, seed), device)
+    kw = {}
+    if Wd:
+        down0, down1, now = to_device(torch, edge_windows(T, N, Wd, seed),
+                                      device)
+        kw = dict(down0=down0, down1=down1, now=now)
+    if P:
+        psrv, pbytes = kernel_parents(torch, T, N, P, seed, device)
+        kw.update(psrv=psrv, pbytes=pbytes, gamma_bw=GAMMA_BW)
+    if form == "sparse":
+        return (keys, r, d_types, nt, L, D, C), kw
+    d = d_types[:, nt.long()].contiguous()
+    avail = (avail_rows(kw["down0"], kw["down1"], kw["now"]).float()
+             if Wd else None)
+    return (keys, r, d, L, D, C), dict(avail=avail) if Wd else {}
+
+
+def edge_check(name, got, want, T: int, N: int) -> None:
+    """The template against its plain version, every output exact, and
+    the edge rows where they should be: row 3 on its one server, row 4
+    on the first and the last admissible."""
+    for what, a, b in zip(("choices", "candidates", "scores"), got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        check(np.array_equal(a, b), f"{name}: {what} differ in "
+              f"{int((a != b).reshape(T, -1).any(1).sum())} rows")
+    if T >= 5:
+        b0, b1 = edge_servers(N)
+        cand = want[1].cpu().numpy()
+        check(tuple(cand[3]) == (b1, b1) and tuple(cand[4]) == (b0, b1),
+              f"{name}: edge rows drew {cand[3]} and {cand[4]}, not "
+              f"{(b1, b1)} and {(b0, b1)}")
+
+
+def edge_phase(torch, form: str, Wds=(0,), Ps=(0,)) -> int:
+    """The template against its plain version at every edge shape, for
+    each window count in ``Wds`` and parent count in ``Ps``; returns the
+    number of cases."""
+    from repro_torch.kernels.dodoor_choice import (dodoor_fused,
+                                                   dodoor_fused_ref,
+                                                   dodoor_fused_sparse,
+                                                   dodoor_fused_sparse_ref)
+
+    fn, plain = ((dodoor_fused_sparse, dodoor_fused_sparse_ref)
+                 if form == "sparse" else (dodoor_fused, dodoor_fused_ref))
+    n = 0
+    for T, N in EDGE_SHAPES:
+        for Wd in Wds:
+            for P in Ps:
+                args, kw = edge_case(torch, form, T, N, Wd, P)
+                got = fn(*args, alpha=0.5, **kw)
+                torch.cuda.synchronize()
+                want = plain(*args, 0.5, **kw)
+                edge_check(f"{form} T={T} N={N} Wd={Wd} P={P}", got, want,
+                           T, N)
+                n += 1
+    print(f"  {form} template: {n} edge cases (N in "
+          f"{sorted({N for _, N in EDGE_SHAPES})}, T in "
+          f"{sorted({T for T, _ in EDGE_SHAPES})}, Wd in {list(Wds)}, P in "
+          f"{list(Ps)}) exact against the plain version", flush=True)
+    return n
 
 
 def kernel_phase(torch, T: int, N: int, masked: bool = False,
@@ -315,11 +485,6 @@ def kernel_phase(torch, T: int, N: int, masked: bool = False,
           f"{int((cand != p_cand).any(1).sum())} rows")
     check(np.isfinite(scores).all(), f"{name} T={T} N={N}: non-finite")
     if P:
-        # K3: the penalty is one fused multiply-add on the plain version's
-        # arithmetic, so scores and choices are exact.
-        check(np.array_equal(scores, p_scores) and np.array_equal(
-            choice, p_choice), f"{name} T={T} N={N} P={P}: scores differ "
-            f"by up to {np.abs(scores - p_scores).max()}")
         # With γ = 0, K3 is K1 (K2) bit for bit.
         zero = dodoor_fused_sparse(*args, alpha=0.5,
                                    **dict(kw, gamma_bw=0.0))
@@ -327,10 +492,13 @@ def kernel_phase(torch, T: int, N: int, masked: bool = False,
         check(all(torch.equal(a, b) for a, b in zip(zero, plain)),
               f"{name} with gamma 0 differs from its form without "
               f"parents at T={T} N={N} P={P}")
-    np.testing.assert_allclose(scores, p_scores, rtol=1e-6, atol=0.0)
+    # Counts and ranks are integers and the score arithmetic is the plain
+    # version's: scores and choices exact.
+    check(np.array_equal(scores, p_scores), f"{name} T={T} N={N}: scores "
+          f"differ by up to {np.abs(scores - p_scores).max()}")
+    check(np.array_equal(choice, p_choice),
+          f"{name} T={T} N={N}: choices differ")
     near_tie = np.abs(p_scores[:, 0] - p_scores[:, 1]) <= 1e-6
-    check(np.array_equal(choice[~near_tie], p_choice[~near_tie]),
-          f"{name} T={T} N={N}: choices differ away from near-ties")
     if masked and not P:
         # With every window at +inf, K2 is K1 bit for bit.
         inf = torch.full_like(kw["down0"], float("inf"))
@@ -339,9 +507,13 @@ def kernel_phase(torch, T: int, N: int, masked: bool = False,
         k1 = dodoor_fused_sparse(*args, alpha=0.5)
         check(all(torch.equal(a, b) for a, b in zip(k2, k1)),
               f"K2 with +inf windows differs from K1 at T={T} N={N}")
+    plain_kw = dict(kw)
+    if masked:       # the window-major pair, made once as the engine does
+        kw["down_t"] = (kw["down0"].t().contiguous(),
+                        kw["down1"].t().contiguous())
     ms = event_ms(torch, lambda: dodoor_fused_sparse(*args, alpha=0.5, **kw))
     plain_ms = event_ms(
-        torch, lambda: dodoor_fused_sparse_ref(*args, alpha=0.5, **kw))
+        torch, lambda: dodoor_fused_sparse_ref(*args, alpha=0.5, **plain_kw))
     K, TT = 2, args[2].shape[1]
     Wd = kw["down0"].shape[1] if masked else 0
     # Each input read once, each output written once: per task the key
@@ -446,14 +618,34 @@ def testbed_phase(torch) -> None:
               f" ms p95 {s.makespan_p95_ms:.1f} ms", flush=True)
 
 
-def scale_phase(torch) -> int:
-    from repro_torch.sim import (EngineConfig, expected_messages_per_task,
-                                 make_scaled, simulate)
+def scale_setup():
+    """Phase 4's point: (workload, cluster, config, dynamics)."""
+    from repro_torch.sim import EngineConfig, make_scaled
+    from repro_torch.workloads import azure
+
+    return (azure.synthesize(m=200_000, qps=400.0), make_scaled(10_000),
+            EngineConfig(policy="dodoor", b=500), None)
+
+
+def scale_dynamics_setup(m: int = 200_000):
+    """Phase 7's point: phase 4's under node churn and n/5 outages."""
+    from repro_torch.sim import (EngineConfig, make_scaled, random_churn,
+                                 random_outages)
     from repro_torch.workloads import azure
 
     cl = make_scaled(10_000)
-    wl = azure.synthesize(m=200_000, qps=400.0)
-    cfg = EngineConfig(policy="dodoor", b=500)
+    n = cl.num_servers
+    wl = azure.synthesize(m=m, qps=400.0)
+    H = float(wl.submit_ms[-1])
+    dyn = random_churn(n, 0.15, 0.15, H).merge(
+        random_outages(n, n // 5, 0.6 * H, mean_down_ms=0.2 * H))
+    return wl, cl, EngineConfig(policy="dodoor", b=500), dyn
+
+
+def scale_phase(torch) -> int:
+    from repro_torch.sim import expected_messages_per_task, simulate
+
+    wl, cl, cfg, _ = scale_setup()
     m = wl.r_submit.shape[0]
     res, wall, counts = timed_run(torch, wl, cl, cfg)
     launches = counts.get("dodoor_fused_sparse", 0)
@@ -580,18 +772,11 @@ def scenario_phase(torch) -> None:
 
 
 def scale_dynamics_phase(torch, m: int = 200_000) -> int:
-    from repro_torch.sim import (EngineConfig, expected_messages_per_task,
-                                 make_scaled, random_churn, random_outages,
+    from repro_torch.sim import (expected_messages_per_task,
                                  resource_violations, simulate)
-    from repro_torch.workloads import azure
 
-    cl = make_scaled(10_000)
+    wl, cl, cfg, dyn = scale_dynamics_setup(m)
     n = cl.num_servers
-    wl = azure.synthesize(m=m, qps=400.0)
-    H = float(wl.submit_ms[-1])
-    dyn = random_churn(n, 0.15, 0.15, H).merge(
-        random_outages(n, n // 5, 0.6 * H, mean_down_ms=0.2 * H))
-    cfg = EngineConfig(policy="dodoor", b=500)
     res, wall, counts = timed_run(torch, wl, cl, cfg, dyn)
     blocks = -(-m // cfg.b)
     launches_ok("scale+dynamics", counts, True, blocks)
@@ -627,6 +812,57 @@ def scale_dynamics_phase(torch, m: int = 200_000) -> int:
           f"{bool((res.server == cpu.server).all())} (cpu run "
           f"{cpu_wall:.1f} s)", flush=True)
     return counts["dodoor_fused_sparse_masked"]
+
+
+def busy_us(spans) -> float:
+    """Length of the union of [start, end) spans (µs)."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profiled_phase(torch) -> dict:
+    """Phases 4 and 7 once more, untimed by them, under ``torch.profiler``
+    (device activity only): the decision kernel's total device time and
+    launches, the device's busy time (the union of its kernels' spans)
+    and its share of the run's wall time, and the wall, which the
+    profiler inflates.  A profiler that records no device activity leaves
+    the numbers unmeasured (None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.sim import simulate
+
+    out = []
+    for name, setup in (("4 scale", scale_setup),
+                        ("7 scale with dynamics", scale_dynamics_setup)):
+        wl, cl, cfg, dyn = setup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            simulate(wl, cl, cfg, device="cuda", dynamics=dyn)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans, kern, launches = [], 0.0, 0
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            spans.append((ev.time_range.start, ev.time_range.end))
+            if "dodoor_fused_sparse_kernel" in ev.name:
+                kern += ev.time_range.elapsed_us()
+                launches += 1
+        busy = busy_us(spans)
+        row = {"phase": name, "wall_s": wall, "device_kernels": len(spans),
+               "decision_kernel_ms": kern / 1e3 if spans else None,
+               "decision_launches": launches if spans else None,
+               "device_busy_ms": busy / 1e3 if spans else None,
+               "busy_share": busy / 1e6 / wall if spans else None}
+        print(f"  profiled {name}: {json.dumps(row)}", flush=True)
+        out.append(row)
+    return out
 
 
 TIME_PLANES = ("submit_ms", "enqueue_ms", "start_ms", "finish_ms",
@@ -813,18 +1049,12 @@ def retry_phase(torch) -> None:
 def retry_scale_phase(torch, m: int = 200_000) -> None:
     """Phase 12: phase 7's point (10⁴ servers, churn and outages) under
     the default retry policy, against the CPU run."""
-    from repro_torch.sim import (EngineConfig, RetryPolicy, fault_stats,
-                                 make_scaled, random_churn, random_outages,
-                                 simulate, time_to_recover_ms)
-    from repro_torch.workloads import azure
+    from repro_torch.sim import (RetryPolicy, fault_stats, simulate,
+                                 time_to_recover_ms)
 
-    cl = make_scaled(10_000)
+    wl, cl, cfg, dyn = scale_dynamics_setup(m)
     n = cl.num_servers
-    wl = azure.synthesize(m=m, qps=400.0)
-    H = float(wl.submit_ms[-1])
-    dyn = random_churn(n, 0.15, 0.15, H).merge(
-        random_outages(n, n // 5, 0.6 * H, mean_down_ms=0.2 * H))
-    cfg = EngineConfig(policy="dodoor", b=500, retry=RetryPolicy())
+    cfg = cfg._replace(retry=RetryPolicy())
     gpu, wall, counts = timed_run(torch, wl, cl, cfg, dyn)
     t0 = time.perf_counter()
     cpu = simulate(wl, cl, cfg, device="cpu", dynamics=dyn)
@@ -1119,6 +1349,7 @@ def k4_family_phase(torch) -> tuple:
     rows = [k4_phase(torch, T, N, masked)
             for masked in (False, True)
             for T, N in ((50, 100), (500, 10_000), (1024, 10_000))]
+    edge_phase(torch, "dense", Wds=(0,) + EDGE_WD)
     launches = {
         "dodoor_fused": library_phase(torch, "fused", "dodoor_fused"),
         "dodoor_fused_masked": library_phase(
@@ -1514,7 +1745,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-19) to run after "
+                    help="comma-separated phase numbers (2-20) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -1544,21 +1775,28 @@ def main(argv=None) -> int:
         print(f"phase {name}: {walls[name]:.1f} s", flush=True)
         return out
 
-    k1 = phase("2 kernel K1", lambda tc: [kernel_phase(tc, 50, 100),
-                                          kernel_phase(tc, 500, 10_000)])
+    def with_edges(rows, *edge_args, **edge_kw):
+        edge_phase(torch, *edge_args, **edge_kw)
+        return rows
+
+    k1 = phase("2 kernel K1", lambda tc: with_edges(
+        [kernel_phase(tc, 50, 100), kernel_phase(tc, 500, 10_000)],
+        "sparse"))
     phase("3 testbed", testbed_phase)
     launches = {"dodoor_fused_sparse": phase("4 scale", scale_phase)}
-    k2 = phase("5 kernel K2", lambda tc: [
-        kernel_phase(tc, 50, 100, masked=True),
-        kernel_phase(tc, 500, 10_000, masked=True)])
+    k2 = phase("5 kernel K2", lambda tc: with_edges(
+        [kernel_phase(tc, 50, 100, masked=True),
+         kernel_phase(tc, 500, 10_000, masked=True)],
+        "sparse", Wds=EDGE_WD))
     phase("6 scenario testbed", scenario_phase)
     launches["dodoor_fused_sparse_masked"] = phase(
         "7 scale with dynamics", scale_dynamics_phase)
-    k3 = phase("8 kernel K3", lambda tc: [
-        kernel_phase(tc, T, N, masked=masked, P=P)
-        for masked in (False, True)
-        for T, N, P in ((50, 100, 8), (50, 100, 40), (50, 100, 100),
-                        (500, 10_000, 8))])
+    k3 = phase("8 kernel K3", lambda tc: with_edges(
+        [kernel_phase(tc, T, N, masked=masked, P=P)
+         for masked in (False, True)
+         for T, N, P in ((50, 100, 8), (50, 100, 40), (50, 100, 100),
+                         (500, 10_000, 8))],
+        "sparse", Wds=(0, 8), Ps=(8, 40)))
     launches["dodoor_fused_sparse_masked_locality"] = phase(
         "9 dag testbed", dag_phase)
     launches["dodoor_fused_sparse_locality"] = phase(
@@ -1576,6 +1814,7 @@ def main(argv=None) -> int:
     launches["ssd_chunk"] = phase(
         "19 serving mamba2-1.3b", serving_phase, "mamba2-1.3b", "ssd_chunk",
         2, 1024)
+    profiled = phase("20 profiled scale runs", profiled_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "
@@ -1599,6 +1838,7 @@ def main(argv=None) -> int:
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"],
             "library_ms": big.get("library_ms")})
+    print("profile " + json.dumps({"profiled": profiled}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,14 +31,41 @@ def rl_score_matrix(r: torch.Tensor, L: torch.Tensor,
     """Batched Eq. 1: tasks r [T, K] × servers L, C [N, K] → scores
     [T, N], ``score[t, j] = (r_t · L_j) · (1 / Σ_k C_jk²)``.
 
-    Both K-long sums are fused multiply-add chains in k order, as the
-    reference's kernel computes them (bit for bit against the jitted
-    ``repro.kernels.rl_score.rl_score_matrix``).  At K = 2, the width the
-    simulator uses, this is also the reference's core form bit for bit;
-    at other widths XLA:CPU lowers that form's ``r @ L.T`` in a
-    shape-dependent order (ROADMAP hazard P4)."""
-    inv = 1.0 / dot_fma(C, C)                                   # [N]
-    return dot_fma(r[:, None, :], L[None, :, :]) * inv[None, :]
+    The reference's core form ``(r @ L.T) * inv`` as XLA:CPU runs it
+    (ROADMAP hazard P4): ``r·L`` is a fused multiply-add chain in k order
+    at K = 2; at K = 4 the four products are summed pairwise, ``(p0 + p1)
+    + (p2 + p3)``; at K = 8 four accumulators ``p_i`` take ``p_{i+4}`` by
+    a fused multiply-add and are summed the same way.  ``Σ C²`` is a chain
+    of fused multiply-adds, except at 5 ≤ K ≤ 8 over N ≥ 16 servers,
+    where the squares are summed left to right without contraction.
+    XLA:CPU picks its dot's order by shape as well: at some (T, N) it
+    runs the K = 4 and K = 8 dot as a chain (or as two interleaved
+    accumulators), which this form does not replay (ROADMAP §3, F1).
+    The kernel K6 and its plain version keep the chain at every K."""
+    inv = 1.0 / _sum_squares(C)                                 # [N]
+    return _core_dot(r[:, None, :], L[None, :, :]) * inv[None, :]
+
+
+def _core_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    K = x.shape[-1]
+    if K == 4:
+        p = x * y
+        return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+    if K == 8:
+        acc = fma(x[..., 4:], y[..., 4:], x[..., :4] * y[..., :4])
+        return (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    return dot_fma(x, y)
+
+
+def _sum_squares(C: torch.Tensor) -> torch.Tensor:
+    N, K = C.shape
+    if 5 <= K <= 8 and N >= 16:
+        sq = C * C
+        acc = sq[:, 0]
+        for k in range(1, K):
+            acc = acc + sq[:, k]
+        return acc
+    return dot_fma(C, C)
 
 
 def _mix(rl_num, rl_den, rl_sum, D, d_sum, alpha, fold_fallback: bool):

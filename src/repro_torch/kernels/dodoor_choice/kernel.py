@@ -44,8 +44,9 @@ def launch_dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
                                alpha: float, choice, cand, scores,
                                down0=None, down1=None, now=None, psrv=None,
                                pbytes=None, gamma_bw: float = 0.0) -> str:
-    """Enqueue K1 (or K2, given the down-window planes ``down0``, ``down1``
-    [N, Wd] and the tasks' times ``now`` [T]; or K3 in either form, given
+    """Enqueue K1 (or K2, given the window-major down-window planes
+    ``down0``, ``down1`` [Wd, N] and the tasks' times ``now`` [T]; or K3 in
+    either form, given
     the parent planes ``psrv``, ``pbytes`` [T, P] and ``gamma_bw``) on the
     current stream of the tensors' device, and return the kernel's name.
     All tensors must be contiguous CUDA tensors of the documented dtypes
@@ -61,7 +62,7 @@ def launch_dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
     if down0 is not None:
         name += "_masked"
         args += [down0.data_ptr(), down1.data_ptr(), now.data_ptr()]
-        dims.append(down0.shape[1])
+        dims.append(down0.shape[0])
     scalars = [float(alpha)]
     if psrv is not None:
         name += "_locality"

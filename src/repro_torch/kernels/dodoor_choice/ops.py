@@ -1,8 +1,8 @@
 """Public wrappers of the decision kernels K1–K5.
 
 They keep the JAX wrappers' signatures without ``block_t``/``interpret``:
-the CUDA kernels have no tile size to choose (one warp per task for the
-fused kernels, one thread per task for K5) and pad nothing.
+the CUDA kernels have no tile size to choose (1–8 warps per task for the
+fused kernels, sized by N; one thread per task for K5) and pad nothing.
 ``dodoor_fused_sparse`` takes the down-window planes in place of its
 ``avail`` plane.  Tensors on the CPU go to the plain versions
 (``ref.py``); CUDA tensors are checked and go to the CUDA kernel, or the
@@ -38,7 +38,7 @@ def _server_view(L, D, C, N: int) -> None:
 
 def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
                         alpha: float = 0.5, *, down0=None, down1=None,
-                        now=None, psrv=None, pbytes=None,
+                        now=None, down_t=None, psrv=None, pbytes=None,
                         gamma_bw: float = 0.0):
     """Sample → score → select for one decision block.
 
@@ -50,7 +50,12 @@ def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
     [N, Wd] float32 down-window planes (``+inf`` pads) and ``now`` [T]
     float32 task times, a server inside a down window at its task's time
     is not admissible (the masked kernel K2, counted under
-    ``"dodoor_fused_sparse_masked"``).  With ``psrv`` [T, P] int32 (the
+    ``"dodoor_fused_sparse_masked"``).  K2 reads the planes window-major:
+    ``down_t`` = (``down0.T``, ``down1.T``) as contiguous [Wd, N] tensors,
+    made once by a caller that launches many blocks against the same
+    windows (the engine does, once per run); without it a call on the
+    card makes the pair itself.  The plain version reads ``down0`` and
+    ``down1`` and ignores ``down_t``.  With ``psrv`` [T, P] int32 (the
     servers of each task's parents, −1 pads) and ``pbytes`` [T, P]
     float32 (their output MB, 0 pads), each candidate's score gains
     ``gamma_bw`` per MB held on another server (the locality kernel K3,
@@ -70,7 +75,8 @@ def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
                          "together")
     parents = (psrv, pbytes)
     tensors = (keys, r, d_types, node_type, L, D, C) + (
-        windows if masked else ()) + (parents if local else ())
+        windows if masked else ()) + (parents if local else ()) + (
+        tuple(down_t) if masked and down_t is not None else ())
     device = device_of("dodoor_fused_sparse", tensors)
     if device.type == "cpu":
         return dodoor_fused_sparse_ref(keys, r, d_types, node_type, L, D, C,
@@ -90,6 +96,14 @@ def dodoor_fused_sparse(keys, r, d_types, node_type, L, D, C,
         check("down0", down0, torch.float32, (N, down0.shape[1]))
         check("down1", down1, torch.float32, down0.shape)
         check("now", now, torch.float32, (T,))
+        if down0.shape[1] < 1:
+            raise ValueError("dodoor_fused_sparse: needs Wd ≥ 1 windows")
+        if down_t is None:
+            down_t = (down0.t().contiguous(), down1.t().contiguous())
+        Wd = down0.shape[1]
+        for i, plane in enumerate(down_t):
+            check(f"down_t[{i}]", plane, torch.float32, (Wd, N))
+        windows = (*down_t, now)
     if local:
         check("psrv", psrv, torch.int32, (T, psrv.shape[-1]))
         check("pbytes", pbytes, torch.float32, psrv.shape)
@@ -115,6 +129,16 @@ def dodoor_fused(keys, r, d, L, D, C, alpha: float = 0.5, *, avail=None):
     ``"dodoor_fused_masked"``).  Draws are ``sample_feasible_batch``'s
     and the arithmetic is K1's, so on ``d = d_types[:, node_type]`` this
     is :func:`dodoor_fused_sparse` bit for bit.
+
+    Score form: K1's two-stage form, which is the reference *kernel's*
+    form — the reference pins its dense and sparse Pallas kernels as one
+    program, bit for bit (``tests/test_kernels.py``,
+    ``test_matches_dense_megakernel_exactly``).  The reference's jnp
+    oracle ``dodoor_fused_ref`` scores in reciprocal form instead, and its
+    own docstring allows that 1 ulp.  Against that oracle the scores here
+    are within 3 ulp, and the candidates and choices equal, at the pins of
+    ``tests/test_torch_kernel_family.py`` (K4_CASES); a near-tie could
+    still pick the other candidate.
 
     Returns (choice [T] int32, cand [T, 2] int32, scores [T, 2] float32).
     """

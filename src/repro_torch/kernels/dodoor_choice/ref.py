@@ -74,7 +74,11 @@ def dodoor_fused_ref(keys, r, d, L, D, C, alpha: float = 0.5, avail=None):
     [T, 2] float32).  With ``avail`` [T, N] (K4-masked) a server whose
     entry is not > 0 is not admissible.  The arithmetic is K1's: on
     ``d = d_types[:, node_type]`` (and ``avail = avail_rows(...)``) it is
-    :func:`dodoor_fused_sparse_ref` bit for bit."""
+    :func:`dodoor_fused_sparse_ref` bit for bit.  That is the form of the
+    reference's dense Pallas kernel, which its tests hold to the sparse
+    one bit for bit; the reference's jnp oracle of the same name scores
+    in reciprocal form and differs by at most 3 ulp (candidates and
+    choices equal) at the pins of ``tests/test_torch_kernel_family.py``."""
     mask = feasible_mask(r, C)
     if avail is not None:
         mask = mask & (avail > 0)

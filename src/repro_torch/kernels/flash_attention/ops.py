@@ -23,6 +23,16 @@ HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+def check_causal_rows(fn: str, causal: bool, Lq: int, Lk: int) -> None:
+    """Raise for a causal call with more queries than keys: its first
+    Lq − Lk query rows have no valid key, where the reference's two forms
+    disagree (mean of v, or NaN) and the kernel would give 0."""
+    if causal and Lq > Lk:
+        raise ValueError(f"{fn}: causal attention needs Lq ≤ Lk (queries "
+                         f"are right-aligned against the keys), got Lq={Lq}"
+                         f" > Lk={Lk}")
+
+
 def _plain(q, k, v, *, causal, window, scale, kv_last):
     """The plain version: keys and values cast to q's dtype, the last row
     replaced, then the dense oracle."""
@@ -47,7 +57,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     Lk − 1 (a decode step's own key and value, unrounded, over a cache of
     another dtype).  On the card D is 32, 64 or 128, and every operand
     must have unit stride along D (a slice of a preallocated cache is read
-    where it lies)."""
+    where it lies).  A causal call with Lq > Lk would leave its first
+    queries no key to attend to; it raises ``ValueError`` on every device,
+    before it dispatches."""
     operands = (q, k, v) + (tuple(kv_last) if kv_last is not None else ())
     device = device_of("flash_attention", operands)
     B, H, Lq, D = q.shape
@@ -58,6 +70,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                          f"= [{B}, ·, ·, {D}], got {tuple(k.shape)} and "
                          f"{tuple(v.shape)}")
     Hkv = k.shape[1]
+    check_causal_rows("flash_attention", causal, Lq, k.shape[2])
     if kv_last is not None:
         want = (B, Hkv, 1, D)
         if any(tuple(t.shape) != want or t.dtype != q.dtype

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention.ops import check_causal_rows
 
 Params = Dict[str, Any]
 
@@ -184,7 +185,9 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               q_chunk: int = 1024, k_chunk: int = 1024):
     """Attention. q [B,H,Lq,D]; k, v [B,Hkv,Lk,D] (H divisible by Hkv;
     queries are right-aligned against keys).  Returns [B,H,Lq,D].  CUDA
-    tensors go to the kernel K7; CPU tensors to ``chunked_attention``."""
+    tensors go to the kernel K7; CPU tensors to ``chunked_attention``.
+    A causal call with Lq > Lk raises ``ValueError`` on either device."""
+    check_causal_rows("attention", causal, q.shape[2], k.shape[2])
     if q.device.type == "cuda":
         return flash_attention(q, k, v, causal=causal, window=window)
     return chunked_attention(q, k, v, causal=causal, window=window,

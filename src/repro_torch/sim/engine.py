@@ -457,6 +457,7 @@ class _Ctx(NamedTuple):
     base_key: torch.Tensor     # [2] PRNGKey(seed)
     stretch: torch.Tensor      # [(CMAX+1)²] interference stretch table
     win: _Win                  # the dynamics' window planes
+    down_t: tuple | None       # (down0.T, down1.T) [Wd, n] for K2, or None
     masked: bool               # down windows: masked sampling (K2)
     gated: bool                # some gate window exists
     slowed: bool               # some straggler window exists
@@ -507,16 +508,20 @@ def _make_ctx(cluster: ClusterSpec, cfg: EngineConfig, seed: int,
               device, dynamics: Dynamics | None = None) -> _Ctx:
     """``masked`` follows the spec, as the reference's kernel choice does:
     a spec with down windows launches the masked kernel even where they
-    are inert (a join at t=0)."""
+    are inert (a join at t=0).  Under it ``down_t`` holds the window-major
+    copies of the down planes that K2 reads, made here once per run."""
     C, node_type, cores_per, mem_unit = _cluster_arrays(
         cluster, cfg.mem_units, device)
     win = _lower_dynamics(dynamics, cluster.num_servers, device=device)
     dyn = _make_dyn(cfg, device)
+    masked = dynamics is not None and dynamics.has_down_windows
+    down_t = ((win.down0.t().contiguous(), win.down1.t().contiguous())
+              if masked else None)
     return _Ctx(cfg=cfg, dyn=dyn, C=C, node_type=node_type,
                 cores_per=cores_per, mem_unit=mem_unit,
                 base_key=PRNGKey(seed, device=device),
-                stretch=_stretch_table(dyn), win=win,
-                masked=dynamics is not None and dynamics.has_down_windows,
+                stretch=_stretch_table(dyn), win=win, down_t=down_t,
+                masked=masked,
                 gated=bool(torch.isfinite(win.gate0).any()),
                 slowed=bool(torch.isfinite(win.slow0).any()))
 
@@ -788,8 +793,8 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
             mask = mask & avail_rows(win.down0, win.down1, now)
         j = inverse_cdf_draws(mask, draws[0])[:, 0]
     else:
-        extra = (dict(down0=win.down0, down1=win.down1, now=now)
-                 if ctx.masked else {})
+        extra = (dict(down0=win.down0, down1=win.down1, now=now,
+                      down_t=ctx.down_t) if ctx.masked else {})
         if len(blk) > 8:
             extra.update(psrv=blk[8], pbytes=blk[9],
                          gamma_bw=_gamma_bw(cfg))

@@ -398,21 +398,43 @@ def test_k6_small_tiles_change_nothing():
 
 @pytest.mark.parametrize("T,N,K", RL_CASES)
 def test_core_rl_score_matrix_against_the_core_form(T, N, K):
-    """The reference's core form ``(r @ L.T) * inv`` jitted: bit for bit at
-    K = 2, the simulator's width.  At K = 4 and 8 XLA:CPU lowers the dot
-    and ``ΣC²`` in a shape-dependent order (pairwise sums, four
-    interleaved accumulators, sums without fused multiply-adds in the
-    vectorised rows; hazard P4): 30-52 % of the scores differ from the
-    chain at these shapes, by at most 3 ulp at K = 4 and 6 ulp at K = 8.
-    The reference's own kernel pin allows rtol 2e-5."""
+    """The reference's core form ``(r @ L.T) * inv`` jitted, bit for bit
+    at every K of these cases: the dot a chain at K = 2, pairwise sums at
+    K = 4, four interleaved accumulators at K = 8, and ``ΣC²`` summed
+    without contraction at 5 ≤ K ≤ 8 over N ≥ 16 servers (hazard P4)."""
     r, L, C = _rl_inputs(T, N, K, T + N)
     want = np.asarray(jax.jit(jrl.rl_score_matrix)(r, L, C))
     got = tcore.rl_score_matrix(*_t(r, L, C)).numpy()
-    if K == 2:
-        assert np.array_equal(got, want)
-    else:
-        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-7)
-        assert _ulps(got, want) <= (3 if K == 4 else 6)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("T,N,K", [(500, 1000, 4), (100, 300, 8),
+                                   (2048, 100, 4), (17, 40, 8)])
+def test_core_rl_score_matrix_at_further_shapes(T, N, K):
+    """Shapes beyond the reference's pins where XLA:CPU runs the same
+    forms: bit for bit."""
+    r, L, C = _rl_inputs(T, N, K, T + N)
+    want = np.asarray(jax.jit(jrl.rl_score_matrix)(r, L, C))
+    assert np.array_equal(tcore.rl_score_matrix(*_t(r, L, C)).numpy(), want)
+
+
+#: Shapes where XLA:CPU picks another order by shape (ROADMAP §3, F1),
+#: with the number of scores that differ and the largest distance.
+F1_UNPINNED = [(64, 64, 4, 1314, 3), (1000, 50, 8, 19817, 4),
+               (2048, 100, 8, 1941, 2)]
+
+
+@pytest.mark.parametrize("T,N,K,n_diff,ulps", F1_UNPINNED)
+def test_core_rl_score_matrix_where_xla_orders_by_shape(T, N, K, n_diff,
+                                                        ulps):
+    """At these shapes XLA:CPU runs the dot as a chain, or sums the last
+    rows' squares with fused multiply-adds: exactly ``n_diff`` scores
+    differ, by at most ``ulps``."""
+    r, L, C = _rl_inputs(T, N, K, T + N)
+    want = np.asarray(jax.jit(jrl.rl_score_matrix)(r, L, C))
+    got = tcore.rl_score_matrix(*_t(r, L, C)).numpy()
+    assert int((got != want).sum()) == n_diff
+    assert _ulps(got, want) == ulps
 
 
 # ------------------------------------------------------ wrappers and build
