@@ -97,7 +97,11 @@ package, and runs twenty phases; any failure raises and exits non-zero
 17. K8 — the SSD chunk kernel against ``ssd_chunk_ref`` (y_intra, H_out,
    exp_s within rtol = atol = 2e-4) and ``ssd`` against the recurrence
    ``ssd_ref`` at the reference's four pins, a 12-step chunk and
-   mamba2-1.3b's geometry at B = 2, L = 1024 (timed);
+   mamba2-1.3b's geometry at B = 2, L = 1024 (timed; two calls bit for
+   bit equal); then the block design's edge cases (``K8_EDGES``), each
+   through the wrapper and through the launcher with 1, 2, 3, 4 and all
+   heads of a group a block (short last runs, idle teams), and on
+   misaligned views;
 18. tinyllama-1.1b serving at full width and depth, weights from a seed:
    ``forward`` on 4 × 1024 tokens (finite logits, 22 K7 launches); four
    128-token prompts through ``decode_step`` into a float32 cache (22
@@ -1403,6 +1407,22 @@ K8_SHAPES = [
     (2, 12, 2, 32, 1, 32, 12),
     (2, 1024, 64, 64, 1, 128, 64),
 ]
+#: K8's edge cases, (B, L, H, P, G, S, chunk, scale of A): 3 and 5 heads
+#: a group (runs of nh heads with a short last one), G = 4 with one head a
+#: group, Q = 1, 17 and 33 (a cut 4-row tile), P = 8 and 24, S = 16 and
+#: 48, odd widths P = 5 and S = 9 (4-byte copies and stores), and A × 20,
+#: so that decays underflow to 0 (exp_s reaches 0; |s| stays near 10²,
+#: where both sides' cumulative sums round within the tolerance).
+K8_EDGES = [
+    (2, 128, 3, 32, 1, 64, 64, 1.0),
+    (1, 64, 10, 16, 2, 32, 32, 1.0),
+    (2, 64, 4, 32, 4, 32, 32, 1.0),
+    (1, 4, 2, 16, 1, 32, 1, 1.0),
+    (1, 34, 4, 24, 2, 48, 17, 1.0),
+    (2, 66, 2, 8, 1, 16, 33, 1.0),
+    (2, 60, 6, 5, 2, 9, 20, 1.0),
+    (1, 128, 4, 64, 1, 128, 64, 20.0),
+]
 #: Serving checks: decode logits against forward logits, and the 2-layer
 #: copy on the card against the CPU, as max |Δ| over max |logit| (the
 #: logits of a random-weight model are O(1); an elementwise rtol is
@@ -1540,25 +1560,21 @@ def k7_phase(torch) -> dict:
     return rows
 
 
-def ssd_inputs(B, L, H, P, G, S, seed):
+def ssd_inputs(B, L, H, P, G, S, seed, a_scale=1.0):
     rng = np.random.RandomState(seed)
     return (rng.randn(B, L, H, P).astype(np.float32) * 0.5,
             (0.01 + rng.rand(B, L, H)).astype(np.float32),
-            -(0.1 + rng.rand(H)).astype(np.float32),
+            -(0.1 + rng.rand(H)).astype(np.float32) * np.float32(a_scale),
             rng.randn(B, L, G, S).astype(np.float32) * 0.3,
             rng.randn(B, L, G, S).astype(np.float32) * 0.3)
 
 
-def k8_case(torch, B, L, H, P, G, S, chunk, timed: bool = False):
-    """K8 against ``ssd_chunk_ref`` on the card, and ``ssd`` (K8 plus the
-    inter-chunk scan) against the recurrence ``ssd_ref``; with ``timed``
-    K8 and its plain version timed.  Returns a kernels-line row or None."""
-    from repro_torch.kernels.ssd_chunk import (ssd, ssd_chunk, ssd_chunk_ref,
-                                               ssd_ref)
-
+def k8_operands(torch, B, L, H, P, G, S, chunk, a_scale=1.0):
+    """``ssd``'s inputs on the card, and K8's operands laid out as ``ssd``
+    lays them out, with the heads a group."""
     x, dt, A, Bm, Cm = (torch.from_numpy(a).cuda() for a in
-                        ssd_inputs(B, L, H, P, G, S, L + S))
-    NC, hpg = L // chunk, H // G
+                        ssd_inputs(B, L, H, P, G, S, L + S, a_scale))
+    NC = L // chunk
     ops = [t.contiguous() for t in (
         x.transpose(1, 2).reshape(B * H, NC, chunk, P),
         dt.transpose(1, 2).reshape(B * H, NC, chunk) * A.repeat(B)[:, None,
@@ -1566,6 +1582,28 @@ def k8_case(torch, B, L, H, P, G, S, chunk, timed: bool = False):
         dt.transpose(1, 2).reshape(B * H, NC, chunk),
         Bm.transpose(1, 2).reshape(B, G, NC, chunk, S),
         Cm.transpose(1, 2).reshape(B, G, NC, chunk, S))]
+    return (x, dt, A, Bm, Cm), ops, H // G
+
+
+def ssd_check(torch, shape, ins, chunk) -> float:
+    """``ssd`` (K8 plus the inter-chunk scan) against the recurrence."""
+    from repro_torch.kernels.ssd_chunk import ssd, ssd_ref
+
+    y, h = ssd(*ins, chunk=chunk)
+    ry, rh = ssd_ref(*ins)
+    return max(close(f"ssd {shape} y", y, ry, 2e-4, 2e-4),
+               close(f"ssd {shape} h", h, rh, 2e-4, 2e-4))
+
+
+def k8_case(torch, B, L, H, P, G, S, chunk, timed: bool = False):
+    """K8 against ``ssd_chunk_ref`` on the card, and ``ssd`` against the
+    recurrence ``ssd_ref``; with ``timed``, two calls bit for bit equal
+    and K8 and its plain version timed.  Returns a kernels-line row or
+    None."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
+
+    ins, ops, hpg = k8_operands(torch, B, L, H, P, G, S, chunk)
+    NC = L // chunk
     got = ssd_chunk(*ops, heads_per_group=hpg)
     torch.cuda.synchronize()
     want = ssd_chunk_ref(*ops, heads_per_group=hpg)
@@ -1573,15 +1611,15 @@ def k8_case(torch, B, L, H, P, G, S, chunk, timed: bool = False):
     err = max(close(f"ssd_chunk {shape} {name}", g, w, 2e-4, 2e-4)
               for name, g, w in zip(("y_intra", "H_out", "exp_s"), got,
                                     want))
-    y, h = ssd(x, dt, A, Bm, Cm, chunk=chunk)
-    ry, rh = ssd_ref(x, dt, A, Bm, Cm)
-    ssd_err = max(close(f"ssd {shape} y", y, ry, 2e-4, 2e-4),
-                  close(f"ssd {shape} h", h, rh, 2e-4, 2e-4))
+    ssd_err = ssd_check(torch, shape, ins, chunk)
     print(f"kernel ssd_chunk {shape}: max |Δ| {err:.3g} against the plain "
           f"version, ssd against ssd_ref {ssd_err:.3g} (within rtol 2e-4 / "
           f"atol 2e-4)", flush=True)
     if not timed:
         return None
+    again = ssd_chunk(*ops, heads_per_group=hpg)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"ssd_chunk {shape}: two calls differ")
     ms = event_ms(torch, lambda: ssd_chunk(*ops, heads_per_group=hpg))
     plain_ms = event_ms(torch, lambda: ssd_chunk_ref(*ops,
                                                      heads_per_group=hpg))
@@ -1599,10 +1637,63 @@ def k8_case(torch, B, L, H, P, G, S, chunk, timed: bool = False):
                   Q=chunk, P=P, S=S)
 
 
+def k8_edge(torch, B, L, H, P, G, S, chunk, a_scale) -> None:
+    """An edge case of K8's block design: the wrapper (its own nh) and the
+    launcher with 1, 2, 3, 4 and all heads of a group a block, each
+    against ``ssd_chunk_ref`` on outputs first filled with NaN; and
+    ``ssd`` against ``ssd_ref``."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
+    from repro_torch.kernels.ssd_chunk.kernel import launch_ssd_chunk
+
+    ins, ops, hpg = k8_operands(torch, B, L, H, P, G, S, chunk, a_scale)
+    want = ssd_chunk_ref(*ops, heads_per_group=hpg)
+    shape = (f"B={B} L={L} H={H} P={P} G={G} S={S} Q={chunk} "
+             f"A×{a_scale:g}")
+    if a_scale != 1.0:
+        check(bool((want[2] == 0).any()), f"ssd_chunk {shape}: no decay "
+              "underflows")
+    runs = {"wrapper": ssd_chunk(*ops, heads_per_group=hpg)}
+    for nh in sorted({1, 2, 3, 4, hpg} & set(range(1, hpg + 1))):
+        out = [torch.full_like(w, float("nan")) for w in want]
+        launch_ssd_chunk(*ops, *out, heads_per_group=hpg, nh=nh)
+        runs[f"nh={nh}"] = out
+    torch.cuda.synchronize()
+    err = max(close(f"ssd_chunk {shape} {run} {name}", g, w, 2e-4, 2e-4)
+              for run, got in runs.items()
+              for name, g, w in zip(("y_intra", "H_out", "exp_s"), got,
+                                    want))
+    ssd_err = ssd_check(torch, shape, ins, chunk)
+    print(f"kernel ssd_chunk edge {shape}: {', '.join(runs)}: max |Δ| "
+          f"{err:.3g}, ssd against ssd_ref {ssd_err:.3g}", flush=True)
+
+
+def k8_misaligned(torch) -> None:
+    """K8 on inputs that start one float into their buffers (contiguous
+    views): the launcher gives up its 16-byte copies for 4-byte ones."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
+
+    _, ops, hpg = k8_operands(torch, 1, 256, 2, 64, 1, 128, 64)
+    views = []
+    for t in ops:
+        v = torch.empty(t.numel() + 1, device="cuda")[1:].view(t.shape)
+        views.append(v.copy_(t))
+    got = ssd_chunk(*views, heads_per_group=hpg)
+    torch.cuda.synchronize()
+    want = ssd_chunk_ref(*ops, heads_per_group=hpg)
+    err = max(close(f"ssd_chunk misaligned {name}", g, w, 2e-4, 2e-4)
+              for name, g, w in zip(("y_intra", "H_out", "exp_s"), got,
+                                    want))
+    print(f"kernel ssd_chunk on misaligned views: max |Δ| {err:.3g}",
+          flush=True)
+
+
 def k8_phase(torch) -> list:
     no_tf32(torch)
     rows = [k8_case(torch, *shape, timed=shape == K8_SHAPES[-1])
             for shape in K8_SHAPES]
+    for edge in K8_EDGES:
+        k8_edge(torch, *edge)
+    k8_misaligned(torch)
     return [r for r in rows if r is not None]
 
 
@@ -1761,7 +1852,7 @@ def main(argv=None) -> int:
           f"{sorted(report) or 'nothing (cached)'}", flush=True)
     for name, (_, log) in report.items():
         for line in log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     walls = {}

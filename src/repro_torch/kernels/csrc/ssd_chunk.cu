@@ -9,206 +9,515 @@
 //   y_intra[t] = sum_u G[t, u] x_u                   [Q, P]
 //   H_out      = sum_u (B_u * exp(s_{Q-1} - s_u) * dt_u)^T x_u   [S, P]
 //   exp_s[t]   = exp(s_t)
-// B and C are read per head group, bh -> (bh / H, (bh % H) / hpg), as the
-// reference's BlockSpec index map reads them: never repeated in memory.
+// B and C belong to a head group, bh -> (bh / H, (bh % H) / hpg), as the
+// reference's BlockSpec index map reads them.
 //
-// Design.  One block per (chunk, bh) cell.  The TPU kernel holds the
-// chunk's x, B, C tiles and the Q x Q logits tile in VMEM and runs the
-// three contractions on the matrix unit; here the same tiles sit in
-// shared memory (x [Q][P], B and C [Q][S+1], G [Q][Q+1]: about 98 KB at
-// Q = 64, P = 64, S = 128, above the 48 KB a block gets without opting in,
-// so the launcher raises the limit with cudaFuncSetAttribute and returns
-// its error if the card refuses).  The cumulative sum is one thread's
-// sequential loop over Q <= 64 steps.  Then 256 threads, as 16 x 16, each
-// compute a register tile of the three products: 4 x 4 of C B^T (masked
-// and decayed into G in shared memory), 4 x 4 of G x, and 8 x 4 of
-// (B w)^T x.  Q, P and S are taken at run time (Q <= 64, P <= 64,
-// S <= 128), so a sequence shorter than a chunk is one short chunk; rows
-// and columns past them are computed on clamped addresses and dropped.
-// B and C keep one word of row padding so the column-strided reads of
-// C B^T hit distinct banks.
+// Design.  One block of 512 threads, two teams of 8 warps, per (batch,
+// group, chunk, run of nh heads of the group): team 0 takes the first
+// half of the run (rounded up), team 1 the rest.  The host picks nh
+// (ops.py::plan_k8) so that one block an SM fills the card; the last run
+// of a group is short when nh does not divide hpg.  The block reads the
+// chunk's B and C once and computes C B^T once, raw (no decay, no dt),
+// over the 8 x 4 tiles that reach the diagonal or below it (each half of
+// a warp sums half the k range; one shuffle adds them), into shared
+// memory, where both teams read it.  Each team then walks its heads with
+// barriers of its own, team 1 half a head behind team 0, so that one
+// team's latency-bound steps (scan, G_h, y) run beside the other's H.
+// Per head, in a team:
+//   - every warp scans the deltas with shuffles (lane l holds steps l and
+//     l + 32) and forms w_u = exp(s_{Q-1} - s_u) * dt_u; the team's warp
+//     0 writes exp_s;
+//   - warp w forms just the columns of G_h = C B^T * exp(min(s_t - s_u,
+//     0)) * dt_u that its own y reads (u <= t, zero above), 12
+//     exponentials a lane, with no barrier but the warp's.  Applying the
+//     decay inside y's loop would cost an exponential a multiply-add in
+//     each of the 32 lanes that share a row;
+//   - y = G_h x: warp w owns rows 4w..4w+3 and 60-4w..63-4w (a short and
+//     a long row block of the triangle, so every warp does the same
+//     work), G's words broadcast to the warp, a lane two columns; the u
+//     loop stops at each block's diagonal;
+//   - x*w, one team barrier, then the x (and steps) of the head two on
+//     is copied (cp.async) into the dead G_h tile while H runs;
+//   - H = B^T (x*w): warp w owns rows 16w..16w+15, whose B words are
+//     broadcast to the warp, a lane two columns: four broadcast 128-bit
+//     loads and one 64-bit load per 32 FMAs, and a store writes 256
+//     contiguous bytes of a row.  Shared memory serves a 128-bit load a
+//     quarter warp at a time, so a tile whose lanes load distinct words
+//     (8 x 4 a thread: 12 words a lane per 32 FMAs) runs at two thirds
+//     of the FMA rate.
+// Two team barriers a head.  Every product is float32 fmaf on the FMA
+// pipes, each sum in a fixed order (k or u ascending; C B^T's two k
+// halves added low + high; no atomics): two calls give bit-identical
+// outputs.  Q, P, S are taken at run time (Q <= 64, P <= 64, S <= 128);
+// rows and columns past them are computed on in-bounds values and
+// dropped.
 //
-// Bound.  The function needs C B^T once per (batch, group, chunk) and
-// only over the causal triangle of Q(Q+1)/2 pairs, G x over the same
-// triangle per cell, and (B w)^T x per cell: at mamba2-1.3b's B = 2,
-// L = 1024 (G = 1, 64 heads a group, Q = 64, P = 64, S = 128) that is
-// 2.7 Gflop against 138 MB of inputs and outputs, ~20 flops a byte, on
-// the card's float32 ridge (67 Tflop/s / 3.35 TB/s = 20): memory and
-// float32 arithmetic bound it alike, at ~41 us.  This kernel does more:
-// each cell recomputes C B^T for its head although every head of a group
-// shares it, and computes the full Q x Q tiles before masking, about
-// twice the work needed.  A group-shared C B^T tile and triangular tiles
-// are the levers of a redesign; no tensor cores in this first kernel, as
-// the reference's tolerance (2e-4) is held in float32.
+// Shared memory (floats): B [Q][132] and C B^T [Q][68]; a team: four
+// [Q][68] tiles (G_h, x*w, this head's x, the next head's; C fills team
+// 0's first two until C B^T is done) and two heads' deltas and dt: 192 512
+// bytes at Q = 64, one block (16 warps) an SM; the launcher opts in to
+// more than 48 KB.  Strides of 132 and 68 words (4 mod 32, odd in
+// float4s) keep the 128-bit loads of 8 different rows on 8 different bank
+// groups.
+//
+// Bound.  The function needs C B^T once per (batch, group, chunk) over
+// the causal triangle of Q(Q+1)/2 pairs, G x over the same triangle per
+// cell, and (B w)^T x per cell: at mamba2-1.3b's B = 2, L = 1024 (G = 1,
+// 64 heads a group, Q = 64, P = 64, S = 128) that is 2.7 Gflop against
+// 138 MB of inputs and outputs, ~20 flops a byte, on the card's float32
+// ridge (67 Tflop/s / 3.35 TB/s = 20): memory and float32 arithmetic
+// bound it alike, at ~41 us.  This kernel does that work plus C B^T once
+// per run of nh heads instead of once per (batch, group, chunk), the
+// upper halves of the diagonal tiles, and rows and columns past Q, P and
+// S.  No tensor cores: the reference's tolerance (2e-4) is held in
+// float32, and TF32 keeps about three digits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTeams = 2, kTeamThreads = 256;
+constexpr int kThreads = kTeams * kTeamThreads;
 constexpr int kMaxQ = 64, kMaxP = 64, kMaxS = 128;
+constexpr int kLdS = kMaxS + 4;            // row stride of B and C
+constexpr int kLdQ = kMaxQ + 4;            // of x, x*w, C B^T and G_h
+static_assert(2 * kLdQ >= kLdS, "C must fit in a team's first two tiles");
 
-size_t smem_bytes(int Q, int P, int S) {
-  return sizeof(float) * (static_cast<size_t>(Q) * P + 2 * Q * (S + 1) +
-                          Q * (Q + 1) + 3 * Q);
+// A team's words: four [Q][kLdQ] tiles (G_h, x*w, this head's x, the
+// next head's x), then two heads' deltas and dt [2][2][kMaxQ].
+__host__ __device__ __forceinline__ int team_words(int Q) {
+  return 4 * Q * kLdQ + 4 * kMaxQ;
 }
 
-__global__ void __launch_bounds__(kThreads)
+size_t smem_bytes(int Q) {
+  return sizeof(float) * (static_cast<size_t>(Q) * (kLdS + kLdQ) +
+                          static_cast<size_t>(kTeams) * team_words(Q));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void fma2(float (&acc)[2], float a, float2 v) {
+  acc[0] = fmaf(a, v.x, acc[0]);
+  acc[1] = fmaf(a, v.y, acc[1]);
+}
+
+__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float comp(float4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Bits of the kernel's `vec` argument: which tiles move in 16-byte (x, B,
+// C) or 8-byte (y, H) pieces (the launcher checks widths and alignments).
+constexpr int kVecX = 1, kVecBC = 2, kVecY = 4, kVecH = 8;
+
+// Copies 4 or 16 bytes from global to shared memory without staging them
+// in registers (cp.async).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+#else
+  for (int i = 0; i < kBytes / 4; ++i) dst[i] = src[i];
+#endif
+}
+
+// Closes the thread's current group of copies; cp_async_wait<n>() waits
+// until at most n of its groups are in flight.
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+template <int kInFlight>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kInFlight) : "memory");
+#endif
+}
+
+// Named barriers: bar_sync(id, n) waits until n threads have arrived at
+// barrier id (0 is __syncthreads'); bar_arrive(id, n) arrives without
+// waiting.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+#endif
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+#endif
+}
+
+// rows x cols floats (row stride cols) into shared memory (row stride
+// ld), by the n threads numbered t = 0..n-1.
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
+                                          int rows, int cols, bool vec, int t,
+                                          int n) {
+  if (vec) {
+    const int c4 = cols >> 2;
+    for (int i = t; i < rows * c4; i += n) {
+      const int r = i / c4, k = (i - r * c4) << 2;
+      cp_async<16>(dst + r * ld + k, src + r * cols + k);
+    }
+  } else {
+    for (int i = t; i < rows * cols; i += n) {
+      const int r = i / cols;
+      cp_async<4>(dst + r * ld + i - r * cols, src + i);
+    }
+  }
+}
+
+// A head's steps as one warp holds them, lane l steps l ("a") and l + 32
+// ("b"), zero past Q: the cumulative log-decay s (an inclusive shuffle
+// scan of the deltas), dt, and w_u = exp(s_{Q-1} - s_u) * dt_u.
+struct Steps {
+  float sa, sb, da, db, wa, wb;
+};
+
+__device__ __forceinline__ Steps scan_steps(const float* dl, const float* tl,
+                                            int Q, int lane) {
+  float s0 = lane < Q ? dl[lane] : 0.0f;
+  float s1 = lane + 32 < Q ? dl[lane + 32] : 0.0f;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float a0 = __shfl_up_sync(0xffffffffu, s0, off);
+    const float a1 = __shfl_up_sync(0xffffffffu, s1, off);
+    if (lane >= off) {
+      s0 += a0;
+      s1 += a1;
+    }
+  }
+  s1 += __shfl_sync(0xffffffffu, s0, 31);
+  const float last = __shfl_sync(0xffffffffu, Q > 32 ? s1 : s0, (Q - 1) & 31);
+  Steps st;
+  st.sa = s0;
+  st.sb = s1;
+  st.da = lane < Q ? tl[lane] : 0.0f;
+  st.db = lane + 32 < Q ? tl[lane + 32] : 0.0f;
+  st.wa = expf(last - s0) * st.da;
+  st.wb = expf(last - s1) * st.db;
+  return st;
+}
+
+// Row u of G_h at columns t0..t0+3 from that row of C B^T (cb) and the
+// columns' s (st): C B^T * exp(min(s_t - s_u, 0)) * dt_u, zero where
+// t < u or t >= Q.
+__device__ __forceinline__ float4 g_row(float4 cb, int u, float su, float du,
+                                        int t0, const float (&st)[4],
+                                        int Q) {
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v[i] = u <= t0 + i && t0 + i < Q
+               ? comp(cb, i) * expf(fminf(st[i] - su, 0.0f)) * du
+               : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// blockIdx.x = ((b * G + g) * NC + c) * nblk + hb, with heads
+// [hb * nh, min(hb * nh + nh, hpg)) of group g, the first half of them
+// (rounded up) to team 0 and the rest to team 1; bh = (b * G + g) * hpg +
+// h, so head h + 1's cell is head h's plus NC.
+__global__ void __launch_bounds__(kThreads, 1)
 ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ delta,
                  const float* __restrict__ dtv, const float* __restrict__ Bm,
                  const float* __restrict__ Cm, float* __restrict__ y,
                  float* __restrict__ Hs, float* __restrict__ exp_s, int NC,
-                 int Q, int P, int S, int H, int G, int hpg) {
-  const int c = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / H, g = (bh % H) / hpg;
-  const long long cell = static_cast<long long>(bh) * NC + c;
-  const float* xg = x + cell * Q * P;
-  const long long bc = ((static_cast<long long>(b) * G + g) * NC + c) * Q * S;
-  const float* Bg = Bm + bc;
-  const float* Cg = Cm + bc;
-  const int SS = S + 1, GS = Q + 1;
+                 int Q, int P, int S, int hpg, int nh, int nblk, int vec) {
+  const int hb = blockIdx.x % nblk;
+  const int bgc = blockIdx.x / nblk;       // (b * G + g) * NC + c
+  const int c = bgc % NC, bg = bgc / NC;   // bg = b * G + g
+  const int h_first = hb * nh, h_last = min(h_first + nh, hpg);
+  const int split = h_first + (h_last - h_first + 1) / 2;
 
-  extern __shared__ float sm[];
-  float* xs = sm;               // [Q][P]
-  float* Bs = xs + Q * P;       // [Q][SS]
-  float* Cs = Bs + Q * SS;      // [Q][SS]
-  float* Gs = Cs + Q * SS;      // [Q][GS]
-  float* ss = Gs + Q * GS;      // [Q] cumulative log-decay
-  float* dts = ss + Q;          // [Q]
-  float* ws = dts + Q;          // [Q] exp(s_{Q-1} - s_u) * dt_u
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int team = warp / (kTeamThreads / 32), wt = warp % (kTeamThreads / 32);
+  const int tt = tid % kTeamThreads;
+  const int h_begin = team ? split : h_first, h_end = team ? h_last : split;
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < Q * P; i += kThreads) xs[i] = xg[i];
-  for (int i = tid; i < Q * S; i += kThreads) {
-    const int t = i / S, k = i % S;
-    Bs[t * SS + k] = Bg[i];
-    Cs[t * SS + k] = Cg[i];
-  }
-  for (int t = tid; t < Q; t += kThreads) {
-    ss[t] = delta[cell * Q + t];
-    dts[t] = dtv[cell * Q + t];
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float acc = 0.0f;
-    for (int t = 0; t < Q; ++t) {
-      acc += ss[t];
-      ss[t] = acc;
+  // Bs | CBt | team 0: A W Z N steps | team 1: the same.  C fills team
+  // 0's A and W until C B^T is done.  Then each team's W holds x*w, and
+  // A, Z and N take turns as a head's G_h, its x and the next head's x:
+  // the x two heads on is copied into the dead G_h while H runs.  The
+  // deltas and dt of a head live in steps[(h - h_begin) % 2].
+  extern __shared__ __align__(16) float sm[];
+  float* Bs = sm;                      // [Q][kLdS]
+  float* CBt = Bs + Q * kLdS;          // C B^T, u-major: [u][t]
+  float* Cs = CBt + Q * kLdQ;          // [Q][kLdS]
+  float* W = Cs + team * team_words(Q) + Q * kLdQ;   // x*w [Q][kLdQ]
+  float* gcur = W - Q * kLdQ;          // G_h, u-major: [u][t] (A)
+  float* xcur = W + Q * kLdQ;          // x of head h, [u][p] (Z)
+  float* xnext = xcur + Q * kLdQ;      // x of head h + 1 (N)
+  float* steps = xnext + Q * kLdQ;     // [2][2][kMaxQ] deltas, dt
+  const long long cell0 =
+      (static_cast<long long>(bg) * hpg + h_begin) * NC + c;
+  long long cell = cell0;
+
+  // Head j of the team (its x into xs), copied by the team without
+  // waiting, as one group of copies: an empty one past the last head.
+  const auto load_head = [&](float* xs, int j) {
+    if (h_begin + j < h_end) {
+      const long long cl = cell0 + static_cast<long long>(j) * NC;
+      float* dl = steps + (j & 1) * 2 * kMaxQ;
+      load_tile(xs, kLdQ, x + cl * Q * P, Q, P, vec & kVecX, tt,
+                kTeamThreads);
+      load_tile(dl, kMaxQ, delta + cl * Q, 1, Q, false, tt, kTeamThreads);
+      load_tile(dl + kMaxQ, kMaxQ, dtv + cl * Q, 1, Q, false, tt,
+                kTeamThreads);
     }
-  }
-  __syncthreads();
-  for (int t = tid; t < Q; t += kThreads) {
-    exp_s[cell * Q + t] = expf(ss[t]);
-    ws[t] = expf(ss[Q - 1] - ss[t]) * dts[t];
-  }
+    cp_async_commit();
+  };
 
-  const int r = tid >> 4, cc = tid & 15;
-
-  // G = (C B^T) * decay mask * dt, a 4 x 4 register tile a thread.
+  // The chunk's B and C (zero from S to S4), then each team's first two
+  // heads, which C B^T does not wait for.
+  const int S4 = (S + 3) & ~3;
   {
-    float acc[4][4] = {};
-    int tr[4], ur[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      tr[i] = min(r + 16 * i, Q - 1);
-      ur[i] = min(cc + 16 * i, Q - 1);
-    }
-#pragma unroll 4
-    for (int k = 0; k < S; ++k) {
-      float cv[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        cv[i] = Cs[tr[i] * SS + k];
-        bv[i] = Bs[ur[i] * SS + k];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = r + 16 * i;
-      if (t >= Q) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int u = cc + 16 * j;
-        if (u >= Q) continue;
-        Gs[t * GS + u] =
-            u <= t ? acc[i][j] * expf(fminf(ss[t] - ss[u], 0.0f)) * dts[u]
-                   : 0.0f;
-      }
-    }
+    const long long bc = static_cast<long long>(bgc) * Q * S;
+    load_tile(Bs, kLdS, Bm + bc, Q, S, vec & kVecBC, tid, kThreads);
+    load_tile(Cs, kLdS, Cm + bc, Q, S, vec & kVecBC, tid, kThreads);
+    cp_async_commit();
+    load_head(xcur, 0);
+    load_head(xnext, 1);
+    for (int u = warp; u < Q; u += kThreads / 32)
+      for (int k = S + lane; k < S4; k += 32)
+        Bs[u * kLdS + k] = Cs[u * kLdS + k] = 0.0f;
   }
+  cp_async_wait<2>();
   __syncthreads();
 
-  // y_intra = G x, a 4 x 4 register tile a thread.
+  // C B^T over the tiles of 8 rows t (block tb) by 4 columns u (block ub)
+  // that reach the diagonal or below it, ub <= 2 tb + 1, stored u-major.
+  // A warp takes 16 tiles: lane l sums k below kmid for tile l % 16 and
+  // lane l + 16 the rest, and one shuffle adds the two halves (in a fixed
+  // order).
   {
-    float acc[4][4] = {};
-    int tr[4], pc[4];
+    const int nb = (Q + 7) >> 3, ntiles = nb * (nb + 1);
+    const int kmid = (S4 >> 3) << 2, half = lane >> 4;
+    const int k0 = half ? kmid : 0, k1 = half ? S4 : kmid;
+    for (int base = 16 * warp; base < ntiles; base += kThreads / 2) {
+      // tile = tb (tb + 1) + ub
+      const int tile = min(base + (lane & 15), ntiles - 1);
+      int tb = static_cast<int>((sqrtf(4.0f * tile + 1.0f) - 1.0f) * 0.5f);
+      while (tb * (tb + 1) > tile) --tb;
+      while ((tb + 1) * (tb + 2) <= tile) ++tb;
+      const int ub = tile - tb * (tb + 1);
+      int cr[8], br[4];   // row offsets, clamped to the chunk
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      tr[i] = min(r + 16 * i, Q - 1);
-      pc[i] = min(cc + 16 * i, P - 1);
-    }
-#pragma unroll 4
-    for (int u = 0; u < Q; ++u) {
-      float gv[4], xv[4];
+      for (int i = 0; i < 8; ++i) cr[i] = min(8 * tb + i, Q - 1) * kLdS;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        gv[i] = Gs[tr[i] * GS + u];
-        xv[i] = xs[u * P + pc[i]];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(gv[i], xv[j], acc[i][j]);
-    }
-    float* yc = y + cell * Q * P;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = r + 16 * i;
-      if (t >= Q) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = cc + 16 * j;
-        if (p < P) yc[t * P + p] = acc[i][j];
-      }
-    }
-  }
-
-  // H_out = (B w)^T x, an 8 x 4 register tile a thread.
-  {
-    float acc[8][4] = {};
-    int sr[8], pc[4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sr[i] = min(r + 16 * i, S - 1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) pc[j] = min(cc + 16 * j, P - 1);
+      for (int j = 0; j < 4; ++j) br[j] = min(4 * ub + j, Q - 1) * kLdS;
+      float acc[8][4] = {};
 #pragma unroll 2
-    for (int u = 0; u < Q; ++u) {
-      const float w = ws[u];
-      float bv[8], xv[4];
+      for (int k = k0; k < k1; k += 4) {
+        float4 cv[8], bv[4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) bv[i] = Bs[u * SS + sr[i]] * w;
+        for (int i = 0; i < 8; ++i) cv[i] = ld4(Cs + cr[i] + k);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) xv[j] = xs[u * P + pc[j]];
+        for (int j = 0; j < 4; ++j) bv[j] = ld4(Bs + br[j] + k);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = dot4(acc[i][j], cv[i], bv[j]);
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(bv[i], xv[j], acc[i][j]);
-    }
-    float* hc = Hs + cell * S * P;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int s = r + 16 * i;
-      if (s >= S) continue;
+        for (int j = 0; j < 4; ++j) {
+          const float other = __shfl_xor_sync(0xffffffffu, acc[i][j], 16);
+          acc[i][j] = half ? other + acc[i][j] : acc[i][j] + other;
+        }
+      if (half || base + (lane & 15) >= ntiles) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int p = cc + 16 * j;
-        if (p < P) hc[s * P + p] = acc[i][j];
+        const int u = 4 * ub + j;
+        if (u >= Q) continue;
+        float* row = CBt + u * kLdQ + 8 * tb;
+        *reinterpret_cast<float4*>(row) =
+            make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+        *reinterpret_cast<float4*>(row + 4) =
+            make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
       }
     }
+  }
+
+  __syncthreads();   // C B^T is in; C is dead
+
+  // Team 1 starts when team 0 has done its first head's y, so that one
+  // team's scan, G_h and y overlap the other's H.
+  if (team == 1 && h_begin < h_end) bar_sync(3, kThreads);
+
+  // Warp w of a team takes rows 4w..4w+3 and 60-4w..63-4w of y.
+  const int tl = 4 * wt, th = kMaxQ - 4 - 4 * wt;
+  const int lo_end = min(tl + 4, Q), hi_end = min(th + 4, Q);
+  for (int h = h_begin; h < h_end; ++h, cell += NC) {
+    const int j = h - h_begin;
+    const float* dl = steps + (j & 1) * 2 * kMaxQ;
+    cp_async_wait<1>();
+    bar_sync(1 + team, kTeamThreads);   // head h's x, deltas, dt are in
+
+    // The columns of G_h that warp w's y reads, rows u < lo_end or
+    // hi_end: lane l forms rows l and l + 32, from C B^T rows loaded
+    // before the scan.  Only this warp reads them.
+    const int u0 = min(lane, Q - 1), u1 = min(lane + 32, Q - 1);
+    const float4 c_lo = ld4(CBt + u0 * kLdQ + tl),
+                 c_h0 = ld4(CBt + u0 * kLdQ + th),
+                 c_h1 = ld4(CBt + u1 * kLdQ + th);
+    // Each warp scans the steps itself; the team's warp 0 writes exp(s).
+    const Steps st = scan_steps(dl, dl + kMaxQ, Q, lane);
+    if (wt == 0) {
+      float* eg = exp_s + cell * Q;
+      if (lane < Q) eg[lane] = expf(st.sa);
+      if (lane + 32 < Q) eg[lane + 32] = expf(st.sb);
+    }
+    {
+      float sl[4], sh[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sl[i] = __shfl_sync(0xffffffffu, st.sa, tl + i);
+        sh[i] = __shfl_sync(0xffffffffu, st.sb, th - 32 + i);
+      }
+      const float4 g_lo = g_row(c_lo, lane, st.sa, st.da, tl, sl, Q);
+      const float4 g_h0 = g_row(c_h0, lane, st.sa, st.da, th, sh, Q);
+      const float4 g_h1 = g_row(c_h1, lane + 32, st.sb, st.db, th, sh, Q);
+      if (tl < Q && lane < lo_end)
+        *reinterpret_cast<float4*>(gcur + lane * kLdQ + tl) = g_lo;
+      if (th < Q && lane < hi_end)
+        *reinterpret_cast<float4*>(gcur + lane * kLdQ + th) = g_h0;
+      if (th < Q && lane + 32 < hi_end)
+        *reinterpret_cast<float4*>(gcur + (lane + 32) * kLdQ + th) = g_h1;
+    }
+    __syncwarp();
+
+    // y = G_h x: rows tl..tl+3 and th..th+3, columns 2 lane, 2 lane + 1.
+    {
+      const float* xp = xcur + 2 * lane;
+      float al[4][2] = {}, ah[4][2] = {};
+      int u = 0;
+#pragma unroll 8
+      for (; u < lo_end; ++u) {
+        const float4 gl = ld4(gcur + u * kLdQ + tl);
+        const float4 gh = ld4(gcur + u * kLdQ + th);
+        const float2 xv = *reinterpret_cast<const float2*>(xp + u * kLdQ);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          fma2(al[i], comp(gl, i), xv);
+          fma2(ah[i], comp(gh, i), xv);
+        }
+      }
+#pragma unroll 4
+      for (; u < hi_end; ++u) {
+        const float4 gh = ld4(gcur + u * kLdQ + th);
+        const float2 xv = *reinterpret_cast<const float2*>(xp + u * kLdQ);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) fma2(ah[i], comp(gh, i), xv);
+      }
+      float* yc = y + cell * Q * P;
+      if (vec & kVecY) {
+        if (2 * lane < P)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (tl + i < Q)
+              *reinterpret_cast<float2*>(yc + (tl + i) * P + 2 * lane) =
+                  make_float2(al[i][0], al[i][1]);
+            if (th + i < Q)
+              *reinterpret_cast<float2*>(yc + (th + i) * P + 2 * lane) =
+                  make_float2(ah[i][0], ah[i][1]);
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int p = 2 * lane + j;
+            if (p >= P) continue;
+            if (tl + i < Q) yc[(tl + i) * P + p] = al[i][j];
+            if (th + i < Q) yc[(th + i) * P + p] = ah[i][j];
+          }
+      }
+    }
+    if (team == 0 && h == h_begin && split < h_last)
+      bar_arrive(3, kThreads);   // team 1 may start
+
+    // x*w, rows 8w..8w+7.
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int u = 8 * wt + r;
+      const float wu = __shfl_sync(0xffffffffu, u < 32 ? st.wa : st.wb, u & 31);
+      if (u < Q)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          if (lane + 32 * k < P)
+            W[u * kLdQ + lane + 32 * k] = xcur[u * kLdQ + lane + 32 * k] * wu;
+    }
+    bar_sync(1 + team, kTeamThreads);   // x*w is in; G_h, x, steps dead
+
+    // Head h + 2 into the dead G_h (its steps where head h's were).
+    load_head(gcur, j + 2);
+
+    // H = B^T (x*w): warp w owns rows 16w..16w+15, whose B words every
+    // lane reads at once (broadcasts), and a lane columns 2 lane and
+    // 2 lane + 1; a store writes 256 bytes of a row.
+    if (16 * wt < S) {
+      const int s0 = 16 * wt;
+      float acc[16][2] = {};
+#pragma unroll 8
+      for (int u = 0; u < Q; ++u) {
+        const float* br = Bs + u * kLdS + s0;
+        const float4 b0 = ld4(br), b1 = ld4(br + 4), b2 = ld4(br + 8),
+                     b3 = ld4(br + 12);
+        const float2 xv =
+            *reinterpret_cast<const float2*>(W + u * kLdQ + 2 * lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          fma2(acc[i], comp(b0, i), xv);
+          fma2(acc[4 + i], comp(b1, i), xv);
+          fma2(acc[8 + i], comp(b2, i), xv);
+          fma2(acc[12 + i], comp(b3, i), xv);
+        }
+      }
+      float* hc = Hs + cell * S * P;
+      if (vec & kVecH) {
+        if (2 * lane < P)
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            if (s0 + i < S)
+              *reinterpret_cast<float2*>(hc + (s0 + i) * P + 2 * lane) =
+                  make_float2(acc[i][0], acc[i][1]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int p = 2 * lane + j;
+            if (p >= P || s0 + i >= S) continue;
+            hc[(s0 + i) * P + p] = acc[i][j];
+          }
+      }
+    }
+    // Head h + 1's x becomes the current one; head h's tile takes G_h.
+    float* t = xcur;
+    xcur = xnext;
+    xnext = gcur;
+    gcur = t;
   }
 }
 
@@ -217,29 +526,43 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ delta,
 // x [BH, NC, Q, P], delta/dtv [BH, NC, Q], Bm/Cm [B, G, NC, Q, S] float32
 // row-major, BH = B * G * hpg with heads fastest; outputs y [BH, NC, Q, P],
 // Hs [BH, NC, S, P], exp_s [BH, NC, Q] float32.  Q <= 64, P <= 64,
-// S <= 128.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success), the error of the shared-memory opt-in if the card refuses the
-// tile, or cudaErrorInvalidValue for shapes it was not built for.
+// S <= 128, 1 <= nh <= hpg heads a block.  Launches on `stream` and
+// returns cudaGetLastError() (0 on success), the error of the
+// shared-memory opt-in if the card refuses the tile, or
+// cudaErrorInvalidValue for shapes it was not built for.
 extern "C" int ssd_chunk_launch(const void* x, const void* delta,
                                 const void* dtv, const void* Bm,
                                 const void* Cm, void* y, void* Hs,
                                 void* exp_s, int BH, int NC, int Q, int P,
-                                int S, int B, int G, int hpg, void* stream) {
+                                int S, int B, int G, int hpg, int nh,
+                                void* stream) {
   if (Q < 1 || Q > kMaxQ || P < 1 || P > kMaxP || S < 1 || S > kMaxS ||
-      B < 1 || G < 1 || hpg < 1 || BH != B * G * hpg)
+      B < 1 || G < 1 || hpg < 1 || nh < 1 || nh > hpg ||
+      BH != B * G * hpg || NC < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (NC <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = smem_bytes(Q, P, S);
-  cudaError_t err = cudaFuncSetAttribute(
+  if (NC == 0) return static_cast<int>(cudaGetLastError());
+  const int nblk = (hpg + nh - 1) / nh;
+  const long long blocks = static_cast<long long>(B) * G * NC * nblk;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(Q);
+  const cudaError_t err = cudaFuncSetAttribute(
       ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(NC, BH);
-  ssd_chunk_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto aligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  const int vec = (P % 4 == 0 && aligned(x, 16) ? kVecX : 0) |
+                  (S % 4 == 0 && aligned(Bm, 16) && aligned(Cm, 16) ? kVecBC
+                                                                    : 0) |
+                  (P % 2 == 0 && aligned(y, 8) ? kVecY : 0) |
+                  (P % 2 == 0 && aligned(Hs, 8) ? kVecH : 0);
+  ssd_chunk_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(delta),
       static_cast<const float*>(dtv), static_cast<const float*>(Bm),
       static_cast<const float*>(Cm), static_cast<float*>(y),
-      static_cast<float*>(Hs), static_cast<float*>(exp_s), NC, Q, P, S,
-      G * hpg, G, hpg);
+      static_cast<float*>(Hs), static_cast<float*>(exp_s), NC, Q, P, S, hpg,
+      nh, nblk, vec);
   return static_cast<int>(cudaGetLastError());
 }

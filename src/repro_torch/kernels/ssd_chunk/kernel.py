@@ -10,15 +10,16 @@ from .._build import load
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 8 + (_I,) * 8 + (_P,)
+_ARGTYPES = (_P,) * 8 + (_I,) * 9 + (_P,)
 
 
 def launch_ssd_chunk(x, delta, dtv, Bm, Cm, y, Hs, exp_s, *,
-                     heads_per_group: int) -> None:
-    """Enqueue K8 on the current stream of the tensors' device.  All
-    tensors must be contiguous float32 CUDA tensors of the shapes
-    ``ops.ssd_chunk`` documents (it checks); raises if the launch is
-    refused, for instance for more shared memory than the card grants."""
+                     heads_per_group: int, nh: int) -> None:
+    """Enqueue K8 on the current stream of the tensors' device, ``nh``
+    heads of a group a block (``ops.plan_k8``).  All tensors must be
+    contiguous float32 CUDA tensors of the shapes ``ops.ssd_chunk``
+    documents (it checks); raises if the launch is refused, for instance
+    for more shared memory than the card grants."""
     fn = load("ssd_chunk").ssd_chunk_launch
     if fn.argtypes is None:          # first use of this library handle
         fn.argtypes = _ARGTYPES
@@ -29,6 +30,7 @@ def launch_ssd_chunk(x, delta, dtv, Bm, Cm, y, Hs, exp_s, *,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), delta.data_ptr(), dtv.data_ptr(), Bm.data_ptr(),
              Cm.data_ptr(), y.data_ptr(), Hs.data_ptr(), exp_s.data_ptr(),
-             BH, NC, Q, P, S, Bb, G, heads_per_group, stream)
+             BH, NC, Q, P, S, Bb, G, heads_per_group, nh, stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk launch failed: CUDA error {err}")
+

@@ -7,9 +7,13 @@ kernel for it either).
 ``ssd_chunk`` sends tensors on the CPU to the plain version (``ref.py``);
 CUDA tensors are checked and go to the kernel, or the call raises — there
 is no fallback.  Each call that reaches the card counts one
-``"ssd_chunk"`` in ``LAUNCHES``.
+``"ssd_chunk"`` in ``LAUNCHES``.  The kernel's block takes a run of
+``nh`` heads of one group in one chunk; ``plan_k8`` picks ``nh`` and
+``k8_blocks`` states the grid the kernel walks.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -19,6 +23,48 @@ from .ref import ssd_chunk_ref
 
 #: The largest chunk, head width and state width the kernel takes.
 MAX_Q, MAX_P, MAX_S = 64, 64, 128
+#: A K8 block is two teams of 8 warps that split its run of heads; its
+#: shared memory (156 672 bytes at Q = 64) leaves room for one block an SM.
+K8_TEAMS = 2
+#: A block's C·Bᵀ triangle in units of one head's work: Q²S/2 against
+#: QSP + Q²P/2 multiply-adds at mamba2-1.3b's Q = 64, P = 64, S = 128.
+K8_CB_COST = 0.4
+#: Team 1 starts after team 0's first scan, G_h and y: about half a head.
+K8_OFFSET_COST = 0.5
+
+
+def plan_k8(B: int, G: int, NC: int, hpg: int, sms: int) -> int:
+    """Heads of a group per K8 block, 1 ≤ nh ≤ hpg: the nh that minimises
+    waves × (⌈nh / K8_TEAMS⌉ + K8_CB_COST + K8_OFFSET_COST if both teams
+    have heads), where a wave is one block on each of the card's ``sms``
+    SMs and the grid holds B·G·NC·⌈hpg/nh⌉ blocks; ties go to the larger
+    nh.  At mamba2-1.3b's B = 2, L = 1024 on 132 SMs: nh = 16, 128 blocks
+    in one wave, 8 heads a team; at the reference's pins nh = 1."""
+    cells = B * G * NC
+
+    def cost(nh):
+        waves = -(-cells * -(-hpg // nh) // sms)
+        block = -(-nh // K8_TEAMS) + K8_CB_COST + (K8_OFFSET_COST
+                                                    if nh > 1 else 0.0)
+        return waves * block, -nh
+
+    return min(range(1, hpg + 1), key=cost)
+
+
+def k8_blocks(B: int, G: int, NC: int, hpg: int, nh: int) -> list:
+    """K8's grid in launch order, as ``ssd_chunk.cu`` maps ``blockIdx.x``:
+    (b, g, chunk, first head, end head) of each block; a group's last run
+    is short when nh does not divide hpg.  A block's first ⌈run / 2⌉ heads
+    go to its team 0, the rest to team 1."""
+    nblk = -(-hpg // nh)
+    return [(bgc // (G * NC), bgc // NC % G, bgc % NC, hb * nh,
+             min(hb * nh + nh, hpg))
+            for bgc in range(B * G * NC) for hb in range(nblk)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ssd_chunk(x, delta, dtv, Bm, Cm, *, heads_per_group: int):
@@ -49,8 +95,11 @@ def ssd_chunk(x, delta, dtv, Bm, Cm, *, heads_per_group: int):
     y = torch.empty((BH, NC, Q, P), dtype=f32, device=device)
     Hs = torch.empty((BH, NC, S, P), dtype=f32, device=device)
     exp_s = torch.empty((BH, NC, Q), dtype=f32, device=device)
+    nh = plan_k8(Bb, G, NC, hpg, _sms(device.index
+                                      if device.index is not None
+                                      else torch.cuda.current_device()))
     launch_ssd_chunk(x, delta, dtv, Bm, Cm, y, Hs, exp_s,
-                     heads_per_group=hpg)
+                     heads_per_group=hpg, nh=nh)
     LAUNCHES["ssd_chunk"] += 1
     return y, Hs, exp_s
 

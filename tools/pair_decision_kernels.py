@@ -128,8 +128,13 @@ def profiled(torch, simulate, wl, cl, cfg, dyn) -> dict:
             "decision_launches": len(kern)}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def pair_main(child_fn, description: str, script: str) -> int:
+    """Run ``script OLD NEW [--out FILE]``: one child process of
+    ``script`` per measurement, in the order old, new, new, old, each
+    printing ``child_fn(root)`` as a ``RESULT`` JSON line; print each
+    child's line and, last, a summary beside the card's name and power
+    limit."""
+    ap = argparse.ArgumentParser(description=description)
     ap.add_argument("old")
     ap.add_argument("new")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
@@ -137,12 +142,12 @@ def main() -> int:
                     help="also write the summary JSON to this file")
     a = ap.parse_args()
     if a.child:
-        print("RESULT " + json.dumps(child(a.old)), flush=True)
+        print("RESULT " + json.dumps(child_fn(a.old)), flush=True)
         return 0
     import torch
 
     if not torch.cuda.is_available():
-        print("pair_decision_kernels: no CUDA device", file=sys.stderr)
+        print(f"{os.path.basename(script)}: no CUDA device", file=sys.stderr)
         return 2
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -153,8 +158,8 @@ def main() -> int:
     for label in ("old", "new", "new", "old"):
         root = os.path.abspath(getattr(a, label))
         out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), root, root,
-             "--child"], capture_output=True, text=True, check=True)
+            [sys.executable, os.path.abspath(script), root, root, "--child"],
+            capture_output=True, text=True, check=True)
         line = next(x for x in out.stdout.splitlines()
                     if x.startswith("RESULT "))
         res = dict(json.loads(line[len("RESULT "):]), version=label)
@@ -166,6 +171,10 @@ def main() -> int:
             json.dump(summary, f, indent=1)
     print(json.dumps(summary), flush=True)
     return 0
+
+
+def main() -> int:
+    return pair_main(child, __doc__.splitlines()[0], __file__)
 
 
 if __name__ == "__main__":
