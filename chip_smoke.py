@@ -93,7 +93,15 @@ package, and runs twenty phases; any failure raises and exits non-zero
    64) and decode (Lq = 1, Lk = 1024), timed beside the plain version and
    ``scaled_dot_product_attention(enable_gqa=True)``, and the serving
    decode: a float32 query over the prefix of a bf16 cache read in place,
-   the step's own key and value as the last row (timed);
+   the step's own key and value as the last row (timed); then the two
+   regimes' edge cases (``K7_EDGES``: 16 and 17 rows a group, Lk = 1,
+   63, 65 and 1 025, a window shorter than a run of keys, D = 32 and 128
+   in both regimes, bf16 queries, the last row over a bf16 cache with
+   several runs, a causal Lq < Lk prefill), each through the wrapper and,
+   for the split kernel, through the launcher with 1, 2, 3, the planned
+   and more runs than tiles (empty runs) on NaN-filled outputs; two calls
+   bit for bit at the prefill and the decode; and the split kernel timed
+   at 1, 2, 4, 8, 16 and the planned runs (``K7_SPLIT_SWEEP``);
 17. K8 — the SSD chunk kernel against ``ssd_chunk_ref`` (y_intra, H_out,
    exp_s within rtol = atol = 2e-4) and ``ssd`` against the recurrence
    ``ssd_ref`` at the reference's four pins, a 12-step chunk and
@@ -159,6 +167,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # Peak rates of one H100 SXM (NVIDIA data sheet) for the roofline bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dodoor_fused_sparse.cu"
 KERNEL_SOURCES = {
     "rl_score_matrix": "src/repro_torch/kernels/csrc/rl_score.cu",
@@ -225,11 +234,13 @@ def event_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
 
 
 def row_of(name, T, N, ms, plain_ms, nbytes, ops, max_abs_err,
-           library_ms=None, **extra):
+           library_ms=None, op_rate=FP32_OPS_PER_S, **extra):
     """A kernels-line row: the bound is the larger of the bytes at the
-    memory rate and the operations at the float32 rate."""
+    memory rate and the operations at ``op_rate`` (the float32 rate, or
+    the TF32 tensor-core rate for a kernel that runs its products
+    there)."""
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / FP32_OPS_PER_S * 1e3
+    op_ms = ops / op_rate * 1e3
     row = dict(name=name, T=T, N=N, ms=ms, plain_ms=plain_ms,
                bound_ms=max(byte_ms, op_ms),
                bound_by="bytes" if byte_ms > op_ms else "operations",
@@ -1396,6 +1407,41 @@ K7_CACHE = (4, 32, 4, 1024, 64, 1152)
 #: one rounding of the output to bf16 (half a step, 2^-8 relative).
 K7_F32_TOL = dict(rtol=2e-4, atol=2e-5)
 K7_BF16_TOL = dict(rtol=2 ** -8 + 2e-4, atol=2e-5)
+#: K7's edge cases, (B, H, Hkv, Lq, Lk, D, causal, window, q's dtype,
+#: cache): ``cache`` "bfloat16" makes k, v the prefix of a bf16 cache of
+#: Lk + 64 slots read in place with a float32 query, the step's own key
+#: and value as the last row (the serving decode); None, k and v in q's
+#: dtype.  The split kernel takes groups of at most 16 rows (H / Hkv · Lq),
+#: the tensor-core kernel the rest.
+K7_EDGES = [
+    (2, 16, 1, 1, 1024, 64, True, None, "float32", None),   # 16 rows
+    (2, 17, 1, 1, 1024, 64, True, None, "float32", None),   # 17 rows
+    (1, 8, 1, 2, 640, 64, True, None, "float32", None),     # 2 positions
+    (2, 8, 2, 1, 1, 64, True, None, "float32", None),       # Lk = 1
+    (1, 32, 1, 1, 1, 64, True, None, "float32", None),
+    (2, 8, 2, 1, 63, 64, True, None, "float32", None),      # Lk = 63
+    (1, 4, 2, 63, 63, 64, True, None, "float32", None),
+    (2, 8, 2, 1, 65, 64, True, None, "float32", None),      # Lk = 65
+    (1, 4, 2, 65, 65, 64, True, None, "float32", None),
+    (2, 8, 1, 1, 1025, 64, True, None, "float32", None),    # Lk = 1 025
+    (1, 4, 2, 40, 1025, 64, True, None, "float32", None),
+    (1, 8, 1, 2, 1024, 64, True, 40, "float32", None),      # window 40
+    (1, 4, 2, 256, 256, 64, True, 40, "float32", None),
+    (2, 8, 1, 1, 1024, 32, True, None, "float32", None),    # D = 32
+    (1, 4, 2, 200, 200, 32, True, None, "float32", None),
+    (2, 8, 1, 1, 1024, 128, True, None, "float32", None),   # D = 128
+    (1, 4, 2, 200, 200, 128, False, None, "float32", None),
+    (2, 8, 2, 1, 1024, 64, True, None, "bfloat16", None),   # bf16 q
+    (1, 4, 2, 200, 200, 64, True, None, "bfloat16", None),
+    (2, 8, 2, 1, 1025, 64, True, None, "float32", "bfloat16"),  # last row
+    (1, 32, 1, 1, 300, 64, True, None, "float32", "bfloat16"),
+    (1, 8, 2, 100, 300, 64, True, None, "float32", None),   # Lq < Lk
+]
+#: The split kernel timed at several run counts, to size ``plan_k7``: the
+#: reference's decode pin and tinyllama-1.1b's decode at Lk = 512 and
+#: 1024: (B, H, Hkv, Lk, D).
+K7_SPLIT_SWEEP = [(1, 2, 1, 384, 64), (4, 32, 4, 512, 64),
+                  (4, 32, 4, 1024, 64)]
 #: K8 at the reference's pins (tests/test_kernels.py:569-573), a 12-step
 #: chunk, and mamba2-1.3b's geometry at B = 2, L = 1024: (B, L, H, P, G,
 #: S, chunk).
@@ -1506,9 +1552,23 @@ def k7_case(torch, B, H, Hkv, Lq, Lk, D, causal, window, dtype="float32",
         mask &= kpos > qpos - window
     pairs = int(mask.sum())
     nbytes = (2 * B * H * Lq + 2 * B * Hkv * Lk) * D * q.element_size()
-    return row_of("flash_attention", B * H, Lk, ms, plain_ms, nbytes,
-                  4 * B * H * pairs * D, err, library_ms=lib_ms, Lq=Lq, D=D,
+    ops, rate = k7_ops(B, H, Hkv, Lq, pairs, D, dt == torch.float32)
+    return row_of("flash_attention", B * H, Lk, ms, plain_ms, nbytes, ops,
+                  err, library_ms=lib_ms, op_rate=rate, Lq=Lq, D=D,
                   rep=H // Hkv)
+
+
+def k7_ops(B, H, Hkv, Lq, pairs, D, f32: bool) -> tuple:
+    """K7's operations and their rate for ``pairs`` unmasked (query, key)
+    pairs a head.  A group of more than 16 rows runs its products as
+    TF32 MMAs on the tensor cores: 3 a product in float32 (lo·hi, hi·lo,
+    hi·hi), 1 for q·k and 2 for p·v when q is bf16 (its lo and k's are
+    0); 2·D flops each for q·k and p·v.  A smaller group (decode) runs
+    4·D float32 flops a pair on the FMA pipes."""
+    if (H // Hkv) * Lq <= 16:
+        return 4 * B * H * pairs * D, FP32_OPS_PER_S
+    terms = (3 + 3) if f32 else (1 + 2)
+    return 2 * B * H * pairs * D * terms, TF32_OPS_PER_S
 
 
 def k7_cache_case(torch, B, H, Hkv, Lk, D, slots):
@@ -1549,6 +1609,138 @@ def k7_cache_case(torch, B, H, Hkv, Lk, D, slots):
                   cache="bfloat16")
 
 
+def k7_edge_inputs(B, H, Hkv, Lq, Lk, D, causal, window, dtype, cache):
+    """A ``K7_EDGES`` case's inputs as numpy float32 arrays: q [B, H, Lq,
+    D], k, v [B, Hkv, slots, D] (slots = Lk, or Lk + 64 for a cache of
+    which the call reads the first Lk) and, for a cache, the step's own
+    key and value [B, Hkv, 1, D] (else None), which the cache also holds
+    at slot Lk − 1 (rounded, as ``attn_decode`` writes it)."""
+    rng = np.random.RandomState(7 * Lq + Lk + D)
+    slots = Lk + 64 if cache else Lk
+    q = rng.randn(B, H, Lq, D).astype(np.float32) * 0.5
+    k = rng.randn(B, Hkv, slots, D).astype(np.float32) * 0.5
+    v = rng.randn(B, Hkv, slots, D).astype(np.float32)
+    if not cache:
+        return q, k, v, None, None
+    kl = rng.randn(B, Hkv, 1, D).astype(np.float32) * 0.5
+    vl = rng.randn(B, Hkv, 1, D).astype(np.float32)
+    k[:, :, Lk - 1:Lk], v[:, :, Lk - 1:Lk] = kl, vl
+    return q, k, v, kl, vl
+
+
+def k7_edge_tensors(torch, edge, device: str):
+    """A ``K7_EDGES`` case's operands on ``device``: (q, k, v, kv_last),
+    k and v the first Lk slots of their arrays, in the case's dtypes."""
+    B, H, Hkv, Lq, Lk, D, causal, window, dtype, cache = edge
+    q, k, v, kl, vl = k7_edge_inputs(*edge)
+    dt = getattr(torch, dtype)
+    kvdt = getattr(torch, cache) if cache else dt
+    q = torch.from_numpy(q).to(device=device, dtype=dt)
+    k, v = (torch.from_numpy(a).to(device=device, dtype=kvdt)[:, :, :Lk]
+            for a in (k, v))
+    last = None if kl is None else tuple(
+        torch.from_numpy(a).to(device=device, dtype=dt) for a in (kl, vl))
+    return q, k, v, last
+
+
+def k7_want(torch, q, k, v, last, causal, window):
+    """The float32 oracle of a K7 call: ``attention_ref`` on the keys and
+    values as the kernel reads them (in q's dtype, the last row in place
+    of key Lk − 1), widened; a bf16 kernel output is one rounding from
+    it."""
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    if last is not None:
+        k = torch.cat([k[:, :, :-1].to(q.dtype), last[0]], dim=2)
+        v = torch.cat([v[:, :, :-1].to(q.dtype), last[1]], dim=2)
+    return attention_ref(q.float(), k.to(q.dtype).float(),
+                         v.to(q.dtype).float(), causal=causal, window=window)
+
+
+def k7_edge(torch, edge) -> None:
+    """One ``K7_EDGES`` case on the card against the plain version,
+    through the wrapper; a split-kernel case also through the launcher
+    with 1, 2, 3, the planned and more runs than key tiles (the runs past
+    the end empty), each on NaN-filled outputs and scratch."""
+    from repro_torch.kernels._wrap import sm_count
+    from repro_torch.kernels.flash_attention.kernel import (
+        launch_flash_attention)
+    from repro_torch.kernels.flash_attention.ops import (K7_TILE,
+                                                         flash_attention,
+                                                         k7_visible, plan_k7)
+
+    B, H, Hkv, Lq, Lk, D, causal, window, dtype, cache = edge
+    q, k, v, last = k7_edge_tensors(torch, edge, "cuda")
+    want = k7_want(torch, q, k, v, last, causal, window)
+    tol = K7_BF16_TOL if dtype == "bfloat16" else K7_F32_TOL
+    name = (f"flash_attention edge B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} "
+            f"D={D} causal={causal} window={window} {dtype}"
+            + (f" over a {cache} cache" if cache else ""))
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          kv_last=last)
+    torch.cuda.synchronize()
+    err = close(name, got, want, **tol)
+    plan = plan_k7(B, H, Hkv, Lq, Lk, window, sm_count(q.device))
+    runs = []
+    if plan.regime == "decode":
+        lo, hi = k7_visible(Lq, Lk, window)
+        tiles = -(-(hi - lo) // K7_TILE)
+        runs = sorted({1, 2, 3, plan.splits, tiles + 1})
+        for splits in runs:
+            out = torch.full_like(q, float("nan"))
+            part = torch.full((B * H * Lq * splits * (D + 2),), float("nan"),
+                              device="cuda")
+            launch_flash_attention(q, k, v, out, causal=causal,
+                                   window=window, scale=D ** -0.5,
+                                   kv_last=last, splits=splits, part=part)
+            torch.cuda.synchronize()
+            err = max(err, close(f"{name} with {splits} runs", out, want,
+                                 **tol))
+    print(f"kernel {name}: {plan.regime}, {plan.splits} run(s) planned"
+          + (f", launched with {runs}" if runs else "")
+          + f", max |Δ| {err:.3g}", flush=True)
+
+
+def k7_repeatable(torch, B, H, Hkv, Lq, Lk, D, causal, window) -> None:
+    """Two calls on the same inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.RandomState(Lq + Lk)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+               for s in ((B, H, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D)))
+    first = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    check(torch.equal(first, again), f"flash_attention B={B} H={H} Lq={Lq} "
+          f"Lk={Lk}: two calls differ")
+    print(f"kernel flash_attention B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} "
+          f"D={D}: two calls bit for bit equal", flush=True)
+
+
+def k7_split_sweep(torch, B, H, Hkv, Lk, D) -> None:
+    """The split kernel at one decode shape with 1, 2, 4, 8, 16 and the
+    planned runs (CUDA events), to size ``plan_k7``'s choices."""
+    from repro_torch.kernels._wrap import sm_count
+    from repro_torch.kernels.flash_attention.kernel import (
+        launch_flash_attention)
+    from repro_torch.kernels.flash_attention.ops import plan_k7
+
+    rng = np.random.RandomState(Lk)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+               for s in ((B, H, 1, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D)))
+    plan = plan_k7(B, H, Hkv, 1, Lk, None, sm_count(q.device))
+    out = torch.empty_like(q)
+    us = {}
+    for splits in sorted({1, 2, 4, 8, 16, plan.splits}):
+        part = torch.empty(B * H * splits * (D + 2), device="cuda")
+        us[splits] = 1e3 * event_ms(torch, lambda: launch_flash_attention(
+            q, k, v, out, causal=True, window=None, scale=D ** -0.5,
+            splits=splits, part=part))
+    print(f"kernel flash_attention split sweep B={B} H={H} Hkv={Hkv} Lq=1 "
+          f"Lk={Lk} D={D} (planned {plan.splits}): "
+          + ", ".join(f"{s} run(s) {t:.3f} us" for s, t in us.items()),
+          flush=True)
+
+
 def k7_phase(torch) -> dict:
     no_tf32(torch)
     for shape in K7_PINS:
@@ -1557,6 +1749,12 @@ def k7_phase(torch) -> dict:
     rows = [k7_case(torch, *K7_PREFILL, timed=True),
             k7_case(torch, *K7_DECODE, timed=True),
             k7_cache_case(torch, *K7_CACHE)]
+    for edge in K7_EDGES:
+        k7_edge(torch, edge)
+    for shape in (K7_PREFILL, K7_DECODE):
+        k7_repeatable(torch, *shape)
+    for shape in K7_SPLIT_SWEEP:
+        k7_split_sweep(torch, *shape)
     return rows
 
 

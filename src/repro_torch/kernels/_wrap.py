@@ -2,6 +2,7 @@
 device dispatch and the operand checks."""
 from __future__ import annotations
 
+import functools
 from collections import Counter
 
 import torch
@@ -34,3 +35,15 @@ def check(name, t, dtype, shape) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of CUDA ``device`` (the current device when it
+    names no index), which the kernels' planners size their grids by."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())

@@ -12,19 +12,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = ((_P,) * 6 + (_I,) * 6 + (_L,) * 13
-             + (_I, _I, ctypes.c_float, _I, _I, _P))
+             + (_I, _I, ctypes.c_float, _I, _I, _P, _I, _P))
 
 
 def launch_flash_attention(q, k, v, out, *, causal: bool, window,
-                           scale: float, kv_last=None) -> None:
+                           scale: float, kv_last=None, splits: int = 1,
+                           part=None) -> None:
     """Enqueue K7 on the current stream of the tensors' device: q [B, H,
     Lq, D] float32 or bfloat16; k, v [B, Hkv, Lk, D] of one of those
     dtypes, read in q's; each with unit stride along D (any strides
     elsewhere: a slice of a cache goes as it lies); out [B, H, Lq, D]
     contiguous of q's dtype; ``kv_last``: None, or (k_last, v_last)
     [B, Hkv, 1, D] of q's dtype with unit stride along D, which take the
-    place of key and value Lk − 1.  The wrapper in ``ops.py`` checks;
-    raises if the launch is refused."""
+    place of key and value Lk − 1.  ``splits``: the runs of keys a group
+    of at most 16 rows (H / Hkv · Lq) is cut into (``ops.plan_k7``; 1 for
+    larger groups); with ``splits`` > 1, ``part`` is float32 scratch of
+    B·Hkv·splits·rows·(D + 2) values and a second kernel merges the runs.
+    The wrapper in ``ops.py`` checks; raises if the launch is refused."""
     fn = load("flash_attention").flash_attention_launch
     if fn.argtypes is None:          # first use of this library handle
         fn.argtypes = _ARGTYPES
@@ -43,6 +47,6 @@ def launch_flash_attention(q, k, v, out, *, causal: bool, window,
              *v.stride()[:3], *last_strides, int(causal),
              0 if window is None else window, float(scale),
              int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-             stream)
+             None if part is None else part.data_ptr(), splits, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")

@@ -8,19 +8,90 @@ GQA group; the CUDA kernel masks its own ragged edge and maps query head
 carried over.  Tensors on the CPU go to the plain version (``ref.py``);
 CUDA tensors are checked and go to the kernel, or the call raises — there
 is no fallback.  Each call that reaches the card counts one
-``"flash_attention"`` in ``LAUNCHES``.
+``"flash_attention"`` in ``LAUNCHES``, whether the plan gives it one CUDA
+launch or two.
+
+``plan_k7`` picks the kernel's regime: groups of more than 16 rows (H /
+Hkv · Lq, a prefill) go to the tensor-core kernel; smaller ones (a
+decode) to the split kernel, whose keys are cut into ``splits`` runs
+(``k7_split_ranges``) that a second launch merges when there is more than
+one.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from .._wrap import LAUNCHES, device_of
+from .._wrap import LAUNCHES, device_of, sm_count
 from .kernel import launch_flash_attention
 from .ref import attention_ref
 
 #: The head widths the kernel is built for.
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+#: Keys a tile of the split kernel; its runs are whole tiles.
+K7_TILE = 64
+#: The most rows (H / Hkv · Lq) a group may have for the split kernel.
+K7_SPLIT_ROWS = 16
+#: A group walks up to this many key tiles in one block.  Fitted to
+#: chip_smoke's split sweep (phase 16) on an H100 80GB HBM3 at 700 W, a
+#: tile's walk costs 2–2.6 µs and the second launch that merges the runs
+#: ~3.2 µs, so a split pays from three tiles on.
+K7_SERIAL_TILES = 2
+
+
+class K7Plan(NamedTuple):
+    """How one call runs: ``regime`` "prefill" (the tensor-core kernel,
+    64 rows a block) or "decode" (the split kernel, a group's rows in one
+    block per run), and the runs of keys a group is cut into."""
+    regime: str
+    splits: int
+
+
+def k7_visible(Lq: int, Lk: int, window) -> tuple:
+    """The keys [lo, hi) that any row of a group may see, its queries at
+    the Lq right-aligned positions (causal or not, the last query sees up
+    to key Lk − 1)."""
+    lo = max(0, Lk - Lq - window + 1) if window else 0
+    return lo, Lk
+
+
+def k7_split_ranges(lo: int, hi: int, splits: int) -> list:
+    """The runs [s_lo, s_hi) of the split kernel, as ``split_range`` in
+    ``flash_attention.cu`` cuts them: ceil(tiles / splits) whole 64-key
+    tiles each from ``lo``, the last ragged, runs past ``hi`` empty."""
+    tiles = -(-(hi - lo) // K7_TILE)
+    per = -(-tiles // splits)
+    out = []
+    for s in range(splits):
+        s_lo = min(hi, lo + s * per * K7_TILE)
+        out.append((s_lo, min(hi, s_lo + per * K7_TILE)))
+    return out
+
+
+def plan_k7(B: int, H: int, Hkv: int, Lq: int, Lk: int, window,
+            sms: int) -> K7Plan:
+    """The regime and the split count of one call on a card of ``sms``
+    SMs.  More than ``K7_SPLIT_ROWS`` rows a group: "prefill", one run.
+    Otherwise "decode": one run where the B·Hkv groups alone fill the card
+    or the visible keys are at most ``K7_SERIAL_TILES`` tiles (Lk ≤ 128
+    without a window); else enough runs for about two blocks an SM, at
+    least one tile each, rebalanced so that no run is empty.  At
+    tinyllama-1.1b's decode (B = 4, Hkv = 4, Lk = 1024) on 132 SMs: 16
+    runs of 64 keys, 256 blocks; at the reference's decode pin (one
+    group, Lk = 384): 6 runs."""
+    rep = H // Hkv
+    if rep * Lq > K7_SPLIT_ROWS:
+        return K7Plan("prefill", 1)
+    groups = B * Hkv
+    lo, hi = k7_visible(Lq, Lk, window)
+    tiles = -(-(hi - lo) // K7_TILE)
+    if groups >= sms or tiles <= K7_SERIAL_TILES:
+        return K7Plan("decode", 1)
+    splits = min(tiles, -(-2 * sms // groups))
+    per = -(-tiles // splits)
+    return K7Plan("decode", -(-tiles // per))
 
 
 def check_causal_rows(fn: str, causal: bool, Lq: int, Lk: int) -> None:
@@ -96,7 +167,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be ≥ 1, got {window}")
     out = torch.empty((B, H, Lq, D), dtype=q.dtype, device=device)
+    plan = plan_k7(B, H, Hkv, Lq, k.shape[2], window, sm_count(device))
+    part = None
+    if plan.splits > 1:
+        part = torch.empty(B * Hkv * plan.splits * (H // Hkv) * Lq * (D + 2),
+                           dtype=torch.float32, device=device)
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
-                           scale=scale, kv_last=kv_last)
+                           scale=scale, kv_last=kv_last, splits=plan.splits,
+                           part=part)
     LAUNCHES["flash_attention"] += 1
     return out

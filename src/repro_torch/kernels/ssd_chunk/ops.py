@@ -13,11 +13,9 @@ is no fallback.  Each call that reaches the card counts one
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from .._wrap import LAUNCHES, check, device_of
+from .._wrap import LAUNCHES, check, device_of, sm_count
 from .kernel import launch_ssd_chunk
 from .ref import ssd_chunk_ref
 
@@ -62,11 +60,6 @@ def k8_blocks(B: int, G: int, NC: int, hpg: int, nh: int) -> list:
             for bgc in range(B * G * NC) for hb in range(nblk)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def ssd_chunk(x, delta, dtv, Bm, Cm, *, heads_per_group: int):
     """The SSD intra-chunk block (see ``ref.ssd_chunk_ref``): x [BH, NC, Q,
     P], delta/dtv [BH, NC, Q], Bm/Cm [B, G, NC, Q, S], all float32 →
@@ -95,9 +88,7 @@ def ssd_chunk(x, delta, dtv, Bm, Cm, *, heads_per_group: int):
     y = torch.empty((BH, NC, Q, P), dtype=f32, device=device)
     Hs = torch.empty((BH, NC, S, P), dtype=f32, device=device)
     exp_s = torch.empty((BH, NC, Q), dtype=f32, device=device)
-    nh = plan_k8(Bb, G, NC, hpg, _sms(device.index
-                                      if device.index is not None
-                                      else torch.cuda.current_device()))
+    nh = plan_k8(Bb, G, NC, hpg, sm_count(device))
     launch_ssd_chunk(x, delta, dtv, Bm, Cm, y, Hs, exp_s,
                      heads_per_group=hpg, nh=nh)
     LAUNCHES["ssd_chunk"] += 1

@@ -1,0 +1,214 @@
+#!/usr/bin/env python3
+"""Where the flash-attention kernel K7's time goes: variants of it, each
+with one part of its work cut out or done another way, timed at
+tinyllama-1.1b's prefill and decode.
+
+    python3 tools/ablate_flash_attention.py [--out FILE]
+
+Each variant is a copy of ``src/repro_torch/kernels/csrc/
+flash_attention.cu`` with one text edit (``VARIANTS``; the tool fails if
+the source no longer has the text it edits), built with the port's nvcc
+flags, all at once, into ``build/ablate_flash_attention/``, and timed with
+CUDA events (``chip_smoke.event_ms``) through its C launcher: the
+tensor-core kernel at (B, H, Hkv, L, D) = (4, 32, 4, 1024, 64), causal
+(``K7_PREFILL``), and the split kernel at the decode (``K7_DECODE``, Lq =
+1, Lk = 1024) with the planned runs.  A variant that cuts work gives wrong
+outputs by design: only its time means something, and its difference to
+the full kernel is what the cut part costs while the rest runs (the parts
+overlap, so the differences do not add up).  Each variant runs twice, in
+turns.  Prints the card's name and power limit, each variant's times and
+max |Δ| against the plain version, the prefill kernel's registers and
+spill bytes, and a JSON summary last.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                      "flash_attention.cu")
+OUT_DIR = os.path.join(ROOT, "build", "ablate_flash_attention")
+
+_QK = ("        if (kLoQ) mma_tf32(s[n], al, kf.x, kf.y);\n"
+       "        if (lo_kv) mma_tf32(s[n], ah, kf.z, kf.w);\n"
+       "        mma_tf32(s[n], ah, kf.x, kf.y);\n")
+_PV = ("        mma_tf32(acc[n], pl, b0.x, b1.x);\n"
+       "        if (lo_kv) mma_tf32(acc[n], ph, b0.y, b1.y);\n"
+       "        mma_tf32(acc[n], ph, b0.x, b1.x);\n")
+_SPLIT_LOOP = ("  for (int idx = threadIdx.x; idx < kBKA * D / 4; "
+               "idx += kThreadsA) {")
+_SPLIT_UNROLLED = ("#pragma unroll\n"
+                   "  for (int i = 0; i < kBKA * D / 4 / kThreadsA; ++i) {\n"
+                   "    const int idx = threadIdx.x + i * kThreadsA;")
+_EXP2 = "s[n][c] = ok ? exp2f(s[n][c] - m[c >> 1]) : 0.0f;"
+_EX2_APPROX = ("s[n][c] = ok ? [](float x) { float y; "
+               "asm(\"ex2.approx.ftz.f32 %0, %1;\" : \"=f\"(y) : \"f\"(x)); "
+               "return y; }(s[n][c] - m[c >> 1]) : 0.0f;")
+#: name: ((text of the kernel, replacement), ...).
+VARIANTS = {
+    "full": (),
+    # TF32 rounding by the PTX conversion instead of the integer form
+    "cvt": (("  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+             "  uint32_t r;\n"
+             "  asm volatile(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : "
+             "\"f\"(x));\n  return r & 0xffffe000u;"),),
+    # one TF32 product (hi·hi) instead of three
+    "one_product": ((_QK, "        mma_tf32(s[n], ah, kf.x, kf.y);\n"),
+                    (_PV, "        mma_tf32(acc[n], ph, b0.x, b1.x);\n")),
+    "no_qk": ((_QK, ""),),
+    "no_pv": ((_PV, ""),),
+    # p = 2^x replaced by x
+    "no_exp": (("s[n][c] = ok ? exp2f(s[n][c] - m[c >> 1]) : 0.0f;",
+                "s[n][c] = ok ? (s[n][c] - m[c >> 1]) : 0.0f;"),),
+    "no_split_pass": (("    split_tile<TQ, TKV, D>(Ksp, Vsp, Kr, Vr, kl, vl, "
+                       "a, kt, kr.hi);\n", ""),),
+    # two blocks an SM (no register bound), and 64-key tiles with them
+    "two_blocks": (("__launch_bounds__(kThreadsA, D <= 64 ? 3 : 1)",
+                    "__launch_bounds__(kThreadsA)"),),
+    "tile64_two_blocks": (
+        ("constexpr int kBKA = 32;", "constexpr int kBKA = 64;"),
+        ("__launch_bounds__(kThreadsA, D <= 64 ? 3 : 1)",
+         "__launch_bounds__(kThreadsA)")),
+    # tried, and slower: the split pass's loop unrolled, the exponential
+    # as ex2.approx, four blocks an SM (at most 128 registers a thread)
+    "split_unroll": ((_SPLIT_LOOP, _SPLIT_UNROLLED),),
+    "ex2_approx": ((_EXP2, _EX2_APPROX),),
+    "four_blocks": (("__launch_bounds__(kThreadsA, D <= 64 ? 3 : 1)",
+                     "__launch_bounds__(kThreadsA, D <= 64 ? 4 : 1)"),),
+    "split_unroll_ex2": ((_SPLIT_LOOP, _SPLIT_UNROLLED),
+                         (_EXP2, _EX2_APPROX)),
+    # the split kernel without the combine launch
+    "no_combine": (("  comb<<<cgrid, D, csmem, stream>>>(a);\n", ""),),
+}
+
+
+def build_variants() -> dict:
+    """Write and compile every variant (one nvcc each, all at once);
+    return {name: (ctypes handle, (registers, bytes of spill stores) of
+    the float32 D = 64 prefill kernel)}."""
+    from repro_torch.kernels import _build
+
+    src = open(SOURCE).read()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    procs = {}
+    for name, edits in VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"ablate_flash_attention: variant {name} "
+                                   f"does not find {old!r} once")
+            text = text.replace(old, new)
+        cu = os.path.join(OUT_DIR, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+             os.path.join(OUT_DIR, f"{name}.so"), cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"ablate_flash_attention: {name} failed to "
+                               f"build:\n{log[-4000:]}")
+        regs = re.search(r"attn_tc_kernelIffLi64EEEvNS_4ArgsE\n.*?Used (\d+) "
+                         r"registers", log, re.S)
+        spill = re.search(r"attn_tc_kernelIffLi64EEEvNS_4ArgsE\n\s*\d+ bytes "
+                          r"stack frame, (\d+) bytes spill stores", log)
+        libs[name] = (ctypes.CDLL(os.path.join(OUT_DIR, f"{name}.so")),
+                      (int(regs.group(1)) if regs else None,
+                       int(spill.group(1)) if spill else None))
+    return libs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None,
+                    help="also write the summary JSON to this file")
+    a = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs          # puts ROOT/src first on sys.path
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ablate_flash_attention: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels._wrap import sm_count
+    from repro_torch.kernels.flash_attention.kernel import _ARGTYPES
+    from repro_torch.kernels.flash_attention.ops import plan_k7
+
+    card = cs.card_line()
+    print(card, flush=True)
+    cs.no_tf32(torch)
+    libs = build_variants()
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {}
+    for label, shape in (("prefill", cs.K7_PREFILL),
+                         ("decode", cs.K7_DECODE)):
+        B, H, Hkv, Lq, Lk, D, causal, window = shape
+        rng = np.random.RandomState(Lq + Lk)
+        q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+                   for s in ((B, H, Lq, D), (B, Hkv, Lk, D),
+                             (B, Hkv, Lk, D)))
+        splits = plan_k7(B, H, Hkv, Lq, Lk, window,
+                         sm_count(torch.device("cuda"))).splits
+        part = torch.empty(B * H * Lq * splits * (D + 2), device="cuda")
+        want = cs.k7_want(torch, q, k, v, None, causal, window)
+        cases[label] = (shape, q, k, v, torch.empty_like(q), part, splits,
+                        want)
+
+    def launcher(lib, label):
+        (B, H, Hkv, Lq, Lk, D, causal, window), q, k, v, out, part, \
+            splits, _ = cases[label]
+        fn = lib.flash_attention_launch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None, None, B, H, Hkv, Lq, Lk, D, *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], 0, 0, 0, 0, int(causal),
+                0 if window is None else window, float(D ** -0.5), 0, 0,
+                part.data_ptr(), splits, stream)
+
+        def go():
+            err = fn(*args)
+            if err:
+                raise RuntimeError(f"ablate_flash_attention: CUDA error "
+                                   f"{err}")
+        return go
+
+    us, err = {}, {}
+    for _ in range(2):
+        for name, (lib, _) in libs.items():
+            for label in cases:
+                key = f"{label} {name}"
+                go = launcher(lib, label)
+                go()
+                torch.cuda.synchronize()
+                err[key] = float((cases[label][4] - cases[label][7]).abs()
+                                 .max())
+                us.setdefault(key, []).append(1e3 * cs.event_ms(torch, go))
+    for key, times in us.items():
+        print(f"{key}: {', '.join(f'{t:.3f}' for t in times)} us, max |Δ| "
+              f"{err[key]:.3g}", flush=True)
+    summary = {"card": card,
+               "registers": {n: r for n, (_, r) in libs.items()},
+               "splits": cases["decode"][6], "us": us, "max_abs_err": err}
+    print("registers, spill bytes (float32 D = 64 prefill kernel): "
+          + ", ".join(f"{n} {r[0]}, {r[1]}"
+                      for n, r in summary["registers"].items()), flush=True)
+    if a.out:
+        with open(a.out, "w") as f:
+            json.dump(summary, f, indent=1)
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -250,7 +250,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_ssd_chunk: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.kernels.ssd_chunk.ops import _sms, plan_k8
+    from repro_torch.kernels._wrap import sm_count
+    from repro_torch.kernels.ssd_chunk.ops import plan_k8
 
     card = cs.card_line()
     print(card, flush=True)
@@ -260,7 +261,7 @@ def main() -> int:
     BH, NC, Q, _ = ops[0].shape
     outs = [torch.empty(s, device="cuda")
             for s in ((BH, NC, Q, P), (BH, NC, S, P), (BH, NC, Q))]
-    nh0 = plan_k8(B, G, NC, hpg, _sms(torch.cuda.current_device()))
+    nh0 = plan_k8(B, G, NC, hpg, sm_count(torch.device("cuda")))
     stream = torch.cuda.current_stream().cuda_stream
 
     def launcher(lib, nh):

@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Paired timing of the flash-attention kernel K7 and tinyllama-1.1b's
+forward.
+
+For two checkouts on one card:
+
+    python3 tools/pair_flash_attention.py OLD_ROOT NEW_ROOT [--out FILE]
+
+Each root is the top of a checkout (its ``chip_smoke.py`` and ``src/``).
+As ``tools/pair_decision_kernels.py`` does, it runs one child process per
+measurement in the order old, new, new, old, each building its
+checkout's K7.  A child times ``flash_attention`` with CUDA events
+(``event_ms`` of its ``chip_smoke.py``) at the reference's seven pins
+(``K7_PINS``), tinyllama-1.1b's prefill (``K7_PREFILL``) and decode at
+Lk = 1024 (``K7_DECODE``), and the serving decode over a bf16 cache
+read in place with the step's own key and value as the last row
+(``K7_CACHE``); then runs phase 18's ``forward`` of tinyllama-1.1b on
+4 × 1024 tokens (weights from seed 0) after a warm-up, three times, on
+the host clock ending in a sync.  It prints one JSON line per child and,
+last, a JSON summary with every child's numbers beside the card's name
+and power limit.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from pair_decision_kernels import pair_main  # noqa: E402
+
+
+def child(root: str) -> dict:
+    """Measure the checkout at ``root`` (run in a process of its own)."""
+    sys.path.insert(0, root)
+    import chip_smoke as cs          # puts root/src first on sys.path
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import registry
+
+    _build.build(("flash_attention",))
+    cs.no_tf32(torch)
+    us = {}
+    for B, H, Hkv, Lq, Lk, D, causal, window in (
+            list(cs.K7_PINS) + [cs.K7_PREFILL, cs.K7_DECODE]):
+        rng = np.random.RandomState(Lq + Lk)
+        q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+                   for s in ((B, H, Lq, D), (B, Hkv, Lk, D),
+                             (B, Hkv, Lk, D)))
+        us[f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} D={D} causal={causal} "
+           f"window={window}"] = 1e3 * cs.event_ms(
+            torch, lambda: flash_attention(q, k, v, causal=causal,
+                                           window=window))
+    B, H, Hkv, Lk, D, slots = cs.K7_CACHE
+    rng = np.random.RandomState(Lk)
+    q = torch.from_numpy(rng.randn(B, H, 1, D).astype(np.float32)).cuda()
+    kc, vc = (torch.from_numpy(rng.randn(B, Hkv, slots, D).astype(
+        np.float32)).to(torch.bfloat16).cuda() for _ in range(2))
+    kt, vt = (torch.from_numpy(rng.randn(B, Hkv, 1, D).astype(np.float32))
+              .cuda() for _ in range(2))
+    k, v = kc[:, :, :Lk], vc[:, :, :Lk]
+    us[f"B={B} H={H} Hkv={Hkv} Lq=1 Lk={Lk} of {slots} D={D} over a "
+       f"bfloat16 cache"] = 1e3 * cs.event_ms(
+        torch, lambda: flash_attention(q, k, v, kv_last=(kt, vt)))
+
+    cfg = ARCHS["tinyllama-1.1b"]
+    params = registry.init_params(cfg, 0, device="cuda")
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 1024))).cuda()
+    registry.forward(cfg, params, {"tokens": tokens[:1, :64]})   # warm-up
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        registry.forward(cfg, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return {"root": root, "k7_us": us, "forward_ms": walls}
+
+
+if __name__ == "__main__":
+    sys.exit(pair_main(child, __doc__.splitlines()[0], __file__))
