@@ -66,10 +66,17 @@ package, and runs twenty phases; any failure raises and exits non-zero
    CPU run's, one K2 launch per block of every wave;
 12. retries scale — phase 7's point under the default retry policy,
    checked as phase 11;
-13. K5 — the two-stage selection kernel against its plain version at
-   (T, N) = (50, 100), (2048, 100) and (500, 10 000), with identical
-   candidates and exact ties (which keep A): choices and scores exact;
-   then ``dodoor_select_batch(use_kernel=True)`` on the card against
+13. K5 — first the launch floor (an empty kernel between the two events
+   of ``event_ms``); then the two-stage selection kernel against its
+   plain version at (T, N) = (50, 100), (2048, 100) and (500, 10 000),
+   with identical candidates and exact ties (which keep A): choices and
+   scores exact, two calls bit for bit with each tasks a block
+   ``plan_k5`` can pick; its edge cases (``K5_EDGES``: one task, N = 1,
+   odd N, operands 8-byte but not 16-byte aligned; rows on servers 0 and
+   N − 1, identical, tied and idle candidates) through the wrapper and the
+   launcher with 32, 64, 256 and the plan's tasks a block, on outputs
+   filled with sentinels; the tasks a block swept (``K5_TPBS``); then
+   ``dodoor_select_batch(use_kernel=True)`` on the card against
    ``use_kernel=False`` on the card and against the same call on the
    CPU, one K5 launch per call; then the library decision loop (below)
    through ``dodoor_select_batch(use_kernel=True)``;
@@ -82,9 +89,14 @@ package, and runs twenty phases; any failure raises and exits non-zero
    loop through ``dodoor_fused`` without and with an availability plane,
    on the testbed and at 10 000 servers;
 15. K6 — the RL score matrix against its plain version at (T, N, K) =
-   (2048, 100, 2), (500, 10 000, 2), (1024, 10 000, 2) and (384, 257, 8):
-   exact; ``torch.mm(r, L.T) * inv`` timed beside it as the library
-   call; then the library loop recording each block's score matrix.
+   (2048, 100, 2), (500, 10 000, 2), (1024, 10 000, 2), (384, 257, 8)
+   and (50, 100, 2), the library loop's shape: exact;
+   ``torch.mm(r, L.T) * inv`` timed beside it as the library call; its
+   edge cases at every (T, N, K) of T ∈ {1, 50, 2 048}, N ∈ {1, 3, 4,
+   100, 257, 10 000}, K = 1..8, through the wrapper (two calls bit for
+   bit) and the launcher under the plans of ``k6_plans`` on NaN-filled
+   outputs; the rows a thread swept (``K6_RPT_SWEEP``); then the library
+   loop recording each block's score matrix.
 16. K7 — flash attention against ``attention_ref`` on the card at the
    reference's seven float32 pins (GQA, Lq < Lk, decode, window 64,
    ragged 100/200, non-causal D = 128; rtol 2e-4 / atol 2e-5) and its
@@ -1164,6 +1176,152 @@ def select_batch_check(torch, T: int, N: int) -> None:
           "use_kernel=False and to the cpu, 1 K5 launch", flush=True)
 
 
+#: K5's edge shapes (T, N): one task; N = 1 and odd N; the main path's
+#: shapes and T = 2048 at 10⁴ servers (the plan's largest blocks).
+K5_EDGES = ((1, 1), (1, 100), (50, 1), (50, 7), (50, 101), (50, 100),
+            (2048, 100), (300, 819), (500, 10_000), (2048, 10_000))
+#: K5 timed with each of these tasks a block at the main path's shapes:
+#: the data behind plan_k5.
+K5_TPBS = (32, 64, 128, 256)
+
+
+def launch_floor_us(torch) -> float:
+    """An empty launch in :func:`event_ms`'s harness (a spin kernel of 0
+    cycles between the two events), in µs: the floor under every
+    launch-sized kernel time."""
+    return 1e3 * event_ms(torch, lambda: torch.cuda._sleep(0))
+
+
+def k5_plans(torch, T: int) -> list:
+    """Tasks a block to force at a shape: 32, 64, 256 and the plan's."""
+    from repro_torch.kernels._wrap import sm_count
+    from repro_torch.kernels.dodoor_choice.ops import plan_k5
+
+    return sorted({32, 64, 256, plan_k5(T, sm_count(torch.device("cuda")))})
+
+
+def k5_edge_host(T: int, N: int, seed: int):
+    """K5's operands with edge rows, as numpy arrays: row 0 pairs servers
+    0 and N − 1, row 1 the reverse; row 2 two identical candidates with
+    equal durations; row 3 servers 0 and 1, which hold identical rows and
+    durations (an exact tie: A must win); row 4 two idle servers (no load,
+    no durations: both fractions fall back to 0.5)."""
+    rng = np.random.RandomState(seed)
+    r = rng.uniform(0.5, 8, (T, 2)).astype(np.float32)
+    cand = rng.randint(0, N, (T, 2)).astype(np.int32)
+    d_cand = rng.uniform(0, 1e3, (T, 2)).astype(np.float32)
+    L = rng.uniform(0, 50, (N, 2)).astype(np.float32)
+    D = rng.uniform(0, 5e3, N).astype(np.float32)
+    C = (8.0 + rng.uniform(0, 100, (N, 2))).astype(np.float32)
+    rows = [((0, N - 1), None), ((N - 1, 0), None), ((N // 2,) * 2, "tie")]
+    if N >= 2:
+        L[1], D[1], C[1] = L[0], D[0], C[0]
+        rows.append(((0, 1), "tie"))
+    if N >= 4:
+        L[N - 2:], D[N - 2:] = 0.0, 0.0
+        rows.append(((N - 2, N - 1), "idle"))
+    for i, (pair, kind) in enumerate(rows[:T]):
+        cand[i] = pair
+        if kind == "tie":
+            d_cand[i, 1] = d_cand[i, 0]
+        elif kind == "idle":
+            d_cand[i] = 0.0
+    return [r, cand, d_cand, L, D, C]
+
+
+def k5_edge_operands(torch, T: int, N: int, seed: int, misaligned: bool):
+    """:func:`k5_edge_host` on the card; ``misaligned`` puts every
+    operand one row into a larger allocation (8-byte aligned, which the
+    kernel's float2 loads need, but not 16)."""
+    ops = []
+    for a in k5_edge_host(T, N, seed):
+        t = torch.from_numpy(a).cuda()
+        if misaligned:
+            big = torch.empty((a.shape[0] + 1,) + a.shape[1:], dtype=t.dtype,
+                              device="cuda")
+            big[1:] = t
+            t = big[1:]
+        ops.append(t)
+    return ops
+
+
+def k5_forced(torch, args, tpb: int, alpha: float = 0.5, outs=None):
+    """K5 through its launcher with ``tpb`` tasks a block, on ``outs`` or
+    on outputs filled with -7 and NaN so that an unwritten one shows."""
+    from repro_torch.kernels.dodoor_choice.kernel import launch_dodoor_choice
+
+    T = args[0].shape[0]
+    choice, scores = outs or (
+        torch.full((T,), -7, dtype=torch.int32, device="cuda"),
+        torch.full((T, 2), float("nan"), device="cuda"))
+    launch_dodoor_choice(*args, np.float32(alpha), np.float32(1.0 - alpha),
+                         choice, scores, tpb)
+    return choice, scores
+
+
+def k5_edge_phase(torch) -> int:
+    """K5 at :data:`K5_EDGES`, aligned and misaligned, through the wrapper
+    and with each tasks a block of :func:`k5_plans`, against its plain
+    version; the edge rows where they should be; returns the number of
+    launches checked."""
+    from repro_torch.kernels.dodoor_choice import (dodoor_choice,
+                                                   dodoor_choice_ref)
+
+    n = 0
+    for T, N in K5_EDGES:
+        for misaligned in (False, True):
+            args = k5_edge_operands(torch, T, N, T + N, misaligned)
+            want = dodoor_choice_ref(*args, alpha=0.3)
+            name = f"dodoor_choice edge T={T} N={N} misaligned={misaligned}"
+            same(name, dodoor_choice(*args, alpha=0.3), want)
+            for tpb in k5_plans(torch, T):
+                same(f"{name} tpb={tpb}", k5_forced(torch, args, tpb, 0.3),
+                     want)
+                n += 1
+            choice, scores = (w.cpu().numpy() for w in want)
+            if T >= 3:
+                check(scores[2, 0] == scores[2, 1],
+                      f"{name}: identical candidates scored apart")
+            if T >= 4 and N >= 2:
+                check(choice[3] == 0 and scores[3, 0] == scores[3, 1],
+                      f"{name}: the tie did not keep A")
+            if T >= 5 and N >= 4:
+                check((scores[4] == np.float32(0.5)).all(),
+                      f"{name}: idle candidates did not fall back")
+    print(f"  dodoor_choice: {n} forced launches at {len(K5_EDGES)} edge "
+          "shapes (aligned and misaligned, 32 to 256 tasks a block) exact "
+          "against the plain version", flush=True)
+    return n
+
+
+def k5_repeatable(torch, T: int, N: int) -> None:
+    """Two calls of K5 bit for bit equal, with each tasks a block."""
+    from repro_torch.kernels.dodoor_choice import dodoor_choice
+
+    args = pair_inputs(torch, T, N, seed=T + N)
+    same(f"dodoor_choice T={T} N={N}: two calls",
+         dodoor_choice(*args, alpha=0.5), dodoor_choice(*args, alpha=0.5))
+    for tpb in k5_plans(torch, T):
+        same(f"dodoor_choice T={T} N={N} tpb={tpb}: two calls",
+             k5_forced(torch, args, tpb), k5_forced(torch, args, tpb))
+
+
+def k5_sweep(torch) -> dict:
+    """K5 timed with each of :data:`K5_TPBS` tasks a block at the main
+    path's shapes."""
+    times = {}
+    for T, N in ((50, 100), (2048, 100), (500, 10_000)):
+        args = pair_inputs(torch, T, N, seed=T + N)
+        outs = (torch.empty((T,), dtype=torch.int32, device="cuda"),
+                torch.empty((T, 2), device="cuda"))
+        for tpb in K5_TPBS:
+            times[f"T={T} N={N} tpb={tpb}"] = 1e3 * event_ms(
+                torch, lambda: k5_forced(torch, args, tpb, outs=outs))
+    print("  dodoor_choice tasks a block (us): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()), flush=True)
+    return times
+
+
 def k4_phase(torch, T: int, N: int, masked: bool) -> dict:
     """K4 (K4-masked) against its plain version, and against K1 (K2) on
     the expanded plane; then both timed."""
@@ -1233,6 +1391,99 @@ def k6_phase(torch, T: int, N: int, K: int) -> dict:
                   ((T + 2 * N) * K + T * N) * 4,
                   T * N * 2 * K + N * (2 * K + 1),
                   float((got - plain).abs().max()), library_ms=lib_ms, K=K)
+
+
+#: K6's edge shapes: every (T, N) of these two lists at K = 1..8.  N = 1,
+#: 3 (rows shifted by 1, 2 and 3 columns), 4, 100, 257 (a scalar head and
+#: tail on three rows of four) and 10⁴ (79 column tiles).
+K6_EDGE_T = (1, 50, 2048)
+K6_EDGE_N = (1, 3, 4, 100, 257, 10_000)
+
+
+def k6_plans(torch, T: int, N: int, K: int) -> list:
+    """K6 plans to force at a shape: the plan's tiling with its own rows
+    a thread and with 1, 2, 4, 5 and 16 (the kernel stores 4 rows at a
+    time: one short and several whole runs of 4), and 3 groups a tile
+    (several column tiles, rows shifted across tile edges) with 4 rows a
+    block."""
+    from repro_torch.kernels._wrap import sm_count
+    from repro_torch.kernels.rl_score.ops import plan_k6
+
+    G, R, rpt = plan_k6(T, N, sm_count(torch.device("cuda")))
+    return sorted({(G, R, p) for p in (1, 2, 4, 5, 16, rpt)} | {(3, 4, 2)})
+
+
+def k6_operands(torch, T: int, N: int, K: int):
+    rng = np.random.RandomState(T + N + K)
+    return [torch.from_numpy(a).cuda() for a in (
+        (rng.rand(T, K) * 8).astype(np.float32),
+        (rng.rand(N, K) * 100).astype(np.float32),
+        (1.0 + rng.rand(N, K) * 100).astype(np.float32))]
+
+
+def k6_forced(torch, r, L, C, plan):
+    """K6 through its launcher under ``plan`` (G, R, rpt), on an output
+    filled with NaN so that an unwritten score shows."""
+    from repro_torch.kernels.rl_score.kernel import launch_rl_score
+
+    out = torch.full((r.shape[0], L.shape[0]), float("nan"), device="cuda")
+    launch_rl_score(r, L, C, out, plan)
+    return out
+
+
+def k6_edge_phase(torch) -> int:
+    """K6 at every (T, N, K) of :data:`K6_EDGE_T` × :data:`K6_EDGE_N` ×
+    1..8, through the wrapper and under each plan of :func:`k6_plans`,
+    against its plain version (compared on the card); two calls bit for
+    bit at each shape.  Returns the number of launches checked."""
+    from repro_torch.kernels.rl_score import (rl_score_matrix,
+                                              rl_score_matrix_ref)
+
+    n = 0
+    for T in K6_EDGE_T:
+        for N in K6_EDGE_N:
+            for K in range(1, 9):
+                r, L, C = k6_operands(torch, T, N, K)
+                want = rl_score_matrix_ref(r, L, C)
+                name = f"rl_score_matrix edge T={T} N={N} K={K}"
+                got = rl_score_matrix(r, L, C)
+                check(torch.equal(got, want), f"{name}: differs")
+                check(torch.equal(got, rl_score_matrix(r, L, C)),
+                      f"{name}: two calls differ")
+                for plan in k6_plans(torch, T, N, K):
+                    check(torch.equal(k6_forced(torch, r, L, C, plan), want),
+                          f"{name} plan={plan}: differs")
+                    n += 1
+    print(f"  rl_score_matrix: {n} forced launches at "
+          f"{len(K6_EDGE_T) * len(K6_EDGE_N) * 8} edge shapes (T in "
+          f"{list(K6_EDGE_T)}, N in {list(K6_EDGE_N)}, K = 1..8) exact "
+          "against the plain version, two calls equal", flush=True)
+    return n
+
+
+#: K6 timed under its plan's (G, R) with each of these rows a thread,
+#: at the 10⁴-server shapes and the testbed's: the data behind plan_k6.
+K6_RPT_SWEEP = ((500, 10_000, 2), (1024, 10_000, 2), (2048, 100, 2),
+                (384, 257, 8), (50, 100, 2))
+K6_RPTS = (1, 2, 4, 8, 16, 32)
+
+
+def k6_sweep(torch) -> dict:
+    from repro_torch.kernels._wrap import sm_count
+    from repro_torch.kernels.rl_score.kernel import launch_rl_score
+    from repro_torch.kernels.rl_score.ops import plan_k6
+
+    times = {}
+    for T, N, K in K6_RPT_SWEEP:
+        r, L, C = k6_operands(torch, T, N, K)
+        G, R, _ = plan_k6(T, N, sm_count(torch.device("cuda")))
+        out = torch.empty((T, N), device="cuda")
+        for rpt in K6_RPTS:
+            times[f"T={T} N={N} rpt={rpt}"] = 1e3 * event_ms(
+                torch, lambda: launch_rl_score(r, L, C, out, (G, R, rpt)))
+    print("  rl_score_matrix rows a thread (us): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()), flush=True)
+    return times
 
 
 def library_loop(torch, device: str, route: str, wl, cl, b: int,
@@ -1353,8 +1604,14 @@ def library_phase(torch, route: str, kernel: str, scale: bool = False,
 
 
 def k5_family_phase(torch) -> tuple:
+    print(f"launch floor {launch_floor_us(torch):.3f} us (an empty kernel "
+          "between two events)", flush=True)
     rows = [k5_phase(torch, T, N)
             for T, N in ((50, 100), (2048, 100), (500, 10_000))]
+    for T, N in ((50, 100), (2048, 100), (500, 10_000)):
+        k5_repeatable(torch, T, N)
+    k5_edge_phase(torch)
+    k5_sweep(torch)
     for T, N in ((2048, 100), (500, 10_000)):
         select_batch_check(torch, T, N)
     return rows, library_phase(torch, "select", "dodoor_choice")
@@ -1376,9 +1633,14 @@ def k4_family_phase(torch) -> tuple:
 
 
 def k6_family_phase(torch) -> tuple:
+    # (50, 100, 2), the library loop's shape, comes last: the kernels
+    # line takes row 2, (1024, 10⁴).
     rows = [k6_phase(torch, T, N, K)
             for T, N, K in ((2048, 100, 2), (500, 10_000, 2),
-                            (1024, 10_000, 2), (384, 257, 8))]
+                            (1024, 10_000, 2), (384, 257, 8),
+                            (50, 100, 2))]
+    k6_edge_phase(torch)
+    k6_sweep(torch)
     return rows, library_phase(torch, "rl", "rl_score_matrix")
 
 

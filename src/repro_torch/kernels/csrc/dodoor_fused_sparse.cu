@@ -53,7 +53,14 @@
 // warp (N <= 256 for K1, 128 for K2) covers its row in one step: its
 // ballot masks stay in registers and give both ranks directly, with no
 // table, scan or barrier.  K5 has no sampling: one thread per
-// task loads the pair's rows and scores them.
+// task loads its pair's rows (all six gathers issued together) and
+// scores them; ops.plan_k5 sizes the blocks, so that small T runs as one
+// lean block and T = 2048 spreads over 32 blocks.  Staging the server
+// table in shared memory with cp.async (one trip to memory fewer, a wait
+// and a barrier more) measured 0.1 to 0.3 us slower on the testbed's
+// 100 servers (tools/ablate_library_kernels.py on an H100, PERF.md
+// section 6) and is not kept: the kernel sits within 1 us of
+// the 4.7 us launch floor of that harness.
 //
 // Bound.  Per task the work is O(N*K) compares and a count per server (K2:
 // 2*Wd more compares; K3: a compare and a sum per parent and candidate);
@@ -65,8 +72,9 @@
 // 10^4) and K2's windows 40*N*T B at Wd = 5: the kernels are bounded by
 // L2 traffic and latency, which the loads in flight and the CTA per task
 // address; the roofline bound counts each input once from memory.  K5
-// moves about 60 B a task plus two server rows and is bounded by its
-// launch.
+// moves about 36 B a task plus two server rows: at the main path's
+// shapes its bound is under 0.03 us, and it is bounded by its launch and
+// its two dependent trips to memory (cand, then the rows).
 //
 // Arithmetic.  The score follows the reference as XLA:CPU executes it:
 // r.L and sum(C^2) are fused multiply-add chains, RL_a/(RL_a+RL_b+eps) is
@@ -689,7 +697,9 @@ ParentPlanes parents_of(const void* psrv, const void* pbytes, int P,
 
 // K5: one thread per task scores its pre-sampled pair (cand [T, 2]) with
 // the task's durations there (d_cand [T, 2]) in the reference kernel's
-// reciprocal form, and picks: B only on a strict >, so ties keep A.
+// reciprocal form, and picks: B only on a strict >, so ties keep A.  The
+// six gathers at the candidates (L, C as float2, D) issue together once
+// cand has arrived.
 __global__ void __launch_bounds__(256)
 dodoor_choice_kernel(const float* __restrict__ r,
                      const int* __restrict__ cand,
@@ -709,6 +719,7 @@ dodoor_choice_kernel(const float* __restrict__ r,
   const float2* C2 = reinterpret_cast<const float2*>(C);
   const float2 la = L2[c.x], lb = L2[c.y];
   const float2 ca = C2[c.x], cb = C2[c.y];
+  const float Dxa = D[c.x], Dxb = D[c.y];
   const float inv_a = 1.0f / fmaf(ca.y, ca.y, ca.x * ca.x);
   const float inv_b = 1.0f / fmaf(cb.y, cb.y, cb.x * cb.x);
   const float dot_a = fmaf(rt.y, la.y, rt.x * la.x);
@@ -718,8 +729,8 @@ dodoor_choice_kernel(const float* __restrict__ r,
   const bool rl_ok = rl_a + rl_b > kEps;
   const float rfa = rl_ok ? rl_a / (fmaf(dot_b, inv_b, rl_a) + kEps) : 0.5f;
   const float rfb = rl_ok ? rl_b / (fmaf(dot_a, inv_a, rl_b) + kEps) : 0.5f;
-  const float Da = D[c.x] + dc.x;
-  const float Db = D[c.y] + dc.y;
+  const float Da = Dxa + dc.x;
+  const float Db = Dxb + dc.y;
   const float d_sum = Da + Db;
   const float dfa = d_sum > kEps ? Da / (d_sum + kEps) : 0.5f;
   const float dfb = d_sum > kEps ? Db / (d_sum + kEps) : 0.5f;
@@ -814,15 +825,19 @@ extern "C" int dodoor_fused_masked_launch(const void* keys, const void* r,
 }
 
 // K5: r [T, 2], cand [T, 2] int32 (each in [0, N)), d_cand [T, 2], L [N, 2],
-// D [N], C [N, 2]; alpha and 1 - alpha as the caller rounded them.
+// D [N], C [N, 2]; alpha and 1 - alpha as the caller rounded them; `tpb`
+// tasks a block (32..256, a multiple of 32).  Returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for a tpb it does not take.
 extern "C" int dodoor_choice_launch(const void* r, const void* cand,
                                     const void* d_cand, const void* L,
                                     const void* D, const void* C, int T,
-                                    float alpha, float one_m_alpha,
+                                    float alpha, float one_m_alpha, int tpb,
                                     void* choice, void* scores,
                                     void* stream) {
+  if (tpb < 32 || tpb > 256 || tpb % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (T > 0) {
-    dodoor_choice_kernel<<<(T + 255) / 256, 256, 0,
+    dodoor_choice_kernel<<<(T + tpb - 1) / tpb, tpb, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(r), static_cast<const int*>(cand),
         static_cast<const float*>(d_cand), static_cast<const float*>(L),

@@ -22,7 +22,7 @@ _ARGTYPES = {
         (_P,) * 12 + (_I, _I, _I, _I, _I, _F, _F) + (_P,) * 4,
     "dodoor_fused_launch": (_P,) * 6 + (_I, _I, _F) + (_P,) * 4,
     "dodoor_fused_masked_launch": (_P,) * 7 + (_I, _I, _F) + (_P,) * 4,
-    "dodoor_choice_launch": (_P,) * 6 + (_I, _F, _F) + (_P,) * 3,
+    "dodoor_choice_launch": (_P,) * 6 + (_I, _F, _F, _I) + (_P,) * 3,
 }
 
 
@@ -93,13 +93,15 @@ def launch_dodoor_fused(keys, r, d, L, D, C, alpha: float, choice, cand,
 
 
 def launch_dodoor_choice(r, cand, d_cand, L, D, C, alpha: float,
-                         one_m_alpha: float, choice, scores) -> str:
-    """Enqueue K5 on the current stream of the tensors' device and return
-    the kernel's name; ``alpha`` and ``one_m_alpha`` are the float32
-    weights of the duration and RL terms."""
+                         one_m_alpha: float, choice, scores, tpb: int) -> str:
+    """Enqueue K5 on the current stream of the tensors' device, ``tpb``
+    tasks a block (:func:`.ops.plan_k5`), and return the kernel's name;
+    ``alpha`` and ``one_m_alpha`` are the float32 weights of the duration
+    and RL terms."""
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = _launcher("dodoor_choice_launch")(
         r.data_ptr(), cand.data_ptr(), d_cand.data_ptr(), L.data_ptr(),
         D.data_ptr(), C.data_ptr(), r.shape[0], float(alpha),
-        float(one_m_alpha), choice.data_ptr(), scores.data_ptr(), stream)
+        float(one_m_alpha), tpb, choice.data_ptr(), scores.data_ptr(),
+        stream)
     return _raise_on(err, "dodoor_choice")

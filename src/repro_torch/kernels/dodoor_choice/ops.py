@@ -2,7 +2,8 @@
 
 They keep the JAX wrappers' signatures without ``block_t``/``interpret``:
 the CUDA kernels have no tile size to choose (1–8 warps per task for the
-fused kernels, sized by N; one thread per task for K5) and pad nothing.
+fused kernels, sized by N; one thread per task for K5, its blocks
+planned by :func:`plan_k5`) and pad nothing.
 ``dodoor_fused_sparse`` takes the down-window planes in place of its
 ``avail`` plane.  Tensors on the CPU go to the plain versions
 (``ref.py``); CUDA tensors are checked and go to the CUDA kernel, or the
@@ -16,10 +17,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._wrap import LAUNCHES, check, device_of
+from .._wrap import LAUNCHES, check, device_of, sm_count
 from .kernel import (launch_dodoor_choice, launch_dodoor_fused,
                      launch_dodoor_fused_sparse)
 from .ref import dodoor_choice_ref, dodoor_fused_ref, dodoor_fused_sparse_ref
+
+
+def plan_k5(T: int, sms: int) -> int:
+    """K5's tasks a block: up to 256 tasks one lean block of ⌈T/32⌉
+    warps; beyond that ⌈T/sms⌉ tasks a block rounded up to whole warps,
+    between 64 and 256, so that T = 2048 spreads over 32 blocks of 64
+    tasks on 132 SMs."""
+    warps = -(-max(T, 1) // 32)
+    if warps <= 8:
+        return 32 * warps
+    return min(256, max(64, 32 * -(-T // (32 * sms))))
 
 
 def _two_dims(fn: str, K: int) -> None:
@@ -192,6 +204,7 @@ def dodoor_choice(r, cand, d_cand, L, D, C, alpha: float = 0.5):
     scores = torch.empty((T, 2), dtype=torch.float32, device=device)
     name = launch_dodoor_choice(r, cand, d_cand, L, D, C,
                                 np.float32(alpha), np.float32(1.0 - alpha),
-                                choice, scores)
+                                choice, scores,
+                                plan_k5(T, sm_count(device)))
     LAUNCHES[name] += 1
     return choice, scores
