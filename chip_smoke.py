@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs twenty phases; any failure raises and exits non-zero
+package, and runs twenty-one phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
@@ -138,7 +138,22 @@ package, and runs twenty phases; any failure raises and exits non-zero
    ``torch.profiler`` (device activity): the decision kernel's total
    device time and launches, the device's busy share of the wall time,
    and the wall (inflated by the profiler); the timed runs of phases 4
-   and 7 stay unprofiled.
+   and 7 stay unprofiled;
+21. sequential oracle — ``simulate(mode="sequential")`` on the testbed
+   (FunctionBench m=4000 at 300 qps, b=50) for random, PoT, dodoor,
+   (1+β) and Prequal on the card, each against the same run on the CPU
+   (the ledger exact, placements exact or a candidate flip as in phase
+   3, every time plane within rtol 1e-6 / atol 1e-3 up to a divergence)
+   and dodoor's also against the batched driver on the card; it launches
+   no kernel, and syncs the card no more for 300 tasks than for 100;
+   then the message-reduction point of the fault benchmark (25 outages,
+   FunctionBench m=3000 at 60 qps, the default RetryPolicy, b=50, seeds
+   0 and 1) for dodoor, PoT and Prequal on the card: every seed's message
+   total, the msgs/task means and the reductions equal to the JAX
+   reference's, printed as a ``message_reduction`` JSON line; last,
+   ``core.balls_bins.run_balls_into_bins`` on the card (m=2000 balls, 100
+   bins, β ∈ {1, 0.5}), its loads against the CPU's bit for bit, with no
+   more host syncs for 300 balls than for 100.
 
 The edge cases of the decision template (K1–K4 share it) hold the kernel
 to its plain version, every output exact, at (T, N) = (50, 1), (50, 31),
@@ -158,7 +173,8 @@ exact), with the launch counts set to 0 just before it and read just
 after: one launch per block.
 
 It prints the card's name and power limit, every phase's wall time, a
-``profile`` JSON line of phase 20's readings, a JSON line of per-kernel
+``profile`` JSON line of phase 20's readings, phase 21's
+``message_reduction`` line, a JSON line of per-kernel
 measurements, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -2289,6 +2305,187 @@ def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
     return fwd_counts.get(kernel, 0) + dec_counts.get(kernel, 0)
 
 
+# --------------------------------------------------------------------------
+# phase 21: the sequential oracle on the card
+# --------------------------------------------------------------------------
+
+SEQ_POLICIES = ("random", "pot", "dodoor", "one_plus_beta", "prequal")
+#: tests/test_engine_batched.py:22's bound on the time planes.
+SEQ_RTOL, SEQ_ATOL = 1e-6, 1e-3
+#: The message-reduction point of benchmarks/bench_faults.py:86-145 (the
+#: testbed, FunctionBench m = 3000 at 60 qps, 25 outages, the default
+#: RetryPolicy, b = 50): each policy's total messages at seeds 0 and 1,
+#: the seed means of msgs/task and the reductions rounded as the
+#: benchmark rounds them.  Provenance: the JAX reference on the CPU (JAX
+#: 0.9; its sequential and batched drivers give the same ledgers).
+MESSAGE_TOTALS = {"dodoor": (7858, 7885), "pot": (18186, 18198),
+                  "prequal": (24208, 24200)}
+MESSAGE_MEANS = {"dodoor": 2.6238, "pot": 6.064, "prequal": 8.068}
+MESSAGE_REDUCTION = {"vs_pot": 0.5673, "vs_prequal": 0.6748}
+
+
+def seq_run(torch, wl, cluster, cfg, device: str, seed: int = 0,
+            dynamics=None):
+    """One sequential run; returns (result, wall s).  The oracle launches
+    no kernel: the launch counts stay empty."""
+    from repro_torch.kernels.dodoor_choice import LAUNCHES
+    from repro_torch.sim import simulate
+
+    LAUNCHES.clear()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate(wl, cluster, cfg, seed, mode="sequential", device=device,
+                   dynamics=dynamics)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not dict(LAUNCHES), f"sequential run launched {dict(LAUNCHES)}")
+    return res, wall
+
+
+def seq_check(name, got, want, wl, cluster, policy: str) -> bool:
+    """``got`` against ``want``: the ledger exact; placements exact or, for
+    the policies that score two sampled candidates, the first divergent
+    task picked one of its candidates on both (a near-tie flip); every
+    time plane within tests/test_engine_batched.py:22's bound up to the
+    first divergence.  Returns whether every plane was bit for bit
+    equal."""
+    from repro_torch.sim import resource_violations
+
+    check(ledger(got) == ledger(want),
+          f"{name}: ledger {ledger(got)} != {ledger(want)}")
+    diff = np.flatnonzero(got.server != want.server)
+    upto = int(diff[0]) if diff.size else got.server.shape[0]
+    if diff.size:
+        check(policy in ("dodoor", "one_plus_beta")
+              and first_divergence_ok(got, want, wl, cluster),
+              f"{name}: placements diverge at task {upto}")
+    exact = not diff.size
+    for f in TIME_PLANES:
+        a = getattr(got, f)[:upto].astype(np.float64)
+        b = getattr(want, f)[:upto].astype(np.float64)
+        check(bool(np.all(np.abs(a - b) <= SEQ_ATOL + SEQ_RTOL * np.abs(b))),
+              f"{name}: {f} beyond rtol {SEQ_RTOL} / atol {SEQ_ATOL}")
+        exact = exact and np.array_equal(getattr(got, f), getattr(want, f))
+    check(np.isfinite(got.finish_ms).all(), f"{name}: non-finite finish")
+    check(resource_violations(got, cluster) == 0,
+          f"{name}: capacity violated")
+    return exact
+
+
+def sync_count(torch, fn) -> int:
+    """Host syncs the card reports while ``fn`` runs (CUDA sync debug mode,
+    one warning a sync)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return len(caught)
+
+
+def sequential_phase(torch) -> dict:
+    """Phase 21: (a) the sequential oracle on the testbed for every
+    policy, each card run against its CPU run and dodoor's also against
+    the batched driver on the card; that the per-task loop syncs the card
+    no more for 300 tasks than for 100; (b) the message-reduction point
+    under failure on the card, against the reference's ledgers; (c) the
+    balls-into-bins loop on the card against the CPU."""
+    from repro_torch.sim import (EngineConfig, RetryPolicy, make_testbed,
+                                 random_outages, simulate)
+    from repro_torch.workloads import functionbench
+
+    tb = make_testbed()
+    wl = functionbench.synthesize(m=4000, qps=300.0)
+    m = wl.r_submit.shape[0]
+    for policy in SEQ_POLICIES:
+        cfg = EngineConfig(policy=policy, b=50)
+        gpu, wall = seq_run(torch, wl, tb, cfg, "cuda")
+        cpu, cpu_wall = seq_run(torch, wl, tb, cfg, "cpu")
+        exact = seq_check(f"sequential {policy}", gpu, cpu, wl, tb, policy)
+        line = (f"sequential {policy}: m={m} b={cfg.b} {m / wall:.1f} "
+                f"decisions/s on the card (wall {wall:.3f} s; cpu "
+                f"{m / cpu_wall:.1f}/s), bit for bit equal to cpu: {exact}, "
+                f"ledger {ledger(gpu)}")
+        if policy == "dodoor":
+            bat = simulate(wl, tb, cfg, device="cuda")
+            same = seq_check("sequential vs batched", gpu, bat, wl, tb,
+                             policy)
+            line += f", equal to the batched driver on the card: {same}"
+        print(line, flush=True)
+
+    for policy in ("pot", "dodoor", "prequal"):
+        cfg = EngineConfig(policy=policy, b=50)
+        n100, n300 = (sync_count(torch, lambda k=k: simulate(
+            functionbench.synthesize(m=k, qps=300.0, seed=3), tb, cfg,
+            mode="sequential", device="cuda")) for k in (100, 300))
+        print(f"sequential {policy}: {n100} host syncs for 100 tasks, "
+              f"{n300} for 300", flush=True)
+        check(n300 == n100, f"sequential {policy}: the per-task loop syncs "
+              f"the card ({n100} syncs for 100 tasks, {n300} for 300)")
+
+    # (b) benchmarks/bench_faults.py's message_reduction point.
+    wl = functionbench.synthesize(m=3000, qps=60.0, seed=0)
+    m = wl.r_submit.shape[0]
+    H = float(wl.submit_ms[-1])
+    dyn = random_outages(tb.num_servers, 25, 0.6 * H,
+                         mean_down_ms=0.15 * H, seed=7)
+    totals, means = {}, {}
+    for policy in ("dodoor", "pot", "prequal"):
+        cfg = EngineConfig(policy=policy, b=50, retry=RetryPolicy())
+        runs = []
+        for seed in (0, 1):
+            res, wall = seq_run(torch, wl, tb, cfg, "cuda", seed, dyn)
+            runs.append(res.msgs_total)
+            print(f"message point {policy} seed {seed}: msgs/task "
+                  f"{res.msgs_per_task:.6f} (ledger {ledger(res)}), "
+                  f"{int(res.attempts.sum()) / wall:.1f} decisions/s (wall "
+                  f"{wall:.3f} s)", flush=True)
+        totals[policy] = tuple(runs)
+        means[policy] = round(float(np.mean([t / m for t in runs])), 4)
+    reduction = {f"vs_{p}": round(1.0 - means["dodoor"] / means[p], 4)
+                 for p in ("pot", "prequal")}
+    out = {"per_policy_msgs_per_task": means, "reduction": reduction,
+           "totals": {p: list(t) for p, t in totals.items()}}
+    print(json.dumps({"message_reduction": out}), flush=True)
+    check(totals == MESSAGE_TOTALS,
+          f"message point: totals {totals} != {MESSAGE_TOTALS}")
+    check(means == MESSAGE_MEANS and reduction == MESSAGE_REDUCTION,
+          f"message point: {means}, {reduction}")
+
+    # (c) core.balls_bins: the placement loop runs on the key's device.
+    from repro_torch.core import balls_bins
+    from repro_torch.random import PRNGKey
+
+    w = np.random.RandomState(5).randint(1, 5, 2000).astype(np.float32)
+    for beta, batch in ((1.0, 1), (0.5, 16)):
+        def throw(dev, k=w.shape[0]):
+            return balls_bins.run_balls_into_bins(
+                PRNGKey(5, device=dev), w[:k], 100, 2, beta, batch)
+        t0 = time.perf_counter()
+        gpu = throw("cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cpu = throw("cpu")
+        check(gpu.device.type == "cuda" and torch.equal(gpu.cpu(), cpu),
+              f"balls_bins beta={beta} batch={batch}: card != cpu")
+        n100, n300 = (sync_count(torch, lambda k=k: throw("cuda", k))
+                      for k in (100, 300))
+        check(n300 == n100, f"balls_bins: the placement loop syncs the "
+              f"card ({n100} syncs for 100 balls, {n300} for 300)")
+        print(f"balls_bins beta={beta} batch={batch}: m=2000 n=100 on the "
+              f"card in {wall:.3f} s, loads equal to cpu, gap "
+              f"{float(balls_bins.gap(gpu))}; {n100} host syncs for 100 "
+              f"balls, {n300} for 300", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2296,7 +2493,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-20) to run after "
+                    help="comma-separated phase numbers (2-21) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -2366,6 +2563,7 @@ def main(argv=None) -> int:
         "19 serving mamba2-1.3b", serving_phase, "mamba2-1.3b", "ssd_chunk",
         2, 1024)
     profiled = phase("20 profiled scale runs", profiled_phase)
+    phase("21 sequential oracle", sequential_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "

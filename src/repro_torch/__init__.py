@@ -6,13 +6,16 @@ and numpy only — never ``jax`` and nothing of ``repro``.
 
 Ported so far: the batched decision-block driver for the ``random``,
 ``dodoor`` and ``one_plus_beta`` policies (:func:`repro_torch.sim.simulate`)
-with server dynamics (outages, churn, stragglers, store outages), the
+and the sequential oracle for those and the probing baselines ``pot`` and
+``prequal`` (``mode="sequential"``), with server dynamics (outages,
+churn, stragglers, store outages), task graphs and retries, the
 scenario engine (:mod:`repro_torch.sim.scenarios`) and its arrival
 processes, the inputs (clusters and the FunctionBench/Azure traces), the
-Algorithm-1 core, a bit-exact port of JAX's partitionable threefry PRNG
-and its exponential draws, and the sparse-gather decision kernel in its
-plain and masked forms as hand-written CUDA for Hopper
-(``kernels/csrc``).
+Algorithm-1 core with the PoT and Prequal policies and the
+balls-into-bins theory, a bit-exact port of JAX's partitionable threefry
+PRNG with its exponential and integer draws, the LM substrate's dense and
+Mamba-2 models, and every Pallas kernel of the reference as hand-written
+CUDA for Hopper (``kernels/csrc``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that argument they raise.

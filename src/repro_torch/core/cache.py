@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .types import DataStoreState, SchedulerView
+from .types import DataStoreState, SchedulerView, ServerState
 
 
 def add_new_load(store: DataStoreState, j, r, d_ij) -> DataStoreState:
@@ -55,6 +55,13 @@ def push_if(push, store: DataStoreState,
                          D=torch.where(push, store.D, view.D),
                          rif=torch.where(push, store.rif, view.rif),
                          C=view.C)
+
+
+def store_from_truth(state: ServerState) -> DataStoreState:
+    """A store rebuilt from the servers' overrides (recovery, §4.3)."""
+    return DataStoreState(L=state.L, D=state.D, rif=state.rif,
+                          p=torch.zeros((), dtype=torch.int32,
+                                        device=state.L.device))
 
 
 def default_batch_size(n_servers: int) -> int:

@@ -9,8 +9,36 @@ from typing import NamedTuple
 
 import torch
 
+from .._device import resolve_device
+
 RESOURCE_DIMS = 2
 CPU, MEM = 0, 1
+
+
+class TaskSpec(NamedTuple):
+    """A batch of tasks (balls); the leading axis is the task axis."""
+
+    r: torch.Tensor          # [m, K] demand vectors (cores, MB)
+    d: torch.Tensor          # [m, n] per-server estimated durations (ms)
+    submit_ms: torch.Tensor  # [m]    submission times (ms)
+    task_id: torch.Tensor    # [m]    integer ids, the per-task seed (§5)
+
+    @property
+    def num_tasks(self) -> int:
+        return self.r.shape[0]
+
+
+class ServerState(NamedTuple):
+    """Ground-truth server state: what the servers themselves know."""
+
+    L: torch.Tensor      # [n, K] load: Σ r over uncompleted tasks (§3.1)
+    D: torch.Tensor      # [n]    Σ estimated duration of uncompleted tasks
+    rif: torch.Tensor    # [n]    requests in flight
+    C: torch.Tensor      # [n, K] capacities (static; Table 2)
+
+    @property
+    def num_servers(self) -> int:
+        return self.C.shape[0]
 
 
 class SchedulerView(NamedTuple):
@@ -33,6 +61,17 @@ class DataStoreState(NamedTuple):
     p: torch.Tensor      # scalar int32
 
 
+class PrequalPool(NamedTuple):
+    """One scheduler's Prequal probe pool (§5): ``s_pool`` fixed slots
+    with a validity mask."""
+
+    server: torch.Tensor     # [s_pool] int32 probed server
+    rif: torch.Tensor        # [s_pool] float32 probed RIF
+    latency: torch.Tensor    # [s_pool] float32 probed latency estimate (ms)
+    age: torch.Tensor        # [s_pool] float32 probe time (oldest-first)
+    valid: torch.Tensor      # [s_pool] bool
+
+
 class DodoorParams(NamedTuple):
     """Tunable cluster parameters (Require line of Algorithm 1)."""
 
@@ -42,12 +81,50 @@ class DodoorParams(NamedTuple):
 
 
 class PrequalParams(NamedTuple):
-    """Prequal baseline parameters — the paper's §5 settings.  The port
-    carries them for the engine config; the Prequal policy itself is not
-    ported yet."""
+    """Prequal baseline parameters — the paper's §5 settings."""
 
     r_probe: int = 3
     s_pool: int = 16
     q_rif: float = 0.84
     b_reuse: int = 1
     r_remove: int = 1
+
+
+def make_server_state(C: torch.Tensor) -> ServerState:
+    """Fresh, empty server state for capacities ``C`` [n, K] (on C's
+    device)."""
+    n, K = C.shape
+    f32 = dict(dtype=torch.float32, device=C.device)
+    return ServerState(L=torch.zeros((n, K), **f32),
+                       D=torch.zeros((n,), **f32),
+                       rif=torch.zeros((n,), **f32),
+                       C=C.to(torch.float32))
+
+
+def make_datastore(C: torch.Tensor) -> DataStoreState:
+    """An empty data store for capacities ``C`` [n, K]."""
+    n, K = C.shape
+    f32 = dict(dtype=torch.float32, device=C.device)
+    return DataStoreState(L=torch.zeros((n, K), **f32),
+                          D=torch.zeros((n,), **f32),
+                          rif=torch.zeros((n,), **f32),
+                          p=torch.zeros((), dtype=torch.int32,
+                                        device=C.device))
+
+
+def make_view(state: ServerState) -> SchedulerView:
+    """A view equal to the ground truth (what fresh probing returns)."""
+    return SchedulerView(L=state.L, D=state.D, rif=state.rif, C=state.C)
+
+
+def make_prequal_pool(s_pool: int, device=None) -> PrequalPool:
+    """An empty pool of ``s_pool`` slots: +inf RIF and latency, −inf
+    ages, none valid.  ``device`` defaults to the GPU."""
+    dev = resolve_device(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return PrequalPool(
+        server=torch.zeros((s_pool,), dtype=torch.int32, device=dev),
+        rif=torch.full((s_pool,), float("inf"), **f32),
+        latency=torch.full((s_pool,), float("inf"), **f32),
+        age=torch.full((s_pool,), float("-inf"), **f32),
+        valid=torch.zeros((s_pool,), dtype=torch.bool, device=dev))

@@ -48,11 +48,14 @@
 // thread reading its own columns from global memory, and the
 // column-tile-fastest order 0.3 to 0.6 us faster than row tile fastest.
 //
-// Arithmetic.  As the reference's interpret lowering computes it on
-// XLA:CPU: the dot is a fused multiply-add chain in k order starting from
-// r0 * L0, scaled by inv with one rounding; sum(C^2) is the same chain,
-// and inv its IEEE reciprocal.  The build passes -fmad=false so that no
-// other product is contracted.
+// Arithmetic.  As the reference's jitted wrapper computes it on XLA:CPU:
+// the dot is a fused multiply-add chain in k order starting from r0 * L0,
+// scaled by inv with one rounding, and inv is the IEEE reciprocal of
+// sum(C^2).  The wrapper reduces sum(C^2) outside the Pallas kernel, and
+// at K >= 5 XLA vectorises that reduction across servers: the servers
+// j < nvec (ops: ref.unfused_columns, by N) sum their squares rounded,
+// left to right, and the rest are the same fused chain as the dot.  The
+// build passes -fmad=false so that no other product is contracted.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,18 +83,25 @@ __device__ __forceinline__ void load_rows(float (&rt)[kUnroll][K],
 }
 
 // Server j's loads into l and its reciprocal norm 1 / sum_k C[j, k]^2
-// (0 and 0 for j outside [0, N)).
+// (0 and 0 for j outside [0, N)); the squares of a server j < nvec are
+// rounded and added left to right, the others fused.
 template <int K>
 __device__ __forceinline__ float load_column(const float* __restrict__ L,
                                              const float* __restrict__ C,
-                                             int j, int N, float (&l)[K]) {
+                                             int j, int N, int nvec,
+                                             float (&l)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k) l[k] = 0.0f;
   if (j < 0 || j >= N) return 0.0f;
   const float* c = C + static_cast<long long>(j) * K;
   float acc = c[0] * c[0];
+  if (j < nvec) {
 #pragma unroll
-  for (int k = 1; k < K; ++k) acc = fmaf(c[k], c[k], acc);
+    for (int k = 1; k < K; ++k) acc = acc + c[k] * c[k];
+  } else {
+#pragma unroll
+    for (int k = 1; k < K; ++k) acc = fmaf(c[k], c[k], acc);
+  }
 #pragma unroll
   for (int k = 0; k < K; ++k) l[k] = L[static_cast<long long>(j) * K + k];
   return 1.0f / acc;
@@ -101,7 +111,7 @@ template <int K>
 __global__ void __launch_bounds__(kMaxThreads)
 rl_score_kernel(const float* __restrict__ r, const float* __restrict__ L,
                 const float* __restrict__ C, int T, int N, int G, int R,
-                int rpt, int col_tiles, float* __restrict__ out) {
+                int rpt, int nvec, int col_tiles, float* __restrict__ out) {
   __shared__ float inv_s[kCols];
   __shared__ float l_s[K][kCols];
   const int tid = threadIdx.x;
@@ -113,7 +123,7 @@ rl_score_kernel(const float* __restrict__ r, const float* __restrict__ L,
   // Prologue: the tile's reciprocal norms and loads.
   for (int i = tid; i < W; i += blockDim.x) {
     float l[K];
-    inv_s[i] = load_column<K>(L, C, col0 + i, N, l);
+    inv_s[i] = load_column<K>(L, C, col0 + i, N, nvec, l);
 #pragma unroll
     for (int k = 0; k < K; ++k) l_s[k][i] = l[k];
   }
@@ -178,12 +188,13 @@ rl_score_kernel(const float* __restrict__ r, const float* __restrict__ L,
 // r [T, K], L [N, K], C [N, K] float32 row-major; out [T, N] float32,
 // 16-byte aligned.  K in 1..8.  The plan: G groups of 4 servers a column
 // tile (1..32), R rows a block (R * G <= 256, R * N % 4 == 0) and rpt >= 1
-// rows a thread.  Launches one kernel on `stream`; returns
+// rows a thread; nvec the servers whose sum(C^2) is unfused.  Launches
+// one kernel on `stream`; returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a K,
 // plan or alignment it does not take.
 extern "C" int rl_score_launch(const void* r, const void* L, const void* C,
                                void* out, int T, int N, int K, int G, int R,
-                               int rpt, void* stream) {
+                               int rpt, int nvec, void* stream) {
   if (K < 1 || K > 8 || G < 1 || G > kMaxG || R < 1 ||
       R * G > kMaxThreads || (static_cast<long long>(R) * N) % 4 != 0 ||
       rpt < 1 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
@@ -208,7 +219,7 @@ extern "C" int rl_score_launch(const void* r, const void* L, const void* C,
 #define REPRO_K6_CASE(KK)                                                   \
   case KK:                                                                  \
     rl_score_kernel<KK><<<grid, block, 0, s>>>(rf, Lf, Cf, T, N, G, R, rpt, \
-                                               col_tiles, of);              \
+                                               nvec, col_tiles, of);        \
     break;
     REPRO_K6_CASE(1)
     REPRO_K6_CASE(2)

@@ -17,19 +17,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..._arith import dot_fma, fma, row_sum
+from ..._arith import dot_fma, fma
+from ...core.policies import remote_bytes
 from ...core.prefilter import avail_rows, feasible_mask, sample_feasible_batch
 from ...core.rl_score import load_score_batched
 
 _EPS = np.float32(1e-9)   # the reference's guard of 0/0 (rl_score._EPS)
-
-
-def remote_bytes(psrv, pbytes, cand):
-    """Σ_p pbytes[t, p]·[psrv[t, p] ≠ cand[t, c]] for both candidates
-    ([T, P], [T, P], [T, 2] → [T, 2] float32), summed in the reference's
-    row order (:func:`repro_torch._arith.row_sum`)."""
-    away = (psrv[:, None, :] != cand[:, :, None]).to(torch.float32)
-    return row_sum(pbytes[:, None, :] * away)
 
 
 def dodoor_fused_sparse_ref(keys, r, d_types, node_type, L, D, C,

@@ -11,7 +11,11 @@ the same seeds:
   ``(y0, y1) = threefry2x32(key, (0, i))`` and ``unit`` the f32 mantissa
   fill ``bitcast((bits >> 9) | 0x3F800000) - 1``;
 * ``exponential(key, shape) = -log1p(-uniform(key, shape))`` with
-  XLA:CPU's float32 ``log1p`` (:func:`repro_torch._arith.log1p`).
+  XLA:CPU's float32 ``log1p`` (:func:`repro_torch._arith.log1p`);
+* ``randint(key, shape, lo, hi)`` = ``lo + (w0 mod s · m + w1 mod s) mod
+  s`` in wrapping uint32 arithmetic, with ``s = hi − lo``, ``m = (2¹⁶ mod
+  s)² mod s`` and the words ``w0``, ``w1`` drawn from the two halves of
+  ``split(key)``.
 
 A key is an int64 tensor whose last axis holds the two 32-bit words; every
 function broadcasts over leading axes (a ``[T, 2]`` block of keys gives
@@ -97,3 +101,49 @@ def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.exponential(key, shape)``: unit-rate exponential
     draws as float32, bit-exact with the compiled reference."""
     return -log1p(-uniform(key, shape))
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a · b mod 2³²`` for int64 tensors holding uint32 values, without
+    leaving int64: split ``a`` into 16-bit halves."""
+    hi = ((a >> 16) * b) & 0xFFFF
+    return ((hi << 16) + (a & 0xFFFF) * b) & MASK32
+
+
+def randint(key: torch.Tensor, shape=(), minval=0, maxval=1,
+            dtype=torch.int32) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for 32-bit
+    integers: uniform-ish integers in ``[minval, maxval)``, broadcast over
+    ``key[..., 2]`` like the other draws.  JAX's form: two words per value
+    from the two halves of ``split(key)``, reduced modulo the span ``s =
+    maxval − minval`` (uint32, wrapping) as ``(hi mod s · m + lo mod s) mod
+    s`` with ``m = (2¹⁶ mod s)² mod s``, every product and sum wrapped
+    to 32 bits as JAX's are; ``s`` is 1 when ``maxval ≤
+    minval``, so ``minval`` comes back.  Bounds outside int32 are clipped
+    to it, and a ``maxval`` above its maximum widens the span by one."""
+    if dtype != torch.int32:
+        raise TypeError(f"randint draws int32 values, got {dtype}")
+    shape = tuple(shape)
+    lo_i, hi_i = -(1 << 31), (1 << 31) - 1
+    dev = key.device
+    minval = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    maxval = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    out_of_range = maxval > hi_i
+    minval = minval.clamp(lo_i, hi_i)
+    maxval = maxval.clamp(lo_i, hi_i)
+    kk = split(key)
+    higher = random_bits(kk[..., 0, :], shape)
+    lower = random_bits(kk[..., 1, :], shape)
+    span = (maxval - minval) & MASK32
+    span = torch.where(maxval <= minval, torch.ones_like(span), span)
+    span = torch.where(out_of_range & (maxval > minval),
+                       (span + 1) & MASK32, span)
+    # A span that wrapped to 0 (2³²) leaves the words as they are.
+    wrap = span == 0
+    s = torch.where(wrap, torch.ones_like(span), span)
+    mult = (1 << 16) % s
+    mult = ((mult * mult) & MASK32) % s
+    off = (_mul32(higher % s, mult) + lower % s) & MASK32
+    off = torch.where(wrap, off, off % s)
+    val = (minval + off) & MASK32
+    return torch.where(val > hi_i, val - (1 << 32), val).to(torch.int32)

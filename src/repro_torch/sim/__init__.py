@@ -1,5 +1,6 @@
 """repro_torch.sim — cluster models, the batched decision-block engine
-with server dynamics, task graphs and retries, the scenario engine,
+and the sequential oracle with server dynamics, task graphs and retries,
+the scenario engine,
 message accounting, metrics and carry conversion.  Counterpart of
 ``repro.sim`` for the ported slices."""
 from .cluster import (CMAX, NODE_TYPES, TESTBED_TYPES, ClusterSpec,

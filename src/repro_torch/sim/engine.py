@@ -1,9 +1,9 @@
-"""Batched decision-block cluster simulation on torch — counterpart of the
-batched driver in ``repro.sim.engine``.
+"""Cluster simulation on torch — counterpart of ``repro.sim.engine``: the
+batched decision-block driver, and the sequential oracle.
 
-The driver walks the trace in *decision blocks* of ``b`` tasks, one cache
-snapshot per block (the paper's b-batched push boundary, §3.2/§4.1).  For
-each block it
+The batched driver walks the trace in *decision blocks* of ``b`` tasks,
+one cache snapshot per block (the paper's b-batched push boundary,
+§3.2/§4.1).  For each block it
 
 1. derives per-task keys, ``fold_in(PRNGKey(seed), task_id)``, then
    ``split`` (for dodoor and (1+β)) — for the whole trace at once, since
@@ -40,6 +40,17 @@ match the reference's ``use_kernel=False`` batched driver exactly on the
 CPU; see ``tests/test_torch_engine.py``, ``tests/test_torch_scenarios.py``,
 ``tests/test_torch_dags.py`` and ``tests/test_torch_faults.py``.
 
+The sequential oracle (``mode="sequential"``, :func:`_seq_wave`) is the
+reference's per-task scan: every decision against the live carry, then
+one commit (:func:`_commit_one`), the flush and the push.  It runs all
+five policies — the probing baselines PoT (two synchronous probes of the
+ring buffers) and Prequal (per-scheduler probe pools, ``r_probe``
+asynchronous probes a decision) too — with dynamics, task graphs,
+locality and retries, through the same wave loops.  It launches no
+kernel, as the reference's scan calls no Pallas kernel, and matches the
+reference's ``mode="sequential"`` bit for bit on the CPU
+(``tests/test_torch_sequential.py``).
+
 The server execution model (per-core and per-memory-unit free-at times,
 the in-flight ring buffer, channel contention, co-location interference)
 and the data-store staleness model are the reference's, described in its
@@ -57,15 +68,18 @@ import torch
 
 from .._arith import fma, row_sum
 from .._device import resolve_device
+from ..core.policies import dodoor_choice_batch
 from ..core.prefilter import avail_rows, feasible_mask, inverse_cdf_draws
-from ..core.types import PrequalParams
+from ..core.types import PrequalParams, SchedulerView
 from ..kernels.dodoor_choice import dodoor_fused_sparse
-from ..random import PRNGKey, fold_in, split, uniform
+from ..random import PRNGKey, fold_in, randint, split, uniform
 from ..workloads.dags import dag_plan
 from .cluster import CMAX, ClusterSpec
 from .messages import RpcModel
 
-POLICIES = ("random", "dodoor", "one_plus_beta")
+POLICIES = ("random", "pot", "dodoor", "one_plus_beta", "prequal")
+#: The policies the batched driver runs (PoT and Prequal: sequential).
+BATCHED_POLICIES = ("random", "dodoor", "one_plus_beta")
 
 
 class RetryPolicy(NamedTuple):
@@ -121,11 +135,12 @@ class EngineConfig(NamedTuple):
     """Cluster-level knobs (Require line of Algorithm 1 + §6.1 RPC setup),
     named as the reference's.  ``trace`` (not ported yet) must keep its
     default; ``outage_ms`` is deprecated and routed into
-    ``Dynamics(store_outages=...)``; ``prequal.s_pool`` sizes the carry's
-    (unused) probe pools so the carry matches the reference's leaf for
-    leaf."""
+    ``Dynamics(store_outages=...)``; ``prequal`` holds Prequal's probe
+    count, pool size and cold quantile."""
 
-    policy: str = "dodoor"          # random | dodoor | one_plus_beta
+    policy: str = "dodoor"          # random | pot | dodoor | prequal |
+                                    # one_plus_beta (pot and prequal:
+                                    # mode="sequential")
     num_schedulers: int = 5         # §6.1: 5 scheduler services
     b: int = 50                     # cache batch size (default n/2, §3.2)
     flush_every: int = 2            # addNewLoad cadence (per-scheduler
@@ -373,25 +388,30 @@ def _lower_dynamics(dynamics, n: int, widths: tuple | None = None,
                 cache_seed=torch.tensor(np.int32(cseed), device=device))
 
 
-def _gate_start(win: _Win, start: torch.Tensor) -> torch.Tensor:
-    """Push a start time [n] (one per server row) landing inside a gate
-    window to the window's end; the unrolled loop resolves chains of
-    non-overlapping sorted windows, in the reference's order."""
-    g0, g1 = win.gate0, win.gate1                    # [n, Wg]
-    for _ in range(g0.shape[1]):
-        inwin = (g0 <= start[:, None]) & (start[:, None] < g1)
-        start = torch.where(inwin, g1, start[:, None]).max(dim=1).values
+def _gate_start(win: _Win, start: torch.Tensor, j=None) -> torch.Tensor:
+    """Push a start time landing inside a gate window to the window's end:
+    ``start`` [n] holds one time per server row, or with a server index
+    ``j`` it is that server's 0-d time.  The unrolled loop resolves chains
+    of non-overlapping sorted windows, in the reference's order."""
+    g0, g1 = ((win.gate0, win.gate1) if j is None
+              else (win.gate0[j], win.gate1[j]))          # [n, Wg] / [Wg]
+    for _ in range(g0.shape[-1]):
+        s = start[..., None]
+        inwin = (g0 <= s) & (s < g1)
+        start = torch.where(inwin, g1, s).max(dim=-1).values
     return start
 
 
-def _slow_stretch(win: _Win, start: torch.Tensor) -> torch.Tensor:
-    """Straggler multiplier [n] for a start time per server row — the
-    product of the matching windows' factors, in window order."""
-    s0, s1, sm = win.slow0, win.slow1, win.slow_mult
+def _slow_stretch(win: _Win, start: torch.Tensor, j=None) -> torch.Tensor:
+    """Straggler multiplier for a start time per server row ([n]), or for
+    server ``j``'s 0-d time — the product of the matching windows'
+    factors, in window order."""
+    s0, s1, sm = ((win.slow0, win.slow1, win.slow_mult) if j is None
+                  else (win.slow0[j], win.slow1[j], win.slow_mult[j]))
     stretch = torch.ones_like(start)
-    for w in range(s0.shape[1]):
-        inwin = (s0[:, w] <= start) & (start < s1[:, w])
-        stretch = stretch * torch.where(inwin, sm[:, w], 1.0)
+    for w in range(s0.shape[-1]):
+        inwin = (s0[..., w] <= start) & (start < s1[..., w])
+        stretch = stretch * torch.where(inwin, sm[..., w], 1.0)
     return stretch
 
 
@@ -406,10 +426,17 @@ def _suppress_push(win: _Win, now: torch.Tensor) -> torch.Tensor:
 
 
 class _Carry(NamedTuple):
-    """The driver's state between blocks, leaf for leaf the reference's."""
+    """The driver's state between blocks, leaf for leaf the reference's
+    batched carry.  Invariant: every row of ``core_free`` and ``mem_free``
+    is ascending (the +inf padding past a server's cores last), in both
+    modes: the commits read the c-th smallest entry and update with
+    :func:`_sorted_fill`.  The reference's sequential carry keeps the same
+    values in another order; only the multiset of a row matters to a
+    commit, and :func:`repro_torch.sim.state.carry_from_numpy` sorts the
+    rows it is given."""
 
-    core_free: torch.Tensor    # [n, CMAX] per-core free-at, rows sorted
-    mem_free: torch.Tensor     # [n, MU]   per-memory-unit free-at, sorted
+    core_free: torch.Tensor    # [n, CMAX] per-core free-at, rows ascending
+    mem_free: torch.Tensor     # [n, MU]   per-memory-unit free-at, ascending
     prev_start: torch.Tensor   # [n]
     rb_release: torch.Tensor   # [n, R] in-flight ring buffer
     rb_cpu: torch.Tensor       # [n, R]
@@ -421,7 +448,7 @@ class _Carry(NamedTuple):
     pending: torch.Tensor      # [S, n, 4] unflushed scheduler deltas
     chan_free: torch.Tensor    # [n] per-server RPC channel next-free
     push_end: torch.Tensor     # [] wall time the in-progress push ends
-    pool_server: torch.Tensor  # [S, s_pool] Prequal pools (unused here)
+    pool_server: torch.Tensor  # [S, s_pool] Prequal probe pools
     pool_rif: torch.Tensor
     pool_lat: torch.Tensor
     pool_age: torch.Tensor
@@ -443,6 +470,7 @@ class _Dyn(NamedTuple):
     compute_ms: torch.Tensor
     reject_cap: torch.Tensor   # rif ≥ cap·cores rejects (+inf: never)
     gamma_bw: torch.Tensor     # locality penalty per remote MB
+    q_rif: torch.Tensor        # Prequal's cold-RIF quantile
 
 
 class _Ctx(NamedTuple):
@@ -478,7 +506,7 @@ def _gamma_bw(cfg: EngineConfig) -> float:
 def _make_dyn(cfg: EngineConfig, device) -> _Dyn:
     vals = (cfg.beta, cfg.interference, cfg.rpc.hop_ms,
             cfg.rpc.chan_ms, cfg.rpc.push_block_ms, cfg.rpc.compute_ms,
-            _reject_cap(cfg), _gamma_bw(cfg))
+            _reject_cap(cfg), _gamma_bw(cfg), cfg.prequal.q_rif)
     return _Dyn(*(torch.tensor(np.float32(v), device=device) for v in vals))
 
 
@@ -559,19 +587,21 @@ def _init_carry(cfg: EngineConfig, n: int, cores_per: torch.Tensor) -> _Carry:
     )
 
 
-def _truth_all(carry: _Carry, now: torch.Tensor):
-    """Ground truth (L [n, 2], D [n], rif [n]) from the ring buffer: the
-    tasks whose release time is still ahead of ``now``."""
-    act = (carry.rb_release > now).to(torch.float32)
-    cpu, mem, dur = row_sum(
-        torch.stack([carry.rb_cpu, carry.rb_mem, carry.rb_dur]) * act)
+def _truth_rows(carry: _Carry, now: torch.Tensor, rows=slice(None)):
+    """Ground truth (L [k, 2], D [k], rif [k]) from the ring buffers at
+    ``now``: the tasks whose release time is still ahead of it, on the
+    servers ``rows`` (default: all), each sum in the reference's order
+    (:func:`repro_torch._arith.row_sum`)."""
+    act = (carry.rb_release[rows] > now).to(torch.float32)
+    cpu, mem, dur = row_sum(torch.stack(
+        [carry.rb_cpu[rows], carry.rb_mem[rows], carry.rb_dur[rows]]) * act)
     return torch.stack([cpu, mem], dim=-1), dur, act.sum(dim=-1)
 
 
 def _apply_push(carry: _Carry, now: torch.Tensor, dyn: _Dyn) -> _Carry:
     """One data-store push: the store's view is truth(now) minus the deltas
     the schedulers have not flushed yet (the staleness model)."""
-    L, D, rif = _truth_all(carry, now)
+    L, D, rif = _truth_rows(carry, now)
     unflushed = carry.pending[0]
     for s in range(1, carry.pending.shape[0]):
         unflushed = unflushed + carry.pending[s]                 # [n, 4]
@@ -942,15 +972,13 @@ def _validate_config(cfg: EngineConfig) -> None:
 def _not_ported(cfg: EngineConfig, mode: str, dynamics) -> None:
     """Raise for every input whose path is not ported yet, naming the
     ROADMAP §1 item that will port it."""
-    later = None
-    if mode != "batched":
-        if mode != "sequential":
-            raise ValueError(f"unknown mode {mode!r}")
-        later = ("mode='sequential'", 5)
-    elif cfg.policy in ("pot", "prequal"):
-        later = (f"policy {cfg.policy!r}", 5)
-    elif cfg.policy not in POLICIES:
+    if mode not in ("batched", "sequential"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if cfg.policy not in POLICIES:
         raise ValueError(f"unknown policy {cfg.policy!r}")
+    later = None
+    if mode == "batched" and cfg.policy not in BATCHED_POLICIES:
+        later = (f"policy {cfg.policy!r} in mode='batched'", 5)
     elif dynamics is not None and dynamics.cache_faults is not None:
         later = ("Dynamics.cache_faults", 7)
     elif cfg.trace:
@@ -1016,6 +1044,295 @@ def _run_wave(xs, ctx: _Ctx, carry: _Carry | None, mw: int):
     return carry, j, rest.cpu().numpy()
 
 
+# ---------------------------------------------------------------- sequential
+
+def _commit_one(carry: _Carry, now, j, cores, mem_mb, dur_raw, d_est_j,
+                extra_lat, ctx: _Ctx):
+    """Commit one placed task to server ``j``: channel contention, FCFS
+    start, interference and straggler stretch, unit allocation and the
+    ring-buffer insert, as the reference's sequential commit computes
+    them.  ``j`` is a one-element index tensor and the task's values
+    one-element tensors (``now`` 0-d): indexing with a 0-d tensor reads it
+    to the host, which on the card is a sync.  The task takes the ``c``
+    earliest-free units of the server's ascending rows, which stay
+    ascending (:func:`_sorted_fill`); the reference's ``argsort(argsort(·))``
+    replaces the same values in an unsorted row.
+    Updates the carry's planes in place and returns (start, finish,
+    enqueue, sched_ms) or, under a :class:`RetryPolicy`, those and
+    (killed, rejected), with the reference's failure paths (see
+    :func:`_commit_rounds`)."""
+    dyn = ctx.dyn
+    retry = ctx.cfg.retry is not None
+    cp = ctx.cores_per[j]
+    rif_j = (carry.rb_release[j] > now).to(torch.float32).sum(dim=-1)
+    occupancy = dyn.chan_ms * (1.0 + rif_j / cp)
+    chan_j = carry.chan_free[j]
+    chan_wait = torch.clamp_min(chan_j - now, 0.0)
+    sched_ms = dyn.compute_ms + extra_lat + chan_wait + occupancy + dyn.hop_ms
+    carry.chan_free[j] = torch.maximum(chan_j, now) + occupancy
+    enqueue_t = now + sched_ms
+    if retry:
+        rejected = rif_j >= dyn.reject_cap * cp.to(torch.float32)
+        w = ~rejected
+
+    c_eff = torch.minimum(torch.clamp_min(cores, 1.0), cp).to(torch.long)
+    mu_need = torch.ceil(mem_mb / ctx.mem_unit[j]).clamp(
+        1, ctx.cfg.mem_units).to(torch.long)
+    cf, mf = carry.core_free[j], carry.mem_free[j]           # [1, CMAX/MU]
+    start = torch.maximum(
+        torch.maximum(enqueue_t, carry.prev_start[j]),
+        torch.maximum(cf.gather(1, c_eff[:, None] - 1)[:, 0],
+                      mf.gather(1, mu_need[:, None] - 1)[:, 0]))
+    if ctx.gated:
+        start = _gate_start(ctx.win, start, j)
+    busy = (cf > start[:, None]).sum(dim=-1) - (CMAX - cp)
+    dur = dur_raw * ctx.stretch[cp.long() * (CMAX + 1) + busy]
+    if ctx.slowed:
+        dur = dur * _slow_stretch(ctx.win, start, j)
+    finish = start + dur
+    rel = finish
+    if retry:
+        killed = torch.zeros_like(w)
+        if ctx.gated:
+            g0 = ctx.win.gate0[j]
+            opens = (g0 > start[:, None]) & (g0 < finish[:, None])
+            kt = torch.where(opens, g0, float("inf")).min(dim=-1).values
+            killed = w & torch.isfinite(kt)
+            rel = torch.where(killed, kt, finish)
+
+    cf_new = _sorted_fill(cf, c_eff, rel)
+    mf_new = _sorted_fill(mf, mu_need, rel)
+    slot = torch.argmin(carry.rb_release[j], dim=-1)
+    new = torch.stack([rel, cores, mem_mb, d_est_j])          # [4, 1]
+    if retry:
+        cf_new = torch.where(w[:, None], cf_new, cf)
+        mf_new = torch.where(w[:, None], mf_new, mf)
+        start_w = torch.where(w, start, carry.prev_start[j])
+        new = torch.where(w, new, torch.stack(
+            [carry.rb_release[j, slot], carry.rb_cpu[j, slot],
+             carry.rb_mem[j, slot], carry.rb_dur[j, slot]]))
+    else:
+        start_w = start
+    carry.core_free[j] = cf_new
+    carry.mem_free[j] = mf_new
+    carry.prev_start[j] = start_w
+    for plane, v in zip((carry.rb_release, carry.rb_cpu, carry.rb_mem,
+                         carry.rb_dur), new):
+        plane[j, slot] = v
+    if not retry:
+        return start, finish, enqueue_t, sched_ms
+    return (torch.where(rejected, enqueue_t, start),
+            torch.where(rejected, enqueue_t, rel), enqueue_t, sched_ms,
+            killed.to(torch.float32), rejected.to(torch.float32))
+
+
+#: Tasks whose candidates one pass of :func:`_seq_draws` draws together
+#: (bounds its [tasks, n] masks).
+_DRAW_CHUNK = 4096
+
+
+def _seq_draws(ctx: _Ctx, r_sub, now, task_id):
+    """Every draw of a sequential wave, made at once: they depend only on
+    the task keys ``fold_in(PRNGKey(seed), task_id)``, the demands and the
+    down windows at each task's time, never on the carry.  Returns a dict
+    of device tensors: ``cand`` [m, 2] (PoT, dodoor, (1+β); Random [m,
+    1]), ``use_two`` [m] ((1+β)), and for Prequal ``rand_j`` [m], the
+    probed servers ``probes`` [m, r_probe] and ``probe_ok`` [m, r_probe]
+    (not inside a down window at the task's time)."""
+    cfg, win = ctx.cfg, ctx.win
+    policy = cfg.policy
+    n = ctx.C.shape[0]
+    out = {}
+    keys = fold_in(ctx.base_key, task_id)
+    if policy in ("dodoor", "one_plus_beta"):
+        kk = split(keys)
+        u = uniform(kk[:, 0, :], (2,))
+        if policy == "one_plus_beta":
+            out["use_two"] = uniform(kk[:, 1, :]) < ctx.dyn.beta
+    elif policy == "prequal":
+        kk = split(keys, 3)
+        u = uniform(kk[:, 1, :], (1,))
+        probes = randint(kk[:, 2, :], (cfg.prequal.r_probe,), 0, n).long()
+        out["probes"] = probes
+        if ctx.masked:
+            t = now[:, None, None]
+            out["probe_ok"] = ~((win.down0[probes] <= t)
+                                & (t < win.down1[probes])).any(dim=-1)
+    else:
+        u = uniform(keys, (2 if policy == "pot" else 1,))
+    cand = []
+    for a in range(0, r_sub.shape[0], _DRAW_CHUNK):
+        sl = slice(a, a + _DRAW_CHUNK)
+        mask = feasible_mask(r_sub[sl], ctx.C)
+        if ctx.masked:
+            mask = mask & avail_rows(win.down0, win.down1, now[sl])
+        cand.append(inverse_cdf_draws(mask, u[sl]).long())
+    cand = torch.cat(cand) if cand else u.new_zeros(u.shape, dtype=torch.long)
+    if policy == "prequal":
+        out["rand_j"] = cand[:, 0]
+    else:
+        out["cand"] = cand
+    return out
+
+
+def _prequal_pick(carry: _Carry, s: int, now, rand_j, probes, probe_ok,
+                  ctx: _Ctx):
+    """Prequal's decision for a task of scheduler ``s`` at ``now`` from its
+    live probe pool, then its ``r_probe`` asynchronous probes of the true
+    ring-buffer state before the commit, and the pool's maintenance — the
+    reference's ``_select`` step by step.  Pool entries on a down server
+    are skipped for the pick but stay in the pool; a probe to a down
+    server gets no reply.  Updates the pool rows in place; returns the
+    chosen server as a one-element index tensor."""
+    ps, pr, plat, page, pv = (carry.pool_server[s], carry.pool_rif[s],
+                              carry.pool_lat[s], carry.pool_age[s],
+                              carry.pool_valid[s])
+    P = pv.shape[0]
+    valid = pv
+    if ctx.masked:
+        srv = ps.long()
+        valid = pv & ~((ctx.win.down0[srv] <= now)
+                       & (now < ctx.win.down1[srv])).any(dim=-1)
+    inf = torch.full_like(pr, float("inf"))
+    rifs = torch.where(valid, pr, inf)
+    any_valid = valid.any()
+    n_valid = torch.clamp_min(valid.sum(), 1).to(torch.float32)
+    q_idx = (ctx.dyn.q_rif * n_valid).to(torch.long).clamp(0, P - 1)
+    threshold = torch.sort(rifs).values[q_idx.view(1)]
+    cold = valid & (pr <= threshold)
+    entry = torch.where(
+        cold.any(), torch.argmin(torch.where(cold, plat, inf)),
+        torch.argmin(rifs)).view(1)
+    j = torch.where(any_valid, ps[entry].long(), rand_j)
+    pv[entry] = pv[entry] & ~any_valid                  # b_reuse = 1
+
+    _, pD, prif = _truth_rows(carry, now, probes)
+    true = torch.ones((), dtype=torch.bool, device=pv.device)
+    for i in range(probes.shape[0]):
+        slot = torch.argmin(torch.where(pv, page, float("-inf"))).view(1)
+        # The reference's probe age now + float32(i)·1e-3, exact for the
+        # three probes of r_probe = 3 with or without contraction.
+        new = (probes[i].to(torch.int32), prif[i], pD[i],
+               now + np.float32(i) * np.float32(1e-3), true)
+        for plane, v in zip((ps, pr, plat, page, pv), new):
+            plane[slot] = (v if probe_ok is None
+                           else torch.where(probe_ok[i], v, plane[slot]))
+    # r_remove = 1: a full pool evicts its highest-RIF entry.
+    worst = torch.argmax(torch.where(pv, pr, float("-inf"))).view(1)
+    pv[worst] = pv[worst] & (pv.sum() < P)
+    return j
+
+
+def _seq_wave(ctx: _Ctx, carry: _Carry | None, host: dict, dev,
+              parents=()):
+    """The sequential oracle over one wave: the reference's per-task scan,
+    every decision against the live carry.  ``host`` holds the wave's
+    numpy planes in decision order (``r_submit``, ``r_exec``, ``d_est``,
+    ``d_act``, ``submit`` float32 and ``task_id``); the wave-local index
+    ``i`` sets the scheduler (``i mod S``), the flush cadence and the push
+    (after the ``i + 1 ≡ 0 (mod b)``-th decision, unless a store outage
+    covers it), all decided here on the host.  ``parents`` is the
+    locality pair (psrv, pbytes) [m, P] of a task-graph wave.
+
+    Dodoor's and (1+β)'s decisions read only the cached view and the
+    push's end, which change only at a push, so each run of ``b``
+    decisions between two pushes is scored at once against the live view;
+    PoT's probes and Prequal's pools read state that every commit
+    changes, so they decide task by task.  Returns ``(carry, j [m],
+    outs [rows, m])`` on the host, as :func:`_run_wave`."""
+    cfg, dyn = ctx.cfg, ctx.dyn
+    policy = cfg.policy
+    S, b, fe = cfg.num_schedulers, cfg.b, cfg.flush_every
+    retry = cfg.retry is not None
+    m = host["submit"].shape[0]
+    carry = carry if carry is not None else _init_carry(
+        cfg, ctx.C.shape[0], ctx.cores_per)
+    r_sub, r_exec, d_est, d_act, now_t = (
+        torch.from_numpy(np.require(host[k], requirements=("C", "W"))).to(dev)
+        for k in ("r_submit", "r_exec", "d_est", "d_act", "submit"))
+    draws = _seq_draws(ctx, r_sub, now_t, torch.from_numpy(
+        host["task_id"].astype(np.int64)).to(dev))
+    psrv, pbytes = (tuple(torch.from_numpy(np.require(
+        p, requirements=("C", "W"))).to(dev) for p in parents)
+        or (None, None))
+    cached = policy in ("dodoor", "one_plus_beta")
+    i_host = np.arange(m)
+    do_flush = ((i_host // S) + 1) % fe == 0
+    store0 = ctx.win.store0.cpu().numpy()
+    store1 = ctx.win.store1.cpu().numpy()
+    t = host["submit"][:, None]
+    do_push = (((i_host + 1) % b == 0)
+               & ~((store0 <= t) & (t < store1)).any(axis=1))
+    nt = ctx.node_type.long()
+    outs = torch.zeros((8 if retry else 6, m), dtype=torch.float32,
+                       device=dev)
+    js = torch.zeros((m,), dtype=torch.long, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    extra_msgs = {"pot": 4, "prequal": 2 * cfg.prequal.r_probe}.get(policy, 0)
+    ones = torch.ones((1,), dtype=torch.float32, device=dev)
+    # α on the device once: a float would be copied there every block.
+    alpha = torch.tensor(np.float32(cfg.alpha), device=dev)
+    for i in range(m):
+        now = now_t[i]
+        s = i % S
+        lat = zero
+        if cached and i % b == 0:
+            # The block's decisions against the view it sees.
+            blk = slice(i, min(m, i + b))
+            cand = draws["cand"][blk]
+            rows = torch.arange(cand.shape[0], device=dev)[:, None]
+            view = SchedulerView(carry.view_L, carry.view_D,
+                                 carry.view_rif, ctx.C)
+            loc = ({} if psrv is None else
+                   dict(psrv=psrv[blk], pbytes=pbytes[blk],
+                        gamma_bw=dyn.gamma_bw))
+            pick = dodoor_choice_batch(
+                r_sub[blk], cand, d_est[blk][rows, nt[cand]], view, alpha,
+                **loc).long()
+            if policy == "one_plus_beta":
+                pick = torch.where(draws["use_two"][blk], pick, cand[:, 0])
+            blk_lat = torch.clamp_min(carry.push_end - now_t[blk], 0.0)
+        # j: a one-element index tensor (a 0-d one would sync the card).
+        if cached:
+            k = i % b
+            j, lat = pick[k:k + 1], blk_lat[k:k + 1]
+        elif policy == "random":
+            j = draws["cand"][i]
+        elif policy == "pot":
+            c = draws["cand"][i]
+            rif = (carry.rb_release[c] > now).to(torch.float32).sum(dim=-1)
+            j = torch.where(rif[1:] < rif[:1], c[1:], c[:1])
+            lat = 2.0 * dyn.hop_ms
+        else:
+            j = _prequal_pick(carry, s, now, draws["rand_j"][i:i + 1],
+                              draws["probes"][i],
+                              draws["probe_ok"][i] if ctx.masked else None,
+                              ctx)
+        nt_j = nt[j]
+        res = r_exec[i][nt_j]                                  # [1, 2]
+        cores, mem_mb = res[:, 0], res[:, 1]
+        d_est_j = d_est[i][nt_j]
+        o = _commit_one(carry, now, j, cores, mem_mb, d_act[i][nt_j],
+                        d_est_j, lat, ctx)
+        outs[:, i:i + 1] = torch.stack(o[:4] + (cores, mem_mb) + o[4:])
+        js[i:i + 1] = j
+        if cached:
+            delta = torch.stack([cores, mem_mb, d_est_j, ones], dim=-1)
+            if retry:
+                delta = delta * torch.where(o[5] > 0.5, 0.0, 1.0)
+            carry.pending[s, j] += delta
+            if do_flush[i]:
+                carry.pending[s] = 0.0
+            if do_push[i]:
+                carry = _apply_push(carry, now, dyn)
+    counts = [2 * m, extra_msgs * m, 0, 0]
+    if cached:
+        counts[2:] = [S * int(do_push.sum()), int(do_flush.sum())]
+    carry = carry._replace(msgs=carry.msgs + torch.tensor(
+        counts, dtype=torch.int32, device=dev))
+    return carry, js.to(torch.int32).cpu().numpy(), outs.cpu().numpy()
+
+
 def _result(server, planes: dict, submit_ms, carry: _Carry, cfg, **rec):
     msgs = carry.msgs.cpu().numpy()
     return SimResult(
@@ -1039,7 +1356,32 @@ def _empty_planes(m: int) -> dict:
             for k in ("start", "finish", "enq", "sched", "cores", "mem")}
 
 
-def _simulate_dag(workload, ctx: _Ctx, plan, device) -> SimResult:
+def _wave_runner(workload, ctx: _Ctx, mode: str, device):
+    """``run(carry, idx, submit_w, task_id, parents)`` → ``(carry, j [w],
+    outs [rows, w])`` for one wave of the tasks ``idx`` (original
+    indices, in decision order): the batched driver edge-padded to whole
+    blocks of ``b``, or the sequential oracle at the wave's exact length,
+    as the reference's wave loops run each mode."""
+    if mode == "sequential":
+        host = {f: np.asarray(getattr(workload, f)) for f in _TASK_FIELDS}
+
+        def run(carry, idx, submit_w, task_id, parents=()):
+            wave = {f: host[f][idx] for f in _TASK_FIELDS}
+            wave.update(submit=np.asarray(submit_w, np.float32),
+                        task_id=np.asarray(task_id))
+            return _seq_wave(ctx, carry, wave, device, parents)
+        return run
+    planes = _task_planes(workload, device)
+
+    def run(carry, idx, submit_w, task_id, parents=()):
+        xs = _wave_inputs(planes, idx, submit_w, task_id, ctx.cfg.b, device,
+                          parents)
+        return _run_wave(xs, ctx, carry, idx.shape[0])
+    return run
+
+
+def _simulate_dag(workload, ctx: _Ctx, plan, device,
+                  mode: str = "batched") -> SimResult:
     """The frontier loop: run a task graph level by level, one wave per
     longest-path topological level, so every task's parents have finished
     (and their servers are known to the locality term) before it is
@@ -1054,7 +1396,7 @@ def _simulate_dag(workload, ctx: _Ctx, plan, device) -> SimResult:
     cfg = ctx.cfg
     m = plan.m
     loc_on = cfg.locality is not None and plan.max_parents > 0
-    planes = _task_planes(workload, device)
+    run = _wave_runner(workload, ctx, mode, device)
     server = np.zeros(m, np.int32)
     fin = _empty_planes(m)
     eff_submit = np.zeros(m, np.float32)
@@ -1080,15 +1422,14 @@ def _simulate_dag(workload, ctx: _Ctx, plan, device) -> SimResult:
             parents = (np.where(pidx >= 0, server[np.maximum(pidx, 0)],
                                 -1).astype(np.int32),
                        plan.pbytes_pad[idx])
-        xs = _wave_inputs(planes, idx, submit_w, idx, cfg.b, device,
-                          parents)
-        carry, j_w, outs_w = _run_wave(xs, ctx, carry, idx.shape[0])
+        carry, j_w, outs_w = run(carry, idx, submit_w, idx, parents)
         _record(server, fin, idx, j_w, outs_w)
         eff_submit[idx] = submit_w
     return _result(server, fin, eff_submit, carry, cfg)
 
 
-def _simulate_with_retries(workload, ctx: _Ctx, device) -> SimResult:
+def _simulate_with_retries(workload, ctx: _Ctx, device,
+                           mode: str = "batched") -> SimResult:
     """The re-entry queue: run the decision stream in *waves*.  Wave 1 is
     the whole workload.  Tasks killed by a gate window or rejected at hard
     capacity re-enter as wave k+1 at ``fail_time + backoff_ms ·
@@ -1102,7 +1443,7 @@ def _simulate_with_retries(workload, ctx: _Ctx, device) -> SimResult:
     cfg = ctx.cfg
     rp = cfg.retry
     m = workload.r_submit.shape[0]
-    planes = _task_planes(workload, device)
+    run = _wave_runner(workload, ctx, mode, device)
     server = np.zeros(m, np.int32)
     fin = _empty_planes(m)
     attempts = np.zeros(m, np.int32)
@@ -1112,8 +1453,7 @@ def _simulate_with_retries(workload, ctx: _Ctx, device) -> SimResult:
     carry = None
     for a in range(1, rp.max_attempts + 1):
         task_id = (idx + (a - 1) * m).astype(np.int32)
-        xs = _wave_inputs(planes, idx, submit_w, task_id, cfg.b, device)
-        carry, j_w, outs_w = _run_wave(xs, ctx, carry, idx.shape[0])
+        carry, j_w, outs_w = run(carry, idx, submit_w, task_id)
         _record(server, fin, idx, j_w, outs_w)
         attempts[idx] = a
         killed = outs_w[_KILLED] > 0.5
@@ -1139,7 +1479,14 @@ def _simulate_with_retries(workload, ctx: _Ctx, device) -> SimResult:
 def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
              seed: int = 0, *, mode: str = "batched", device=None,
              dynamics=None, dag=None) -> SimResult:
-    """Run one workload trace through one policy on the batched driver.
+    """Run one workload trace through one policy.
+
+    ``mode="batched"`` (the port's default) runs the decision-block driver
+    for ``random``, ``dodoor`` and ``one_plus_beta``;
+    ``mode="sequential"`` runs the per-task oracle (:func:`_seq_wave`) for
+    those and for ``pot`` and ``prequal``.  The reference's default is
+    ``"sequential"``; the two modes give the same placements, ledger and
+    timestamps.
 
     ``device`` defaults to the GPU; pass ``device="cpu"`` to run on the
     CPU.  On ``cuda`` the dodoor and (1+β) decisions launch the CUDA
@@ -1155,8 +1502,9 @@ def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
     ``cfg.locality`` needs a dag.  ``cfg.retry`` runs the re-entry wave
     loop (:func:`_simulate_with_retries`), and the result carries
     ``attempts``, ``failed`` and ``wasted_ms``; it does not compose with a
-    dag, as in the reference.  Only ``mode="batched"`` is ported, for the
-    ``random``, ``dodoor`` and ``one_plus_beta`` policies."""
+    dag, as in the reference.  Both wave loops run either mode.  The
+    sequential oracle launches no kernel: it scores in torch ops, as the
+    reference's sequential scan scores in ``jnp``."""
     if dynamics is not None and not isinstance(dynamics, Dynamics):
         raise TypeError(f"dynamics must be a Dynamics spec, got "
                         f"{type(dynamics).__name__}")
@@ -1191,9 +1539,18 @@ def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
                          "per-type duration columns")
     ctx = _make_ctx(cluster, cfg, seed, dev, dynamics)
     if plan is not None and plan.num_edges:
-        return _simulate_dag(workload, ctx, plan, dev)
+        return _simulate_dag(workload, ctx, plan, dev, mode)
     if cfg.retry is not None:
-        return _simulate_with_retries(workload, ctx, dev)
+        return _simulate_with_retries(workload, ctx, dev, mode)
+    if mode == "sequential":
+        ids = np.arange(m)
+        carry, j, outs = _wave_runner(workload, ctx, mode, dev)(
+            None, ids, np.asarray(workload.submit_ms), ids)
+        fin = _empty_planes(m)
+        server = np.zeros(m, np.int32)
+        _record(server, fin, ids, j, outs)
+        return _result(server, fin, np.asarray(workload.submit_ms), carry,
+                       cfg)
     xs = _blocked_inputs(workload, cfg.b, dev)
     msgs, outs = _simulate_batched(xs, ctx)
     host = [o.reshape(-1)[:m].cpu().numpy() for o in outs]

@@ -14,22 +14,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .engine import _Carry
 
 
 def carry_from_numpy(leaves: dict, device=None) -> _Carry:
     """``{field: ndarray}`` → :class:`_Carry` on ``device`` (default: the
-    CPU, since the leaves live on the host).  Every field of ``_Carry``
-    except the optional ``push_at`` must be present; dtypes are kept
-    (float32, int32, bool)."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    GPU, as for every entry point of the port; pass ``device="cpu"`` to
+    keep it on the host).  Every field of ``_Carry`` except the optional
+    ``push_at`` must be present; dtypes are kept (float32, int32, bool).
+    The rows of ``core_free`` and ``mem_free`` are sorted ascending, the
+    port's layout in both modes (the reference's sequential carry holds
+    the same values unsorted; a commit reads only their multiset)."""
     missing = [f for f in _Carry._fields
                if f != "push_at" and f not in leaves]
     if missing:
         raise KeyError(f"carry leaves missing: {missing}")
+    device = resolve_device(device)
     vals = {}
     for f in _Carry._fields:
         a = leaves.get(f)
+        if a is not None and f in ("core_free", "mem_free"):
+            a = np.sort(a, axis=-1)
         vals[f] = (None if a is None else
                    torch.from_numpy(np.array(a, copy=True)).to(device))
     return _Carry(**vals)

@@ -138,7 +138,7 @@ def test_carry_handed_across_mid_run(trace, policy, b, k, fb_small,
     for f, v in leaves.items():
         assert mine[f].dtype == v.dtype and np.array_equal(mine[f], v), f
 
-    carry0 = tsim.carry_from_numpy(leaves)
+    carry0 = tsim.carry_from_numpy(leaves, device="cpu")
     t_end, t_rest = teng._simulate_batched(tuple(x[k:] for x in t_xs), ctx,
                                            carry0=carry0, return_carry=True)
     for ref, got in zip(j_full, t_rest):
@@ -153,7 +153,7 @@ def test_carry_numpy_round_trip(torch_inputs):
     carry, _ = teng._simulate_batched(tuple(x[:5] for x in xs), ctx,
                                       return_carry=True)
     leaves = tsim.carry_to_numpy(carry)
-    back = tsim.carry_from_numpy(leaves)
+    back = tsim.carry_from_numpy(leaves, device="cpu")
     for f, v in leaves.items():
         assert np.array_equal(getattr(back, f).numpy(), v)
     with pytest.raises(KeyError, match="msgs"):
@@ -188,13 +188,13 @@ def test_matches_jax_at_ring_widths_off_32(slots, fb_small, small_testbed,
 
 
 NOT_PORTED = [
-    (dict(), dict(mode="sequential"), "item 5"),
+    (dict(trace=True), dict(mode="sequential"), "item 7"),
     (dict(policy="pot"), dict(), "item 5"),
     (dict(policy="prequal"), dict(), "item 5"),
     (dict(), dict(dynamics=teng.Dynamics(
         cache_faults=teng.CacheFaults(0.1))), "item 7"),
     (dict(), dict(mode="sequential", dynamics=teng.Dynamics(
-        outages=((0, 1.0, 2.0),))), "item 5"),
+        cache_faults=teng.CacheFaults(0.1))), "item 7"),
     (dict(trace=True), dict(), "item 7"),
 ]
 

@@ -38,6 +38,7 @@ from repro_torch.kernels.dodoor_choice import (  # noqa: E402
 from repro_torch.kernels.dodoor_choice.ops import plan_k5  # noqa: E402
 from repro_torch.kernels.rl_score import (rl_score_matrix,  # noqa: E402
                                           rl_score_matrix_ref)
+from repro_torch.kernels.rl_score.ref import unfused_columns  # noqa: E402
 from repro_torch.kernels.rl_score.ops import (K6_MAX_G,  # noqa: E402
                                               K6_THREADS, k6_grid,
                                               k6_groups, plan_k6)
@@ -166,7 +167,8 @@ def test_k6_tiling_covers_each_score_once(T, N):
 def k6_mirror(r, L, C, plan):
     """``rl_score.cu``'s decomposition in plain torch: per column tile,
     the prologue's ``1/ΣC²`` and L over columns [4G·by − 3, 4G·by + 4G)
-    (0 off the edges); per block and thread slot, the shift s of its
+    (0 off the edges; the squares of a column below ``unfused_columns``
+    rounded and added, the others fused); per block and thread slot, the shift s of its
     first row, its groups' 4 columns taken from the tile at 4g − s + 3,
     and its rows' scores written where the columns are in [0, N).  Every
     score must be written exactly once."""
@@ -184,7 +186,13 @@ def k6_mirror(r, L, C, plan):
         col = torch.arange(4 * G * by - 3, 4 * G * by - 3 + W)
         edge = (col >= 0) & (col < N)
         cc = col.clamp(0, N - 1)
-        inv_s = torch.where(edge, 1.0 / dot_fma(C[cc], C[cc]), 0.0)
+        sq = C[cc] * C[cc]
+        unf = sq[:, 0]
+        for k in range(1, C.shape[1]):
+            unf = unf + sq[:, k]
+        ss = torch.where(col < unfused_columns(N, C.shape[1]), unf,
+                         dot_fma(C[cc], C[cc]))
+        inv_s = torch.where(edge, 1.0 / ss, 0.0)
         l_s = torch.where(edge[:, None], L[cc], 0.0)
         for bx in range(rows):
             t0 = bx * R * rpt + slot                             # [R]

@@ -117,7 +117,7 @@ VARIANTS = {
         ("__syncthreads();", ""),
         ("    ic[c] = inv_s[sb + c];\n#pragma unroll\n"
          "    for (int k = 0; k < K; ++k) lc[c][k] = l_s[k][sb + c];",
-         "    ic[c] = load_column<K>(L, C, jb + c, N, lc[c]);"))),
+         "    ic[c] = load_column<K>(L, C, jb + c, N, nvec, lc[c]);"))),
     "k5": ("dodoor_fused_sparse", ()),
     "k5_staged": ("dodoor_fused_sparse", (
         ("// K5: one thread per task scores", _STAGE_HELPERS),
@@ -194,6 +194,7 @@ def main() -> int:
     from repro_torch.kernels.dodoor_choice import dodoor_choice_ref
     from repro_torch.kernels.dodoor_choice.ops import plan_k5
     from repro_torch.kernels.rl_score import rl_score_matrix_ref
+    from repro_torch.kernels.rl_score.ref import unfused_columns
     from repro_torch.kernels.rl_score.ops import plan_k6
 
     card = cs.card_line()
@@ -219,12 +220,13 @@ def main() -> int:
 
         def make(lib):
             fn = lib.rl_score_launch
-            fn.argtypes, fn.restype = (P,) * 4 + (I,) * 6 + (P,), I
+            fn.argtypes, fn.restype = (P,) * 4 + (I,) * 7 + (P,), I
             stream = torch.cuda.current_stream().cuda_stream
 
             def go():
                 err = fn(r.data_ptr(), L.data_ptr(), C.data_ptr(),
-                         out.data_ptr(), T, N, K, *plan, stream)
+                         out.data_ptr(), T, N, K, *plan,
+                         unfused_columns(N, K), stream)
                 cs.check(err == 0, f"launch error {err}")
             return go
 
