@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs twenty-one phases; any failure raises and exits non-zero
+package, and runs twenty-two phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
@@ -154,6 +154,23 @@ package, and runs twenty-one phases; any failure raises and exits non-zero
    ``core.balls_bins.run_balls_into_bins`` on the card (m=2000 balls, 100
    bins, β ∈ {1, 0.5}), its loads against the CPU's bit for bit, with no
    more host syncs for 300 balls than for 100.
+22. batched probing and serving — PoT's speculative commit and Prequal's
+   segment scan on the batched driver: on the testbed (FunctionBench
+   m=4000 at 300 qps, b=50) each card run against its CPU run bit for
+   bit and against the sequential oracle on the CPU (ledger and
+   placements exact, time planes within rtol 1e-6 / atol 1e-3, printed
+   whether bit for bit), no kernel launched, and no host sync beyond one
+   a speculative iteration (PoT) or a chunk (Prequal), counted at 100
+   and 300 tasks; at 10 000 servers (phase 4's Azure trace cut to its
+   first 20 000 tasks, b=500) against the CPU run bit for bit; the fault
+   benchmark's message point in the batched driver for dodoor, PoT and
+   Prequal, seeds 0 and 1, equal to phase 21's constants; then
+   ``serve_workload`` on the card for all five policies on the testbed
+   (chunks of 50 and 37 tasks) and for dodoor at the 10 000-server
+   point, each bit for bit equal to ``simulate(device="cuda")`` with one
+   K1 launch a block for dodoor and (1+β) and none for the others, and a
+   checkpoint at task 2 000 resumed bit for bit (dodoor, Prequal):
+   decisions/s, the step's p50/p99 and host syncs a block.
 
 The edge cases of the decision template (K1–K4 share it) hold the kernel
 to its plain version, every output exact, at (T, N) = (50, 1), (50, 31),
@@ -174,7 +191,8 @@ after: one launch per block.
 
 It prints the card's name and power limit, every phase's wall time, a
 ``profile`` JSON line of phase 20's readings, phase 21's
-``message_reduction`` line, a JSON line of per-kernel
+``message_reduction`` line and phase 22's ``message_reduction_batched``
+line, a JSON line of per-kernel
 measurements, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -2486,6 +2504,236 @@ def sequential_phase(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 22: PoT and Prequal on the batched driver; the decision service
+# --------------------------------------------------------------------------
+
+def exact_check(name, got, want) -> None:
+    """``got`` equal to ``want`` bit for bit: placements, the ledger and
+    every time plane."""
+    check(np.array_equal(got.server, want.server),
+          f"{name}: placements differ at "
+          f"{int(np.argmax(got.server != want.server))}")
+    check(ledger(got) == ledger(want),
+          f"{name}: ledger {ledger(got)} != {ledger(want)}")
+    for f in TIME_PLANES:
+        check(np.array_equal(getattr(got, f), getattr(want, f)),
+              f"{name}: {f} differs")
+
+
+def batched_run(torch, wl, cluster, cfg, device: str, seed: int = 0,
+                dynamics=None):
+    """One batched run; returns (result, wall s, launches by kernel), the
+    launch counts set to 0 just before the run and read just after."""
+    from repro_torch.kernels.dodoor_choice import LAUNCHES
+    from repro_torch.sim import simulate
+
+    LAUNCHES.clear()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate(wl, cluster, cfg, seed, device=device, dynamics=dynamics)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def syncs_and_commits(torch, run) -> tuple:
+    """(host syncs, calls of the engine's ``_commit_servers``) while
+    ``run`` runs: PoT commits once a speculative iteration and Prequal
+    once a chunk, each after one host read."""
+    from repro_torch.sim import engine
+
+    orig = engine._commit_servers
+    calls = [0]
+
+    def counting(*args):
+        calls[0] += 1
+        return orig(*args)
+
+    engine._commit_servers = counting
+    try:
+        syncs = sync_count(torch, run)
+    finally:
+        engine._commit_servers = orig
+    return syncs, calls[0]
+
+
+def head(wl, k: int):
+    """The first ``k`` tasks of a workload trace."""
+    import dataclasses
+
+    return dataclasses.replace(wl, **{
+        f.name: getattr(wl, f.name)[:k] for f in dataclasses.fields(wl)})
+
+
+def served(torch, wl, cluster, cfg, chunk: int) -> tuple:
+    """``serve_workload`` on the card; returns (service, result, wall s,
+    launches by kernel), the counts set to 0 just before and read just
+    after."""
+    from repro_torch.kernels.dodoor_choice import LAUNCHES
+    from repro_torch.serve import serve_workload
+
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc, res = serve_workload(wl, cluster, cfg, chunk=chunk)
+    wall = time.perf_counter() - t0
+    return svc, res, wall, dict(LAUNCHES)
+
+
+def probing_phase(torch) -> dict:
+    """Phase 22: (a) PoT and Prequal on the batched driver on the testbed,
+    each card run against its CPU run (bit for bit) and against the
+    sequential oracle on the CPU (ledger and placements exact, time
+    planes within SEQ_RTOL / SEQ_ATOL), host syncs a block; (b) the same
+    at 10⁴ servers; (c) the fault benchmark's message point in the
+    batched driver; (d) the decision service for all five policies on
+    the testbed and for dodoor at 10⁴ servers against ``simulate`` on the
+    card, and a mid-stream checkpoint resumed."""
+    from repro_torch.serve import DecisionService
+    from repro_torch.sim import (EngineConfig, RetryPolicy, make_scaled,
+                                 make_testbed, random_outages)
+    from repro_torch.workloads import azure, functionbench
+
+    out = {}
+    tb = make_testbed()
+    wl = functionbench.synthesize(m=4000, qps=300.0)
+    m = wl.r_submit.shape[0]
+    for policy in ("pot", "prequal"):
+        cfg = EngineConfig(policy=policy, b=50)
+        gpu, wall, counts = batched_run(torch, wl, tb, cfg, "cuda")
+        check(not counts, f"batched {policy} launched {counts}")
+        cpu, cpu_wall, _ = batched_run(torch, wl, tb, cfg, "cpu")
+        exact_check(f"batched {policy} (card vs cpu)", gpu, cpu)
+        seq, _ = seq_run(torch, wl, tb, cfg, "cpu")
+        bitwise = seq_check(f"batched {policy} vs sequential", gpu, seq, wl,
+                            tb, policy)
+        syncs = {}
+        for k in (100, 300):
+            short = functionbench.synthesize(m=k, qps=300.0, seed=3)
+            syncs[k] = syncs_and_commits(torch, lambda w=short: batched_run(
+                torch, w, tb, cfg, "cuda"))
+        (s1, c1), (s3, c3) = syncs[100], syncs[300]
+        check(s3 - c3 == s1 - c1, f"batched {policy}: syncs beyond one a "
+              f"{'iteration' if policy == 'pot' else 'chunk'} ({s1}/{c1} "
+              f"for 100 tasks, {s3}/{c3} for 300)")
+        out[f"testbed {policy}"] = m / wall
+        print(f"batched {policy}: testbed m={m} b={cfg.b} {m / wall:.1f} "
+              f"decisions/s on the card (wall {wall:.3f} s; cpu "
+              f"{m / cpu_wall:.1f}/s), bit for bit equal to cpu: True, "
+              f"equal to the sequential oracle (ledger, placements): True, "
+              f"every time plane bit for bit: {bitwise}; host syncs for 300 "
+              f"tasks (6 blocks) {s3} = {c3} "
+              f"{'speculative iterations' if policy == 'pot' else 'chunks'}"
+              f" + {s3 - c3} a run ({c3 / 6:.1f} a block), ledger "
+              f"{ledger(gpu)}", flush=True)
+
+    # (b) 10⁴ servers: phase 4's Azure trace cut to its first 20 000 tasks.
+    cl = make_scaled(10_000)
+    big = head(azure.synthesize(m=200_000, qps=400.0), 20_000)
+    mb = big.r_submit.shape[0]
+    for policy in ("pot", "prequal"):
+        cfg = EngineConfig(policy=policy, b=500)
+        gpu, wall, counts = batched_run(torch, big, cl, cfg, "cuda")
+        check(not counts, f"batched {policy} at scale launched {counts}")
+        cpu, cpu_wall, _ = batched_run(torch, big, cl, cfg, "cpu")
+        exact_check(f"batched {policy} at scale (card vs cpu)", gpu, cpu)
+        out[f"scale {policy}"] = mb / wall
+        print(f"batched {policy}: n={cl.num_servers} m={mb} (cut from "
+              f"200 000) b={cfg.b} {mb / wall:.1f} decisions/s on the card "
+              f"(wall {wall:.3f} s; cpu {mb / cpu_wall:.1f}/s), bit for bit "
+              f"equal to cpu, msgs/task {gpu.msgs_per_task:.4f}",
+              flush=True)
+
+    # (c) benchmarks/bench_faults.py's message point, mode="batched".
+    wlf = functionbench.synthesize(m=3000, qps=60.0, seed=0)
+    mf = wlf.r_submit.shape[0]
+    H = float(wlf.submit_ms[-1])
+    dyn = random_outages(tb.num_servers, 25, 0.6 * H,
+                         mean_down_ms=0.15 * H, seed=7)
+    totals, means = {}, {}
+    for policy in ("dodoor", "pot", "prequal"):
+        cfg = EngineConfig(policy=policy, b=50, retry=RetryPolicy())
+        runs = []
+        for seed in (0, 1):
+            res, wall, _ = batched_run(torch, wlf, tb, cfg, "cuda", seed,
+                                       dyn)
+            runs.append(res.msgs_total)
+            print(f"batched message point {policy} seed {seed}: msgs/task "
+                  f"{res.msgs_per_task:.6f} (ledger {ledger(res)}), "
+                  f"{int(res.attempts.sum()) / wall:.1f} decisions/s (wall "
+                  f"{wall:.3f} s)", flush=True)
+        totals[policy] = tuple(runs)
+        means[policy] = round(float(np.mean([t / mf for t in runs])), 4)
+    reduction = {f"vs_{p}": round(1.0 - means["dodoor"] / means[p], 4)
+                 for p in ("pot", "prequal")}
+    print(json.dumps({"message_reduction_batched": {
+        "per_policy_msgs_per_task": means, "reduction": reduction,
+        "totals": {p: list(t) for p, t in totals.items()}}}), flush=True)
+    check(totals == MESSAGE_TOTALS,
+          f"batched message point: totals {totals} != {MESSAGE_TOTALS}")
+    check(means == MESSAGE_MEANS and reduction == MESSAGE_REDUCTION,
+          f"batched message point: {means}, {reduction}")
+
+    # (d) the streaming decision service against simulate on the card.
+    blocks = -(-m // 50)
+    for policy in SEQ_POLICIES:
+        cfg = EngineConfig(policy=policy, b=50)
+        off, _, _ = batched_run(torch, wl, tb, cfg, "cuda")
+        kernel = policy in ("dodoor", "one_plus_beta")
+        for chunk in (50, 37):
+            svc, res, wall, counts = served(torch, wl, tb, cfg, chunk)
+            exact_check(f"serve {policy} chunk {chunk}", res, off)
+            want = {"dodoor_fused_sparse": blocks} if kernel else {}
+            check(counts == want, f"serve {policy}: launches {counts}, "
+                  f"want {want}")
+            step = svc.step_wall.summary()
+            out[f"serve {policy} chunk {chunk}"] = m / wall
+            print(f"serve {policy}: testbed m={m} b=50 chunk {chunk} "
+                  f"{m / wall:.1f} decisions/s (wall {wall:.3f} s), step "
+                  f"p50 {step['p50_ms']} ms p99 {step['p99_ms']} ms, "
+                  f"launches {counts.get('dodoor_fused_sparse', 0)}/"
+                  f"{blocks} blocks, bit for bit equal to simulate",
+                  flush=True)
+        if policy in ("dodoor", "prequal"):
+            cut = 2000
+            a = DecisionService(tb, cfg, capacity=m)
+            a.submit_workload(wl, 0, cut)
+            a.drain()
+            ck = a.export_checkpoint()
+            b = DecisionService.from_checkpoint(tb, cfg, ck, capacity=m)
+            b.submit_workload(wl, cut, m)
+            b.flush()
+            exact_check(f"serve {policy} resumed", b.result(), head_of(
+                off, cut))
+            n1, n3 = (sync_count(torch, lambda k=k: served(
+                torch, head(wl, k), tb, cfg, 50)) for k in (100, 300))
+            print(f"serve {policy}: checkpoint at {cut} resumed bit for "
+                  f"bit; host syncs {n1} for 2 blocks, {n3} for 6 "
+                  f"({(n3 - n1) / 4:.1f} a block)", flush=True)
+    cfg = EngineConfig(policy="dodoor", b=500)
+    off, _, _ = batched_run(torch, big, cl, cfg, "cuda")
+    svc, res, wall, counts = served(torch, big, cl, cfg, 500)
+    exact_check("serve dodoor at scale", res, off)
+    want = {"dodoor_fused_sparse": -(-mb // 500)}
+    check(counts == want, f"serve dodoor at scale: {counts}, want {want}")
+    step = svc.step_wall.summary()
+    out["serve dodoor scale"] = mb / wall
+    print(f"serve dodoor: n={cl.num_servers} m={mb} b=500 {mb / wall:.1f} "
+          f"decisions/s (wall {wall:.3f} s), step p50 {step['p50_ms']} ms "
+          f"p99 {step['p99_ms']} ms, launches "
+          f"{counts['dodoor_fused_sparse']}/{-(-mb // 500)} blocks, bit for "
+          f"bit equal to simulate", flush=True)
+    return out
+
+
+def head_of(res, k: int):
+    """A result's tasks from ``k`` on, ledger kept."""
+    arrays = {f: getattr(res, f)[k:] for f in ("server",) + TIME_PLANES}
+    return res._replace(**arrays)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2493,7 +2741,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-21) to run after "
+                    help="comma-separated phase numbers (2-22) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -2564,6 +2812,7 @@ def main(argv=None) -> int:
         2, 1024)
     profiled = phase("20 profiled scale runs", profiled_phase)
     phase("21 sequential oracle", sequential_phase)
+    phase("22 batched probing and serving", probing_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "

@@ -4,12 +4,14 @@ A second package beside the JAX reference ``repro``, with the same layout
 and names so each module has an obvious counterpart.  It imports ``torch``
 and numpy only — never ``jax`` and nothing of ``repro``.
 
-Ported so far: the batched decision-block driver for the ``random``,
-``dodoor`` and ``one_plus_beta`` policies (:func:`repro_torch.sim.simulate`)
-and the sequential oracle for those and the probing baselines ``pot`` and
-``prequal`` (``mode="sequential"``), with server dynamics (outages,
-churn, stragglers, store outages), task graphs and retries, the
-scenario engine (:mod:`repro_torch.sim.scenarios`) and its arrival
+Ported so far: the batched decision-block driver and the sequential
+oracle (:func:`repro_torch.sim.simulate`, ``mode="batched"`` and
+``"sequential"``) for all five policies — ``random``, ``dodoor``,
+``one_plus_beta`` and the probing baselines ``pot`` and ``prequal`` —
+with server dynamics (outages, churn, stragglers, store outages), task
+graphs and retries; the streaming decision service over the block step
+(:mod:`repro_torch.serve`); the scenario engine
+(:mod:`repro_torch.sim.scenarios`) and its arrival
 processes, the inputs (clusters and the FunctionBench/Azure traces), the
 Algorithm-1 core with the PoT and Prequal policies and the
 balls-into-bins theory, a bit-exact port of JAX's partitionable threefry

@@ -6,8 +6,8 @@ one cache snapshot per block (the paper's b-batched push boundary,
 §3.2/§4.1).  For each block it
 
 1. derives per-task keys, ``fold_in(PRNGKey(seed), task_id)``, then
-   ``split`` (for dodoor and (1+β)) — for the whole trace at once, since
-   they depend only on the task ids;
+   ``split`` (for dodoor and (1+β); ``split(key, 3)`` for Prequal) — for
+   the whole trace at once, since they depend only on the task ids;
 2. draws candidates and picks servers: Random draws one feasible server;
    Dodoor and (1+β) go through the sparse-gather decision kernel
    (:func:`repro_torch.kernels.dodoor_choice.dodoor_fused_sparse` — the CUDA
@@ -21,6 +21,18 @@ one cache snapshot per block (the paper's b-batched push boundary,
 4. applies the scheduler flushes and, at a full block's end, the data-store
    push (unless a store outage covers it), and keeps the four-field
    message ledger.
+
+The probing baselines read state that every commit changes, so they
+select and commit together, on the rows of the servers they touch
+(:func:`_commit_servers`).  PoT commits speculatively
+(:func:`_pot_block`): every pending task is scored against the live ring
+buffers, and the prefix up to the first task whose candidates an earlier
+pending placement hits commits in one round; the rest is scored again.
+Prequal runs a segment scan (:func:`_prequal_block`): ``S`` consecutive
+tasks belong to ``S`` distinct schedulers, so a chunk of ``S`` picks from
+independent pools at once, commits, and reads each task's probes as of
+its own decision point by reverting the slots that same-chunk commits at
+or after it wrote.  Neither keeps a data store: no flush, no push.
 
 Server dynamics (the scenario engine's cluster axis) lower to ``[n, W]``
 float32 window planes (:class:`_Win`, ``+inf`` pads): down windows
@@ -56,7 +68,8 @@ the in-flight ring buffer, channel contention, co-location interference)
 and the data-store staleness model are the reference's, described in its
 module docstring.  The port updates the ring buffer and the per-round
 unit planes in place.  Each block reads its number of commit rounds once
-with ``.item()`` (a host sync) and loops in Python.
+with ``.item()`` (a host sync) and loops in Python; PoT reads once a
+speculative iteration, Prequal once a chunk.
 """
 from __future__ import annotations
 
@@ -78,8 +91,6 @@ from .cluster import CMAX, ClusterSpec
 from .messages import RpcModel
 
 POLICIES = ("random", "pot", "dodoor", "one_plus_beta", "prequal")
-#: The policies the batched driver runs (PoT and Prequal: sequential).
-BATCHED_POLICIES = ("random", "dodoor", "one_plus_beta")
 
 
 class RetryPolicy(NamedTuple):
@@ -139,8 +150,7 @@ class EngineConfig(NamedTuple):
     count, pool size and cold quantile."""
 
     policy: str = "dodoor"          # random | pot | dodoor | prequal |
-                                    # one_plus_beta (pot and prequal:
-                                    # mode="sequential")
+                                    # one_plus_beta
     num_schedulers: int = 5         # §6.1: 5 scheduler services
     b: int = 50                     # cache batch size (default n/2, §3.2)
     flush_every: int = 2            # addNewLoad cadence (per-scheduler
@@ -587,15 +597,22 @@ def _init_carry(cfg: EngineConfig, n: int, cores_per: torch.Tensor) -> _Carry:
     )
 
 
-def _truth_rows(carry: _Carry, now: torch.Tensor, rows=slice(None)):
-    """Ground truth (L [k, 2], D [k], rif [k]) from the ring buffers at
-    ``now``: the tasks whose release time is still ahead of it, on the
-    servers ``rows`` (default: all), each sum in the reference's order
-    (:func:`repro_torch._arith.row_sum`)."""
-    act = (carry.rb_release[rows] > now).to(torch.float32)
+def _truth_rows(carry: _Carry, now: torch.Tensor):
+    """Ground truth (L [n, 2], D [n], rif [n]) from the ring buffers at
+    ``now``: the tasks whose release time is still ahead of it, each sum
+    in the reference's order (:func:`repro_torch._arith.row_sum`)."""
+    act = (carry.rb_release > now).to(torch.float32)
     cpu, mem, dur = row_sum(torch.stack(
-        [carry.rb_cpu[rows], carry.rb_mem[rows], carry.rb_dur[rows]]) * act)
+        [carry.rb_cpu, carry.rb_mem, carry.rb_dur]) * act)
     return torch.stack([cpu, mem], dim=-1), dur, act.sum(dim=-1)
+
+
+def _probe_truth(release: torch.Tensor, dur: torch.Tensor, now):
+    """What a probe of ring-buffer rows (``release``, ``dur`` [..., R])
+    reads at ``now``: the in-flight count and the summed estimated
+    duration, the latter in the reference's order."""
+    act = (release > now).to(torch.float32)
+    return act.sum(dim=-1), row_sum(dur * act)
 
 
 def _apply_push(carry: _Carry, now: torch.Tensor, dyn: _Dyn) -> _Carry:
@@ -768,6 +785,39 @@ def _commit_rounds(carry: _Carry, valid, now, j, cores, mem_mb, dur_raw,
     return carry, outs[:, :bsz]
 
 
+#: The carry planes a commit reads and writes, one row per server.
+_SERVER_ROWS = ("core_free", "mem_free", "prev_start", "rb_release",
+                "rb_cpu", "rb_mem", "rb_dur", "chan_free")
+
+
+def _commit_servers(carry: _Carry, valid, now, j, cores, mem_mb, dur_raw,
+                    d_est_j, extra_lat, ctx: _Ctx, occ, rounds: int):
+    """:func:`_commit_rounds` over the servers the tasks name instead of
+    the whole fleet: their rows are gathered into a fleet of ``k = len(j)``
+    rows (the tasks on one server share the row of its first task),
+    committed there, and written back.  A commit reads and writes only its
+    own server's rows, so the arithmetic is the full-fleet commit's; a PoT
+    prefix or a Prequal chunk costs its own size, not the fleet's.  Every
+    row of a server ends with the same values, so writing the duplicates
+    back is deterministic."""
+    k = j.shape[0]
+    tt = torch.arange(k, device=j.device)
+    rep = torch.where(j[None, :] == j[:, None], tt[None, :], k).min(
+        dim=1).values
+    sub = carry._replace(**{f: getattr(carry, f)[j] for f in _SERVER_ROWS})
+    win = ctx.win
+    planes = ((("gate0", "gate1") if ctx.gated else ())
+              + (("slow0", "slow1", "slow_mult") if ctx.slowed else ()))
+    sub_ctx = ctx._replace(
+        cores_per=ctx.cores_per[j], mem_unit=ctx.mem_unit[j],
+        win=win._replace(**{f: getattr(win, f)[j] for f in planes}))
+    sub, outs = _commit_rounds(sub, valid, now, rep, cores, mem_mb, dur_raw,
+                               d_est_j, extra_lat, sub_ctx, occ, rounds)
+    for f in _SERVER_ROWS:
+        getattr(carry, f)[j] = getattr(sub, f)[rep]
+    return carry, outs
+
+
 def _add_in_task_order(like, sched, j, vals, sel, occ, rounds: int):
     """A zero tensor shaped ``like`` [S, n, ...] plus ``vals[t]`` at
     ``[sched[t], j[t]]`` for the ``sel`` tasks, each cell's contributions
@@ -782,11 +832,26 @@ def _add_in_task_order(like, sched, j, vals, sel, occ, rounds: int):
     return acc[:, :n]
 
 
-def _task_draws(ctx: _Ctx, task_id: torch.Tensor):
-    """Per-task randomness for a whole trace at once (it depends only on
-    the task ids), from ``key = fold_in(PRNGKey(seed), task_id)``: Random's
-    one uniform per task; for dodoor and (1+β) the candidate keys
-    ``split(key)[0]`` and (1+β)'s uniforms from ``split(key)[1]``."""
+def _task_draws(ctx: _Ctx, task_id: torch.Tensor, r_sub: torch.Tensor,
+                now: torch.Tensor) -> tuple:
+    """Per-task randomness for a whole trace, or one block, at once: it
+    depends only on the task ids, demands and times (``task_id`` and
+    ``now`` [...], ``r_sub`` [..., K]), never on the carry.  From ``key =
+    fold_in(PRNGKey(seed), task_id)``: Random's one uniform per task; for
+    dodoor and (1+β) the candidate keys ``split(key)[0]`` and (1+β)'s
+    uniforms from ``split(key)[1]``; for PoT and Prequal the sequential
+    oracle's draws (:func:`_seq_draws`): PoT's two candidates [..., 2],
+    Prequal's fallback server [...] and probed servers [..., r_probe], and
+    under down windows which probes reach a server that is up."""
+    policy = ctx.cfg.policy
+    if policy in ("pot", "prequal"):
+        lead = tuple(task_id.shape)
+        d = _seq_draws(ctx, r_sub.reshape(-1, r_sub.shape[-1]),
+                       now.reshape(-1), task_id.reshape(-1))
+        names = (("cand",) if policy == "pot" else
+                 ("rand_j", "probes") + (("probe_ok",) if ctx.masked else ()))
+        return tuple(d[k].reshape(lead + tuple(d[k].shape[1:]))
+                     for k in names)
     keys = fold_in(ctx.base_key, task_id)
     if ctx.cfg.policy == "random":
         return (uniform(keys, (1,)),)
@@ -797,15 +862,193 @@ def _task_draws(ctx: _Ctx, task_id: torch.Tensor):
     return (k_cand,)
 
 
+#: Prequal's per-scheduler probe-pool planes of the carry, [S, s_pool].
+_POOLS = ("pool_server", "pool_rif", "pool_lat", "pool_age", "pool_valid")
+
+
+def _probe_msgs(cfg: EngineConfig) -> int:
+    """Probe messages a decision: PoT's two synchronous probes (request and
+    reply each), Prequal's ``r_probe`` asynchronous ones."""
+    return {"pot": 4, "prequal": 2 * cfg.prequal.r_probe}.get(cfg.policy, 0)
+
+
+def _pool_pick(pool: tuple, now, rand_j, ctx: _Ctx):
+    """Prequal's decision for ``k`` tasks at ``now`` [k], each from its own
+    scheduler's probe pool, ``pool`` = the :data:`_POOLS` rows [k, P]: among
+    the entries not on a down server, threshold at the ``q_rif`` quantile
+    of the sorted RIFs (``q_rif · n`` truncated in float32), take the cold
+    entry of least latency, or else the entry of least RIF; with no usable
+    entry fall back to ``rand_j`` [k].  The used entry is consumed (b_reuse
+    = 1); entries on down servers stay in the pool.  Returns (j [k],
+    pool_valid [k, P] after the consumption)."""
+    ps, pr, plat, _, pv = pool
+    P = pv.shape[-1]
+    ok = pv
+    if ctx.masked:
+        t = now[:, None, None]
+        srv = ps.long()
+        ok = pv & ~((ctx.win.down0[srv] <= t)
+                    & (t < ctx.win.down1[srv])).any(dim=-1)
+    inf = torch.full_like(pr, float("inf"))
+    rifs = torch.where(ok, pr, inf)
+    any_ok = ok.any(dim=-1)
+    n_ok = torch.clamp_min(ok.sum(dim=-1), 1).to(torch.float32)
+    q_idx = (ctx.dyn.q_rif * n_ok).to(torch.long).clamp(0, P - 1)
+    threshold = torch.sort(rifs, dim=-1).values.gather(-1, q_idx[:, None])
+    cold = ok & (pr <= threshold)
+    entry = torch.where(cold.any(dim=-1),
+                        torch.argmin(torch.where(cold, plat, inf), dim=-1),
+                        torch.argmin(rifs, dim=-1))
+    j = torch.where(any_ok, ps.gather(-1, entry[:, None])[:, 0].long(),
+                    rand_j)
+    used = any_ok[:, None] & (torch.arange(P, device=pv.device)
+                              == entry[:, None])
+    return j, pv & ~used
+
+
+def _pool_update(pool: tuple, probes, prif, pD, now, probe_ok) -> tuple:
+    """Insert ``k`` tasks' probe replies into their pools (the
+    :data:`_POOLS` rows [k, P]) in probe order: each into the first empty
+    entry, or else the oldest, with age ``now + float32(i)·1e-3`` for the
+    i-th probe; a probe to a down server (``probe_ok`` false; None: all
+    up) gets no entry.  Then a full pool evicts its highest-RIF entry
+    (r_remove = 1).  ``probes``, ``prif``, ``pD`` [k, r_probe]."""
+    ps, pr, plat, page, pv = pool
+    P = pv.shape[-1]
+    iota = torch.arange(P, device=pv.device)
+    for i in range(probes.shape[-1]):
+        slot = torch.argmin(torch.where(pv, page, float("-inf")), dim=-1)
+        one = iota == slot[:, None]
+        if probe_ok is not None:
+            one = one & probe_ok[:, i:i + 1]
+        # The reference's age now + float32(i)·1e-3, exact for the three
+        # probes of r_probe = 3 with or without contraction.
+        age = now + np.float32(i) * np.float32(1e-3)
+        ps = torch.where(one, probes[:, i:i + 1].to(ps.dtype), ps)
+        pr = torch.where(one, prif[:, i:i + 1], pr)
+        plat = torch.where(one, pD[:, i:i + 1], plat)
+        page = torch.where(one, age[:, None], page)
+        pv = pv | one
+    worst = torch.argmax(torch.where(pv, pr, float("-inf")), dim=-1)
+    full = pv.sum(dim=-1) >= P
+    pv = pv & ~(full[:, None] & (iota == worst[:, None]))
+    return ps, pr, plat, page, pv
+
+
+def _pot_block(carry: _Carry, blk, draws, ctx: _Ctx):
+    """PoT's speculative commit over one block (the reference's
+    ``_make_block_step``, PoT branch).  Each iteration scores every pending
+    task against the *current* ring buffers (the RIF of each of its two
+    candidates, ties to candidate 0) and finds the first unsafe task ``q``:
+    one whose candidates an earlier pending task's speculative placement
+    hits.  Up to ``q`` every probe reads what the sequential oracle reads,
+    and the placements are pairwise distinct, so the prefix commits in one
+    server-parallel round.  Reading ``q`` is the iteration's one host sync.
+    Returns (carry, j [b], outs [rows, b])."""
+    _, _, r_exec_t, d_est_t, d_act_t, now, _, valid = blk[:8]
+    cand = draws[0]                                           # [b, 2]
+    bsz = cand.shape[0]
+    dev = cand.device
+    tt = torch.arange(bsz, device=dev)
+    n = ctx.C.shape[0]
+    nt_c = ctx.node_type[cand].long()
+    rows = tt[:, None]
+    per_cand = (r_exec_t[rows, nt_c, 0], r_exec_t[rows, nt_c, 1],
+                d_act_t[rows, nt_c], d_est_t[rows, nt_c])     # each [b, 2]
+    lat = (2.0 * ctx.dyn.hop_ms).expand(bsz)
+    occ = torch.zeros((bsz,), dtype=torch.long, device=dev)
+    j = torch.zeros((bsz,), dtype=torch.long, device=dev)
+    outs = torch.zeros((9 if ctx.cfg.retry is not None else 7, bsz),
+                       dtype=torch.float32, device=dev)
+    p = 0
+    while p < bsz:
+        pending = (tt >= p) & valid
+        rif = (carry.rb_release[cand] > now[:, None, None]).to(
+            torch.float32).sum(dim=-1)                        # [b, 2]
+        pick_b = rif[:, 1] < rif[:, 0]
+        j_spec = torch.where(pick_b, cand[:, 1], cand[:, 0])
+        j_eff = torch.where(pending, j_spec, n)
+        hit = (j_eff[None, :] == cand[:, :1]) | (j_eff[None, :] == cand[:, 1:])
+        unsafe = (hit & (tt[None, :] < tt[:, None])).any(dim=1) & pending
+        q = int(torch.where(unsafe, tt, bsz).min())
+        c = slice(p, q)
+        vals = [torch.where(pick_b[c], v[c, 1], v[c, 0]) for v in per_cand]
+        carry, o = _commit_servers(carry, valid[c], now[c], j_spec[c],
+                                   *vals, lat[c], ctx, occ[c], 1)
+        outs[:, c] = o
+        j[c] = torch.where(valid[c], j_spec[c], 0)
+        p = q
+    return carry, j, outs
+
+
+def _prequal_block(carry: _Carry, blk, draws, ctx: _Ctx):
+    """Prequal's segment scan over one block (the reference's
+    ``_make_block_step``, Prequal branch).  ``S`` consecutive decisions
+    belong to ``S`` distinct schedulers, so a chunk of ``S`` tasks picks
+    from independent pools at once (:func:`_pool_pick`), then commits in
+    server-parallel rounds with FCFS order within the chunk (reading the
+    round count is the chunk's one host sync).  Each task's probes must
+    read the ring buffers as of its own decision point: the chunk has
+    already committed, so the slots that same-chunk commits at or after it
+    wrote are reverted to their old (release, duration), newest commit
+    first, so that two commits on one slot telescope.  The replies go into
+    the pools (:func:`_pool_update`).  Padded tail tasks neither commit,
+    probe nor touch a pool.  Returns (carry, j [b], outs [rows, b])."""
+    idx, _, r_exec_t, d_est_t, d_act_t, now, _, valid = blk[:8]
+    rand_j, probes = draws[:2]
+    probe_ok = draws[2] if ctx.masked else None
+    S = ctx.cfg.num_schedulers
+    bsz = idx.shape[0]
+    dev = idx.device
+    sched = idx % S
+    j = torch.zeros((bsz,), dtype=torch.long, device=dev)
+    outs = torch.zeros((9 if ctx.cfg.retry is not None else 7, bsz),
+                       dtype=torch.float32, device=dev)
+    no_lat = torch.zeros((S,), dtype=torch.float32, device=dev)
+    iota_r = torch.arange(carry.rb_release.shape[1], device=dev)
+    for a in range(0, bsz, S):
+        c = slice(a, min(a + S, bsz))
+        k = c.stop - a
+        ar = torch.arange(k, device=dev)
+        m_c, s_c, now_c = valid[c], sched[c], now[c]
+        pool = tuple(getattr(carry, f)[s_c] for f in _POOLS)   # [k, P]
+        j_c, pv = _pool_pick(pool, now_c, rand_j[c], ctx)
+        nt = ctx.node_type[j_c].long()
+        occ, rounds = _queue_ranks(j_c, m_c)
+        carry, o = _commit_servers(
+            carry, m_c, now_c, j_c, r_exec_t[c][ar, nt, 0],
+            r_exec_t[c][ar, nt, 1], d_act_t[c][ar, nt], d_est_t[c][ar, nt],
+            no_lat[:k], ctx, occ, rounds)
+        outs[:, c] = o
+        j[c] = torch.where(m_c, j_c, 0)
+
+        pr_c = probes[c]                                        # [k, rp]
+        rel, dur = carry.rb_release[pr_c], carry.rb_dur[pr_c]   # [k, rp, R]
+        for t in reversed(range(k)):
+            hit = ((m_c[t] & (ar <= t)[:, None] & (pr_c == j_c[t]))[..., None]
+                   & (iota_r == o[6, t].long()))
+            rel = torch.where(hit, o[4, t], rel)
+            dur = torch.where(hit, o[5, t], dur)
+        prif, pD = _probe_truth(rel, dur, now_c[:, None, None])
+        new = _pool_update(pool[:4] + (pv,), pr_c, prif, pD, now_c,
+                           None if probe_ok is None else probe_ok[c])
+        for f, old, v in zip(_POOLS, pool, new):
+            getattr(carry, f)[s_c] = torch.where(m_c[:, None], v, old)
+    return carry, j, outs
+
+
 def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
     """One decision block: select, commit, flush, and (``push``) the
     data-store push at the block's end.  ``draws`` is the block's slice of
     :func:`_task_draws`; ``push`` is known on the host: only a full block
-    reaches the b-th decision, and a store outage suppresses it.  On a
-    task-graph wave under a :class:`LocalityModel`, ``blk`` ends with the
-    parent planes (psrv [b, P], pbytes [b, P]), which dodoor and (1+β)
-    pass to the decision kernel (K3); random ignores them, as the
-    reference's random branch does."""
+    reaches the b-th decision, and a store outage suppresses it.  PoT and
+    Prequal decide against state that every commit changes, so they
+    select and commit together (:func:`_pot_block`,
+    :func:`_prequal_block`); they keep no data store, so they neither
+    flush nor push.  On a task-graph wave under a :class:`LocalityModel`,
+    ``blk`` ends with the parent planes (psrv [b, P], pbytes [b, P]),
+    which dodoor and (1+β) pass to the decision kernel (K3); the other
+    policies ignore them, as the reference's branches do."""
     idx, r_sub, r_exec_t, d_est_t, d_act_t, submit, task_id, valid = blk[:8]
     cfg, dyn = ctx.cfg, ctx.dyn
     S = cfg.num_schedulers
@@ -814,45 +1057,54 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
     tt = torch.arange(bsz, device=dev)
     now = submit
     sched = idx % S
+    cached = cfg.policy in ("dodoor", "one_plus_beta")
 
-    extra_lat = torch.zeros((bsz,), dtype=torch.float32, device=dev)
-    win = ctx.win
-    if cfg.policy == "random":
-        mask = feasible_mask(r_sub, ctx.C)
-        if ctx.masked:
-            mask = mask & avail_rows(win.down0, win.down1, now)
-        j = inverse_cdf_draws(mask, draws[0])[:, 0]
+    if cfg.policy in ("pot", "prequal"):
+        probing = _pot_block if cfg.policy == "pot" else _prequal_block
+        carry, j, outs = probing(carry, blk, draws, ctx)
+        nt_j = ctx.node_type[j].long()
+        cores_t = r_exec_t[tt, nt_j, 0]
+        mem_t = r_exec_t[tt, nt_j, 1]
     else:
-        extra = (dict(down0=win.down0, down1=win.down1, now=now,
-                      down_t=ctx.down_t) if ctx.masked else {})
-        if len(blk) > 8:
-            extra.update(psrv=blk[8], pbytes=blk[9],
-                         gamma_bw=_gamma_bw(cfg))
-        two, cand2, _ = dodoor_fused_sparse(
-            draws[0], r_sub, d_est_t, ctx.node_type, carry.view_L,
-            carry.view_D, ctx.C, alpha=cfg.alpha, **extra)
-        if cfg.policy == "one_plus_beta":
-            j = torch.where(draws[1] < dyn.beta, two, cand2[:, 0])
+        extra_lat = torch.zeros((bsz,), dtype=torch.float32, device=dev)
+        win = ctx.win
+        if cfg.policy == "random":
+            mask = feasible_mask(r_sub, ctx.C)
+            if ctx.masked:
+                mask = mask & avail_rows(win.down0, win.down1, now)
+            j = inverse_cdf_draws(mask, draws[0])[:, 0]
         else:
-            j = two
-        extra_lat = torch.clamp_min(carry.push_end - now, 0.0)
-    j = j.long()
+            extra = (dict(down0=win.down0, down1=win.down1, now=now,
+                          down_t=ctx.down_t) if ctx.masked else {})
+            if len(blk) > 8:
+                extra.update(psrv=blk[8], pbytes=blk[9],
+                             gamma_bw=_gamma_bw(cfg))
+            two, cand2, _ = dodoor_fused_sparse(
+                draws[0], r_sub, d_est_t, ctx.node_type, carry.view_L,
+                carry.view_D, ctx.C, alpha=cfg.alpha, **extra)
+            if cfg.policy == "one_plus_beta":
+                j = torch.where(draws[1] < dyn.beta, two, cand2[:, 0])
+            else:
+                j = two
+            extra_lat = torch.clamp_min(carry.push_end - now, 0.0)
+        j = j.long()
 
-    # ---- commit
-    nt_j = ctx.node_type[j].long()
-    cores_t = r_exec_t[tt, nt_j, 0]
-    mem_t = r_exec_t[tt, nt_j, 1]
-    dur_t = d_act_t[tt, nt_j]
-    dest_t = d_est_t[tt, nt_j]
-    occ, rounds = _queue_ranks(j, valid)
-    carry, outs = _commit_rounds(carry, valid, now, j, cores_t, mem_t,
-                                 dur_t, dest_t, extra_lat, ctx, occ, rounds)
+        # ---- commit
+        nt_j = ctx.node_type[j].long()
+        cores_t = r_exec_t[tt, nt_j, 0]
+        mem_t = r_exec_t[tt, nt_j, 1]
+        dur_t = d_act_t[tt, nt_j]
+        dest_t = d_est_t[tt, nt_j]
+        occ, rounds = _queue_ranks(j, valid)
+        carry, outs = _commit_rounds(carry, valid, now, j, cores_t, mem_t,
+                                     dur_t, dest_t, extra_lat, ctx, occ,
+                                     rounds)
 
     n_valid = valid.sum()
     zero = torch.zeros_like(n_valid)
     n_flush = zero
     # ---- data-store protocol, once per block (cached-view policies)
-    if cfg.policy in ("dodoor", "one_plus_beta"):
+    if cached:
         delta = torch.stack([cores_t, mem_t, dest_t,
                              torch.ones_like(cores_t)], dim=1)   # [b, 4]
         do_flush = (((idx // S) + 1) % cfg.flush_every == 0) & valid
@@ -876,9 +1128,10 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
         n_flush = do_flush.sum()
         if push:
             carry = _apply_push(carry, now[-1], dyn)
-    n_push = (S if push and cfg.policy != "random" else 0)
+    n_push = S if push and cached else 0
     msgs = carry.msgs + torch.stack(
-        [2 * n_valid, zero, zero + n_push, n_flush]).to(torch.int32)
+        [2 * n_valid, _probe_msgs(cfg) * n_valid, zero + n_push,
+         n_flush]).to(torch.int32)
     carry = carry._replace(msgs=msgs)
     out = (j.to(torch.int32), outs[0], outs[1], outs[2], outs[3], cores_t,
            mem_t) + tuple(outs[7:])              # (killed, rejected)
@@ -900,7 +1153,7 @@ def _simulate_batched(xs, ctx: _Ctx, carry0: _Carry | None = None,
     # Only full blocks push, and not inside a store outage.
     push_at = (xs[7][:, -1].cpu()
                & ~_suppress_push(ctx.win, xs[5][:, -1].cpu())).numpy()
-    draws = _task_draws(ctx, xs[6])
+    draws = _task_draws(ctx, xs[6], xs[1], xs[5])
     nb = xs[0].shape[0]
     per_block = []
     for i in range(nb):
@@ -977,9 +1230,7 @@ def _not_ported(cfg: EngineConfig, mode: str, dynamics) -> None:
     if cfg.policy not in POLICIES:
         raise ValueError(f"unknown policy {cfg.policy!r}")
     later = None
-    if mode == "batched" and cfg.policy not in BATCHED_POLICIES:
-        later = (f"policy {cfg.policy!r} in mode='batched'", 5)
-    elif dynamics is not None and dynamics.cache_faults is not None:
+    if dynamics is not None and dynamics.cache_faults is not None:
         later = ("Dynamics.cache_faults", 7)
     elif cfg.trace:
         later = ("trace", 7)
@@ -1175,54 +1426,6 @@ def _seq_draws(ctx: _Ctx, r_sub, now, task_id):
     return out
 
 
-def _prequal_pick(carry: _Carry, s: int, now, rand_j, probes, probe_ok,
-                  ctx: _Ctx):
-    """Prequal's decision for a task of scheduler ``s`` at ``now`` from its
-    live probe pool, then its ``r_probe`` asynchronous probes of the true
-    ring-buffer state before the commit, and the pool's maintenance — the
-    reference's ``_select`` step by step.  Pool entries on a down server
-    are skipped for the pick but stay in the pool; a probe to a down
-    server gets no reply.  Updates the pool rows in place; returns the
-    chosen server as a one-element index tensor."""
-    ps, pr, plat, page, pv = (carry.pool_server[s], carry.pool_rif[s],
-                              carry.pool_lat[s], carry.pool_age[s],
-                              carry.pool_valid[s])
-    P = pv.shape[0]
-    valid = pv
-    if ctx.masked:
-        srv = ps.long()
-        valid = pv & ~((ctx.win.down0[srv] <= now)
-                       & (now < ctx.win.down1[srv])).any(dim=-1)
-    inf = torch.full_like(pr, float("inf"))
-    rifs = torch.where(valid, pr, inf)
-    any_valid = valid.any()
-    n_valid = torch.clamp_min(valid.sum(), 1).to(torch.float32)
-    q_idx = (ctx.dyn.q_rif * n_valid).to(torch.long).clamp(0, P - 1)
-    threshold = torch.sort(rifs).values[q_idx.view(1)]
-    cold = valid & (pr <= threshold)
-    entry = torch.where(
-        cold.any(), torch.argmin(torch.where(cold, plat, inf)),
-        torch.argmin(rifs)).view(1)
-    j = torch.where(any_valid, ps[entry].long(), rand_j)
-    pv[entry] = pv[entry] & ~any_valid                  # b_reuse = 1
-
-    _, pD, prif = _truth_rows(carry, now, probes)
-    true = torch.ones((), dtype=torch.bool, device=pv.device)
-    for i in range(probes.shape[0]):
-        slot = torch.argmin(torch.where(pv, page, float("-inf"))).view(1)
-        # The reference's probe age now + float32(i)·1e-3, exact for the
-        # three probes of r_probe = 3 with or without contraction.
-        new = (probes[i].to(torch.int32), prif[i], pD[i],
-               now + np.float32(i) * np.float32(1e-3), true)
-        for plane, v in zip((ps, pr, plat, page, pv), new):
-            plane[slot] = (v if probe_ok is None
-                           else torch.where(probe_ok[i], v, plane[slot]))
-    # r_remove = 1: a full pool evicts its highest-RIF entry.
-    worst = torch.argmax(torch.where(pv, pr, float("-inf"))).view(1)
-    pv[worst] = pv[worst] & (pv.sum() < P)
-    return j
-
-
 def _seq_wave(ctx: _Ctx, carry: _Carry | None, host: dict, dev,
               parents=()):
     """The sequential oracle over one wave: the reference's per-task scan,
@@ -1268,7 +1471,6 @@ def _seq_wave(ctx: _Ctx, carry: _Carry | None, host: dict, dev,
                        device=dev)
     js = torch.zeros((m,), dtype=torch.long, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    extra_msgs = {"pot": 4, "prequal": 2 * cfg.prequal.r_probe}.get(policy, 0)
     ones = torch.ones((1,), dtype=torch.float32, device=dev)
     # α on the device once: a float would be copied there every block.
     alpha = torch.tensor(np.float32(cfg.alpha), device=dev)
@@ -1304,10 +1506,19 @@ def _seq_wave(ctx: _Ctx, carry: _Carry | None, host: dict, dev,
             j = torch.where(rif[1:] < rif[:1], c[1:], c[:1])
             lat = 2.0 * dyn.hop_ms
         else:
-            j = _prequal_pick(carry, s, now, draws["rand_j"][i:i + 1],
-                              draws["probes"][i],
-                              draws["probe_ok"][i] if ctx.masked else None,
-                              ctx)
+            # The pick from the live pool, then the r_probe probes of the
+            # ring buffers before the commit, into the pool.
+            pool = tuple(getattr(carry, f)[s:s + 1] for f in _POOLS)
+            j, pv = _pool_pick(pool, now.view(1), draws["rand_j"][i:i + 1],
+                               ctx)
+            pr_i = draws["probes"][i:i + 1]
+            prif, pD = _probe_truth(carry.rb_release[pr_i],
+                                    carry.rb_dur[pr_i], now)
+            new = _pool_update(
+                pool[:4] + (pv,), pr_i, prif, pD, now.view(1),
+                draws["probe_ok"][i:i + 1] if ctx.masked else None)
+            for f, v in zip(_POOLS, new):
+                getattr(carry, f)[s:s + 1] = v
         nt_j = nt[j]
         res = r_exec[i][nt_j]                                  # [1, 2]
         cores, mem_mb = res[:, 0], res[:, 1]
@@ -1325,7 +1536,7 @@ def _seq_wave(ctx: _Ctx, carry: _Carry | None, host: dict, dev,
                 carry.pending[s] = 0.0
             if do_push[i]:
                 carry = _apply_push(carry, now, dyn)
-    counts = [2 * m, extra_msgs * m, 0, 0]
+    counts = [2 * m, _probe_msgs(cfg) * m, 0, 0]
     if cached:
         counts[2:] = [S * int(do_push.sum()), int(do_flush.sum())]
     carry = carry._replace(msgs=carry.msgs + torch.tensor(
@@ -1482,11 +1693,9 @@ def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
     """Run one workload trace through one policy.
 
     ``mode="batched"`` (the port's default) runs the decision-block driver
-    for ``random``, ``dodoor`` and ``one_plus_beta``;
-    ``mode="sequential"`` runs the per-task oracle (:func:`_seq_wave`) for
-    those and for ``pot`` and ``prequal``.  The reference's default is
-    ``"sequential"``; the two modes give the same placements, ledger and
-    timestamps.
+    and ``mode="sequential"`` the per-task oracle (:func:`_seq_wave`), each
+    for all five policies.  The reference's default is ``"sequential"``;
+    the two modes give the same placements, ledger and timestamps.
 
     ``device`` defaults to the GPU; pass ``device="cpu"`` to run on the
     CPU.  On ``cuda`` the dodoor and (1+β) decisions launch the CUDA
@@ -1503,8 +1712,9 @@ def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
     loop (:func:`_simulate_with_retries`), and the result carries
     ``attempts``, ``failed`` and ``wasted_ms``; it does not compose with a
     dag, as in the reference.  Both wave loops run either mode.  The
-    sequential oracle launches no kernel: it scores in torch ops, as the
-    reference's sequential scan scores in ``jnp``."""
+    sequential oracle, and PoT and Prequal in either mode, launch no
+    kernel: they score in torch ops, as the reference's scans score in
+    ``jnp``."""
     if dynamics is not None and not isinstance(dynamics, Dynamics):
         raise TypeError(f"dynamics must be a Dynamics spec, got "
                         f"{type(dynamics).__name__}")

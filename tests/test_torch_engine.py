@@ -189,8 +189,6 @@ def test_matches_jax_at_ring_widths_off_32(slots, fb_small, small_testbed,
 
 NOT_PORTED = [
     (dict(trace=True), dict(mode="sequential"), "item 7"),
-    (dict(policy="pot"), dict(), "item 5"),
-    (dict(policy="prequal"), dict(), "item 5"),
     (dict(), dict(dynamics=teng.Dynamics(
         cache_faults=teng.CacheFaults(0.1))), "item 7"),
     (dict(), dict(mode="sequential", dynamics=teng.Dynamics(

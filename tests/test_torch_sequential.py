@@ -316,7 +316,7 @@ def test_run_scenario_sequential(small_testbed, twl):
     _check(ref, got)
 
 
-@pytest.mark.parametrize("policy", ["random", "dodoor", "one_plus_beta"])
+@pytest.mark.parametrize("policy", POLICIES)
 def test_port_sequential_equals_port_batched(policy, twl):
     """The port's two drivers hold each other, as the reference's do,
     under outages with retries."""
