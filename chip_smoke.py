@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs twenty-two phases; any failure raises and exits non-zero
+package, and runs twenty-three phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
@@ -171,6 +171,31 @@ package, and runs twenty-two phases; any failure raises and exits non-zero
    K1 launch a block for dodoor and (1+β) and none for the others, and a
    checkpoint at task 2 000 resumed bit for bit (dodoor, Prequal):
    decisions/s, the step's p50/p99 and host syncs a block.
+23. trace, cache faults and grids — (a) ``EngineConfig(trace=True)``:
+   phase 3's FunctionBench testbed trace for dodoor and (1+β), traced and
+   untraced in turns (untraced, traced, traced, untraced), the traced run
+   bit for bit equal to the untraced one and, with its six trace planes,
+   to the CPU's traced run, one K1 launch a block, and as many host
+   syncs traced as untraced (300 tasks, with the syncing lines named on
+   a mismatch); phase 6's outage storm traced (K2) and phase 9's
+   map-reduce under γ = 2 traced (K3), each against its CPU run; dodoor
+   at 10⁴ servers on phase 22's 20 000-task cut (b = 500) traced and
+   untraced in turns, both decisions/s printed, traced equal to untraced;
+   (b) the fault benchmark's loss point (FunctionBench m = 3000 at 60
+   qps, ``CacheFaults(loss_rate=0.5, seed=5)``) timed against the
+   unfaulted run in turns, then with 0 and 25 outages in both modes,
+   each against its CPU run and launching no kernel, and the service
+   under the same dynamics against ``simulate`` on the card; (c)
+   ``benchmarks/bench_study.py``'s 18-point grid (seeds 0, 1 × α 0.3,
+   0.5, 0.7 × steady / bursty MMPP / outage storm, m = 3000) through
+   ``run_study`` on the card, every point equal to the card's
+   ``run_scenario`` (both walls printed, K1 and K2 launches counted),
+   ``simulate_many`` traced over b ∈ {25, 50} × α ∈ {0.5, 1.0} against
+   the CPU with each point's staleness and misplacement,
+   ``run_study(server_shards=4)`` against ``simulate_hierarchical``, and
+   the mean-field check of ``tests/test_meanfield.py:108`` at n = 10³
+   (λ = 0.7, m = 30 000, b = 50; PoT and dodoor inside
+   ``tolerance_band``; card only).
 
 The edge cases of the decision template (K1–K4 share it) hold the kernel
 to its plain version, every output exact, at (T, N) = (50, 1), (50, 31),
@@ -192,7 +217,7 @@ after: one launch per block.
 It prints the card's name and power limit, every phase's wall time, a
 ``profile`` JSON line of phase 20's readings, phase 21's
 ``message_reduction`` line and phase 22's ``message_reduction_batched``
-line, a JSON line of per-kernel
+line, phase 23's readings, a JSON line of per-kernel
 measurements, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -2395,6 +2420,13 @@ def seq_check(name, got, want, wl, cluster, policy: str) -> bool:
 def sync_count(torch, fn) -> int:
     """Host syncs the card reports while ``fn`` runs (CUDA sync debug mode,
     one warning a sync)."""
+    return sum(sync_sites(torch, fn).values())
+
+
+def sync_sites(torch, fn) -> dict:
+    """``{"file:line": syncs}`` of the Python lines that synced the card
+    while ``fn`` ran."""
+    import collections
     import warnings
 
     torch.cuda.synchronize()
@@ -2405,7 +2437,8 @@ def sync_count(torch, fn) -> int:
             fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return len(caught)
+    return dict(collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught))
 
 
 def sequential_phase(torch) -> dict:
@@ -2728,6 +2761,320 @@ def probing_phase(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 23: decision-trace telemetry, cache faults, the grid planners
+# --------------------------------------------------------------------------
+
+TRACE_FIELDS = ("view_age_ms", "view_err", "misplaced", "cache_push",
+                "sched_id", "decision_ms")
+
+
+def trace_check(name, got, want) -> None:
+    """``got`` equal to ``want`` bit for bit, the six trace planes too."""
+    exact_check(name, got, want)
+    for f in TRACE_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        check(a is not None and b is not None and np.array_equal(a, b),
+              f"{name}: trace plane {f} differs")
+
+
+def stats_line(res) -> str:
+    from repro_torch.obs import decision_stats
+
+    s = decision_stats(res)
+    return (f"staleness mean {s['staleness_mean_ms']:.3f} ms p99 "
+            f"{s['staleness_p99_ms']:.3f} ms, view err "
+            f"{s['view_err_mean']:.4f}, misplacement "
+            f"{s['misplacement_rate']:.4f}, pushes {s['cache_pushes']}")
+
+
+def in_turns(torch, wl, cluster, cfg_a, cfg_b, dynamics=None) -> tuple:
+    """``cfg_a`` and ``cfg_b`` on the card in turns (a, b, b, a): returns
+    (a's first result, b's first result, b's launches, a's walls, b's
+    walls)."""
+    runs = [batched_run(torch, wl, cluster, c, "cuda", dynamics=d)
+            for c, d in ((cfg_a, None), (cfg_b, dynamics),
+                         (cfg_b, dynamics), (cfg_a, None))]
+    return (runs[0][0], runs[1][0], runs[1][2],
+            (runs[0][1], runs[3][1]), (runs[1][1], runs[2][1]))
+
+
+def trace_runs(torch) -> dict:
+    """Phase 23 (a): traced runs on the card — phase 3's testbed trace for
+    dodoor and (1+β) (traced against untraced, and against the CPU's
+    traced run; K1 once a block; host syncs traced = untraced), phase 6's
+    outage storm (K2), phase 9's map-reduce under γ = 2 (K3), and the
+    10⁴-server cut traced and untraced."""
+    from repro_torch.kernels.dodoor_choice import LAUNCHES
+    from repro_torch.sim import (EngineConfig, LocalityModel, Scenario,
+                                 make_scaled, make_testbed, random_outages,
+                                 run_scenario, simulate)
+    from repro_torch.workloads import (MapReduceDAG, PoissonArrivals, azure,
+                                       dag_plan, functionbench)
+
+    out = {}
+    tb = make_testbed()
+    wl = functionbench.synthesize(m=4000, qps=300.0)
+    m = wl.r_submit.shape[0]
+    for policy in ("dodoor", "one_plus_beta"):
+        cfg = EngineConfig(policy=policy, b=50)
+        tcfg = cfg._replace(trace=True)
+        plain, traced, counts, w_plain, w_tr = in_turns(torch, wl, tb, cfg,
+                                                        tcfg)
+        check(counts == {"dodoor_fused_sparse": m // 50},
+              f"trace {policy}: launches {counts}, want {m // 50}")
+        exact_check(f"trace {policy}: traced vs untraced", traced, plain)
+        cpu, _, _ = batched_run(torch, wl, tb, tcfg, "cpu")
+        trace_check(f"trace {policy} (card vs cpu)", traced, cpu)
+        short = functionbench.synthesize(m=300, qps=300.0, seed=3)
+        s_plain, s_tr = (sync_sites(torch, lambda c=c: simulate(
+            short, tb, c, device="cuda")) for c in (cfg, tcfg))
+        n_plain, n_tr = sum(s_plain.values()), sum(s_tr.values())
+        check(n_tr == n_plain, f"trace {policy}: {n_tr} host syncs traced "
+              f"{s_tr}, {n_plain} untraced {s_plain}")
+        out[f"testbed {policy}"] = (w_plain, w_tr)
+        print(f"trace {policy}: testbed m={m} b=50 in turns (untraced, "
+              f"traced, traced, untraced): untraced "
+              f"{m / w_plain[0]:.1f} / {m / w_plain[1]:.1f}, traced "
+              f"{m / w_tr[0]:.1f} / {m / w_tr[1]:.1f} decisions/s "
+              f"({sum(w_plain) / sum(w_tr):.3f}x), launches {counts}, bit "
+              f"for bit equal to untraced and to cpu; host syncs {n_tr} "
+              f"traced = "
+              f"{n_plain} untraced (300 tasks); {stats_line(traced)}",
+              flush=True)
+
+    # Phase 6's outage storm, traced (K2).
+    base = functionbench.synthesize(m=4000, qps=60.0)
+    H = float(base.submit_ms[-1])
+    storm = Scenario("outage_storm", arrivals=PoissonArrivals(60.0),
+                     dynamics=random_outages(tb.num_servers, 20, 0.6 * H,
+                                             mean_down_ms=0.2 * H, seed=7))
+    tcfg = EngineConfig(policy="dodoor", b=50, trace=True)
+    LAUNCHES.clear()
+    gpu = run_scenario(base, tb, storm, tcfg, device="cuda")
+    counts = dict(LAUNCHES)
+    cpu = run_scenario(base, tb, storm, tcfg, device="cpu")
+    trace_check("trace outage_storm (card vs cpu)", gpu, cpu)
+    check(counts == {"dodoor_fused_sparse_masked": 80},
+          f"trace outage_storm: launches {counts}")
+    print(f"trace outage_storm: launches {counts}, bit for bit equal to "
+          f"cpu; {stats_line(gpu)}", flush=True)
+
+    # Phase 9's map-reduce under γ = 2, traced (K3).
+    wl_d = functionbench.synthesize(m=2400, qps=60.0, seed=0)
+    spec = MapReduceDAG(mappers=8, reducers=2, edge_delay_ms=0.5,
+                        edge_bytes_mb=8.0)
+    dcfg = EngineConfig(policy="dodoor", b=50, trace=True,
+                        locality=LocalityModel(gamma=2.0))
+    gpu, wall, counts = timed_run(torch, wl_d, tb, dcfg, dag=spec)
+    cpu = simulate(wl_d, tb, dcfg, device="cpu", dag=spec)
+    trace_check("trace mapreduce gamma 2 (card vs cpu)", gpu, cpu)
+    blocks = wave_blocks(np.bincount(dag_plan(spec, 2400).level), 50)
+    check(counts == {"dodoor_fused_sparse_locality": blocks},
+          f"trace mapreduce: launches {counts}, want {blocks}")
+    print(f"trace mapreduce gamma 2: m=2400 {2400 / wall:.1f} decisions/s, "
+          f"launches {counts}, bit for bit equal to cpu; "
+          f"{stats_line(gpu)}", flush=True)
+
+    # The 10⁴-server point: phase 22's 20 000-task Azure cut, b = 500.
+    cl = make_scaled(10_000)
+    big = head(azure.synthesize(m=200_000, qps=400.0), 20_000)
+    mb = big.r_submit.shape[0]
+    cfg = EngineConfig(policy="dodoor", b=500)
+    plain, traced, counts, w_plain, w_tr = in_turns(
+        torch, big, cl, cfg, cfg._replace(trace=True))
+    exact_check("trace at scale: traced vs untraced", traced, plain)
+    check(counts == {"dodoor_fused_sparse": mb // 500},
+          f"trace at scale: launches {counts}")
+    out["scale dodoor"] = (w_plain, w_tr)
+    print(f"trace at scale: n={cl.num_servers} m={mb} b=500 in turns: "
+          f"untraced {mb / w_plain[0]:.1f} / {mb / w_plain[1]:.1f}, traced "
+          f"{mb / w_tr[0]:.1f} / {mb / w_tr[1]:.1f} decisions/s "
+          f"({sum(w_plain) / sum(w_tr):.3f}x), launches {counts}, bit for "
+          f"bit equal to untraced; {stats_line(traced)}", flush=True)
+    return out
+
+
+def fault_runs(torch) -> dict:
+    """Phase 23 (b): the fault benchmark's loss point (testbed,
+    FunctionBench m = 3000 at 60 qps, loss 0.5, seed 5) with 0 and 25
+    outages, dodoor in both modes on the card against the CPU, launching
+    no kernel; the service under the same dynamics against ``simulate``
+    on the card."""
+    from repro_torch.kernels.dodoor_choice import LAUNCHES
+    from repro_torch.serve import serve_workload
+    from repro_torch.sim import (CacheFaults, Dynamics, EngineConfig,
+                                 make_testbed, random_outages, simulate)
+    from repro_torch.workloads import functionbench
+
+    out = {}
+    tb = make_testbed()
+    wl = functionbench.synthesize(m=3000, qps=60.0, seed=0)
+    m = wl.r_submit.shape[0]
+    H = float(wl.submit_ms[-1])
+    lossy = Dynamics(cache_faults=CacheFaults(loss_rate=0.5, seed=5))
+    cfg = EngineConfig(policy="dodoor", b=50)
+    _, _, counts, w_plain, w_lossy = in_turns(torch, wl, tb, cfg, cfg, lossy)
+    out["faults vs unfaulted"] = (w_plain, w_lossy)
+    print(f"faults: in turns (unfaulted, loss 0.5, loss 0.5, unfaulted): "
+          f"unfaulted {m / w_plain[0]:.1f} / {m / w_plain[1]:.1f}, faulted "
+          f"{m / w_lossy[0]:.1f} / {m / w_lossy[1]:.1f} decisions/s "
+          f"({sum(w_plain) / sum(w_lossy):.3f}x), faulted launches {counts}",
+          flush=True)
+    for outages in (0, 25):
+        dyn = lossy if not outages else random_outages(
+            tb.num_servers, outages, 0.6 * H, mean_down_ms=0.15 * H,
+            seed=7).merge(lossy)
+        for mode in ("batched", "sequential"):
+            LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gpu = simulate(wl, tb, cfg, mode=mode, device="cuda",
+                           dynamics=dyn)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+            check(not counts, f"faults {mode} out{outages}: launched "
+                  f"{counts}")
+            cpu = simulate(wl, tb, cfg, mode=mode, device="cpu",
+                           dynamics=dyn)
+            exact_check(f"faults {mode} out{outages} (card vs cpu)", gpu,
+                        cpu)
+            out[f"{mode} out{outages}"] = m / wall
+            print(f"faults {mode} loss 0.5 outages {outages}: m={m} "
+                  f"{m / wall:.1f} decisions/s, no launch, bit for bit "
+                  f"equal to cpu, msgs/task {gpu.msgs_per_task:.4f}, "
+                  f"ledger {ledger(gpu)}", flush=True)
+        want = simulate(wl, tb, cfg, device="cuda", dynamics=dyn)
+        LAUNCHES.clear()
+        svc, got = serve_workload(wl, tb, cfg, dynamics=dyn, chunk=37)
+        check(not dict(LAUNCHES), f"faulted service launched "
+              f"{dict(LAUNCHES)}")
+        exact_check(f"faulted service out{outages} vs simulate", got, want)
+        print(f"faults service outages {outages}: bit for bit equal to "
+              f"simulate on the card, faulted checkpoint "
+              f"{svc.export_checkpoint()['faulted']}", flush=True)
+    return out
+
+
+def grid_runs(torch) -> dict:
+    """Phase 23 (c): ``bench_study.py``'s 18-point grid on the card, each
+    point against the card's ``run_scenario`` (walls of both); the
+    staleness grid of ``bench_obs.py`` through ``simulate_many`` traced,
+    card against CPU; ``server_shards = 4`` against
+    ``simulate_hierarchical``; the mean-field check at n = 10³."""
+    from repro_torch.kernels.dodoor_choice import LAUNCHES
+    from repro_torch.sim import (EngineConfig, Scenario, Study,
+                                 make_scaled, make_service_workload,
+                                 make_testbed, measured_mean_queue,
+                                 pod_mean_queue, random_outages, run_scenario,
+                                 run_study, simulate, simulate_hierarchical,
+                                 simulate_many, tolerance_band)
+    from repro_torch.workloads import (OnOffArrivals, PoissonArrivals,
+                                       functionbench)
+
+    out = {}
+    tb = make_testbed()
+    n, qps = tb.num_servers, 60.0
+    base = functionbench.synthesize(m=3000, qps=qps, seed=0)
+    H = float(base.submit_ms[-1])
+    # benchmarks/bench_study.py:53-65
+    configs = tuple(EngineConfig(policy="dodoor", b=n // 2, alpha=a)
+                    for a in (0.3, 0.5, 0.7))
+    scens = (Scenario("steady", arrivals=PoissonArrivals(qps)),
+             Scenario("bursty_mmpp", arrivals=OnOffArrivals(
+                 4.0 * qps, qps / 6.0, mean_on_s=1.0, mean_off_s=3.0)),
+             Scenario("outage_storm", arrivals=PoissonArrivals(qps),
+                      dynamics=random_outages(n, n // 5, 0.6 * H,
+                                              mean_down_ms=0.2 * H, seed=7)))
+    seeds = (0, 1)
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run_study(base, tb, Study(seeds=seeds, configs=configs,
+                                   scenarios=scens), device="cuda")
+    torch.cuda.synchronize()
+    w_study = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    loop = [run_scenario(base, tb, sc, cfg, sd, device="cuda")
+            for sd in seeds for cfg in configs for sc in scens]
+    torch.cuda.synchronize()
+    w_loop = time.perf_counter() - t0
+    it = iter(loop)
+    for si in range(len(seeds)):
+        for gi in range(len(configs)):
+            for ki, sc in enumerate(scens):
+                exact_check(f"study point {si},{gi},{sc.name}",
+                            st.point(si, gi, ki), next(it))
+    blocks = 3000 // 50
+    want = {"dodoor_fused_sparse": 2 * 3 * 2 * blocks,
+            "dodoor_fused_sparse_masked": 2 * 3 * blocks}
+    check(counts == want, f"study launches {counts}, want {want}")
+    points = len(loop)
+    out["study"] = (w_study, w_loop)
+    print(f"study: {points} points (bench_study grid, m=3000) in "
+          f"{w_study:.3f} s, nested run_scenario loop {w_loop:.3f} s "
+          f"({w_loop / w_study:.3f}x), {points * 3000 / w_study:.1f} "
+          f"decisions/s, launches {counts}, every point bit for bit equal "
+          f"to run_scenario on the card", flush=True)
+
+    # benchmarks/bench_obs.py's staleness grid: b × α, traced, seed 0.
+    for b in (25, 50):
+        cfgs = tuple(EngineConfig(policy="dodoor", b=b, alpha=a,
+                                  trace=True) for a in (0.5, 1.0))
+        gpu = simulate_many(base, tb, cfgs, seeds=(0,), device="cuda")
+        cpu = simulate_many(base, tb, cfgs, seeds=(0,), device="cpu")
+        for gi, cfg in enumerate(cfgs):
+            trace_check(f"simulate_many b={b} alpha={cfg.alpha}",
+                        gpu.point(0, gi), cpu.point(0, gi))
+            print(f"simulate_many traced b={b} alpha={cfg.alpha}: "
+                  f"{stats_line(gpu.point(0, gi))}; bit for bit equal to "
+                  f"cpu", flush=True)
+
+    # server_shards = 4 against simulate_hierarchical on the card.
+    cfg = EngineConfig(policy="dodoor", b=50)
+    sh = run_study(base, tb, Study(seeds=(0,), configs=cfg,
+                                   scenarios=Scenario("steady")),
+                   server_shards=4, device="cuda").point(0, 0, 0)
+    hier = simulate_hierarchical(base, tb, cfg, 4, 0, mode="batched", b=50,
+                                 device="cuda")
+    exact_check("server_shards=4 vs simulate_hierarchical", sh, hier)
+    print("server_shards=4: bit for bit equal to simulate_hierarchical "
+          f"on the card, msgs/task {sh.msgs_per_task:.4f}", flush=True)
+
+    # tests/test_meanfield.py:108's validation at n = 10³ (card only).
+    cl = make_scaled(1000, het=0.0)
+    lam = 0.7
+    wl = make_service_workload(cl, lam, 30_000, seed=0)
+    H = float(wl.submit_ms[-1])
+    pred = pod_mean_queue(lam, d=2)
+    for policy in ("pot", "dodoor"):
+        cfg = EngineConfig(policy=policy, b=50, interference=0.0,
+                           rbuf_slots=64, mem_units=8)
+        t0 = time.perf_counter()
+        res = simulate(wl, cl, cfg, device="cuda")
+        wall = time.perf_counter() - t0
+        q = measured_mean_queue(res, 1000, 0.25 * H, 0.95 * H)
+        lo, hi = tolerance_band(pred, 1000,
+                                b=50 if policy == "dodoor" else None)
+        check(lo <= q <= hi, f"mean field {policy}: queue {q} outside "
+              f"[{lo}, {hi}]")
+        out[f"meanfield {policy}"] = q
+        print(f"mean field {policy}: n=1000 lambda=0.7 m=30000 b=50 mean "
+              f"queue {q:.4f} in [{lo:.4f}, {hi:.4f}] (JSQ(2) "
+              f"{pred:.4f}), {30_000 / wall:.1f} decisions/s", flush=True)
+    return out
+
+
+def observability_phase(torch) -> dict:
+    """Phase 23: (a) traced runs, (b) cache faults, (c) the grids."""
+    out = trace_runs(torch)
+    out.update(fault_runs(torch))
+    out.update(grid_runs(torch))
+    return out
+
+
 def head_of(res, k: int):
     """A result's tasks from ``k`` on, ledger kept."""
     arrays = {f: getattr(res, f)[k:] for f in ("server",) + TIME_PLANES}
@@ -2741,7 +3088,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-22) to run after "
+                    help="comma-separated phase numbers (2-23) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -2813,6 +3160,7 @@ def main(argv=None) -> int:
     profiled = phase("20 profiled scale runs", profiled_phase)
     phase("21 sequential oracle", sequential_phase)
     phase("22 batched probing and serving", probing_phase)
+    phase("23 trace, cache faults and grids", observability_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "

@@ -12,7 +12,10 @@ with server dynamics (outages, churn, stragglers, store outages), task
 graphs and retries; the streaming decision service over the block step
 (:mod:`repro_torch.serve`); the scenario engine
 (:mod:`repro_torch.sim.scenarios`) and its arrival
-processes, the inputs (clusters and the FunctionBench/Azure traces), the
+processes, decision-trace telemetry and per-scheduler cache faults, the
+grid planners (``run_study``, ``simulate_many``,
+``simulate_hierarchical``, ``run_scenario_grid``) and the mean-field
+predictor, the inputs (clusters and the FunctionBench/Azure traces), the
 Algorithm-1 core with the PoT and Prequal policies and the
 balls-into-bins theory, a bit-exact port of JAX's partitionable threefry
 PRNG with its exponential and integer draws, the LM substrate's dense and
@@ -20,8 +23,16 @@ Mamba-2 models, and every Pallas kernel of the reference as hand-written
 CUDA for Hopper (``kernels/csrc``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a GPU and without that argument they raise.
+without a GPU and without that argument they raise.  Importing the
+package itself imports no torch, so the numpy-only :mod:`repro_torch.obs`
+stays free of a device runtime.
 """
-from ._device import resolve_device
 
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from ._device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

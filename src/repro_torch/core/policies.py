@@ -47,7 +47,7 @@ def remote_bytes(psrv, pbytes, cand):
 
 
 def dodoor_choice_batch(r, cand, d_cand, view: SchedulerView, alpha, *,
-                        psrv=None, pbytes=None, gamma_bw=0.0,
+                        psrv=None, pbytes=None, gamma_bw=0.0, sched=None,
                         use_kernel: bool = False) -> torch.Tensor:
     """Score a block's pre-sampled candidate pairs against one cache
     snapshot and pick the winners: r [T, K], cand [T, 2] int, d_cand
@@ -56,7 +56,10 @@ def dodoor_choice_batch(r, cand, d_cand, view: SchedulerView, alpha, *,
     With the parents' servers ``psrv`` [T, P] (−1 pads) and output sizes
     ``pbytes`` [T, P] of a task graph, each score gains ``gamma_bw`` ×
     the candidate's remote bytes (one rounding; ``alpha`` and
-    ``gamma_bw`` are floats or float32 tensors on the device).
+    ``gamma_bw`` are floats or float32 tensors on the device).  With
+    per-scheduler views (``view.L`` [S, n, K], ``view.D`` [S, n], the
+    cache-fault engine's), ``sched`` [T] names each task's scheduler,
+    whose row it reads.
 
     ``use_kernel`` routes the selection through the decision kernel K5
     (:func:`repro_torch.kernels.dodoor_choice.dodoor_choice`): on CUDA
@@ -73,8 +76,9 @@ def dodoor_choice_batch(r, cand, d_cand, view: SchedulerView, alpha, *,
                                   view.D, view.C, float(alpha))
         return choice
     c = cand.long()
-    L_ab = view.L[c]                                           # [T, 2, K]
-    D_ab = view.D[c] + d_cand                                  # [T, 2]
+    rows = (c,) if sched is None else (sched.long()[:, None], c)
+    L_ab = view.L[rows]                                        # [T, 2, K]
+    D_ab = view.D[rows] + d_cand                               # [T, 2]
     scores = load_score_batched(r, L_ab, D_ab, view.C[c], alpha)
     if psrv is not None:
         scores = fma(gamma_bw, remote_bytes(psrv, pbytes, cand), scores)

@@ -66,6 +66,9 @@ class LatencyRecorder:
         if hi <= lo:
             lo, hi = lo * 0.9, hi * 1.1
         edges = np.logspace(np.log10(lo), np.log10(hi), nbins + 1)
+        # 10**log10(x) can round below x: pin the ends to the observed
+        # range, so the largest sample is counted.
+        edges[0], edges[-1] = lo, hi
         counts, _ = np.histogram(s, bins=edges)
         return {"edges_ms": [round(float(e), 6) for e in edges],
                 "counts": [int(c) for c in counts]}

@@ -10,7 +10,8 @@ block.  The block's planes are uploaded per step, and its draws come from
 the task ids (:func:`~repro_torch.sim.engine._task_draws`), as the offline
 driver makes them.  On the card the dodoor and (1+β) decisions launch the
 decision kernel once per block (K1, or K2 under down windows); PoT and
-Prequal launch none.
+Prequal launch none, and neither does a service under cache faults,
+whose per-scheduler views the block step scores in torch ops.
 
 Bit-exactness contract: feeding the service the same arrival plane as
 ``simulate(mode="batched")`` — same order, any chunking — yields
@@ -38,7 +39,7 @@ import torch
 from .._device import resolve_device
 from ..sim.cluster import ClusterSpec
 from ..sim.engine import (Dynamics, EngineConfig, SimResult, _Carry,
-                          _block_step, _init_carry, _make_ctx, _not_ported,
+                          _block_step, _check_mode, _init_carry, _make_ctx,
                           _suppress_push, _task_draws, _validate_config)
 from ..sim.state import carry_from_numpy
 from .latency import LatencyRecorder
@@ -57,14 +58,14 @@ class DecisionService:
         res = svc.result()               # SimResult, bit-exact vs offline
 
     Supported knobs mirror ``simulate(mode="batched")`` for independent
-    tasks: all five policies and ``dynamics`` timelines.  ``cfg.retry``,
-    ``cfg.trace``, ``cfg.locality`` and DAG workloads run host-side wave
-    loops around the block loop and are not streamable — they raise
-    ``NotImplementedError``, as do ``Dynamics.cache_faults`` (not ported,
-    ROADMAP §1 item 7).  ``device`` defaults to the GPU and raises without
-    one; pass ``device="cpu"`` to serve on the CPU.  The reference's
-    ``compiles`` count (its jitted step's cache size) has no meaning in
-    eager PyTorch and is left out.
+    tasks: all five policies and ``dynamics`` timelines including
+    ``cache_faults``.  ``cfg.retry``, ``cfg.trace``, ``cfg.locality`` and
+    DAG workloads run host-side wave loops or post-passes around the
+    block loop and are not streamable — they raise
+    ``NotImplementedError``, as in the reference.  ``device`` defaults to
+    the GPU and raises without one; pass ``device="cpu"`` to serve on the
+    CPU.  The reference's ``compiles`` count (its jitted step's cache
+    size) has no meaning in eager PyTorch and is left out.
     """
 
     def __init__(self, cluster: ClusterSpec, cfg: EngineConfig, *,
@@ -79,8 +80,8 @@ class DecisionService:
         if cfg.trace:
             raise NotImplementedError(
                 "DecisionService with cfg.trace: the decision-trace "
-                "ground truth is an offline post-pass, and trace is not "
-                "ported to repro_torch yet (ROADMAP.md §1, item 7)")
+                "ground truth is an offline post-pass — trace via "
+                "simulate(mode='batched').")
         if cfg.locality is not None:
             raise NotImplementedError(
                 "DecisionService with a LocalityModel: the locality "
@@ -93,7 +94,7 @@ class DecisionService:
         if dynamics is not None and not isinstance(dynamics, Dynamics):
             raise TypeError(f"dynamics must be a Dynamics spec, got "
                             f"{type(dynamics).__name__}")
-        _not_ported(cfg, "batched", dynamics)
+        _check_mode(cfg, "batched")
 
         self.cluster = cluster
         self.cfg = cfg
@@ -105,8 +106,9 @@ class DecisionService:
         # The push plan is decided on the host: keep the store windows there.
         self._win_host = win._replace(store0=win.store0.cpu(),
                                       store1=win.store1.cpu())
+        self._faulted = self._ctx.faulted
         self._carry = _init_carry(cfg, cluster.num_servers,
-                                  self._ctx.cores_per)
+                                  self._ctx.cores_per, self._faulted)
 
         self._ring = ArrivalRing(capacity, cluster.num_types)
         self._next_idx = 0
@@ -280,7 +282,7 @@ class DecisionService:
         return {"carry": carry, "next_idx": int(self._next_idx),
                 "ring_pad": int(self._ring_pad), "steps": int(self._steps),
                 "seed": self._seed, "policy": self.cfg.policy,
-                "b": self._b, "faulted": False}
+                "b": self._b, "faulted": self._faulted}
 
     @classmethod
     def from_checkpoint(cls, cluster: ClusterSpec, cfg: EngineConfig,
@@ -288,12 +290,13 @@ class DecisionService:
         """Rebuild a service mid-stream from :meth:`export_checkpoint`'s
         dict, or from the reference service's (its batched carry keeps
         the unit rows ascending, as the port's does), so that a stream
-        checkpointed by either continues here.  ``cluster``/``cfg``/
-        ``dynamics`` must match the exporting service (the checkpoint
-        pins the identity-shaping ones, and the seed)."""
+        checkpointed by either continues here; a service under cache
+        faults carries its per-scheduler views ``[S, n, ...]`` both ways.
+        ``cluster``/``cfg``/``dynamics`` must match the exporting service
+        (the checkpoint pins the identity-shaping ones, and the seed)."""
         svc = cls(cluster, cfg, seed=ckpt["seed"], **kwargs)
         for key, have in (("policy", cfg.policy), ("b", cfg.b),
-                          ("faulted", False)):
+                          ("faulted", svc._faulted)):
             if ckpt[key] != have:
                 raise ValueError(
                     f"checkpoint {key}={ckpt[key]!r} does not match the "

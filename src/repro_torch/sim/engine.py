@@ -46,11 +46,29 @@ Two host wave loops run the block loop more than once over one carry: the
 task-graph frontier loop (:func:`_simulate_dag`, one wave per topological
 level) and the retry re-entry loop (:func:`_simulate_with_retries`, one
 wave per attempt).  Each wave restarts the scheduler round robin, the
-flush cadence and the push plan.  Per-scheduler cache-fault views and
-tracing are not ported.  Placements, timestamps and the message ledger
-match the reference's ``use_kernel=False`` batched driver exactly on the
-CPU; see ``tests/test_torch_engine.py``, ``tests/test_torch_scenarios.py``,
-``tests/test_torch_dags.py`` and ``tests/test_torch_faults.py``.
+flush cadence and the push plan.  Placements, timestamps and the message
+ledger match the reference's ``use_kernel=False`` batched driver exactly
+on the CPU; see ``tests/test_torch_engine.py``,
+``tests/test_torch_scenarios.py``, ``tests/test_torch_dags.py`` and
+``tests/test_torch_faults.py``.
+
+Cache faults (:class:`CacheFaults`) give every scheduler its own view
+planes ``[S, n, ...]``: a push is delivered per scheduler, and a seeded
+Bernoulli draw keyed on the push ordinal (:func:`_cache_lost`) or a loss
+window drops a delivery, so that scheduler keeps its old view.  A faulted
+run scores dodoor and (1+β) in torch ops on each task's own scheduler's
+row, as the reference's two-stage path does: the decision kernel reads
+one shared view, so a faulted run launches no kernel.
+
+Decision telemetry (``EngineConfig(trace=True)``) consumes no random
+draw and changes no placement, timestamp or ledger entry.  The block
+step and the oracle record, per decision, the snapshot's age, the two
+cached RIF reads, the two candidates (K1's second output), the (1+β)
+coin and the push flag; these stay on the device until the run ends,
+and the numpy post-pass
+:func:`repro_torch.sim.decision_trace.finish_trace` rebuilds the ground
+truth from the commit record into the view-error and misplacement
+planes (``tests/test_torch_trace.py``).
 
 The sequential oracle (``mode="sequential"``, :func:`_seq_wave`) is the
 reference's per-task scan: every decision against the live carry, then
@@ -82,15 +100,19 @@ import torch
 from .._arith import fma, row_sum
 from .._device import resolve_device
 from ..core.policies import dodoor_choice_batch
-from ..core.prefilter import avail_rows, feasible_mask, inverse_cdf_draws
+from ..core.prefilter import (avail_rows, feasible_mask, inverse_cdf_draws,
+                              sample_feasible_batch)
 from ..core.types import PrequalParams, SchedulerView
 from ..kernels.dodoor_choice import dodoor_fused_sparse
 from ..random import PRNGKey, fold_in, randint, split, uniform
 from ..workloads.dags import dag_plan
 from .cluster import CMAX, ClusterSpec
+from .decision_trace import finish_trace
 from .messages import RpcModel
 
 POLICIES = ("random", "pot", "dodoor", "one_plus_beta", "prequal")
+#: Trace rows a traced wave's outputs end with (see :func:`_block_step`).
+_TRACE_ROWS = 7
 
 
 class RetryPolicy(NamedTuple):
@@ -144,8 +166,8 @@ class LocalityModel(NamedTuple):
 
 class EngineConfig(NamedTuple):
     """Cluster-level knobs (Require line of Algorithm 1 + §6.1 RPC setup),
-    named as the reference's.  ``trace`` (not ported yet) must keep its
-    default; ``outage_ms`` is deprecated and routed into
+    named as the reference's.  ``trace`` adds the per-decision telemetry
+    planes to the result; ``outage_ms`` is deprecated and routed into
     ``Dynamics(store_outages=...)``; ``prequal`` holds Prequal's probe
     count, pool size and cold quantile."""
 
@@ -189,6 +211,20 @@ class SimResult(NamedTuple):
     attempts: np.ndarray | None = None   # [m] int32 submissions per task
     failed: np.ndarray | None = None     # [m] bool: permanently failed
     wasted_ms: np.ndarray | None = None  # [m] killed-attempt execution ms
+    # Decision-trace telemetry — populated only by runs with cfg.trace set
+    # (None otherwise; see docs/OBSERVABILITY.md for definitions).
+    view_age_ms: np.ndarray | None = None  # [m] cache-snapshot age at the
+                                           # decision (CacheFaults-aware)
+    view_err: np.ndarray | None = None     # [m] L1 gap between the cached
+                                           # rif column and ground truth,
+                                           # averaged over the candidates
+    misplaced: np.ndarray | None = None    # [m] bool: ground truth would
+                                           # have picked a different server
+    cache_push: np.ndarray | None = None   # [m] bool: a store push fired
+                                           # at this decision's step
+    sched_id: np.ndarray | None = None     # [m] int32 deciding scheduler
+    decision_ms: np.ndarray | None = None  # [m] decision wall time (the
+                                           # attempt's submit instant)
 
     @property
     def makespan_ms(self) -> np.ndarray:
@@ -209,10 +245,19 @@ class SimResult(NamedTuple):
 
 
 class CacheFaults(NamedTuple):
-    """Cache-degradation injection for the data-store push channel, as the
-    reference's spec (``Dynamics.cache_faults``).  The port lowers and
-    validates it, but its per-scheduler views are not ported (ROADMAP §1
-    item 7): a run with one raises."""
+    """Cache-degradation injection for the data-store push channel
+    (attached to :class:`Dynamics` via ``cache_faults``), as the
+    reference's spec.
+
+    Each batch push is delivered *per scheduler*; a delivery is lost with
+    probability ``loss_rate`` (iid per scheduler per push, seeded stream)
+    and lost for every scheduler while ``now`` is inside a
+    ``loss_windows`` entry.  A scheduler whose delivery is lost keeps its
+    previous view, while probing policies (PoT/Prequal) keep ground
+    truth.  ``delay_ms`` lags the snapshot itself: the push carries truth
+    as of ``now − delay_ms``.  Unlike ``store_outages`` (which suppress
+    the push), a lost delivery was sent and is paid for in the ledger.
+    ``CacheFaults()`` (no loss, no delay) is bit-identical to no spec."""
 
     loss_rate: float = 0.0          # per-scheduler iid delivery-loss prob
     loss_windows: tuple = ()        # ((t0, t1), ...): all pushes lost inside
@@ -237,7 +282,8 @@ class Dynamics(NamedTuple):
                    duration.
     store_outages: ``((t0, t1), ...)`` — data-store outage windows: a push
                    inside one is suppressed (no messages, views go stale).
-    cache_faults:  optional :class:`CacheFaults` (not ported: raises).
+    cache_faults:  optional :class:`CacheFaults` — per-scheduler push-loss
+                   rate/windows and snapshot delay.
 
     When every feasible server is down the draw falls back to uniform over
     the whole fleet, as for an all-infeasible task."""
@@ -453,8 +499,9 @@ class _Carry(NamedTuple):
     rb_mem: torch.Tensor       # [n, R]
     rb_dur: torch.Tensor       # [n, R]
     view_L: torch.Tensor       # [n, 2] scheduler cached load vectors
-    view_D: torch.Tensor       # [n]
-    view_rif: torch.Tensor     # [n]
+                               # ([S, n, 2] under cache faults)
+    view_D: torch.Tensor       # [n] ([S, n])
+    view_rif: torch.Tensor     # [n] ([S, n])
     pending: torch.Tensor      # [S, n, 4] unflushed scheduler deltas
     chan_free: torch.Tensor    # [n] per-server RPC channel next-free
     push_end: torch.Tensor     # [] wall time the in-progress push ends
@@ -464,7 +511,8 @@ class _Carry(NamedTuple):
     pool_age: torch.Tensor
     pool_valid: torch.Tensor
     msgs: torch.Tensor         # [4] int32: base, probe, push, flush
-    push_at: torch.Tensor | None = None
+    push_at: torch.Tensor | None = None  # [S] content time of each
+                                         # scheduler's view (trace only)
 
 
 class _Dyn(NamedTuple):
@@ -481,6 +529,7 @@ class _Dyn(NamedTuple):
     reject_cap: torch.Tensor   # rif ≥ cap·cores rejects (+inf: never)
     gamma_bw: torch.Tensor     # locality penalty per remote MB
     q_rif: torch.Tensor        # Prequal's cold-RIF quantile
+    alpha: torch.Tensor        # duration weight of the two-stage score
 
 
 class _Ctx(NamedTuple):
@@ -499,6 +548,9 @@ class _Ctx(NamedTuple):
     masked: bool               # down windows: masked sampling (K2)
     gated: bool                # some gate window exists
     slowed: bool               # some straggler window exists
+    faulted: bool              # cache faults: per-scheduler views
+    cache_key: torch.Tensor    # [2] PRNGKey(CacheFaults.seed)
+    cluster: ClusterSpec       # the host arrays, for the trace post-pass
 
 
 def _reject_cap(cfg: EngineConfig) -> float:
@@ -516,7 +568,7 @@ def _gamma_bw(cfg: EngineConfig) -> float:
 def _make_dyn(cfg: EngineConfig, device) -> _Dyn:
     vals = (cfg.beta, cfg.interference, cfg.rpc.hop_ms,
             cfg.rpc.chan_ms, cfg.rpc.push_block_ms, cfg.rpc.compute_ms,
-            _reject_cap(cfg), _gamma_bw(cfg), cfg.prequal.q_rif)
+            _reject_cap(cfg), _gamma_bw(cfg), cfg.prequal.q_rif, cfg.alpha)
     return _Dyn(*(torch.tensor(np.float32(v), device=device) for v in vals))
 
 
@@ -553,6 +605,7 @@ def _make_ctx(cluster: ClusterSpec, cfg: EngineConfig, seed: int,
     win = _lower_dynamics(dynamics, cluster.num_servers, device=device)
     dyn = _make_dyn(cfg, device)
     masked = dynamics is not None and dynamics.has_down_windows
+    faulted = dynamics is not None and dynamics.cache_faults is not None
     down_t = ((win.down0.t().contiguous(), win.down1.t().contiguous())
               if masked else None)
     return _Ctx(cfg=cfg, dyn=dyn, C=C, node_type=node_type,
@@ -561,15 +614,25 @@ def _make_ctx(cluster: ClusterSpec, cfg: EngineConfig, seed: int,
                 stretch=_stretch_table(dyn), win=win, down_t=down_t,
                 masked=masked,
                 gated=bool(torch.isfinite(win.gate0).any()),
-                slowed=bool(torch.isfinite(win.slow0).any()))
+                slowed=bool(torch.isfinite(win.slow0).any()),
+                faulted=faulted,
+                cache_key=PRNGKey(dynamics.cache_faults.seed if faulted
+                                  else 0, device=device),
+                cluster=cluster)
 
 
-def _init_carry(cfg: EngineConfig, n: int, cores_per: torch.Tensor) -> _Carry:
+def _init_carry(cfg: EngineConfig, n: int, cores_per: torch.Tensor,
+                faulted: bool = False) -> _Carry:
     """The t=0 carry.  Core slots beyond a server's core count hold +inf
-    (never free), so heterogeneous core counts share one [n, CMAX] plane."""
+    (never free), so heterogeneous core counts share one [n, CMAX] plane.
+    Under cache faults (``faulted``) the view planes grow a leading
+    scheduler axis, ``[S, n, ...]``: each scheduler holds its own copy of
+    the store's pushes.  ``push_at`` [S], each scheduler's view content
+    time, exists when ``cfg.trace`` is set, as in the reference."""
     dev = cores_per.device
     S, R, MU, P = (cfg.num_schedulers, cfg.rbuf_slots, cfg.mem_units,
                    cfg.prequal.s_pool)
+    vs = (S, n) if faulted else (n,)
     f32 = dict(dtype=torch.float32, device=dev)
     core_init = torch.where(
         torch.arange(CMAX, device=dev)[None, :] < cores_per[:, None],
@@ -582,9 +645,9 @@ def _init_carry(cfg: EngineConfig, n: int, cores_per: torch.Tensor) -> _Carry:
         rb_cpu=torch.zeros((n, R), **f32),
         rb_mem=torch.zeros((n, R), **f32),
         rb_dur=torch.zeros((n, R), **f32),
-        view_L=torch.zeros((n, 2), **f32),
-        view_D=torch.zeros((n,), **f32),
-        view_rif=torch.zeros((n,), **f32),
+        view_L=torch.zeros(vs + (2,), **f32),
+        view_D=torch.zeros(vs, **f32),
+        view_rif=torch.zeros(vs, **f32),
         pending=torch.zeros((S, n, 4), **f32),
         chan_free=torch.zeros((n,), **f32),
         push_end=torch.zeros((), **f32),
@@ -594,6 +657,7 @@ def _init_carry(cfg: EngineConfig, n: int, cores_per: torch.Tensor) -> _Carry:
         pool_age=torch.full((S, P), float("-inf"), **f32),
         pool_valid=torch.zeros((S, P), dtype=torch.bool, device=dev),
         msgs=torch.zeros((4,), dtype=torch.int32, device=dev),
+        push_at=torch.zeros((S,), **f32) if cfg.trace else None,
     )
 
 
@@ -615,18 +679,53 @@ def _probe_truth(release: torch.Tensor, dur: torch.Tensor, now):
     return act.sum(dim=-1), row_sum(dur * act)
 
 
-def _apply_push(carry: _Carry, now: torch.Tensor, dyn: _Dyn) -> _Carry:
+def _cache_lost(win: _Win, now: torch.Tensor, push_ord: torch.Tensor,
+                S: int, key: torch.Tensor) -> torch.Tensor:
+    """Per-scheduler delivery-loss mask [S] for the push with cluster-wide
+    ordinal ``push_ord`` (a device integer): ``S`` uniforms from
+    ``fold_in(key, push_ord)``, ``key = PRNGKey(CacheFaults.seed)``, below
+    the loss rate, OR-ed with the loss windows (inside which every
+    scheduler loses the delivery).  Keyed on the push ordinal, not wall
+    time, so the sequential and batched drivers draw identically."""
+    u = uniform(fold_in(key, push_ord), (S,))
+    in_win = ((win.closs0 <= now) & (now < win.closs1)).any()
+    return (u < win.cache_rate) | in_win
+
+
+def _apply_push(carry: _Carry, now: torch.Tensor, ctx: _Ctx,
+                push_ord: torch.Tensor | None = None) -> _Carry:
     """One data-store push: the store's view is truth(now) minus the deltas
-    the schedulers have not flushed yet (the staleness model)."""
-    L, D, rif = _truth_rows(carry, now)
+    the schedulers have not flushed yet (the staleness model).
+
+    Under cache faults (per-scheduler views, ``push_ord`` the push's
+    ordinal) the snapshot is taken at ``now − delay_ms`` and each
+    scheduler's delivery may be lost (:func:`_cache_lost`): a loser keeps
+    its old view and ``push_at``.  A traced run's ``push_at`` is the
+    delivered content's time."""
+    win = ctx.win
+    faulted = carry.view_L.dim() == 3
+    t_snap = now - win.cache_delay if faulted else now
+    L, D, rif = _truth_rows(carry, t_snap)
     unflushed = carry.pending[0]
     for s in range(1, carry.pending.shape[0]):
         unflushed = unflushed + carry.pending[s]                 # [n, 4]
-    return carry._replace(
-        view_L=torch.clamp_min(L - unflushed[:, :2], 0.0),
-        view_D=torch.clamp_min(D - unflushed[:, 2], 0.0),
-        view_rif=torch.clamp_min(rif - unflushed[:, 3], 0.0),
-        push_end=now + dyn.push_block_ms)
+    view_L = torch.clamp_min(L - unflushed[:, :2], 0.0)
+    view_D = torch.clamp_min(D - unflushed[:, 2], 0.0)
+    view_rif = torch.clamp_min(rif - unflushed[:, 3], 0.0)
+    push_at = carry.push_at
+    if faulted:
+        lost = _cache_lost(win, now, push_ord, carry.view_L.shape[0],
+                           ctx.cache_key)
+        view_L = torch.where(lost[:, None, None], carry.view_L, view_L)
+        view_D = torch.where(lost[:, None], carry.view_D, view_D)
+        view_rif = torch.where(lost[:, None], carry.view_rif, view_rif)
+        if push_at is not None:
+            push_at = torch.where(lost, push_at, t_snap)
+    elif push_at is not None:
+        push_at = now.expand(push_at.shape).clone()
+    return carry._replace(view_L=view_L, view_D=view_D, view_rif=view_rif,
+                          push_end=now + ctx.dyn.push_block_ms,
+                          push_at=push_at)
 
 
 def _sorted_fill(arr: torch.Tensor, k: torch.Tensor,
@@ -1048,7 +1147,18 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
     flush nor push.  On a task-graph wave under a :class:`LocalityModel`,
     ``blk`` ends with the parent planes (psrv [b, P], pbytes [b, P]),
     which dodoor and (1+β) pass to the decision kernel (K3); the other
-    policies ignore them, as the reference's branches do."""
+    policies ignore them, as the reference's branches do.
+
+    Under cache faults dodoor and (1+β) draw their candidates and score
+    them in torch ops against each task's own scheduler's view row
+    (:func:`repro_torch.core.policies.dodoor_choice_batch`), as the
+    reference's faulted path does, and launch no kernel; the push's
+    ordinal ``(idx[-1] + 1) // b`` keys the delivery-loss draw.  With
+    ``cfg.trace`` the output gains seven rows (:data:`_TRACE_ROWS`),
+    captured before the push: the snapshot's age ``now − push_at[sched]``,
+    the cached RIF of both candidates, the candidates, the (1+β) coin
+    (ones for dodoor) and the push flag on the block's last row; zeros
+    for the other policies."""
     idx, r_sub, r_exec_t, d_est_t, d_act_t, submit, task_id, valid = blk[:8]
     cfg, dyn = ctx.cfg, ctx.dyn
     S = cfg.num_schedulers
@@ -1073,6 +1183,19 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
             if ctx.masked:
                 mask = mask & avail_rows(win.down0, win.down1, now)
             j = inverse_cdf_draws(mask, draws[0])[:, 0]
+        elif ctx.faulted:
+            mask = feasible_mask(r_sub, ctx.C)
+            if ctx.masked:
+                mask = mask & avail_rows(win.down0, win.down1, now)
+            cand2 = sample_feasible_batch(draws[0], mask, 2).long()
+            loc = (dict(psrv=blk[8], pbytes=blk[9], gamma_bw=dyn.gamma_bw)
+                   if len(blk) > 8 else {})
+            view = SchedulerView(carry.view_L, carry.view_D,
+                                 carry.view_rif, ctx.C)
+            two = dodoor_choice_batch(
+                r_sub, cand2,
+                d_est_t[tt[:, None], ctx.node_type[cand2].long()],
+                view, dyn.alpha, sched=sched, **loc)
         else:
             extra = (dict(down0=win.down0, down1=win.down1, now=now,
                           down_t=ctx.down_t) if ctx.masked else {})
@@ -1082,11 +1205,24 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
             two, cand2, _ = dodoor_fused_sparse(
                 draws[0], r_sub, d_est_t, ctx.node_type, carry.view_L,
                 carry.view_D, ctx.C, alpha=cfg.alpha, **extra)
+            cand2 = cand2.long()
+        if cached:
             if cfg.policy == "one_plus_beta":
-                j = torch.where(draws[1] < dyn.beta, two, cand2[:, 0])
+                coin = draws[1] < dyn.beta
+                j = torch.where(coin, two, cand2[:, 0])
             else:
                 j = two
             extra_lat = torch.clamp_min(carry.push_end - now, 0.0)
+            if cfg.trace:
+                vrows = ((sched[:, None], cand2) if ctx.faulted
+                         else (cand2,))
+                v_rif = carry.view_rif[vrows]                    # [b, 2]
+                coin_f = (coin.to(torch.float32)
+                          if cfg.policy == "one_plus_beta"
+                          else torch.ones((bsz,), device=dev))
+                trace = [now - carry.push_at[sched], v_rif[:, 0],
+                         v_rif[:, 1], cand2[:, 0].to(torch.float32),
+                         cand2[:, 1].to(torch.float32), coin_f]
         j = j.long()
 
         # ---- commit
@@ -1127,7 +1263,7 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
         carry = carry._replace(pending=pending)
         n_flush = do_flush.sum()
         if push:
-            carry = _apply_push(carry, now[-1], dyn)
+            carry = _apply_push(carry, now[-1], ctx, (idx[-1] + 1) // cfg.b)
     n_push = S if push and cached else 0
     msgs = carry.msgs + torch.stack(
         [2 * n_valid, _probe_msgs(cfg) * n_valid, zero + n_push,
@@ -1135,6 +1271,13 @@ def _block_step(carry: _Carry, blk, draws, ctx: _Ctx, push: bool):
     carry = carry._replace(msgs=msgs)
     out = (j.to(torch.int32), outs[0], outs[1], outs[2], outs[3], cores_t,
            mem_t) + tuple(outs[7:])              # (killed, rejected)
+    if cfg.trace:
+        if not cached:
+            trace = [torch.zeros((bsz,), device=dev)] * 6
+        # The flag on the block's last row, made without writing a Python
+        # number into a device tensor (that would sync the card).
+        push_row = (tt == bsz - 1) & (push and cached)
+        out = out + tuple(trace) + (push_row.to(torch.float32),)
     return carry, out
 
 
@@ -1145,11 +1288,12 @@ def _simulate_batched(xs, ctx: _Ctx, carry0: _Carry | None = None,
     (psrv, pbytes) [nb, b, P].  Returns ``(carry, outs)`` when
     ``return_carry``, else ``(msgs, outs)``; ``outs`` is the tuple
     (server, start, finish, enqueue, sched_ms, cores, mem), each [nb, b],
-    and under a :class:`RetryPolicy` also (killed, rejected).  The wave
-    loops pass the previous wave's carry as ``carry0``."""
+    under a :class:`RetryPolicy` also (killed, rejected), and with
+    ``cfg.trace`` the :data:`_TRACE_ROWS` trace rows.  The wave loops pass
+    the previous wave's carry as ``carry0``."""
     cfg = ctx.cfg
     carry = carry0 if carry0 is not None else _init_carry(
-        cfg, ctx.C.shape[0], ctx.cores_per)
+        cfg, ctx.C.shape[0], ctx.cores_per, ctx.faulted)
     # Only full blocks push, and not inside a store outage.
     push_at = (xs[7][:, -1].cpu()
                & ~_suppress_push(ctx.win, xs[5][:, -1].cpu())).numpy()
@@ -1222,22 +1366,11 @@ def _validate_config(cfg: EngineConfig) -> None:
             raise ValueError("locality.bandwidth_mb_per_ms must be > 0")
 
 
-def _not_ported(cfg: EngineConfig, mode: str, dynamics) -> None:
-    """Raise for every input whose path is not ported yet, naming the
-    ROADMAP §1 item that will port it."""
+def _check_mode(cfg: EngineConfig, mode: str) -> None:
     if mode not in ("batched", "sequential"):
         raise ValueError(f"unknown mode {mode!r}")
     if cfg.policy not in POLICIES:
         raise ValueError(f"unknown policy {cfg.policy!r}")
-    later = None
-    if dynamics is not None and dynamics.cache_faults is not None:
-        later = ("Dynamics.cache_faults", 7)
-    elif cfg.trace:
-        later = ("trace", 7)
-    if later is not None:
-        raise NotImplementedError(
-            f"{later[0]} is not ported to repro_torch yet (ROADMAP.md §1, "
-            f"item {later[1]})")
 
 
 _TASK_FIELDS = ("r_submit", "r_exec", "d_est", "d_act")
@@ -1441,15 +1574,20 @@ def _seq_wave(ctx: _Ctx, carry: _Carry | None, host: dict, dev,
     push's end, which change only at a push, so each run of ``b``
     decisions between two pushes is scored at once against the live view;
     PoT's probes and Prequal's pools read state that every commit
-    changes, so they decide task by task.  Returns ``(carry, j [m],
-    outs [rows, m])`` on the host, as :func:`_run_wave`."""
+    changes, so they decide task by task.  Under cache faults each task of
+    the run reads its own scheduler's row of the per-scheduler views, and
+    the push after decision ``i`` has the ordinal ``(i + 1) // b``.  With
+    ``cfg.trace`` the same run of ``b`` decisions records the trace rows
+    of :func:`_block_step` at once, and the push row is the host's push
+    plan.  Returns ``(carry, j [m], outs [rows, m])`` on the host, as
+    :func:`_run_wave`."""
     cfg, dyn = ctx.cfg, ctx.dyn
     policy = cfg.policy
     S, b, fe = cfg.num_schedulers, cfg.b, cfg.flush_every
     retry = cfg.retry is not None
     m = host["submit"].shape[0]
     carry = carry if carry is not None else _init_carry(
-        cfg, ctx.C.shape[0], ctx.cores_per)
+        cfg, ctx.C.shape[0], ctx.cores_per, ctx.faulted)
     r_sub, r_exec, d_est, d_act, now_t = (
         torch.from_numpy(np.require(host[k], requirements=("C", "W"))).to(dev)
         for k in ("r_submit", "r_exec", "d_est", "d_act", "submit"))
@@ -1467,13 +1605,21 @@ def _seq_wave(ctx: _Ctx, carry: _Carry | None, host: dict, dev,
     do_push = (((i_host + 1) % b == 0)
                & ~((store0 <= t) & (t < store1)).any(axis=1))
     nt = ctx.node_type.long()
-    outs = torch.zeros((8 if retry else 6, m), dtype=torch.float32,
-                       device=dev)
+    t0 = 8 if retry else 6                  # first trace row
+    outs = torch.zeros((t0 + (_TRACE_ROWS if cfg.trace else 0), m),
+                       dtype=torch.float32, device=dev)
     js = torch.zeros((m,), dtype=torch.long, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     ones = torch.ones((1,), dtype=torch.float32, device=dev)
-    # α on the device once: a float would be copied there every block.
-    alpha = torch.tensor(np.float32(cfg.alpha), device=dev)
+    # Decision ordinals and schedulers on the device: an int would be
+    # copied there at every use, which syncs the card.
+    ords = torch.arange(1, m + 1, device=dev)
+    scheds = torch.arange(m, device=dev) % S
+    if cfg.trace and cached:
+        # The host's push plan, made again on the device (a copy of the
+        # host's would sync the card).
+        outs[t0 + 6] = (((ords % b) == 0)
+                        & ~_suppress_push(ctx.win, now_t)).to(torch.float32)
     for i in range(m):
         now = now_t[i]
         s = i % S
@@ -1488,12 +1634,25 @@ def _seq_wave(ctx: _Ctx, carry: _Carry | None, host: dict, dev,
             loc = ({} if psrv is None else
                    dict(psrv=psrv[blk], pbytes=pbytes[blk],
                         gamma_bw=dyn.gamma_bw))
+            if ctx.faulted:
+                loc["sched"] = scheds[blk]
             pick = dodoor_choice_batch(
-                r_sub[blk], cand, d_est[blk][rows, nt[cand]], view, alpha,
-                **loc).long()
+                r_sub[blk], cand, d_est[blk][rows, nt[cand]], view,
+                dyn.alpha, **loc).long()
             if policy == "one_plus_beta":
                 pick = torch.where(draws["use_two"][blk], pick, cand[:, 0])
             blk_lat = torch.clamp_min(carry.push_end - now_t[blk], 0.0)
+            if cfg.trace:
+                vrows = ((scheds[blk, None], cand) if ctx.faulted
+                         else (cand,))
+                v_rif = carry.view_rif[vrows]
+                coin = (draws["use_two"][blk].to(torch.float32)
+                        if policy == "one_plus_beta"
+                        else torch.ones_like(v_rif[:, 0]))
+                outs[t0:t0 + 6, blk] = torch.stack(
+                    [now_t[blk] - carry.push_at[scheds[blk]], v_rif[:, 0],
+                     v_rif[:, 1], cand[:, 0].to(torch.float32),
+                     cand[:, 1].to(torch.float32), coin])
         # j: a one-element index tensor (a 0-d one would sync the card).
         if cached:
             k = i % b
@@ -1525,7 +1684,7 @@ def _seq_wave(ctx: _Ctx, carry: _Carry | None, host: dict, dev,
         d_est_j = d_est[i][nt_j]
         o = _commit_one(carry, now, j, cores, mem_mb, d_act[i][nt_j],
                         d_est_j, lat, ctx)
-        outs[:, i:i + 1] = torch.stack(o[:4] + (cores, mem_mb) + o[4:])
+        outs[:t0, i:i + 1] = torch.stack(o[:4] + (cores, mem_mb) + o[4:])
         js[i:i + 1] = j
         if cached:
             delta = torch.stack([cores, mem_mb, d_est_j, ones], dim=-1)
@@ -1535,7 +1694,7 @@ def _seq_wave(ctx: _Ctx, carry: _Carry | None, host: dict, dev,
             if do_flush[i]:
                 carry.pending[s] = 0.0
             if do_push[i]:
-                carry = _apply_push(carry, now, dyn)
+                carry = _apply_push(carry, now, ctx, ords[i] // b)
     counts = [2 * m, _probe_msgs(cfg) * m, 0, 0]
     if cached:
         counts[2:] = [S * int(do_push.sum()), int(do_flush.sum())]
@@ -1565,6 +1724,66 @@ def _record(server, planes: dict, idx, j_w, outs_w) -> None:
 def _empty_planes(m: int) -> dict:
     return {k: np.zeros(m, np.float32)
             for k in ("start", "finish", "enq", "sched", "cores", "mem")}
+
+
+def _empty_trace(m: int) -> dict:
+    """The host planes a traced run fills wave by wave; a retried task
+    keeps its last attempt's record."""
+    tr = {k: np.zeros(m, np.float32)
+          for k in ("age", "verr", "misp", "push", "decision")}
+    tr["sched"] = np.zeros(m, np.int32)
+    return tr
+
+
+def _ring_on_host(carry: _Carry | None):
+    """The wave-entry ring buffers (release, cpu, mem, dur) as host
+    copies, or None before the first wave: the wave updates the carry's
+    planes in place, so a view would see the wave's own commits."""
+    if carry is None:
+        return None
+    return tuple(getattr(carry, f).cpu().numpy().copy()
+                 for f in ("rb_release", "rb_cpu", "rb_mem", "rb_dur"))
+
+
+def _trace_wave(tr: dict, ctx: _Ctx, workload, idx, j_w, outs_w, submit_w,
+                parents=(), init_ring=None) -> None:
+    """The trace post-pass of one wave, as the reference's: its captures
+    (the last :data:`_TRACE_ROWS` rows of ``outs_w``) and the stripped
+    commit record through :func:`finish_trace`, with the wave's demands,
+    the cluster, α and ``R = rbuf_slots``; the rejected tasks under a
+    :class:`RetryPolicy`, the locality pair on a task-graph wave, and the
+    wave-entry ring ``init_ring``.  Records the planes at ``idx``; the
+    deciding scheduler is the wave-local index mod ``S``."""
+    cfg = ctx.cfg
+    age, vr0, vr1, c0, c1, coin, push = outs_w[-_TRACE_ROWS:]
+    loc = ({} if not parents else
+           dict(gamma_bw=cfg.locality.gamma_bw, psrv=parents[0],
+                pbytes=parents[1]))
+    verr, misp = finish_trace(
+        j=j_w, finish=outs_w[_FINISH], cores=outs_w[_CORES],
+        mem=outs_w[_MEM], now=submit_w, v_rif=(vr0, vr1), cand=(c0, c1),
+        use_two=coin, r_sub=np.asarray(workload.r_submit)[idx],
+        d_est=np.asarray(workload.d_est)[idx],
+        node_type=np.asarray(ctx.cluster.node_type),
+        C=np.asarray(ctx.cluster.C, np.float32),
+        alpha=cfg.alpha, policy=cfg.policy, R=cfg.rbuf_slots,
+        rejected=(outs_w[_REJECTED] > 0.5 if cfg.retry is not None
+                  else None),
+        init_ring=init_ring, **loc)
+    for k, v in (("age", age), ("verr", verr), ("misp", misp),
+                 ("push", push), ("decision", submit_w)):
+        tr[k][idx] = v
+    tr["sched"][idx] = np.arange(idx.shape[0]) % cfg.num_schedulers
+
+
+def _trace_result(tr: dict | None) -> dict:
+    """:class:`SimResult`'s trace fields from :func:`_empty_trace`'s
+    planes (none for an untraced run)."""
+    if tr is None:
+        return {}
+    return {"view_age_ms": tr["age"], "view_err": tr["verr"],
+            "misplaced": tr["misp"] > 0.5, "cache_push": tr["push"] > 0.5,
+            "sched_id": tr["sched"], "decision_ms": tr["decision"]}
 
 
 def _wave_runner(workload, ctx: _Ctx, mode: str, device):
@@ -1610,6 +1829,7 @@ def _simulate_dag(workload, ctx: _Ctx, plan, device,
     run = _wave_runner(workload, ctx, mode, device)
     server = np.zeros(m, np.int32)
     fin = _empty_planes(m)
+    tr = _empty_trace(m) if cfg.trace else None
     eff_submit = np.zeros(m, np.float32)
     submit0 = np.asarray(workload.submit_ms).astype(np.float64)
     by_level = np.argsort(plan.level, kind="stable")
@@ -1633,10 +1853,14 @@ def _simulate_dag(workload, ctx: _Ctx, plan, device,
             parents = (np.where(pidx >= 0, server[np.maximum(pidx, 0)],
                                 -1).astype(np.int32),
                        plan.pbytes_pad[idx])
+        ring0 = _ring_on_host(carry) if tr is not None else None
         carry, j_w, outs_w = run(carry, idx, submit_w, idx, parents)
         _record(server, fin, idx, j_w, outs_w)
         eff_submit[idx] = submit_w
-    return _result(server, fin, eff_submit, carry, cfg)
+        if tr is not None:
+            _trace_wave(tr, ctx, workload, idx, j_w, outs_w, submit_w,
+                        parents, ring0)
+    return _result(server, fin, eff_submit, carry, cfg, **_trace_result(tr))
 
 
 def _simulate_with_retries(workload, ctx: _Ctx, device,
@@ -1659,13 +1883,18 @@ def _simulate_with_retries(workload, ctx: _Ctx, device,
     fin = _empty_planes(m)
     attempts = np.zeros(m, np.int32)
     wasted = np.zeros(m, np.float64)
+    tr = _empty_trace(m) if cfg.trace else None
     idx = np.arange(m)
     submit_w = np.asarray(workload.submit_ms).astype(np.float32)
     carry = None
     for a in range(1, rp.max_attempts + 1):
         task_id = (idx + (a - 1) * m).astype(np.int32)
+        ring0 = _ring_on_host(carry) if tr is not None else None
         carry, j_w, outs_w = run(carry, idx, submit_w, task_id)
         _record(server, fin, idx, j_w, outs_w)
+        if tr is not None:
+            _trace_wave(tr, ctx, workload, idx, j_w, outs_w, submit_w,
+                        init_ring=ring0)
         attempts[idx] = a
         killed = outs_w[_KILLED] > 0.5
         wasted[idx[killed]] += (outs_w[_FINISH] - outs_w[_START])[
@@ -1684,7 +1913,7 @@ def _simulate_with_retries(workload, ctx: _Ctx, device,
     failed[idx] = True
     return _result(server, fin, np.asarray(workload.submit_ms), carry, cfg,
                    attempts=attempts, failed=failed,
-                   wasted_ms=wasted.astype(np.float32))
+                   wasted_ms=wasted.astype(np.float32), **_trace_result(tr))
 
 
 def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
@@ -1714,11 +1943,20 @@ def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
     dag, as in the reference.  Both wave loops run either mode.  The
     sequential oracle, and PoT and Prequal in either mode, launch no
     kernel: they score in torch ops, as the reference's scans score in
-    ``jnp``."""
+    ``jnp``.  A ``dynamics`` with ``cache_faults`` gives every scheduler
+    its own view (:class:`CacheFaults`); dodoor and (1+β) then score in
+    torch ops too, as the reference's faulted path does, and launch no
+    kernel.
+
+    ``cfg.trace`` adds the six decision-trace planes to the result
+    (``view_age_ms``, ``view_err``, ``misplaced``, ``cache_push``,
+    ``sched_id``, ``decision_ms``), resolved by one numpy post-pass per
+    wave (:func:`_trace_wave`); placements, timestamps and the ledger are
+    the untraced run's."""
     if dynamics is not None and not isinstance(dynamics, Dynamics):
         raise TypeError(f"dynamics must be a Dynamics spec, got "
                         f"{type(dynamics).__name__}")
-    _not_ported(cfg, mode, dynamics)
+    _check_mode(cfg, mode)
     _validate_config(cfg)
     m = workload.r_submit.shape[0]
     plan = None
@@ -1752,25 +1990,20 @@ def simulate(workload, cluster: ClusterSpec, cfg: EngineConfig,
         return _simulate_dag(workload, ctx, plan, dev, mode)
     if cfg.retry is not None:
         return _simulate_with_retries(workload, ctx, dev, mode)
+    ids = np.arange(m)
+    submit = np.asarray(workload.submit_ms)
     if mode == "sequential":
-        ids = np.arange(m)
         carry, j, outs = _wave_runner(workload, ctx, mode, dev)(
-            None, ids, np.asarray(workload.submit_ms), ids)
-        fin = _empty_planes(m)
-        server = np.zeros(m, np.int32)
-        _record(server, fin, ids, j, outs)
-        return _result(server, fin, np.asarray(workload.submit_ms), carry,
-                       cfg)
-    xs = _blocked_inputs(workload, cfg.b, dev)
-    msgs, outs = _simulate_batched(xs, ctx)
-    host = [o.reshape(-1)[:m].cpu().numpy() for o in outs]
-    msgs = msgs.cpu().numpy()
-    j, start, finish, enq, sched_ms, cores, mem_mb = host
-    return SimResult(
-        server=j.astype(np.int32),
-        submit_ms=np.asarray(workload.submit_ms),
-        enqueue_ms=enq, start_ms=start, finish_ms=finish, sched_ms=sched_ms,
-        cores=cores, mem_mb=mem_mb,
-        msgs_base=int(msgs[0]), msgs_probe=int(msgs[1]),
-        msgs_push=int(msgs[2]), msgs_flush=int(msgs[3]),
-        policy=cfg.policy)
+            None, ids, submit, ids)
+    else:
+        carry, j, outs = _run_wave(_blocked_inputs(workload, cfg.b, dev),
+                                   ctx, None, m)
+    fin = _empty_planes(m)
+    server = np.zeros(m, np.int32)
+    _record(server, fin, ids, j, outs)
+    tr = None
+    if cfg.trace:
+        tr = _empty_trace(m)
+        _trace_wave(tr, ctx, workload, ids, j, outs,
+                    submit.astype(np.float32))
+    return _result(server, fin, submit, carry, cfg, **_trace_result(tr))

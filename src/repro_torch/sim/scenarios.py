@@ -8,16 +8,17 @@ of ``repro.sim.scenarios``.
   windows, churn joins/leaves, straggler slowdowns, data-store outages);
 * :func:`run_scenario` runs one (scenario, seed) point through
   :func:`~repro_torch.sim.engine.simulate` on the batched driver;
+* :func:`run_scenario_grid` runs a (seeds × scenarios) grid through the
+  study planner (:func:`repro_torch.sim.study.run_study`) with a
+  singleton config axis, every point equal to its standalone
+  :func:`run_scenario` run;
 * the timeline generators below are the reference's, numpy ``RandomState``
   draws copied as they are.
-
-The (seeds × scenarios) grid, ``run_scenario_grid``, rides the study
-planner and is not ported yet (ROADMAP §1 item 8).
 """
 from __future__ import annotations
 
 from dataclasses import replace as dc_replace
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 
@@ -81,12 +82,99 @@ def run_scenario(base, cluster: ClusterSpec, scenario: Scenario,
                     dynamics=scenario.dynamics, dag=scenario.dag)
 
 
-def run_scenario_grid(*args, **kwargs):
-    """The (seeds × scenarios) grid of the reference rides its study
-    planner, which is not ported yet; loop :func:`run_scenario` instead."""
-    raise NotImplementedError(
-        "run_scenario_grid is not ported to repro_torch yet (ROADMAP.md "
-        "§1, item 8); loop run_scenario over the grid")
+class ScenarioSweep(NamedTuple):
+    """Stacked per-task outcomes over a (seeds × scenarios) grid.
+
+    Array fields are ``[S, K, m]`` (seed-major); ``submit_ms`` is per-point
+    (scenarios resample arrivals); ``msgs`` is ``[S, K, 4]``.
+    """
+
+    server: np.ndarray
+    enqueue_ms: np.ndarray
+    start_ms: np.ndarray
+    finish_ms: np.ndarray
+    sched_ms: np.ndarray
+    cores: np.ndarray
+    mem_mb: np.ndarray
+    submit_ms: np.ndarray     # [S, K, m]
+    msgs: np.ndarray          # [S, K, 4] int32
+    policy: str
+    seeds: tuple
+    scenarios: tuple          # length K, Scenario per grid column
+    config: EngineConfig
+    #: recovery planes — present only when ``config`` carries a RetryPolicy.
+    attempts: np.ndarray | None = None
+    failed: np.ndarray | None = None
+    wasted_ms: np.ndarray | None = None
+
+    @property
+    def num_seeds(self) -> int:
+        return len(self.seeds)
+
+    @property
+    def num_scenarios(self) -> int:
+        return len(self.scenarios)
+
+    def point(self, si: int, ki: int) -> SimResult:
+        """The (seed ``si``, scenario ``ki``) point as a plain
+        :class:`SimResult` — interchangeable with a ``run_scenario``
+        return."""
+        return SimResult(
+            server=self.server[si, ki],
+            submit_ms=self.submit_ms[si, ki],
+            enqueue_ms=self.enqueue_ms[si, ki],
+            start_ms=self.start_ms[si, ki],
+            finish_ms=self.finish_ms[si, ki],
+            sched_ms=self.sched_ms[si, ki],
+            cores=self.cores[si, ki],
+            mem_mb=self.mem_mb[si, ki],
+            msgs_base=int(self.msgs[si, ki, 0]),
+            msgs_probe=int(self.msgs[si, ki, 1]),
+            msgs_push=int(self.msgs[si, ki, 2]),
+            msgs_flush=int(self.msgs[si, ki, 3]),
+            policy=self.policy,
+            attempts=None if self.attempts is None else self.attempts[si, ki],
+            failed=None if self.failed is None else self.failed[si, ki],
+            wasted_ms=(None if self.wasted_ms is None
+                       else self.wasted_ms[si, ki]),
+        )
+
+
+def run_scenario_grid(base, cluster: ClusterSpec,
+                      scenarios: Sequence[Scenario] | Scenario,
+                      cfg: EngineConfig, seeds: Sequence[int] = (0,), *,
+                      point_chunk: int | None = None, shard: bool = True,
+                      device=None) -> ScenarioSweep:
+    """Run a (seeds × scenarios) grid of batched-driver simulations — the
+    study planner (:func:`repro_torch.sim.study.run_study`) with a
+    singleton config axis.  Every point equals its standalone
+    :func:`run_scenario` run bit for bit; ``point_chunk`` and ``shard``
+    keep the reference's signature and change no value.  ``device``
+    defaults to the GPU."""
+    from .study import Study, run_study
+
+    if isinstance(scenarios, Scenario):
+        scenarios = (scenarios,)
+    scenarios = tuple(scenarios)
+    seeds = tuple(int(s) for s in seeds)
+    if not scenarios or not seeds:
+        raise ValueError("run_scenario_grid needs ≥ 1 scenario and ≥ 1 seed")
+    st = run_study(base, cluster,
+                   Study(seeds=seeds, configs=(cfg,), scenarios=scenarios),
+                   point_chunk=point_chunk, shard=shard, device=device)
+    return ScenarioSweep(
+        server=st.server[:, 0],
+        enqueue_ms=st.enqueue_ms[:, 0], start_ms=st.start_ms[:, 0],
+        finish_ms=st.finish_ms[:, 0], sched_ms=st.sched_ms[:, 0],
+        cores=st.cores[:, 0], mem_mb=st.mem_mb[:, 0],
+        # A writable plane even when no scenario resamples arrivals (the
+        # planner then returns a broadcast view of the base trace).
+        submit_ms=np.ascontiguousarray(st.submit_ms), msgs=st.msgs[:, 0],
+        policy=st.policy, seeds=seeds, scenarios=scenarios, config=cfg,
+        attempts=None if st.attempts is None else st.attempts[:, 0],
+        failed=None if st.failed is None else st.failed[:, 0],
+        wasted_ms=None if st.wasted_ms is None else st.wasted_ms[:, 0],
+    )
 
 
 # --------------------------------------------------------------------------

@@ -8,6 +8,12 @@ the message ledger).  :func:`carry_from_numpy` turns the reference's
 :class:`~repro_torch.sim.engine._Carry`; :func:`carry_to_numpy` does the
 reverse.  With them both packages can continue one run from the same
 state.
+
+Shapes pass through as they are: under cache faults the views are per
+scheduler (``view_L`` [S, n, 2], ``view_D`` and ``view_rif`` [S, n])
+instead of one shared ``[n, ...]`` view, and a traced carry holds
+``push_at`` [S]; the run that continues the carry must be configured
+alike (the same ``Dynamics.cache_faults`` and ``trace``).
 """
 from __future__ import annotations
 

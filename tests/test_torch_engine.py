@@ -1,8 +1,7 @@
 """The port's batched Dodoor driver against the JAX reference's two-stage
 batched driver (``use_kernel=False``) on the CPU: placements, the
 four-field message ledger and every timestamp bit-exact; the carry handed
-across mid-run; the inputs that are not ported yet refused, and bad
-inputs refused with the reference's errors."""
+across mid-run; bad inputs refused with the reference's errors."""
 import numpy as np
 import pytest
 
@@ -185,24 +184,6 @@ def test_matches_jax_at_ring_widths_off_32(slots, fb_small, small_testbed,
                         tsim.EngineConfig(policy="dodoor", b=10,
                                           rbuf_slots=slots), device="cpu")
     assert_parity(ref, got, timestamps_exact=True)
-
-
-NOT_PORTED = [
-    (dict(trace=True), dict(mode="sequential"), "item 7"),
-    (dict(), dict(dynamics=teng.Dynamics(
-        cache_faults=teng.CacheFaults(0.1))), "item 7"),
-    (dict(), dict(mode="sequential", dynamics=teng.Dynamics(
-        cache_faults=teng.CacheFaults(0.1))), "item 7"),
-    (dict(trace=True), dict(), "item 7"),
-]
-
-
-@pytest.mark.parametrize("cfg_kw,call_kw,item", NOT_PORTED)
-def test_unported_inputs_raise(cfg_kw, call_kw, item, torch_inputs):
-    cfg = tsim.EngineConfig(**cfg_kw)
-    with pytest.raises(NotImplementedError, match=item):
-        tsim.simulate(torch_inputs["fb"], torch_inputs["testbed"], cfg,
-                      device="cpu", **call_kw)
 
 
 #: Inputs of the retry, dag and locality paths (ported) that the

@@ -356,11 +356,6 @@ def test_matches_jax_at_smoke_testbed_size(name, testbed):
     assert_parity(ref, got, timestamps_exact=True)
 
 
-def test_scenario_grid_waits_for_the_study_planner(inputs):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsc.run_scenario_grid(inputs["twl"], inputs["ttb"], (), None)
-
-
 # ---------------------------------------------------------------- metrics
 
 def test_windowed_metrics_match_reference(inputs):

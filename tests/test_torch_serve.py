@@ -130,22 +130,19 @@ class TestStreamingSemantics:
     @pytest.mark.parametrize("cfg_kw,dyn,error,match", [
         (dict(retry="RetryPolicy"), None, NotImplementedError,
          "RetryPolicy"),
-        (dict(trace=True), None, NotImplementedError, "item 7"),
+        (dict(trace=True), None, NotImplementedError, "offline post-pass"),
         (dict(locality="LocalityModel"), None, NotImplementedError,
          "LocalityModel"),
-        (dict(), "cache_faults", NotImplementedError, "item 7"),
         (dict(outage_ms=(1.0, 2.0)), None, ValueError, "deprecated"),
         (dict(), "not a spec", TypeError, "Dynamics spec"),
         (dict(policy="nope"), None, ValueError, "policy"),
-    ], ids=["retry", "trace", "locality", "cache_faults", "outage_ms",
-            "dynamics", "policy"])
+    ], ids=["retry", "trace", "locality", "outage_ms", "dynamics",
+            "policy"])
     def test_unsupported_knobs_raise(self, cluster, cfg_kw, dyn, error,
                                      match):
         kw = {k: ({"RetryPolicy": tsim.RetryPolicy(),
                    "LocalityModel": tsim.LocalityModel()}.get(v, v)
                   if isinstance(v, str) else v) for k, v in cfg_kw.items()}
-        if dyn == "cache_faults":
-            dyn = tsim.Dynamics(cache_faults=tsim.CacheFaults(0.1))
         with pytest.raises(error, match=match):
             _cpu(cluster, tsim.EngineConfig(b=25, **kw), dynamics=dyn)
 
