@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs twenty-three phases; any failure raises and exits non-zero
+package, and runs twenty-four phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
@@ -49,7 +49,8 @@ package, and runs twenty-three phases; any failure raises and exits non-zero
    choices exact; with γ = 0 each form equals K1 (K2) bit for bit; then
    the edge cases with 8 and 40 parents, without windows and with 8;
 9. DAG testbed — the frontier loop on the testbed (FunctionBench m=2400
-   at 60 qps, b=50): the chain, fan-out and map-reduce shapes of the DAG
+   at 60 qps, b=50): the chain (on the first 1 200 tasks: 1 200 waves),
+   fan-out and map-reduce shapes of the DAG
    benchmark without a LocalityModel and with γ = 2, a layered DAG under
    γ/bandwidth = 0.7/1.3, and map-reduce under γ = 2 and 25 outages (the
    masked K3); each against its CPU run (placements as in phase 3, then
@@ -140,7 +141,8 @@ package, and runs twenty-three phases; any failure raises and exits non-zero
    and the wall (inflated by the profiler); the timed runs of phases 4
    and 7 stay unprofiled;
 21. sequential oracle — ``simulate(mode="sequential")`` on the testbed
-   (FunctionBench m=4000 at 300 qps, b=50) for random, PoT, dodoor,
+   (the first 2 000 tasks of FunctionBench m=4000 at 300 qps, b=50) for
+   random, PoT, dodoor,
    (1+β) and Prequal on the card, each against the same run on the CPU
    (the ledger exact, placements exact or a candidate flip as in phase
    3, every time plane within rtol 1e-6 / atol 1e-3 up to a divergence)
@@ -162,7 +164,8 @@ package, and runs twenty-three phases; any failure raises and exits non-zero
    whether bit for bit), no kernel launched, and no host sync beyond one
    a speculative iteration (PoT) or a chunk (Prequal), counted at 100
    and 300 tasks; at 10 000 servers (phase 4's Azure trace cut to its
-   first 20 000 tasks, b=500) against the CPU run bit for bit; the fault
+   first 20 000 tasks, Prequal's to 5 000, b=500) against the CPU run
+   bit for bit; the fault
    benchmark's message point in the batched driver for dodoor, PoT and
    Prequal, seeds 0 and 1, equal to phase 21's constants; then
    ``serve_workload`` on the card for all five policies on the testbed
@@ -196,6 +199,29 @@ package, and runs twenty-three phases; any failure raises and exits non-zero
    the mean-field check of ``tests/test_meanfield.py:108`` at n = 10³
    (λ = 0.7, m = 30 000, b = 50; PoT and dodoor inside
    ``tolerance_band``; card only).
+24. MoE serving and the serve launcher — qwen3-moe-235b-a22b at full
+   width (d 4096, 64 heads of 128 over 4 KV heads, 128 experts top-8,
+   ``moe_d_ff`` 1536, vocab 151 936) cut to 2 of 94 layers, float32
+   weights from a seed: K7 at its prefill and its decode over the bf16
+   cache (timed, against the plain version); ``forward`` on 4 × 1024
+   tokens (two 2048-token groups, so the dodoor load carries across a
+   group) with the published ``topk`` router and with ``dodoor`` on the
+   same weights (finite logits, one K7 launch a layer; tokens per expert
+   max/mean and the dropped share of the choices printed); four
+   128-token prompts through ``decode_step`` and 32 greedy tokens (one
+   K7 launch a layer-step, ms a step); a 1-layer copy with the same
+   weights on 1 × 2 100 tokens (a full group and a mostly padded one),
+   card against CPU, for each router: at most 0.1 % of the (token,
+   choice) routes (expert and kept) differ, logits within 1e-4 of the
+   largest |logit| on the tokens whose routes agree, ``moe_aux`` within
+   1e-5 relative (widened only by what differing routes can move it);
+   then dbrx-132b (2 of 40 layers, 16 experts top-4) the same way without
+   decode and copy; then ``repro_torch.launch.serve.main`` (qwen3-moe's
+   400-request trace, all four policies through the sequential oracle,
+   eight router placements, the smoke model's greedy decode) on the card
+   against the same call with ``--device cpu``: the policy rows and
+   placements equal, 16 in-vocabulary tokens on each, one K7 launch a
+   layer-step of the demo.
 
 The edge cases of the decision template (K1–K4 share it) hold the kernel
 to its plain version, every output exact, at (T, N) = (50, 1), (50, 31),
@@ -217,7 +243,7 @@ after: one launch per block.
 It prints the card's name and power limit, every phase's wall time, a
 ``profile`` JSON line of phase 20's readings, phase 21's
 ``message_reduction`` line and phase 22's ``message_reduction_batched``
-line, phase 23's readings, a JSON line of per-kernel
+line, phase 23's and 24's readings, a JSON line of per-kernel
 measurements, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -987,11 +1013,17 @@ def dag_check(name, gpu, cpu, wl, cluster, plan, dynamics=None) -> bool:
     return same
 
 
+#: Phase 9's chain runs on the trace's first 1 200 tasks (1 200 waves of
+#: the DAG benchmark's 2 400): the script's time limit.
+CHAIN_TASKS = 1200
+
+
 def dag_phase(torch, m: int = 2400) -> int:
     """Phase 9: the shapes of the DAG benchmark on the testbed, each
-    without a LocalityModel and with γ = 2; a layered DAG under γ/bw =
-    0.7/1.3 with non-integer MB; map-reduce under γ = 2 and outages (the
-    masked K3).  Returns the masked K3's launches."""
+    without a LocalityModel and with γ = 2 (the chain cut to
+    ``CHAIN_TASKS``); a layered DAG under γ/bw = 0.7/1.3 with non-integer
+    MB; map-reduce under γ = 2 and outages (the masked K3).  Returns the
+    masked K3's launches."""
     from repro_torch.sim import (EngineConfig, LocalityModel, make_testbed,
                                  random_outages, simulate, summarize_dag)
     from repro_torch.workloads import (ChainDAG, FanOutDAG, LayeredDAG,
@@ -1022,10 +1054,12 @@ def dag_phase(torch, m: int = 2400) -> int:
     for shape, spec, loc, dyn in runs:
         name = f"{shape} {'no model' if loc is None else loc}"
         cfg = EngineConfig(policy="dodoor", b=50, locality=loc)
-        plan = dag_plan(spec, m)
-        gpu, wall, counts = timed_run(torch, wl, tb, cfg, dyn, spec)
-        cpu = simulate(wl, tb, cfg, device="cpu", dynamics=dyn, dag=spec)
-        same = dag_check(name, gpu, cpu, wl, tb, plan, dyn)
+        wl_s = head(wl, CHAIN_TASKS) if shape == "chain" else wl
+        m_s = wl_s.r_submit.shape[0]
+        plan = dag_plan(spec, m_s)
+        gpu, wall, counts = timed_run(torch, wl_s, tb, cfg, dyn, spec)
+        cpu = simulate(wl_s, tb, cfg, device="cpu", dynamics=dyn, dag=spec)
+        same = dag_check(name, gpu, cpu, wl_s, tb, plan, dyn)
         kernel = ("dodoor_fused_sparse" + ("_masked" if dyn else "")
                   + ("_locality" if loc else ""))
         blocks = wave_blocks(np.bincount(plan.level), cfg.b)
@@ -1035,8 +1069,8 @@ def dag_phase(torch, m: int = 2400) -> int:
                                       0)
         s = summarize_dag(gpu, plan)
         moved[(shape, loc is not None)] = s["bytes_moved_mb"]
-        print(f"dag {name}: m={m} b={cfg.b} waves {plan.num_levels} "
-              f"{m / wall:.1f} decisions/s (wall {wall:.3f} s), launches "
+        print(f"dag {name}: m={m_s} b={cfg.b} waves {plan.num_levels} "
+              f"{m_s / wall:.1f} decisions/s (wall {wall:.3f} s), launches "
               f"{counts}, equal to cpu: {same}, summarize_dag "
               f"{json.dumps(s)}", flush=True)
     for shape in ("fanout", "mapreduce"):
@@ -2353,6 +2387,9 @@ def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
 # --------------------------------------------------------------------------
 
 SEQ_POLICIES = ("random", "pot", "dodoor", "one_plus_beta", "prequal")
+#: Phase 21's testbed runs take the first 2 000 tasks of phase 3's
+#: FunctionBench trace (m = 4 000): the script's time limit.
+SEQ_TASKS = 2000
 #: tests/test_engine_batched.py:22's bound on the time planes.
 SEQ_RTOL, SEQ_ATOL = 1e-6, 1e-3
 #: The message-reduction point of benchmarks/bench_faults.py:86-145 (the
@@ -2453,7 +2490,7 @@ def sequential_phase(torch) -> dict:
     from repro_torch.workloads import functionbench
 
     tb = make_testbed()
-    wl = functionbench.synthesize(m=4000, qps=300.0)
+    wl = head(functionbench.synthesize(m=4000, qps=300.0), SEQ_TASKS)
     m = wl.r_submit.shape[0]
     for policy in SEQ_POLICIES:
         cfg = EngineConfig(policy=policy, b=50)
@@ -2592,6 +2629,12 @@ def syncs_and_commits(torch, run) -> tuple:
     return syncs, calls[0]
 
 
+#: Phase 22's Prequal run at 10⁴ servers takes the first 5 000 tasks (10
+#: blocks of 500) of the 20 000 the other runs there take: the script's
+#: time limit.
+PREQUAL_SCALE_TASKS = 5000
+
+
 def head(wl, k: int):
     """The first ``k`` tasks of a workload trace."""
     import dataclasses
@@ -2662,20 +2705,23 @@ def probing_phase(torch) -> dict:
               f" + {s3 - c3} a run ({c3 / 6:.1f} a block), ledger "
               f"{ledger(gpu)}", flush=True)
 
-    # (b) 10⁴ servers: phase 4's Azure trace cut to its first 20 000 tasks.
+    # (b) 10⁴ servers: phase 4's Azure trace cut to its first 20 000 tasks
+    # (Prequal: PREQUAL_SCALE_TASKS).
     cl = make_scaled(10_000)
     big = head(azure.synthesize(m=200_000, qps=400.0), 20_000)
     mb = big.r_submit.shape[0]
-    for policy in ("pot", "prequal"):
+    for policy, cut in (("pot", mb), ("prequal", PREQUAL_SCALE_TASKS)):
+        wl_p = head(big, cut)
+        m_p = wl_p.r_submit.shape[0]
         cfg = EngineConfig(policy=policy, b=500)
-        gpu, wall, counts = batched_run(torch, big, cl, cfg, "cuda")
+        gpu, wall, counts = batched_run(torch, wl_p, cl, cfg, "cuda")
         check(not counts, f"batched {policy} at scale launched {counts}")
-        cpu, cpu_wall, _ = batched_run(torch, big, cl, cfg, "cpu")
+        cpu, cpu_wall, _ = batched_run(torch, wl_p, cl, cfg, "cpu")
         exact_check(f"batched {policy} at scale (card vs cpu)", gpu, cpu)
-        out[f"scale {policy}"] = mb / wall
-        print(f"batched {policy}: n={cl.num_servers} m={mb} (cut from "
-              f"200 000) b={cfg.b} {mb / wall:.1f} decisions/s on the card "
-              f"(wall {wall:.3f} s; cpu {mb / cpu_wall:.1f}/s), bit for bit "
+        out[f"scale {policy}"] = m_p / wall
+        print(f"batched {policy}: n={cl.num_servers} m={m_p} (cut from "
+              f"200 000) b={cfg.b} {m_p / wall:.1f} decisions/s on the card "
+              f"(wall {wall:.3f} s; cpu {m_p / cpu_wall:.1f}/s), bit for bit "
               f"equal to cpu, msgs/task {gpu.msgs_per_task:.4f}",
               flush=True)
 
@@ -3075,6 +3121,307 @@ def observability_phase(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 24: MoE serving and the serve launcher
+# --------------------------------------------------------------------------
+
+#: The MoE models at full width, cut to 2 layers (of 94 / 40): ≈ 24.9 /
+#: 31.0 GB of float32 weights from a seed.
+MOE_MODELS = ("qwen3-moe-235b-a22b", "dbrx-132b")
+MOE_LAYERS = 2
+#: K7 at the MoE models' attention shapes: qwen3-moe's prefill (64 heads
+#: of 128 over 4 KV heads) and decode over the bf16 cache, dbrx's prefill.
+K7_MOE = {"qwen3-moe-235b-a22b": (4, 64, 4, 1024, 1024, 128, True, None),
+          "dbrx-132b": (4, 48, 8, 1024, 1024, 128, True, None)}
+K7_MOE_CACHE = (4, 64, 4, 160, 128, 160)
+#: The 1-layer copy, card against CPU, on 1 × 2100 tokens (a full group
+#: of 2048 and a mostly padded one): at most this share of (token, choice)
+#: routes may differ (near-ties of the router's softmax, summed in another
+#: order); logits on the tokens whose routes agree within CPU_COPY_TOL of
+#: the largest |logit|; moe_aux within MOE_AUX_RTOL, widened only by what
+#: the differing routes can move it.
+MOE_COPY_TOKENS = 2100
+MOE_ROUTE_SHARE = 1e-3
+MOE_AUX_RTOL = 1e-5
+#: The launcher's call: four policy rows and eight placements, then the
+#: smoke model's 16 greedy tokens.
+SERVE_ARCH = "qwen3-moe-235b-a22b"
+SERVE_ARGV = ["--arch", SERVE_ARCH, "--requests", "400", "--decode-demo"]
+SERVE_DEMO_STEPS = 16
+
+
+def moe_recorded(fn):
+    """``fn()`` with every MoE group's routing recorded, in call order
+    (layer-major, group-minor): (experts [g, k] sorted in each row, kept
+    [g, k] in the same order, choices per expert [E], mean gate
+    probabilities [E]).  The groups run ``moe_group_apply`` as in any
+    forward; the routes are read again from the same inputs."""
+    from repro_torch.models import transformer as tf
+
+    apply_group = tf.moe_group_apply
+    rec = []
+
+    def recording(p, x, cfg, load):
+        probs, idx, _ = tf.moe_route(p, x, cfg, load)
+        pos, counts = tf.moe_queue(idx, cfg.n_experts)
+        keep = pos < tf._capacity(x.shape[0], cfg)
+        order = idx.argsort(dim=1)
+        rec.append((idx.gather(1, order), keep.gather(1, order), counts,
+                    probs.mean(0)))
+        return apply_group(p, x, cfg, load)
+
+    tf.moe_group_apply = recording
+    try:
+        out = fn()
+    finally:
+        tf.moe_group_apply = apply_group
+    return out, rec
+
+
+def route_stats(rec) -> str:
+    """Tokens per expert (the largest over the mean, worst group) and the
+    dropped share of the choices, over every layer and group."""
+    worst = max(float(c.max() / c.mean()) for _, _, c, _ in rec)
+    kept = sum(int(k.sum()) for _, k, _, _ in rec)
+    total = sum(k.numel() for _, k, _, _ in rec)
+    return (f"tokens per expert max/mean {worst:.3f} (worst group), dropped "
+            f"{1 - kept / total:.4f} of {total} choices")
+
+
+def moe_forward(torch, name, cfg, params, tokens) -> tuple:
+    """One ``forward`` on the card, timed, with the launches set to 0
+    just before and read just after (one K7 launch a layer), then a
+    recorded run for the route statistics.  Returns (K7 launches, ms)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import registry
+
+    B, L = tokens.shape
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    logits, aux = registry.forward(cfg, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(LAUNCHES)
+    check(counts == {"flash_attention": cfg.n_layers}, f"{name} "
+          f"{cfg.router} forward: launches {counts}")
+    check(tuple(logits.shape) == (B, L, cfg.vocab) and
+          bool(logits.isfinite().all()), f"{name} {cfg.router} forward: "
+          f"logits {tuple(logits.shape)} not finite or of the wrong shape")
+    moe_aux = float(aux["moe_aux"])
+    del logits
+    _, rec = moe_recorded(lambda: registry.forward(cfg, params,
+                                                   {"tokens": tokens}))
+    print(f"moe {name} router={cfg.router}: forward B={B} L={L} "
+          f"{ms:.1f} ms, {B * L / ms * 1e3:.1f} prefill tokens/s, moe_aux "
+          f"{moe_aux:.6f}, launches {counts}; {route_stats(rec)}",
+          flush=True)
+    return counts["flash_attention"], ms
+
+
+def moe_decode(torch, name, cfg, params) -> int:
+    """Four 128-token prompts through ``decode_step`` (the default bf16
+    cache), then 32 greedy tokens: finite logits, one K7 launch a
+    layer-step, ms a step.  Returns the K7 launches."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import registry
+
+    n_req, n_prompt, n_gen = 4, 128, 32
+    prompts = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab, (n_req, n_prompt))).cuda()
+    cache = registry.init_cache(cfg, n_req, n_prompt + n_gen, device="cuda")
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for t in range(n_prompt):
+        lg, cache = registry.decode_step(cfg, params, cache,
+                                         prompts[:, t:t + 1])
+        finite &= lg.isfinite().all()
+    torch.cuda.synchronize()
+    prompt_ms = (time.perf_counter() - t0) * 1e3 / n_prompt
+    nxt = lg[:, -1].argmax(-1, keepdim=True)
+    t0 = time.perf_counter()
+    for _ in range(n_gen):
+        lg, cache = registry.decode_step(cfg, params, cache, nxt)
+        finite &= lg.isfinite().all()
+        nxt = lg[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3 / n_gen
+    counts = dict(LAUNCHES)
+    want = {"flash_attention": cfg.n_layers * (n_prompt + n_gen)}
+    check(counts == want, f"{name} decode: launches {counts}, want {want}")
+    check(bool(finite), f"{name} decode: non-finite logits")
+    print(f"moe {name} decode of {n_req} requests ({cache['k'].dtype} "
+          f"cache): {n_prompt} prompt steps {prompt_ms:.2f} ms a step, "
+          f"{n_gen} greedy steps {gen_ms:.2f} ms a step, "
+          f"{n_req / gen_ms * 1e3:.1f} decode tokens/s, launches {counts}",
+          flush=True)
+    return counts["flash_attention"]
+
+
+def moe_cpu_copy(torch, name, cfg, params) -> None:
+    """A 1-layer copy with the same weights, card against CPU, on 1 ×
+    ``MOE_COPY_TOKENS`` tokens, for each router."""
+    from dataclasses import replace
+
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_map
+
+    p1 = dict(params, layers=tree_map(lambda a: a[:1], params["layers"]))
+    t0 = time.perf_counter()
+    cpu_p = tree_map(lambda a: a.cpu(), p1)
+    copy_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab, (1, MOE_COPY_TOKENS)))
+    for router in ("topk", "dodoor"):
+        cfg1 = replace(cfg, n_layers=1, router=router)
+        (gpu, gaux), grec = moe_recorded(lambda: registry.forward(
+            cfg1, p1, {"tokens": tokens.cuda()}))
+        t0 = time.perf_counter()
+        (cpu, caux), crec = moe_recorded(lambda: registry.forward(
+            cfg1, cpu_p, {"tokens": tokens}))
+        cpu_s = time.perf_counter() - t0
+        T = MOE_COPY_TOKENS
+        g_idx, g_keep = (torch.cat([r[i].cpu() for r in grec])[:T]
+                         for i in (0, 1))
+        c_idx, c_keep = (torch.cat([r[i] for r in crec])[:T]
+                         for i in (0, 1))
+        diff = (g_idx != c_idx) | (g_keep != c_keep)       # [T, k]
+        share = float(diff.float().mean())
+        agree = ~diff.any(dim=1)
+        check(share <= MOE_ROUTE_SHARE, f"{name} {router} 1-layer copy: "
+              f"{share:.4g} of the routes differ (bound {MOE_ROUTE_SHARE})")
+        gpu = gpu.cpu()
+        check(bool(gpu.isfinite().all()), f"{name} {router} 1-layer copy: "
+              "non-finite logits on the card")
+        scale = float(cpu.abs().max())
+        err = float((gpu[0, agree] - cpu[0, agree]).abs().max())
+        check(err <= CPU_COPY_TOL * scale, f"{name} {router} 1-layer copy: "
+              f"card and CPU differ by {err:.3g} on the tokens whose routes "
+              f"agree (max |logit| {scale:.3g}, bound {CPU_COPY_TOL} of it)")
+        # A differing choice moves two experts' f by 1/g in its group:
+        # aux (the mean over groups of E·Σ f·P) by at most 2E/g·max P.
+        g = min(2048, T)
+        max_p = max(float(r[3].max()) for r in crec)
+        n_diff = int(diff.sum())
+        ga, ca = float(gaux["moe_aux"]), float(caux["moe_aux"])
+        aux_tol = MOE_AUX_RTOL * abs(ca) + n_diff * 2 * cfg.n_experts / g \
+            * max_p / len(crec)
+        check(abs(ga - ca) <= aux_tol, f"{name} {router} 1-layer copy: "
+              f"moe_aux {ga!r} on the card, {ca!r} on the CPU (bound "
+              f"{aux_tol:.3g})")
+        print(f"moe {name} router={router} 1-layer copy card vs CPU on "
+              f"{T} tokens: {n_diff} of {diff.numel()} routes differ "
+              f"({share:.3g}), {int(agree.sum())} tokens agree; logits max "
+              f"|Δ| {err:.3g} of {scale:.3g} ({err / scale:.3g}); moe_aux "
+              f"{ga:.7f} / {ca:.7f} (rel {abs(ga - ca) / abs(ca):.3g}); CPU "
+              f"run {cpu_s:.1f} s (copy {copy_s:.1f} s)", flush=True)
+
+
+def moe_model(torch, name: str, decode: bool) -> tuple:
+    """One MoE model at full width, ``MOE_LAYERS`` layers, weights from a
+    seed: K7 at its attention shapes, ``forward`` on 4 × 1024 tokens (two
+    2048-token groups) with the published ``topk`` router and with
+    ``dodoor`` on the same weights, and with ``decode`` the decode run and
+    the 1-layer card-against-CPU copy.  Returns (K7 launches, K7 rows)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import registry
+
+    cfg = replace(ARCHS[name], n_layers=MOE_LAYERS)
+    rows = [k7_case(torch, *K7_MOE[name], timed=True)]
+    if decode:
+        rows.append(k7_cache_case(torch, *K7_MOE_CACHE))
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"moe {name}: {cfg.n_layers} of {ARCHS[name].n_layers} layers, "
+          f"d={cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, "
+          f"moe_d_ff={cfg.moe_d_ff}, vocab={cfg.vocab}: "
+          f"{cfg.param_count() * 4 / 1e9:.2f} GB of float32 weights, init "
+          f"{init_s:.2f} s", flush=True)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (4, 1024))).cuda()
+    registry.forward(cfg, params, {"tokens": tokens[:1, :64]})  # warm-up
+    launches = 0
+    for router in ("topk", "dodoor"):
+        n, _ = moe_forward(torch, name, replace(cfg, router=router), params,
+                           tokens)
+        launches += n
+    if decode:
+        launches += moe_decode(torch, name, cfg, params)
+        moe_cpu_copy(torch, name, cfg, params)
+    del params, tokens
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def launcher_lines(argv) -> list:
+    """``repro_torch.launch.serve.main(argv)``'s printed lines."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    return buf.getvalue().splitlines()
+
+
+def launcher_run(torch) -> int:
+    """The serve launcher on the card (K7 launched once a layer-step of
+    the decode demo, counted), against the same call on the CPU: the
+    fleet line, the four policy rows and the eight placements equal; the
+    demo's 16 tokens in the smoke vocabulary on both.  Returns the K7
+    launches."""
+    import ast
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    card = launcher_lines(SERVE_ARGV)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    smoke = ARCHS[SERVE_ARCH].smoke()
+    want = {"flash_attention": smoke.n_layers * SERVE_DEMO_STEPS}
+    check(counts == want, f"launcher: launches {counts}, want {want}")
+    t0 = time.perf_counter()
+    cpu = launcher_lines(SERVE_ARGV + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    check(len(card) == 14 and len(cpu) == 14, f"launcher: {len(card)} / "
+          f"{len(cpu)} lines, want 14")
+    check(card[:13] == cpu[:13], "launcher: the card's rows differ from "
+          "the CPU's:\n" + "\n".join(card[:13] + cpu[:13]))
+    head = "greedy decode (smoke model): "
+    for side, lines in (("card", card), ("cpu", cpu)):
+        check(lines[13].startswith(head), f"launcher {side}: {lines[13]}")
+        toks = ast.literal_eval(lines[13][len(head):])
+        check(len(toks) == SERVE_DEMO_STEPS and all(
+            isinstance(t, int) and 0 <= t < smoke.vocab for t in toks),
+            f"launcher {side}: decode tokens {toks}")
+    for line in card:
+        print(f"launcher: {line}", flush=True)
+    print(f"launcher: card {card_s:.1f} s, cpu {cpu_s:.1f} s, the rows and "
+          f"placements equal, launches {counts}", flush=True)
+    return counts["flash_attention"]
+
+
+def moe_phase(torch) -> tuple:
+    """Phase 24: qwen3-moe-235b-a22b (forward, decode, the 1-layer copy),
+    then dbrx-132b (forward), then the launcher.  Returns (K7 launches,
+    K7 rows at the MoE shapes)."""
+    no_tf32(torch)
+    launches, rows = moe_model(torch, MOE_MODELS[0], decode=True)
+    n, more = moe_model(torch, MOE_MODELS[1], decode=False)
+    return launches + n + launcher_run(torch), rows + more
+
+
 def head_of(res, k: int):
     """A result's tasks from ``k`` on, ledger kept."""
     arrays = {f: getattr(res, f)[k:] for f in ("server",) + TIME_PLANES}
@@ -3088,7 +3435,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-23) to run after "
+                    help="comma-separated phase numbers (2-24) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -3161,12 +3508,14 @@ def main(argv=None) -> int:
     phase("21 sequential oracle", sequential_phase)
     phase("22 batched probing and serving", probing_phase)
     phase("23 trace, cache faults and grids", observability_phase)
+    moe = phase("24 MoE serving and the serve launcher", moe_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "
               "result)", flush=True)
         return 0
 
+    launches["flash_attention"] += moe[0]
     launches["dodoor_choice"] = k5[1]
     launches.update(k4[1])
     launches["rl_score_matrix"] = k6[1]

@@ -1,5 +1,6 @@
 """repro_torch.models — the LM substrate's serving path on PyTorch: the
-dense transformer (GQA) and Mamba-2, with the reference's parameter trees
+transformer (dense GQA, and MoE with its top-k and dodoor expert routers)
+and Mamba-2, with the reference's parameter trees
 and entry points (``registry``).  Attention layers launch the flash
 attention kernel K7 and Mamba-2 mixers the SSD chunk kernel K8 on the
 card; on the CPU they run the plain versions."""

@@ -1,9 +1,10 @@
 """Family dispatch — the single entry point to the port's models, as the
 reference's ``models/registry.py`` is to its.
 
-Ported: the ``dense`` family (the transformer's GQA path) and ``ssm``
-(Mamba-2).  The other families raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.  ``abstract_*`` and ``make_inputs`` (XLA
+Ported: the ``dense`` and ``moe`` families (the transformer, with the MoE
+layer's ``topk`` and ``dodoor`` routers) and ``ssm`` (Mamba-2).  The other
+families raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.  ``abstract_*`` and ``make_inputs`` (XLA
 dry-run tooling) are not ported (ROADMAP §1 item 10).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
@@ -19,10 +20,9 @@ from . import mamba2, transformer
 
 Params = Dict[str, Any]
 
-_FAMILY = {"dense": transformer, "ssm": mamba2}
+_FAMILY = {"dense": transformer, "moe": transformer, "ssm": mamba2}
 
 _NOT_PORTED = {
-    "moe": "the MoE layer with its dodoor router",
     "vlm": "the VLM backbone (M-RoPE)",
     "hybrid": "the RG-LRU hybrid",
     "audio": "Whisper",

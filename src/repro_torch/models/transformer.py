@@ -1,16 +1,30 @@
-"""Decoder-only transformer, dense GQA path — the port of the JAX package's
-``models/transformer.py`` for qwen2-7b, granite-3-8b, smollm-135m and
-tinyllama-1.1b (``qkv_bias`` included).  The MoE layer with its routers
-and the VLM backbone (M-RoPE) are not ported yet (ROADMAP §1 item 10).
+"""Decoder-only transformer — the port of the JAX package's
+``models/transformer.py`` for the dense GQA models (qwen2-7b, granite-3-8b,
+smollm-135m, tinyllama-1.1b; ``qkv_bias`` included) and the MoE models
+(dbrx-132b, qwen3-moe-235b-a22b).  The VLM backbone (M-RoPE) is not ported
+yet (ROADMAP §1 item 10).
 
 Every attention layer of ``forward`` and of ``decode_step`` goes through
 ``common.attention`` / ``flash_attention``: the kernel K7 on the card.
+
+The MoE layer routes each token group (GShard-style capacity, top-k with
+token dropping) with one of two routers: ``topk`` (the published configs'
+softmax top-k with renormalised gates) or ``dodoor`` (the paper's
+power-of-two choice applied to experts: pairs drawn from the top 2k gate
+probabilities, the member with the lower *cached* expert load wins; the
+load refreshes once per group, the b-batched model with b = the group
+size).  Dispatch scatters the kept (token, choice) pairs into their
+``[E, cap]`` slots by index and runs the experts as batched products
+(``torch.bmm``).  The reference's one-hot dispatch and combine einsums
+compute the same sums, but at qwen3-moe's width they add nearly as many
+flops as the experts' own products, all of them copies.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
@@ -21,10 +35,10 @@ from .common import (apply_rope, attention, dense_init, generator, layer,
 Params = Dict[str, Any]
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.is_moe or cfg.mrope:
+def _no_mrope(cfg: ModelConfig) -> None:
+    if cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.name}: the MoE layer and M-RoPE are not ported yet "
+            f"{cfg.name}: M-RoPE (the VLM backbone) is not ported yet "
             "(ROADMAP §1 item 10)")
 
 
@@ -96,16 +110,145 @@ def attn_decode(p, x_t, cfg: ModelConfig, k_cache, v_cache, idx: int, *,
 
 
 # ---------------------------------------------------------------------------
+# MoE sublayer
+# ---------------------------------------------------------------------------
+
+def moe_init(gen, cfg: ModelConfig, device=None) -> Params:
+    d, ff, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    return {
+        "router": dense_init(gen, d, E, scale=0.02, device=device),
+        "w_gate": normal(gen, (E, d, ff), d ** -0.5, device),
+        "w_up": normal(gen, (E, d, ff), d ** -0.5, device),
+        "w_down": normal(gen, (E, ff, d), ff ** -0.5, device),
+    }
+
+
+def _capacity(g: int, cfg: ModelConfig) -> int:
+    return max(1, int(g * cfg.top_k * cfg.capacity_factor) // cfg.n_experts)
+
+
+def _top(probs, n: int):
+    """The ``n`` largest probabilities of each row and their experts, ties
+    to the lower expert as ``jax.lax.top_k`` breaks them (``torch.topk``
+    promises no tie order; a padded row's softmax ties every expert)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :n], idx[:, :n]
+
+
+def _renorm(vals):
+    return vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+
+
+def _route_topk(probs, k: int):
+    vals, idx = _top(probs, k)
+    return idx, _renorm(vals)
+
+
+def _route_dodoor(probs, load, k: int):
+    """Power-of-two expert choice on a cached load view: the top 2k gate
+    probabilities paired (2i, 2i+1); the member with the lower cached load
+    wins, a tie keeps A (the higher probability)."""
+    _, cand = _top(probs, 2 * k)                          # [g, 2k]
+    ca, cb = cand[:, 0::2], cand[:, 1::2]                 # [g, k] each
+    idx = torch.where(load[cb] < load[ca], cb, ca)
+    return idx, _renorm(probs.gather(1, idx))
+
+
+def moe_route(p, x, cfg: ModelConfig, load):
+    """The router of one token group x [g, d] on the cached expert load
+    [E] → (probs [g, E], idx [g, k] chosen experts, vals [g, k] gates)."""
+    probs = torch.softmax((x @ p["router"]).float(), dim=-1)
+    if cfg.router == "dodoor":
+        idx, vals = _route_dodoor(probs, load, cfg.top_k)
+    else:
+        idx, vals = _route_topk(probs, cfg.top_k)
+    return probs, idx, vals
+
+
+def moe_queue(idx, E: int):
+    """Each (token, choice)'s position in its expert's queue, token-major
+    and choice-minor (an exclusive cumsum over the flattened one-hot), and
+    the choices per expert → (pos [g, k], counts [E] float32)."""
+    flat = idx.reshape(-1)
+    onehot = F.one_hot(flat, E)                           # [g·k, E]
+    ahead = onehot.cumsum(0)
+    pos = (ahead - onehot).gather(1, flat[:, None]).view(idx.shape)
+    return pos, ahead[-1].float()
+
+
+def moe_group_apply(p, x, cfg: ModelConfig, load):
+    """One token group. x [g, d]; load [E] cached expert loads (dodoor).
+    Returns (y [g, d], aux scalar, new_load [E]).  The gates are
+    renormalised before the capacity drop, so a dropped choice's share is
+    lost; ``aux`` and ``new_load`` count every choice, dropped and padded
+    ones included, as the reference does."""
+    E, k = cfg.n_experts, cfg.top_k
+    g, d = x.shape
+    cap = _capacity(g, cfg)
+    probs, idx, vals = moe_route(p, x, cfg, load)
+    pos, counts = moe_queue(idx, E)
+    keep = pos < cap
+    # Slot e·cap + pos of each kept choice; a dropped one goes to the spare
+    # slot E·cap, which is cut off.  A kept slot has one writer, so the
+    # scatter is deterministic on the card.
+    slot = torch.where(keep, idx * cap + pos, E * cap)
+    src = torch.full((E * cap + 1,), g, dtype=torch.long, device=x.device)
+    src.scatter_(0, slot.reshape(-1),
+                 torch.arange(g, device=x.device).repeat_interleave(k))
+    xe = F.pad(x, (0, 0, 0, 1))[src[:-1]].view(E, cap, d)  # row g: zeros
+    h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"]).view(E * cap, d)
+    slot = torch.where(keep, slot, 0)
+    gate = vals * keep
+    y = torch.zeros_like(x)
+    for j in range(k):                                    # choice order
+        y = y + ye[slot[:, j]] * gate[:, j, None]
+    # Aux load-balance loss (Switch): E · Σ_e f_e · P_e.
+    aux = E * torch.sum(counts / g * probs.mean(0))
+    return y, aux, counts
+
+
+def moe_apply(p, x, cfg: ModelConfig, group: int = 2048):
+    """x [B, L, d] → (y, aux).  Token groups of ``min(group, B·L)`` rows
+    (the tail zero-padded) run in order; the dodoor router's load cache
+    starts at zero and refreshes once per group (b-batched)."""
+    B, L, d = x.shape
+    T = B * L
+    g = min(group, T)
+    xt = F.pad(x.reshape(T, d), (0, 0, 0, (-T) % g))
+    load = torch.zeros((cfg.n_experts,), device=x.device)
+    ys, auxs = [], []
+    for xg in xt.split(g):
+        y, aux, load = moe_group_apply(p, xg, cfg, load)
+        ys.append(y)
+        auxs.append(aux)
+    return torch.cat(ys)[:T].reshape(B, L, d), torch.stack(auxs).mean()
+
+
+def _ffn(lp, h, cfg: ModelConfig):
+    """The feed-forward sublayer on the normed residual → (out, moe aux;
+    0 for a dense layer)."""
+    x = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    if cfg.is_moe:
+        return moe_apply(lp["moe"], x, cfg)
+    return mlp_apply(lp["mlp"], x, cfg.act), 0.0
+
+
+# ---------------------------------------------------------------------------
 # the decoder stack
 # ---------------------------------------------------------------------------
 
 def layer_init(gen, cfg: ModelConfig, device=None) -> Params:
-    return {
+    p = {
         "ln1": torch.ones((cfg.d_model,), device=device),
         "ln2": torch.ones((cfg.d_model,), device=device),
         "attn": attn_init(gen, cfg, device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, device),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed=0, *, device=None) -> Params:
@@ -113,7 +256,7 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None) -> Params:
     drawn from a ``torch.Generator`` (``seed``: an int or a generator).
     They are not the reference's numbers; ``models.convert`` carries
     those."""
-    _dense_only(cfg)
+    _no_mrope(cfg)
     device = resolve_device(device)
     gen = generator(seed, device)
     p = {
@@ -137,23 +280,26 @@ def _unembed(cfg, p, x):
 def forward(cfg: ModelConfig, p: Params, batch, *, remat: bool = True,
             unembed: bool = True):
     """Prefill forward → (logits [B, L, V], aux dict).  batch: tokens
-    [B, L] int.  ``remat`` (rematerialisation for training) has no effect
-    in the port's inference path."""
-    _dense_only(cfg)
+    [B, L] int.  ``aux["moe_aux"]`` is the MoE layers' mean load-balance
+    loss (0 for a dense model).  ``remat`` (rematerialisation for
+    training) has no effect in the port's inference path."""
+    _no_mrope(cfg)
     tokens = torch.as_tensor(batch["tokens"], device=p["embed"].device)
     x = p["embed"][tokens]
     B, L = tokens.shape
     positions = torch.arange(L, device=x.device)[None].expand(B, L)
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
         lp = layer(p["layers"], i)
         a, _ = attn_apply(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
                           cfg, positions, window=cfg.window)
         x = x + a
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
-                          cfg.act)
+        f, aux_i = _ffn(lp, x, cfg)
+        x = x + f
+        aux = aux + aux_i
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
     out = _unembed(cfg, p, x) if unembed else x
-    return out, {"moe_aux": torch.zeros((), device=x.device)}
+    return out, {"moe_aux": aux / max(cfg.n_layers, 1)}
 
 
 # ---------------------------------------------------------------------------
@@ -173,8 +319,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def decode_step(cfg: ModelConfig, p: Params, cache: Params, token):
     """token [B, 1] int → (logits [B, 1, V], cache').  The cache's tensors
-    are updated in place and returned with ``idx`` + 1."""
-    _dense_only(cfg)
+    are updated in place and returned with ``idx`` + 1.  An MoE layer
+    routes the step's B tokens as one group from a zero load, as the
+    reference does."""
+    _no_mrope(cfg)
     idx = int(cache["idx"])
     if not 0 <= idx < cache["k"].shape[3]:
         raise ValueError(f"decode_step: the cache holds "
@@ -188,8 +336,7 @@ def decode_step(cfg: ModelConfig, p: Params, cache: Params, token):
                               cache["k"][i], cache["v"][i], idx,
                               window=cfg.window)
         x = x + a
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
-                          cfg.act)
+        x = x + _ffn(lp, x, cfg)[0]
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
     return _unembed(cfg, p, x), {"k": cache["k"], "v": cache["v"],
                                  "idx": idx + 1}

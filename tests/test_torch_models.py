@@ -349,7 +349,19 @@ def test_init_params_follows_reference_distributions(name):
 
 @pytest.mark.parametrize("name", NOT_PORTED)
 def test_unported_families_raise(name):
+    """The families still unported raise naming the ROADMAP item.  The MoE
+    family is ported (tests/test_torch_moe.py holds it to the reference),
+    so its two configs give finite logits of the right shape instead; its
+    dense-only pins (decode against prefill) do not hold for MoE, which is
+    why these names stay out of ``PORTED``."""
     cfg = tconfigs.ARCHS[name].smoke()
+    if cfg.family == "moe":
+        params = registry.init_params(cfg, 0, device="cpu")
+        logits, aux = registry.forward(cfg, params, {
+            "tokens": torch.zeros((1, 2), dtype=torch.long)})
+        assert logits.shape == (1, 2, cfg.vocab)
+        assert bool(logits.isfinite().all()) and float(aux["moe_aux"]) > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
         registry.init_params(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
