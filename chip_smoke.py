@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs twenty-four phases; any failure raises and exits non-zero
+package, and runs twenty-five phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
@@ -22,8 +22,9 @@ package, and runs twenty-four phases; any failure raises and exits non-zero
    decision block;
 4. scale — the 10 000-server Azure point (m=200 000, qps=400, b=500): every
    task on a server whose capacity admits it, the ledger equal to its
-   closed form and to the CPU run's, placements as in phase 3, one kernel
-   launch per block;
+   closed form, one kernel launch per block; the first SCALE_CPU_TASKS
+   tasks run on both devices, placements as in phase 3 and the ledger
+   equal to the CPU run's;
 5. masked kernel — holds K2 (down-window availability in the prefilter)
    against its plain version at the shapes of phase 2, with windows from
    ``random_outages`` merged with ``random_churn`` and rows whose every
@@ -40,7 +41,8 @@ package, and runs twenty-four phases; any failure raises and exits non-zero
    windows and one K1 launch per block otherwise;
 7. scale with dynamics — the point of phase 4 under node churn and 2 000
    outage windows, with the checks of phase 6 (the capacity check sampled
-   200 times over the run) and the ledger against its closed form;
+   200 times over the run) and the ledger against its closed form; its
+   first SCALE_CPU_TASKS tasks against the CPU as in phase 4;
 8. locality kernel — holds K3, the locality form of K1 and of K2, against
    its plain version at (T, N, P) = (50, 100, 8), (50, 100, 40),
    (50, 100, 100) (three padded windows in the parent sum) and
@@ -49,7 +51,7 @@ package, and runs twenty-four phases; any failure raises and exits non-zero
    choices exact; with γ = 0 each form equals K1 (K2) bit for bit; then
    the edge cases with 8 and 40 parents, without windows and with 8;
 9. DAG testbed — the frontier loop on the testbed (FunctionBench m=2400
-   at 60 qps, b=50): the chain (on the first 1 200 tasks: 1 200 waves),
+   at 60 qps, b=50): the chain (on the first 800 tasks: 800 waves),
    fan-out and map-reduce shapes of the DAG
    benchmark without a LocalityModel and with γ = 2, a layered DAG under
    γ/bandwidth = 0.7/1.3, and map-reduce under γ = 2 and 25 outages (the
@@ -58,15 +60,16 @@ package, and runs twenty-four phases; any failure raises and exits non-zero
    finish plus the edge delay, one launch per block of every wave, and
    fewer parent bytes moved at γ = 2 for fan-out and map-reduce;
 10. DAG scale — fan-out (width 8) at 10 000 servers over the Azure trace
-   of phase 4 under γ = 2: three waves, 400 K3 launches, against the CPU
-   run;
+   of phase 4 under γ = 2: three waves, 400 K3 launches, no task before
+   its parents; the graph of the first SCALE_CPU_TASKS tasks against the
+   CPU run;
 11. retries testbed — the densest point of the fault benchmark (25
    outages, FunctionBench m=3000 at 60 qps on the testbed) under the
    default, the aggressive and a hard-capacity retry policy: every plane
    (attempts, failed and wasted_ms included) and the ledger equal to the
    CPU run's, one K2 launch per block of every wave;
-12. retries scale — phase 7's point under the default retry policy,
-   checked as phase 11;
+12. retries scale — phase 7's point, cut to SCALE_CPU_TASKS tasks, under
+   the default retry policy, checked as phase 11;
 13. K5 — first the launch floor (an empty kernel between the two events
    of ``event_ms``); then the two-stage selection kernel against its
    plain version at (T, N) = (50, 100), (2048, 100) and (500, 10 000),
@@ -141,7 +144,7 @@ package, and runs twenty-four phases; any failure raises and exits non-zero
    and the wall (inflated by the profiler); the timed runs of phases 4
    and 7 stay unprofiled;
 21. sequential oracle — ``simulate(mode="sequential")`` on the testbed
-   (the first 2 000 tasks of FunctionBench m=4000 at 300 qps, b=50) for
+   (the first 1 200 tasks of FunctionBench m=4000 at 300 qps, b=50) for
    random, PoT, dodoor,
    (1+β) and Prequal on the card, each against the same run on the CPU
    (the ledger exact, placements exact or a candidate flip as in phase
@@ -222,6 +225,21 @@ package, and runs twenty-four phases; any failure raises and exits non-zero
    against the same call with ``--device cpu``: the policy rows and
    placements equal, 16 in-vocabulary tokens on each, one K7 launch a
    layer-step of the demo.
+25. VLM, hybrid and audio serving — K7 at head width 256 against its
+   plain version at recurrentgemma-2b's prefill (2 × 4096 tokens, 10
+   heads over one KV head, window 2048) and decode (the 2048-slot ring,
+   float32 and over the bf16 ring with the step's own row), timed beside
+   the plain version and SDPA; then qwen2-vl-2b (28 layers), recurrentgemma-2b
+   (26) and whisper-base (6 + 6) at full width and depth, float32
+   weights from a seed: ``forward`` on 4 × 1024 positions (256 patch
+   embeddings on a 16 × 16 grid with their M-RoPE streams), 2 × 4096
+   tokens and 1500 frames with 4 × 448 tokens (finite logits, one K7
+   launch an attention call); decode against ``forward`` on a prompt
+   (128, 64 and 32 tokens; whisper's cache primed from the frames) in a
+   float32 cache and in the default bf16 cache, then greedy tokens (one
+   K7 launch an attention call a step); a copy card against CPU (2
+   layers; recurrentgemma one (R, R, A) block on 300 tokens; whisper two
+   encoder and two decoder layers) within 1e-4 of the largest |logit|.
 
 The edge cases of the decision template (K1–K4 share it) hold the kernel
 to its plain version, every output exact, at (T, N) = (50, 1), (50, 31),
@@ -243,7 +261,7 @@ after: one launch per block.
 It prints the card's name and power limit, every phase's wall time, a
 ``profile`` JSON line of phase 20's readings, phase 21's
 ``message_reduction`` line and phase 22's ``message_reduction_batched``
-line, phase 23's and 24's readings, a JSON line of per-kernel
+line, the readings of phases 23 to 25, a JSON line of per-kernel
 measurements, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -730,6 +748,28 @@ def testbed_phase(torch) -> None:
               f" ms p95 {s.makespan_p95_ms:.1f} ms", flush=True)
 
 
+#: Phases 4, 7 and 10 run their 200 000 tasks on the card and hold the
+#: card against the CPU on the first SCALE_CPU_TASKS of them (a run of the
+#: prefix on each device); phase 12 runs SCALE_CPU_TASKS tasks.  The
+#: script's time limit: at 200 000 the four CPU runs took 54–79 s each,
+#: and the whole script 1 118 s, on a slow host.
+SCALE_CPU_TASKS = 50_000
+
+
+def cpu_prefix(wl, cluster, cfg, dynamics=None, dag=None) -> tuple:
+    """The first ``SCALE_CPU_TASKS`` tasks of ``wl`` run on the card and
+    on the CPU: (the prefix, card result, CPU result, CPU s)."""
+    from repro_torch.sim import simulate
+
+    wl = head(wl, SCALE_CPU_TASKS)
+    gpu = simulate(wl, cluster, cfg, device="cuda", dynamics=dynamics,
+                   dag=dag)
+    t0 = time.perf_counter()
+    cpu = simulate(wl, cluster, cfg, device="cpu", dynamics=dynamics,
+                   dag=dag)
+    return wl, gpu, cpu, time.perf_counter() - t0
+
+
 def scale_setup():
     """Phase 4's point: (workload, cluster, config, dynamics)."""
     from repro_torch.sim import EngineConfig, make_scaled
@@ -755,7 +795,7 @@ def scale_dynamics_setup(m: int = 200_000):
 
 
 def scale_phase(torch) -> int:
-    from repro_torch.sim import expected_messages_per_task, simulate
+    from repro_torch.sim import expected_messages_per_task
 
     wl, cl, cfg, _ = scale_setup()
     m = wl.r_submit.shape[0]
@@ -776,18 +816,17 @@ def scale_phase(torch) -> int:
     check(np.isfinite(res.finish_ms).all(), "scale: non-finite finish")
     check(launches == blocks,
           f"scale: {launches} kernel launches for {blocks} blocks")
-    t0 = time.perf_counter()
-    cpu = simulate(wl, cl, cfg, device="cpu")
-    cpu_wall = time.perf_counter() - t0
-    check(first_divergence_ok(res, cpu, wl, cl),
+    wl_k, gpu, cpu, cpu_wall = cpu_prefix(wl, cl, cfg)
+    check(first_divergence_ok(gpu, cpu, wl_k, cl),
           "scale: placements diverge from the cpu run beyond a candidate "
           "flip")
-    check(ledger(res) == ledger(cpu), "scale: ledger differs from cpu")
+    check(ledger(gpu) == ledger(cpu), "scale: ledger differs from cpu")
     print(f"scale: n={cl.num_servers} m={m} b={cfg.b} "
           f"{m / wall:.1f} decisions/s (wall {wall:.3f} s), launches "
           f"{launches}/{blocks} blocks, msgs/task {res.msgs_per_task:.4f}, "
-          f"placements equal to cpu: {bool((res.server == cpu.server).all())}"
-          f" (cpu run {cpu_wall:.1f} s)", flush=True)
+          f"placements of the first {SCALE_CPU_TASKS} equal to cpu: "
+          f"{bool((gpu.server == cpu.server).all())} (cpu run "
+          f"{cpu_wall:.1f} s)", flush=True)
     return launches
 
 
@@ -885,7 +924,7 @@ def scenario_phase(torch) -> None:
 
 def scale_dynamics_phase(torch, m: int = 200_000) -> int:
     from repro_torch.sim import (expected_messages_per_task,
-                                 resource_violations, simulate)
+                                 resource_violations)
 
     wl, cl, cfg, dyn = scale_dynamics_setup(m)
     n = cl.num_servers
@@ -909,19 +948,18 @@ def scale_dynamics_phase(torch, m: int = 200_000) -> int:
     check(resource_violations(res, cl, dt_ms=span / 200) == 0,
           "scale+dynamics: capacity violated")
     dynamics_checks("scale+dynamics", res, wl, cl, dyn)
-    t0 = time.perf_counter()
-    cpu = simulate(wl, cl, cfg, device="cpu", dynamics=dyn)
-    cpu_wall = time.perf_counter() - t0
-    check(first_divergence_ok(res, cpu, wl, cl, dynamics=dyn),
+    wl_k, gpu, cpu, cpu_wall = cpu_prefix(wl, cl, cfg, dyn)
+    check(first_divergence_ok(gpu, cpu, wl_k, cl, dynamics=dyn),
           "scale+dynamics: placements diverge from the cpu run beyond a "
           "candidate flip")
-    check(ledger(res) == ledger(cpu), "scale+dynamics: ledger differs")
+    check(ledger(gpu) == ledger(cpu), "scale+dynamics: ledger differs")
     print(f"scale+dynamics: n={n} m={m} b={cfg.b} "
           f"({len(dyn.outages)} outage windows, {len(dyn.joins)} joins, "
           f"{len(dyn.leaves)} leaves) {m / wall:.1f} decisions/s (wall "
           f"{wall:.3f} s), launches {counts}, msgs/task "
-          f"{res.msgs_per_task:.4f}, placements equal to cpu: "
-          f"{bool((res.server == cpu.server).all())} (cpu run "
+          f"{res.msgs_per_task:.4f}, placements of the first "
+          f"{SCALE_CPU_TASKS} equal to cpu: "
+          f"{bool((gpu.server == cpu.server).all())} (cpu run "
           f"{cpu_wall:.1f} s)", flush=True)
     return counts["dodoor_fused_sparse_masked"]
 
@@ -1004,18 +1042,25 @@ def dag_check(name, gpu, cpu, wl, cluster, plan, dynamics=None) -> bool:
         for f in TIME_PLANES:
             check(np.array_equal(getattr(gpu, f), getattr(cpu, f)),
                   f"{name}: {f} differs from the cpu run")
+    gate_check(name, gpu, plan)
+    return same
+
+
+def gate_check(name, gpu, plan) -> None:
+    """No task of a graph's run starts before a parent's finish plus the
+    edge delay, and every finish is finite."""
     v = np.repeat(np.arange(plan.m), np.diff(plan.par_indptr))
     gate = (gpu.finish_ms[plan.par_idx].astype(np.float64)
             + plan.par_delay)
     check((gpu.start_ms[v] >= gate - 1e-3).all(),
           f"{name}: a task starts before a parent's finish + delay")
     check(np.isfinite(gpu.finish_ms).all(), f"{name}: non-finite finish")
-    return same
 
 
-#: Phase 9's chain runs on the trace's first 1 200 tasks (1 200 waves of
-#: the DAG benchmark's 2 400): the script's time limit.
-CHAIN_TASKS = 1200
+#: Phase 9's chain runs on the trace's first 800 tasks (800 waves of the
+#: DAG benchmark's 2 400): the script's time limit (at 1 200 tasks here
+#: and 2 000 in phase 21 the whole script took 1 111 s on a slow host).
+CHAIN_TASKS = 800
 
 
 def dag_phase(torch, m: int = 2400) -> int:
@@ -1082,9 +1127,10 @@ def dag_phase(torch, m: int = 2400) -> int:
 
 def dag_scale_phase(torch) -> int:
     """Phase 10: fan-out at 10⁴ servers under γ = 2 — three waves of
-    20 000 roots, 160 000 children and 20 000 sinks, P = 8."""
+    20 000 roots, 160 000 children and 20 000 sinks, P = 8; the graph of
+    the first ``SCALE_CPU_TASKS`` tasks against the CPU."""
     from repro_torch.sim import (EngineConfig, LocalityModel, make_scaled,
-                                 simulate, summarize_dag)
+                                 summarize_dag)
     from repro_torch.workloads import FanOutDAG, azure, dag_plan
 
     cl = make_scaled(10_000)
@@ -1101,15 +1147,16 @@ def dag_scale_phase(torch) -> int:
     admits = (wl.r_submit <= cl.C[gpu.server]).all(axis=1)
     check(admits.all(), f"dag scale: {int((~admits).sum())} tasks on "
           "servers whose capacity does not admit them")
-    t0 = time.perf_counter()
-    cpu = simulate(wl, cl, cfg, device="cpu", dag=spec)
-    cpu_wall = time.perf_counter() - t0
-    same = dag_check("dag scale", gpu, cpu, wl, cl, plan)
+    gate_check("dag scale", gpu, plan)
+    wl_k, gpu_k, cpu, cpu_wall = cpu_prefix(wl, cl, cfg, dag=spec)
+    same = dag_check("dag scale", gpu_k, cpu, wl_k, cl,
+                     dag_plan(spec, SCALE_CPU_TASKS))
     s = summarize_dag(gpu, plan)
     print(f"dag scale: n={cl.num_servers} m={m} b={cfg.b} waves "
           f"{np.bincount(plan.level).tolist()} P={plan.max_parents} "
           f"{m / wall:.1f} decisions/s (wall {wall:.3f} s), launches "
-          f"{counts}, equal to cpu: {same} (cpu run {cpu_wall:.1f} s), "
+          f"{counts}, the first {SCALE_CPU_TASKS} equal to cpu: {same} "
+          f"(cpu run {cpu_wall:.1f} s), "
           f"bytes moved {s['bytes_moved_mb']:.1f} of "
           f"{s['bytes_total_mb']:.1f} MB, critical path "
           f"{s['critical_path_ms']:.1f} ms", flush=True)
@@ -1167,8 +1214,8 @@ def retry_phase(torch) -> None:
 
 
 def retry_scale_phase(torch, m: int = 200_000) -> None:
-    """Phase 12: phase 7's point (10⁴ servers, churn and outages) under
-    the default retry policy, against the CPU run."""
+    """Phase 12: phase 7's point (10⁴ servers, churn and outages, on m
+    tasks) under the default retry policy, against the CPU run."""
     from repro_torch.sim import (RetryPolicy, fault_stats, simulate,
                                  time_to_recover_ms)
 
@@ -1791,6 +1838,11 @@ K7_EDGES = [
     (2, 8, 2, 1, 1025, 64, True, None, "float32", "bfloat16"),  # last row
     (1, 32, 1, 1, 300, 64, True, None, "float32", "bfloat16"),
     (1, 8, 2, 100, 300, 64, True, None, "float32", None),   # Lq < Lk
+    (2, 10, 1, 1, 1000, 256, True, None, "float32", None),  # D = 256
+    (1, 4, 1, 1, 300, 256, True, None, "float32", "bfloat16"),
+    (1, 10, 1, 70, 70, 256, True, 40, "float32", None),
+    (1, 2, 1, 100, 200, 256, False, None, "float32", None),
+    (1, 4, 2, 40, 40, 256, True, None, "bfloat16", None),
 ]
 #: The split kernel timed at several run counts, to size ``plan_k7``: the
 #: reference's decode pin and tinyllama-1.1b's decode at Lk = 512 and
@@ -1828,10 +1880,14 @@ K8_EDGES = [
 #: copy on the card against the CPU, as max |Δ| over max |logit| (the
 #: logits of a random-weight model are O(1); an elementwise rtol is
 #: meaningless on the near-zero ones).  Dense: the reference pin's rtol
-#: 1e-3; Mamba-2: its 5e-3 (recurrence against the chunked SSD).  The
+#: 1e-3, and the same for the VLM backbone, Whisper and the RG-LRU
+#: hybrid (one multiply-add a step against the associative scan, 1.1e-6
+#: of the largest logit at 5 layers on the CPU); Mamba-2: its 5e-3
+#: (recurrence against the chunked SSD).  The
 #: 2-layer copies differ only in summation order (cuBLAS, K7/K8 against
 #: MKL and the CPU forms): 1e-4.
-DECODE_TOL = {"dense": 1e-3, "ssm": 5e-3}
+DECODE_TOL = {"dense": 1e-3, "ssm": 5e-3, "vlm": 1e-3, "audio": 1e-3,
+              "hybrid": 1e-3}
 CPU_COPY_TOL = 1e-4
 #: The default bf16 KV cache rounds K and V to 8 mantissa bits (relative
 #: error 2^-9 a value); over 22 layers that is ~1 % of the largest logit
@@ -2250,16 +2306,137 @@ def k8_phase(torch) -> list:
     return [r for r in rows if r is not None]
 
 
-def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
-    """A model of the repo at full width and depth on the card, weights
-    from a seed: ``forward`` on B × L tokens (finite logits, one
-    ``kernel`` launch a layer); four 128-token prompts fed through
-    ``decode_step`` (its logits against ``forward``'s on the prompts),
-    then 32 greedy tokens; and a 2-layer copy with the same weights on
-    the card against the CPU.  Returns the kernel's launches in the
-    forward and decode runs."""
+#: Decode prompt steps of the serving checks, by family where not 128
+#: (the hybrid's and Whisper's steps cost the most), and the greedy steps
+#: after them.
+PROMPT_STEPS = {"hybrid": 64, "audio": 32}
+GEN_STEPS = 32
+#: Tokens of the card-against-CPU 2-layer copies where not 2 × 128
+#: (recurrentgemma: 1 × 300, a scan length that is no power of two).
+COPY_TOKENS = {"qwen2-vl-2b": (2, 64), "recurrentgemma-2b": (1, 300),
+               "whisper-base": (1, 64)}
+
+
+def mrope_streams(B: int, grid: int, n_text: int):
+    """Qwen2-VL's three position streams for ``grid`` × ``grid`` patches
+    followed by ``n_text`` tokens: the patches at (t, h, w) = (0, row,
+    column), the text from max + 1 on with equal streams.  [B, 3, grid² +
+    n_text] int64."""
+    rows = np.repeat(np.arange(grid), grid)
+    cols = np.tile(np.arange(grid), grid)
+    img = np.stack([np.zeros_like(rows), rows, cols])
+    text = np.broadcast_to(grid + np.arange(n_text), (3, n_text))
+    return np.broadcast_to(np.concatenate([img, text], 1),
+                           (B, 3, grid * grid + n_text)).copy()
+
+
+def family_batch(torch, cfg, B: int, L: int, seed: int, device: str):
+    """A forward batch of B × L positions for ``cfg``'s family, from a
+    seed: tokens; qwen2-vl also patch embeddings (a quarter of the
+    positions, at most VLM_PATCHES, on a square grid) with their M-RoPE
+    streams; whisper the 1500 encoder frames."""
+    rng = np.random.RandomState(seed)
+    batch = {}
+    n_tok = L
+    if cfg.family == "vlm":
+        grid = min(VLM_GRID, int(np.sqrt(L // 4)))
+        n_tok = L - grid * grid
+        batch["patches"] = torch.from_numpy(rng.randn(
+            B, grid * grid, cfg.d_model).astype(np.float32)).to(device)
+        batch["positions3"] = torch.from_numpy(
+            mrope_streams(B, grid, n_tok)).to(device)
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.randn(
+            B, cfg.encoder_frames, cfg.d_model).astype(np.float32)
+            * 0.5).to(device)
+    batch["tokens"] = torch.from_numpy(rng.randint(
+        0, cfg.vocab, (B, n_tok))).to(device)
+    return batch
+
+
+def kernel_calls(cfg, step: bool) -> int:
+    """Launches of the model's kernel (K7; K8 for the SSM) in one
+    ``forward`` or, with ``step``, one decode step: one an attention (or
+    SSD) layer.  The SSM's decode step runs its recurrence instead."""
+    if cfg.family == "ssm":
+        return 0 if step else cfg.n_layers
+    if cfg.family == "hybrid":
+        return sum(1 for k in cfg._layer_kinds() if k == "attn")
+    if cfg.family == "audio":
+        return 2 * cfg.n_layers + (0 if step else cfg.encoder_layers)
+    return cfg.n_layers
+
+
+def two_layers(cfg, params) -> tuple:
+    """(config, parameters) of a 2-layer copy with the same weights (the
+    hybrid: one (R, R, A) block; Whisper: two encoder and two decoder
+    layers)."""
     from dataclasses import replace
 
+    from repro_torch.models.common import tree_map
+
+    cut = lambda t: tree_map(lambda a: a[:2], t)          # noqa: E731
+    if cfg.family == "hybrid":
+        p2 = {k: v for k, v in params.items() if k != "rem"}
+        p2["blocks"] = tree_map(lambda a: a[:1], params["blocks"])
+        return replace(cfg, n_layers=len(cfg.block_pattern)), p2
+    if cfg.family == "audio":
+        return (replace(cfg, n_layers=2, encoder_layers=2),
+                dict(params, enc_layers=cut(params["enc_layers"]),
+                     dec_layers=cut(params["dec_layers"])))
+    return replace(cfg, n_layers=2), dict(params, layers=cut(params["layers"]))
+
+
+def cache_dtype(torch, cache):
+    """The dtype a decode cache keeps its keys (or states) in: that of its
+    tensors other than float32 ones (the hybrid's ``h`` stays float32),
+    else float32."""
+    from repro_torch.models.common import tree_map
+
+    kinds = []
+    tree_map(lambda a: kinds.append(getattr(a, "dtype", None)), cache)
+    low = [d for d in kinds if d is not None and d != torch.float32]
+    return low[0] if low else torch.float32
+
+
+def scan_share(torch, cfg, B: int, L: int, fwd_ms: float) -> str:
+    """The hybrid's prefill scan (``rglru.associative_scan``) on the card
+    at the forward's shape, in the card's float32 multiply-add and, for
+    comparison, in the CPU's float64 FMA replay, with the card form's
+    share of the forward (one scan a recurrent layer)."""
+    from repro_torch.models import rglru
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    W = cfg.lru_width or cfg.d_model
+    a = torch.rand((B, L, W), generator=gen, device="cuda") * 0.1 + 0.9
+    b = torch.randn((B, L, W), generator=gen, device="cuda")
+
+    def scan_ms():
+        return event_ms(torch, lambda: rglru.associative_scan(a, b),
+                        reps=10, warmup=2)
+
+    ms = scan_ms()
+    madd = rglru._madd
+    try:
+        rglru._madd = rglru.fma
+        fma_ms = scan_ms()
+    finally:
+        rglru._madd = madd
+    n_rec = sum(1 for k in cfg._layer_kinds() if k != "attn")
+    return (f"; prefill scan [{B}, {L}, {W}] {ms:.3f} ms (float64 FMA "
+            f"replay {fma_ms:.3f} ms), x{n_rec} recurrent layers = "
+            f"{n_rec * ms / fwd_ms:.3f} of the forward")
+
+
+def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
+    """A model of the repo at full width and depth on the card, weights
+    from a seed: ``forward`` on a B × L batch of its family (finite
+    logits, one ``kernel`` launch a layer of that kind); prompts fed
+    through ``decode_step`` from an empty cache (Whisper's primed from the
+    frames), float32 and then the default dtype, their logits against
+    ``forward``'s; ``GEN_STEPS`` greedy tokens; and a 2-layer copy with
+    the same weights on the card against the CPU.  Returns the kernel's
+    launches in the forward and decode runs."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import registry
@@ -2267,47 +2444,67 @@ def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
 
     no_tf32(torch)
     cfg = ARCHS[name]
-    per_step = cfg.n_layers if cfg.family == "dense" else 0
     t0 = time.perf_counter()
     params = registry.init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.RandomState(0)
-    tokens = torch.from_numpy(rng.randint(0, cfg.vocab, (B, L))).cuda()
-    registry.forward(cfg, params, {"tokens": tokens[:1, :64]})  # warm-up
+    sizes = []
+    tree_map(lambda a: sizes.append(a.numel()), params)
+    batch = family_batch(torch, cfg, B, L, 0, "cuda")
+    registry.forward(cfg, params, family_batch(torch, cfg, 1, 64, 9,
+                                               "cuda"))      # warm-up
     torch.cuda.synchronize()
 
     LAUNCHES.clear()
     t0 = time.perf_counter()
-    logits, _ = registry.forward(cfg, params, {"tokens": tokens})
+    logits, _ = registry.forward(cfg, params, batch)
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     fwd_counts = dict(LAUNCHES)
-    check(fwd_counts == {kernel: cfg.n_layers}, f"{name} forward: launches "
-          f"{fwd_counts}, want {kernel}: {cfg.n_layers}")
+    want = {kernel: kernel_calls(cfg, False)}
+    check(fwd_counts == want, f"{name} forward: launches {fwd_counts}, "
+          f"want {want}")
     check(tuple(logits.shape) == (B, L, cfg.vocab) and
           bool(logits.isfinite().all()), f"{name} forward: logits "
           f"{tuple(logits.shape)} not finite or of the wrong shape")
+    del logits
+    scan = (scan_share(torch, cfg, B, L, fwd_s * 1e3)
+            if cfg.family == "hybrid" else "")
 
-    n_req, n_prompt, n_gen = 4, 128, 32
-    prompts = torch.from_numpy(rng.randint(0, cfg.vocab,
-                                           (n_req, n_prompt))).cuda()
-    ref, _ = registry.forward(cfg, params, {"tokens": prompts})
+    # Four prompts from a seed (text only for the VLM: its decode is plain
+    # RoPE, which M-RoPE's equal streams reproduce; Whisper's with frames).
+    n_req, n_prompt = 4, PROMPT_STEPS.get(cfg.family, 128)
+    rng = np.random.RandomState(1)
+    prompt = {"tokens": torch.from_numpy(rng.randint(
+        0, cfg.vocab, (n_req, n_prompt))).cuda()}
+    if cfg.family == "vlm":
+        prompt["patches"] = torch.zeros((n_req, 0, cfg.d_model),
+                                        device="cuda")
+    if cfg.family == "audio":
+        prompt["frames"] = family_batch(torch, cfg, n_req, 1, 1,
+                                        "cuda")["frames"]
+    ref, _ = registry.forward(cfg, params, prompt)
     scale = float(ref.abs().max())
+    primes = 0
 
     def feed(**kw):
         """The prompts through ``decode_step`` from an empty cache (of
         the model's default dtype unless ``kw`` names one).  Returns max
         |decode − forward| over the prompt positions, the cache, the last
         step's logits and the wall time a step."""
-        cache = registry.init_cache(cfg, n_req, n_prompt + n_gen,
+        nonlocal primes
+        cache = registry.init_cache(cfg, n_req, n_prompt + GEN_STEPS,
                                     device="cuda", **kw)
+        if cfg.family == "audio":
+            cache = registry.prime_cache(cfg, params, cache,
+                                         prompt["frames"])
+            primes += 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = []
         for t in range(n_prompt):
             lg, cache = registry.decode_step(cfg, params, cache,
-                                             prompts[:, t:t + 1])
+                                             prompt["tokens"][:, t:t + 1])
             outs.append(lg)
         torch.cuda.synchronize()
         dec = torch.cat(outs, dim=1)
@@ -2322,11 +2519,11 @@ def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
           f"{name}: decode logits differ from forward by {dec_err:.3g} "
           f"(max |logit| {scale:.3g}, bound {DECODE_TOL[cfg.family]} of it)")
     steps = n_prompt
-    probe = registry.init_cache(cfg, 1, 1, device="cuda")
-    default = probe["k" if "k" in probe else "ssm"].dtype
+    default = cache_dtype(torch, registry.init_cache(cfg, 1, 1,
+                                                     device="cuda"))
     bf16_err = None
     if default != torch.float32:
-        # The default (bf16) KV cache, which serving uses: K and V are
+        # The default (bf16) cache, which serving uses: K and V are
         # rounded to 8 bits of mantissa, so the bound is bf16's.
         bf16_err, cache, lg, _ = feed()
         check(bf16_err <= BF16_DECODE_TOL * scale,
@@ -2335,30 +2532,35 @@ def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
               f"{BF16_DECODE_TOL} of it)")
         steps += n_prompt
     nxt = lg[:, -1].argmax(-1, keepdim=True)
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n_gen):
+    for _ in range(GEN_STEPS):
         lg, cache = registry.decode_step(cfg, params, cache, nxt)
+        finite &= lg.isfinite().all()
         nxt = lg[:, -1].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
-    gen_s = (time.perf_counter() - t0) / n_gen
-    steps += n_gen
+    gen_s = (time.perf_counter() - t0) / GEN_STEPS
+    check(bool(finite), f"{name}: non-finite greedy logits")
+    steps += GEN_STEPS
     dec_counts = dict(LAUNCHES)
-    want = {kernel: per_step * steps} if per_step else {}
+    n = kernel_calls(cfg, True) * steps + primes * cfg.encoder_layers
+    want = {kernel: n} if n else {}
     check(dec_counts == want, f"{name} decode: launches {dec_counts}, want "
           f"{want}")
 
-    cfg2 = replace(cfg, n_layers=2)
-    p2 = dict(params, layers=tree_map(lambda a: a[:2], params["layers"]))
-    toks2 = prompts[:2]
+    cfg2, p2 = two_layers(cfg, params)
+    B2, L2 = COPY_TOKENS.get(name, (2, 128))
+    batch2 = family_batch(torch, cfg2, B2, L2, 3, "cuda")
     LAUNCHES.clear()
-    gpu, _ = registry.forward(cfg2, p2, {"tokens": toks2})
+    gpu, _ = registry.forward(cfg2, p2, batch2)
     torch.cuda.synchronize()
-    check(dict(LAUNCHES) == {kernel: 2}, f"{name} 2-layer copy: launches "
-          f"{dict(LAUNCHES)}")
+    want = {kernel: kernel_calls(cfg2, False)}
+    check(dict(LAUNCHES) == want, f"{name} 2-layer copy: launches "
+          f"{dict(LAUNCHES)}, want {want}")
     t0 = time.perf_counter()
     cpu, _ = registry.forward(cfg2, tree_map(lambda a: a.cpu(), p2),
-                              {"tokens": toks2.cpu()})
+                              {k: v.cpu() for k, v in batch2.items()})
     cpu_s = time.perf_counter() - t0
     scale2 = float(cpu.abs().max())
     cpu_err = float((gpu.cpu() - cpu).abs().max())
@@ -2366,19 +2568,21 @@ def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
           f"{name} 2-layer copy: card and CPU differ by {cpu_err:.3g} (max "
           f"|logit| {scale2:.3g}, bound {CPU_COPY_TOL} of it)")
     print(f"serving {name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-          f"vocab={cfg.vocab}, init {init_s * 1e3:.1f} ms; forward B={B} "
-          f"L={L}: {fwd_s * 1e3:.1f} ms, {B * L / fwd_s:.1f} prefill "
-          f"tokens/s, "
-          f"launches {fwd_counts}; decode of {n_req} requests: "
+          f"vocab={cfg.vocab}, {sum(sizes) * 4 / 1e9:.2f} GB of float32 "
+          f"weights, init {init_s * 1e3:.1f} ms; forward B={B} L={L}: "
+          f"{fwd_s * 1e3:.1f} ms, {B * L / fwd_s:.1f} prefill tokens/s, "
+          f"launches {fwd_counts}{scan}; decode of {n_req} requests: "
           f"{n_prompt} prompt steps {prompt_s * 1e3:.2f} ms a step "
-          f"(float32 cache), {n_gen} greedy steps {gen_s * 1e3:.2f} ms a "
-          f"step ({default} cache), {n_req / gen_s:.1f} decode tokens/s, "
+          f"(float32 cache), {GEN_STEPS} greedy steps {gen_s * 1e3:.2f} ms "
+          f"a step ({default} cache), {n_req / gen_s:.1f} decode tokens/s, "
           f"launches {dec_counts} in {steps} steps; decode vs forward max "
           f"|Δ| {dec_err:.3g} of max |logit| {scale:.3g} "
           f"({dec_err / scale:.3g}; {default} cache: "
           f"{'-' if bf16_err is None else f'{bf16_err / scale:.3g}'}); "
           f"2-layer copy card vs CPU max |Δ| {cpu_err:.3g} of {scale2:.3g} "
           f"({cpu_err / scale2:.3g}; CPU run {cpu_s:.1f} s)", flush=True)
+    del params, batch, cache
+    torch.cuda.empty_cache()
     return fwd_counts.get(kernel, 0) + dec_counts.get(kernel, 0)
 
 
@@ -2387,9 +2591,10 @@ def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
 # --------------------------------------------------------------------------
 
 SEQ_POLICIES = ("random", "pot", "dodoor", "one_plus_beta", "prequal")
-#: Phase 21's testbed runs take the first 2 000 tasks of phase 3's
-#: FunctionBench trace (m = 4 000): the script's time limit.
-SEQ_TASKS = 2000
+#: Phase 21's testbed runs take the first 1 200 tasks of phase 3's
+#: FunctionBench trace (m = 4 000): the script's time limit (see
+#: ``CHAIN_TASKS``).
+SEQ_TASKS = 1200
 #: tests/test_engine_batched.py:22's bound on the time planes.
 SEQ_RTOL, SEQ_ATOL = 1e-6, 1e-3
 #: The message-reduction point of benchmarks/bench_faults.py:86-145 (the
@@ -3422,6 +3627,43 @@ def moe_phase(torch) -> tuple:
     return launches + n + launcher_run(torch), rows + more
 
 
+# --------------------------------------------------------------------------
+# phase 25: the VLM backbone, the RG-LRU hybrid and Whisper
+# --------------------------------------------------------------------------
+
+#: K7 at recurrentgemma-2b's local attention (10 heads of 256 over one KV
+#: head): its prefill on 2 × 4096 tokens under the 2048-token window, and
+#: a decode step over the full ring of 2048 slots (float32 and over the
+#: bf16 ring read in place, the step's own key and value as the last row).
+K7_RG_PREFILL = (2, 10, 1, 4096, 4096, 256, True, 2048)
+K7_RG_DECODE = (2, 10, 1, 1, 2048, 256, True, None)
+K7_RG_CACHE = (2, 10, 1, 2048, 256, 2048)
+#: qwen2-vl-2b's forward: B × L positions, the first VLM_PATCHES of them
+#: patch embeddings from a seed on a VLM_GRID × VLM_GRID grid.
+VLM_FORWARD = (4, 1024)
+VLM_PATCHES = 256
+VLM_GRID = 16
+#: recurrentgemma-2b's forward (the 2048 window cuts keys).
+RG_FORWARD = (2, 4096)
+#: whisper-base's forward: B × 448 tokens over the 1500 encoder frames.
+WHISPER_FORWARD = (4, 448)
+
+
+def families_phase(torch) -> tuple:
+    """Phase 25: K7 at head width 256 (recurrentgemma-2b's prefill and
+    decode, timed), then qwen2-vl-2b, recurrentgemma-2b and whisper-base
+    at full width and depth.  Returns (K7 launches, K7 rows at D = 256)."""
+    no_tf32(torch)
+    rows = [k7_case(torch, *K7_RG_PREFILL, timed=True),
+            k7_case(torch, *K7_RG_DECODE, timed=True),
+            k7_cache_case(torch, *K7_RG_CACHE)]
+    launches = sum(serving_phase(torch, name, "flash_attention", *shape)
+                   for name, shape in (("qwen2-vl-2b", VLM_FORWARD),
+                                       ("recurrentgemma-2b", RG_FORWARD),
+                                       ("whisper-base", WHISPER_FORWARD)))
+    return launches, rows
+
+
 def head_of(res, k: int):
     """A result's tasks from ``k`` on, ledger kept."""
     arrays = {f: getattr(res, f)[k:] for f in ("server",) + TIME_PLANES}
@@ -3435,7 +3677,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-24) to run after "
+                    help="comma-separated phase numbers (2-25) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -3492,7 +3734,7 @@ def main(argv=None) -> int:
     launches["dodoor_fused_sparse_locality"] = phase(
         "10 dag scale", dag_scale_phase)
     phase("11 retries testbed", retry_phase)
-    phase("12 retries scale", retry_scale_phase)
+    phase("12 retries scale", retry_scale_phase, SCALE_CPU_TASKS)
     k5 = phase("13 kernel K5", k5_family_phase)
     k4 = phase("14 kernel K4", k4_family_phase)
     k6 = phase("15 kernel K6", k6_family_phase)
@@ -3509,13 +3751,14 @@ def main(argv=None) -> int:
     phase("22 batched probing and serving", probing_phase)
     phase("23 trace, cache faults and grids", observability_phase)
     moe = phase("24 MoE serving and the serve launcher", moe_phase)
+    fam = phase("25 VLM, hybrid and audio serving", families_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "
               "result)", flush=True)
         return 0
 
-    launches["flash_attention"] += moe[0]
+    launches["flash_attention"] += moe[0] + fam[0]
     launches["dodoor_choice"] = k5[1]
     launches.update(k4[1])
     launches["rl_score_matrix"] = k6[1]

@@ -52,10 +52,12 @@
 //    (104 us at tinyllama's prefill).  A block is 4 warps and 64 rows;
 //    each warp runs its 16 x 32 logits tile and its 16 x D accumulator as
 //    MMA fragments.  Q's hi and lo fragments are made once a block
-//    (registers at D <= 64; at D = 128 a lane-private copy in shared
+//    (registers at D <= 64; at D >= 128 a lane-private copy in shared
 //    memory, read back each key tile).  K and V come in tiles of 32 keys
 //    (a 51.7 KB block at D = 64 and at most 168 registers a thread, so
-//    three blocks share an SM): a tile's raw rows land by 16-byte cp.async
+//    three blocks share an SM; at D = 256 tiles of 16 keys, since 32 keys
+//    and Q's copy would take 330 KB against the 227 KB a block may opt
+//    into): a tile's raw rows land by 16-byte cp.async
 //    while the previous tile is computed, then one pass of the block
 //    splits them, read in q's type, into hi/lo tiles (once a block instead
 //    of once a warp), laid out so that a lane's K fragment is one 16-byte
@@ -99,7 +101,7 @@
 namespace {
 
 constexpr int kBK = 64;          // regime B: keys a tile (and a run's unit)
-constexpr int kBKA = 32;         // regime A: keys a tile
+constexpr int kBKA = 32;         // regime A: keys a tile at D <= 128
 constexpr float kNeg = -1e30f;   // the reference's masked logit
 constexpr int kRowsB = 16;       // the most rows a group regime B takes
 constexpr int kThreadsA = 128;   // regime A: 4 warps x 16 rows
@@ -289,25 +291,33 @@ __host__ __device__ constexpr int ksp_stride() { return 2 * D + 16; }
 template <int D>
 __host__ __device__ constexpr int vsp_stride() { return 2 * D + 4; }
 
+// Regime A's keys a tile: kBKA, or half of it at D = 256, where a 32-key
+// tile and Q's shared copy (330 240 B with float32 keys) exceed the
+// 232 448 B a block may opt into; 16 keys make 230 656 B.
+template <int D>
+__host__ __device__ constexpr int bka() { return D > 128 ? kBKA / 2 : kBKA; }
+
 template <typename TKV, int D>
 __host__ __device__ constexpr size_t smem_a() {
-  return kBKA * (2 * D * sizeof(TKV) +
-                 (ksp_stride<D>() + vsp_stride<D>()) * 4) +
+  return bka<D>() * (2 * D * sizeof(TKV) +
+                     (ksp_stride<D>() + vsp_stride<D>()) * 4) +
          (D > 64 ? 2 * (D / 8) * kThreadsA * sizeof(uint4) : 0);
 }
 
-// Enqueues the raw rows of key tile [kt, kt + kBKA) of K and V: cp.async in
-// 16-byte pieces (vec), or copies by the threads.  Rows at or past kend
-// and the last row, where one is given, are left to the split pass.
+// Enqueues the raw rows of key tile [kt, kt + bka<D>()) of K and V:
+// cp.async in 16-byte pieces (vec), or copies by the threads.  Rows at or
+// past kend and the last row, where one is given, are left to the split
+// pass.
 template <typename TKV, int D>
 __device__ __forceinline__ void issue_raw(TKV* Kr, TKV* Vr, const TKV* k,
                                           const TKV* v, bool last,
                                           const Args& a, int kt, int kend) {
+  constexpr int BK = bka<D>();
   const int tid = threadIdx.x;
   if (a.vec) {
     constexpr int EPV = 16 / sizeof(TKV);
     constexpr int PPR = D / EPV;
-    for (int idx = tid; idx < kBKA * PPR; idx += kThreadsA) {
+    for (int idx = tid; idx < BK * PPR; idx += kThreadsA) {
       const int j = idx / PPR, e = (idx % PPR) * EPV, kj = kt + j;
       if (kj < kend && !(last && kj == a.Lk - 1)) {
         cp_async16(Kr + j * D + e, k + kj * a.ksl + e);
@@ -315,7 +325,7 @@ __device__ __forceinline__ void issue_raw(TKV* Kr, TKV* Vr, const TKV* k,
       }
     }
   } else {
-    for (int idx = tid; idx < kBKA * D; idx += kThreadsA) {
+    for (int idx = tid; idx < BK * D; idx += kThreadsA) {
       const int j = idx / D, d = idx % D, kj = kt + j;
       if (kj < kend && !(last && kj == a.Lk - 1)) {
         Kr[j * D + d] = k[kj * a.ksl + d];
@@ -333,7 +343,7 @@ __device__ __forceinline__ void split_tile(uint32_t* Ksp, uint32_t* Vsp,
                                            const TQ* kl, const TQ* vl,
                                            const Args& a, int kt, int kend) {
   constexpr int KSP = ksp_stride<D>(), VSP = vsp_stride<D>();
-  for (int idx = threadIdx.x; idx < kBKA * D / 4; idx += kThreadsA) {
+  for (int idx = threadIdx.x; idx < bka<D>() * D / 4; idx += kThreadsA) {
     const int j = idx / (D / 4), d = (idx % (D / 4)) * 4, kj = kt + j;
     float kx[4] = {0.0f, 0.0f, 0.0f, 0.0f}, vx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (kj >= kend) {
@@ -370,18 +380,19 @@ __device__ __forceinline__ void split_tile(uint32_t* Ksp, uint32_t* Vsp,
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreadsA, D <= 64 ? 3 : 1)
 attn_tc_kernel(const Args a) {
-  constexpr int NT = kBKA / 8;                         // key fragments
+  constexpr int BK = bka<D>();                         // keys a tile
+  constexpr int NT = BK / 8;                           // key fragments
   constexpr bool kLoQ = sizeof(TQ) == 4;               // q has a lo part
   constexpr bool kQReg = D <= 64;                      // Q kept in registers
   constexpr int KSP = ksp_stride<D>(), VSP = vsp_stride<D>();
   constexpr int NS = D / 8;                            // k-steps over d
   constexpr int NN = D / 8;                            // 8-column tiles of o
   extern __shared__ uint4 smem_u4[];
-  uint32_t* Ksp = reinterpret_cast<uint32_t*>(smem_u4);  // [kBKA][KSP]
-  uint32_t* Vsp = Ksp + kBKA * KSP;                      // [kBKA][VSP]
-  TKV* Kr = reinterpret_cast<TKV*>(Vsp + kBKA * VSP);    // [kBKA][D]
-  TKV* Vr = Kr + kBKA * D;                               // [kBKA][D]
-  uint4* Qf = reinterpret_cast<uint4*>(Vr + kBKA * D);   // D > 64 only
+  uint32_t* Ksp = reinterpret_cast<uint32_t*>(smem_u4);  // [BK][KSP]
+  uint32_t* Vsp = Ksp + BK * KSP;                        // [BK][VSP]
+  TKV* Kr = reinterpret_cast<TKV*>(Vsp + BK * VSP);      // [BK][D]
+  TKV* Vr = Kr + BK * D;                                 // [BK][D]
+  uint4* Qf = reinterpret_cast<uint4*>(Vr + BK * D);     // D > 64 only
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -396,8 +407,8 @@ attn_tc_kernel(const Args a) {
   const int f0 = qt * kBQ;
   const int f1 = min(f0 + kBQ, rows) - 1;
   const KeyRange kr = key_range(a, rep, f0, f1);
-  const int kt0 = (kr.lo / kBKA) * kBKA;
-  const int ntiles = kr.hi > kt0 ? (kr.hi - kt0 + kBKA - 1) / kBKA : 0;
+  const int kt0 = (kr.lo / BK) * BK;
+  const int ntiles = kr.hi > kt0 ? (kr.hi - kt0 + BK - 1) / BK : 0;
   const float sl2 = a.scale * kLog2e;          // logits in log2 units
 
   const TQ* q = static_cast<const TQ*>(a.q);
@@ -466,13 +477,13 @@ attn_tc_kernel(const Args a) {
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.0f;
 
   for (int it = 0; it < ntiles; ++it) {
-    const int kt = kt0 + it * kBKA;
+    const int kt = kt0 + it * BK;
     cp_async_wait0();
     __syncthreads();   // tile it landed; every warp is done with tile it - 1
     split_tile<TQ, TKV, D>(Ksp, Vsp, Kr, Vr, kl, vl, a, kt, kr.hi);
     __syncthreads();   // the split tile is in place; the raw one is free
     if (it + 1 < ntiles)
-      issue_raw<TKV, D>(Kr, Vr, k, v, kl != nullptr, a, kt + kBKA, kr.hi);
+      issue_raw<TKV, D>(Kr, Vr, k, v, kl != nullptr, a, kt + BK, kr.hi);
     cp_async_commit();
     if (!warp_live) continue;
 
@@ -509,7 +520,7 @@ attn_tc_kernel(const Args a) {
 
     // Scale to log2 units, mask (edge tiles only), online softmax over the
     // quad's rows.
-    const bool full = tile_full(a, kr, kt, kBKA, kr.hi);
+    const bool full = tile_full(a, kr, kt, BK, kr.hi);
     uint32_t okbits = 0xffffffffu;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -642,8 +653,10 @@ __device__ __forceinline__ void load_cols(const float* p, float (&x)[DJ]) {
   }
 }
 
+// Two blocks an SM; one at D = 256, whose staged tile alone is 128
+// registers a thread with float32 keys.
 template <typename TQ, typename TKV, int D, int RG>
-__global__ void __launch_bounds__(kThreadsB, 2)
+__global__ void __launch_bounds__(kThreadsB, D > 128 ? 1 : 2)
 attn_split_kernel(const Args a) {
   constexpr int CG = kThreadsB / RG;   // lanes a row
   constexpr int KPT = kBK / CG;        // keys a thread
@@ -963,6 +976,7 @@ int launch_dtype(const Args& a, int D, cudaStream_t stream) {
     case 32: return launch_regime<TQ, TKV, 32>(a, stream);
     case 64: return launch_regime<TQ, TKV, 64>(a, stream);
     case 128: return launch_regime<TQ, TKV, 128>(a, stream);
+    case 256: return launch_regime<TQ, TKV, 256>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -987,7 +1001,8 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 // q's type (float32, or bfloat16 when q_bf16 != 0).  k and v share a type
 // (bfloat16 when kv_bf16 != 0) and are read in q's type.  kl, vl: nullptr,
 // or rows [B, Hkv, D] of q's type, unit stride along D, that take the
-// place of key and value Lk - 1.  D in {32, 64, 128}; H a multiple of Hkv;
+// place of key and value Lk - 1.  D in {32, 64, 128, 256}; H a multiple of
+// Hkv;
 // window <= 0 for none.  A group of at most 16 rows (H / Hkv * Lq) takes
 // regime B with `splits` runs of keys (ops.plan_k7); with splits > 1,
 // `part` is float32 scratch of B * Hkv * splits * rows * (D + 2) values

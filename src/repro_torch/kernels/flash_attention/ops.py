@@ -28,7 +28,7 @@ from .kernel import launch_flash_attention
 from .ref import attention_ref
 
 #: The head widths the kernel is built for.
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 #: Keys a tile of the split kernel; its runs are whole tiles.
 K7_TILE = 64
@@ -126,7 +126,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     accumulated in float32.  ``kv_last``: None, or (k_last, v_last)
     [B, Hkv, 1, D] in q's dtype, which take the place of key and value
     Lk − 1 (a decode step's own key and value, unrounded, over a cache of
-    another dtype).  On the card D is 32, 64 or 128, and every operand
+    another dtype).  On the card D is 32, 64, 128 or 256, and every operand
     must have unit stride along D (a slice of a preallocated cache is read
     where it lies).  A causal call with Lq > Lk would leave its first
     queries no key to attend to; it raises ``ValueError`` on every device,

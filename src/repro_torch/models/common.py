@@ -33,9 +33,12 @@ _NEG = -1e30
 # ---------------------------------------------------------------------------
 
 def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor of a nested dict, keeping the keys."""
+    """Apply ``fn`` to every tensor of a tree of dicts and tuples, keeping
+    the keys and the tuples' order."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -73,6 +76,8 @@ def stack_init(gen, n: int, init_fn: Callable) -> Params:
     def merge(ts):
         if isinstance(ts[0], dict):
             return {k: merge([t[k] for t in ts]) for k in ts[0]}
+        if isinstance(ts[0], tuple):
+            return tuple(merge([t[i] for t in ts]) for i in range(len(ts[0])))
         return torch.stack(ts)
 
     return merge([init_fn(gen) for _ in range(n)])
@@ -88,7 +93,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (+ M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -110,6 +115,41 @@ def apply_rope(x, positions, theta: float):
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)      # [D/2]
     angles = positions[:, None, :, None].float() * freqs
     return _rotate(x, torch.cos(angles), torch.sin(angles))
+
+
+def mrope_bounds(half: int, sections=(2, 3, 3)) -> list:
+    """The channels where M-RoPE's sections start, past the first: the
+    sections are relative weights over the ``half`` = D/2 rotary channels,
+    each bound Python's ``round`` of its running share (half to even), as
+    the reference computes them."""
+    total = sum(sections)
+    bounds, acc = [], 0
+    for s in sections[:-1]:
+        acc += round(half * s / total)
+        bounds.append(acc)
+    return bounds
+
+
+def apply_mrope(x, positions3, theta: float, sections=(2, 3, 3)):
+    """Qwen2-VL multimodal RoPE: the D/2 rotary channels split into
+    (temporal, height, width) sections (``mrope_bounds``), each rotated by
+    its own position stream.  x [B, H, L, D]; positions3 [B, 3, L]; equal
+    streams give ``apply_rope`` exactly."""
+    half = x.shape[-1] // 2
+    chan = torch.arange(half, device=x.device)
+    sec = torch.zeros((half,), dtype=torch.long, device=x.device)
+    for b in mrope_bounds(half, sections):
+        sec = sec + (chan >= b).long()                           # [half]
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)      # [half]
+    pos = positions3.transpose(1, 2).float()[..., sec]           # [B,L,half]
+    angles = pos[:, None] * freqs                                # [B,1,L,half]
+    return _rotate(x, torch.cos(angles), torch.sin(angles))
+
+
+def text_positions3(positions):
+    """[B, L] → [B, 3, L]: the degenerate M-RoPE streams of pure text."""
+    return positions[:, None].expand(positions.shape[0], 3,
+                                     positions.shape[1])
 
 
 # ---------------------------------------------------------------------------

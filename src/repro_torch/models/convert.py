@@ -16,11 +16,11 @@ from .registry import module
 
 
 def params_from_numpy(cfg: ModelConfig, tree, *, device=None):
-    """``tree``: the reference's ``init_params(cfg, key)`` pytree with
-    numpy (or array-like) leaves → the port's float32 parameters on
-    ``device`` (the card unless the caller asks for the CPU).  Raises ValueError
-    naming the leaf if the tree's keys or shapes differ from the port's
-    for ``cfg``."""
+    """``tree``: the reference's ``init_params(cfg, key)`` pytree (dicts
+    and tuples) with numpy (or array-like) leaves → the port's float32
+    parameters on ``device`` (the card unless the caller asks for the
+    CPU).  Raises ValueError naming the leaf if the tree's keys, tuple
+    lengths or shapes differ from the port's for ``cfg``."""
     device = resolve_device(device)
     want = module(cfg).init_params(cfg, torch.Generator(), device="meta")
 
@@ -31,6 +31,14 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device=None):
                 raise ValueError(f"params_from_numpy: {path or 'the tree'} "
                                  f"has keys {have}, want {sorted(spec)}")
             return {k: convert(f"{path}/{k}", got[k], spec[k]) for k in spec}
+        if isinstance(spec, tuple):
+            if not isinstance(got, (tuple, list)) or len(got) != len(spec):
+                have = (f"{len(got)} entries" if isinstance(got, (tuple, list))
+                        else type(got))
+                raise ValueError(f"params_from_numpy: {path or 'the tree'} "
+                                 f"has {have}, want a tuple of {len(spec)}")
+            return tuple(convert(f"{path}/{i}", g, sp)
+                         for i, (g, sp) in enumerate(zip(got, spec)))
         arr = np.asarray(got)
         if arr.shape != tuple(spec.shape):
             raise ValueError(f"params_from_numpy: {path} has shape "

@@ -1,40 +1,35 @@
 """Family dispatch — the single entry point to the port's models, as the
 reference's ``models/registry.py`` is to its.
 
-Ported: the ``dense`` and ``moe`` families (the transformer, with the MoE
-layer's ``topk`` and ``dodoor`` routers) and ``ssm`` (Mamba-2).  The other
-families raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.  ``abstract_*`` and ``make_inputs`` (XLA
-dry-run tooling) are not ported (ROADMAP §1 item 10).
+Every family of the reference is ported: ``dense``, ``moe`` (with the MoE
+layer's ``topk`` and ``dodoor`` routers) and ``vlm`` (the transformer),
+``ssm`` (Mamba-2), ``hybrid`` (RecurrentGemma's RG-LRU) and ``audio``
+(Whisper, whose ``prime_cache`` this module also exposes).  An unknown
+family raises ``NotImplementedError``.  ``abstract_*`` and
+``make_inputs`` (XLA dry-run tooling) are not ported (ROADMAP §1 item 7).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
-(``init_params``, ``init_cache``); ``forward`` and ``decode_step`` run
-where their parameters lie.
+(``init_params``, ``init_cache``); ``forward``, ``decode_step`` and
+``prime_cache`` run where their parameters lie.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from ..configs.base import ModelConfig
-from . import mamba2, transformer
+from . import mamba2, rglru, transformer, whisper
 
 Params = Dict[str, Any]
 
-_FAMILY = {"dense": transformer, "moe": transformer, "ssm": mamba2}
-
-_NOT_PORTED = {
-    "vlm": "the VLM backbone (M-RoPE)",
-    "hybrid": "the RG-LRU hybrid",
-    "audio": "Whisper",
-}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "ssm": mamba2, "hybrid": rglru, "audio": whisper}
 
 
 def module(cfg: ModelConfig):
     mod = _FAMILY.get(cfg.family)
     if mod is None:
-        what = _NOT_PORTED.get(cfg.family, f"family {cfg.family!r}")
         raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet (ROADMAP §1 item 10)")
+            f"{cfg.name}: family {cfg.family!r} has no model in the port")
     return mod
 
 
@@ -52,3 +47,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, **kw):
 
 def decode_step(cfg: ModelConfig, params, cache, token):
     return module(cfg).decode_step(cfg, params, cache, token)
+
+
+def prime_cache(cfg: ModelConfig, params, cache, frames):
+    """Whisper's cross-attention keys and values from the encoder, once a
+    request (``whisper.prime_cache``); other families have none."""
+    if cfg.family != "audio":
+        raise ValueError(f"{cfg.name}: prime_cache is Whisper's (the audio "
+                         f"family), not {cfg.family!r}'s")
+    return whisper.prime_cache(cfg, params, cache, frames)

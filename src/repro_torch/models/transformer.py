@@ -1,8 +1,9 @@
 """Decoder-only transformer — the port of the JAX package's
 ``models/transformer.py`` for the dense GQA models (qwen2-7b, granite-3-8b,
-smollm-135m, tinyllama-1.1b; ``qkv_bias`` included) and the MoE models
-(dbrx-132b, qwen3-moe-235b-a22b).  The VLM backbone (M-RoPE) is not ported
-yet (ROADMAP §1 item 10).
+smollm-135m, tinyllama-1.1b; ``qkv_bias`` included), the MoE models
+(dbrx-132b, qwen3-moe-235b-a22b) and the VLM backbone (qwen2-vl-2b: the
+vision frontend is a stub, pre-computed patch embeddings through
+``patch_proj`` ahead of the tokens, and M-RoPE on q and k).
 
 Every attention layer of ``forward`` and of ``decode_step`` goes through
 ``common.attention`` / ``flash_attention``: the kernel K7 on the card.
@@ -29,17 +30,11 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention
-from .common import (apply_rope, attention, dense_init, generator, layer,
-                     mlp_apply, mlp_init, normal, rms_norm, stack_init)
+from .common import (apply_mrope, apply_rope, attention, dense_init,
+                     generator, layer, mlp_apply, mlp_init, normal, rms_norm,
+                     stack_init, text_positions3)
 
 Params = Dict[str, Any]
-
-
-def _no_mrope(cfg: ModelConfig) -> None:
-    if cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE (the VLM backbone) is not ported yet "
-            "(ROADMAP §1 item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -73,38 +68,53 @@ def _qkv(p, x, cfg: ModelConfig):
     return q, k, v
 
 
+def _rope(cfg: ModelConfig, t, positions, positions3):
+    """RoPE at ``positions`` [B, L], or M-RoPE on the three streams
+    ``positions3`` [B, 3, L] when the model has it and they are given."""
+    if cfg.mrope and positions3 is not None:
+        return apply_mrope(t, positions3, cfg.rope_theta)
+    return apply_rope(t, positions, cfg.rope_theta)
+
+
 def attn_apply(p, x, cfg: ModelConfig, positions, *, causal=True,
-               window=None):
+               window=None, positions3=None):
     """Full-sequence (train/prefill) attention sublayer.  Returns (out
     [B, L, d], (k, v))."""
     B, L, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = _rope(cfg, q, positions, positions3)
+    k = _rope(cfg, k, positions, positions3)
     o = attention(q, k, v, causal=causal, window=window)
     return o.transpose(1, 2).reshape(B, L, -1) @ p["wo"], (k, v)
 
 
 def attn_decode(p, x_t, cfg: ModelConfig, k_cache, v_cache, idx: int, *,
-                window=None):
+                window=None, positions3_t=None):
     """One-token decode: x_t [B, 1, d]; caches [B, n_kv, L, hd] of any
-    dtype, written IN PLACE at slot ``idx`` (a host int).  Attends over
+    dtype, written IN PLACE at slot min(idx, L − 1) (``idx`` a host int:
+    the RoPE position and the mask's bound; the reference's
+    ``dynamic_update_slice`` clamps a write past the end to the last
+    slot, which the hybrid's short ring cache reaches).  Attends over
     slots ≤ idx and inside the window, as the reference does: the cache
     is read in the activations' dtype, with this step's own key and value
-    unrounded.  Returns (out [B, 1, d], k_cache, v_cache)."""
+    unrounded.  ``positions3_t`` [B, 3, 1]: M-RoPE streams for the step
+    (the reference's decode passes none).  Returns (out [B, 1, d],
+    k_cache, v_cache)."""
     B = x_t.shape[0]
     q, k_t, v_t = _qkv(p, x_t, cfg)
     pos = torch.full((B, 1), idx, dtype=torch.int64, device=x_t.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k_t = apply_rope(k_t, pos, cfg.rope_theta)
-    k_cache[:, :, idx] = k_t[:, :, 0]
-    v_cache[:, :, idx] = v_t[:, :, 0]
+    q = _rope(cfg, q, pos, positions3_t)
+    k_t = _rope(cfg, k_t, pos, positions3_t)
+    slot = min(idx, k_cache.shape[2] - 1)
+    k_cache[:, :, slot] = k_t[:, :, 0]
+    v_cache[:, :, slot] = v_t[:, :, 0]
     # Only the slots written so far are keys: the future slots of the
     # preallocated cache must not enter the softmax.  The kernel reads the
-    # prefix where it lies, in q's dtype, and takes slot idx from k_t and
-    # v_t, unrounded when the cache has another dtype.
-    o = flash_attention(q, k_cache[:, :, :idx + 1], v_cache[:, :, :idx + 1],
-                        causal=True, window=window, kv_last=(k_t, v_t))
+    # prefix where it lies, in q's dtype, and takes the step's slot from
+    # k_t and v_t, unrounded when the cache has another dtype.
+    o = flash_attention(q, k_cache[:, :, :slot + 1],
+                        v_cache[:, :, :slot + 1], causal=True, window=window,
+                        kv_last=(k_t, v_t))
     o = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.head_dim)
     return o @ p["wo"], k_cache, v_cache
 
@@ -255,8 +265,7 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None) -> Params:
     """Random parameters with the reference's distributions and scales,
     drawn from a ``torch.Generator`` (``seed``: an int or a generator).
     They are not the reference's numbers; ``models.convert`` carries
-    those."""
-    _no_mrope(cfg)
+    those.  The VLM backbone adds the stub frontend's ``patch_proj``."""
     device = resolve_device(device)
     gen = generator(seed, device)
     p = {
@@ -268,6 +277,9 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None) -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, scale=0.02,
                                   device=device)
+    if cfg.family == "vlm":
+        p["patch_proj"] = dense_init(gen, cfg.d_model, cfg.d_model,
+                                     device=device)
     return p
 
 
@@ -280,19 +292,33 @@ def _unembed(cfg, p, x):
 def forward(cfg: ModelConfig, p: Params, batch, *, remat: bool = True,
             unembed: bool = True):
     """Prefill forward → (logits [B, L, V], aux dict).  batch: tokens
-    [B, L] int.  ``aux["moe_aux"]`` is the MoE layers' mean load-balance
-    loss (0 for a dense model).  ``remat`` (rematerialisation for
-    training) has no effect in the port's inference path."""
-    _no_mrope(cfg)
-    tokens = torch.as_tensor(batch["tokens"], device=p["embed"].device)
+    [B, L] int; for the VLM backbone also patches [B, n_patches, d]
+    (projected by ``patch_proj`` and put ahead of the tokens) and
+    optionally positions3 [B, 3, n_patches + L] (the M-RoPE streams;
+    ``text_positions3`` of the plain positions without them).
+    ``aux["moe_aux"]`` is the MoE layers' mean load-balance loss (0 for a
+    dense model).  ``remat`` (rematerialisation for training) has no
+    effect in the port's inference path."""
+    dev = p["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = p["embed"][tokens]
-    B, L = tokens.shape
+    positions3 = None
+    if cfg.family == "vlm":
+        patches = torch.as_tensor(batch["patches"], device=dev) \
+            @ p["patch_proj"]
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        if batch.get("positions3") is not None:
+            positions3 = torch.as_tensor(batch["positions3"], device=dev)
+    B, L = x.shape[:2]
     positions = torch.arange(L, device=x.device)[None].expand(B, L)
+    if cfg.mrope and positions3 is None:
+        positions3 = text_positions3(positions)
     aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
         lp = layer(p["layers"], i)
         a, _ = attn_apply(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-                          cfg, positions, window=cfg.window)
+                          cfg, positions, window=cfg.window,
+                          positions3=positions3)
         x = x + a
         f, aux_i = _ffn(lp, x, cfg)
         x = x + f
@@ -321,8 +347,8 @@ def decode_step(cfg: ModelConfig, p: Params, cache: Params, token):
     """token [B, 1] int → (logits [B, 1, V], cache').  The cache's tensors
     are updated in place and returned with ``idx`` + 1.  An MoE layer
     routes the step's B tokens as one group from a zero load, as the
-    reference does."""
-    _no_mrope(cfg)
+    reference does; the VLM backbone decodes with plain RoPE at ``idx``,
+    as the reference's ``decode_step`` passes no M-RoPE streams."""
     idx = int(cache["idx"])
     if not 0 <= idx < cache["k"].shape[3]:
         raise ValueError(f"decode_step: the cache holds "

@@ -12,6 +12,8 @@ places two tasks on one server."""
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 

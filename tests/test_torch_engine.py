@@ -5,6 +5,8 @@ across mid-run; bad inputs refused with the reference's errors."""
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 

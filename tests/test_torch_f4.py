@@ -11,6 +11,8 @@ K = 5, column 1); its scores are counted and bounded."""
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 

@@ -17,7 +17,8 @@
   against ``attention_ref`` and
   the reference's ``flash_attention`` in interpret mode at the
   reference's seven pins, its bf16 pin and ``chip_smoke.py``'s
-  ``K7_EDGES``, within rtol 2e-4 / atol 2e-5 (``K7_F32_TOL``; for a bf16
+  ``K7_EDGES`` (head widths 32 to 256: 16-key tiles at 256), within
+  rtol 2e-4 / atol 2e-5 (``K7_F32_TOL``; for a bf16
   q ``K7_BF16_TOL``, one more rounding of the output).  With one TF32
   product instead of three the mirror misses that tolerance: the reason
   the kernel splits its products.
@@ -30,6 +31,8 @@ import sys
 
 import numpy as np
 import pytest
+
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -50,8 +53,14 @@ import chip_smoke as cs  # noqa: E402
 F32 = cs.K7_F32_TOL
 BF16 = cs.K7_BF16_TOL
 SMS = 132
-#: Keys a tile of the tensor-core kernel (kBKA in flash_attention.cu).
-K7_TILE_A = 32
+
+
+def k7_tile_a(D: int) -> int:
+    """Keys a tile of the tensor-core kernel (``bka`` in
+    flash_attention.cu): 32, or 16 at D = 256."""
+    return 16 if D > 128 else 32
+
+
 #: log2 e in float32, as the kernels scale their logits by scale · log2 e.
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 #: The reference's seven float32 pins and its bf16 pin (chip_smoke's
@@ -293,14 +302,14 @@ def _softmax_step(m, l, acc, s, ok, vt, products):
 
 def mirror_a(q, k, v, *, causal, window, scale, kv_last=None, terms=3):
     """Regime A in plain torch: per (b, hk), 64-row blocks of the
-    position-major rows; 32-key tiles from the block's aligned start to
-    its end; masks only on the tiles the kernel
-    masks (others must not need one); TF32 products with ``terms``
-    terms."""
+    position-major rows; tiles of ``k7_tile_a(D)`` keys (32, or 16 at D =
+    256) from the block's aligned start to its end; masks only on the
+    tiles the kernel masks (others must not need one); TF32 products with
+    ``terms`` terms."""
     B, H, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     rep, off = H // Hkv, Lk - Lq
-    BK = K7_TILE_A
+    BK = k7_tile_a(D)
     sl2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
     qf, kf, vf = _operands(q, k, v, kv_last)
     rows = rep * Lq
@@ -455,6 +464,25 @@ def test_mirror_with_one_tf32_product_misses_the_tolerance(edge):
     _close(_mirror(edge, q, k, v, last), want, F32, "3 products")
     with pytest.raises(AssertionError):
         _close(_mirror(edge, q, k, v, last, terms=1), want, F32, "1 product")
+
+
+def test_k7_tile_a_fits_the_shared_memory_a_block_may_opt_into():
+    """The tensor-core kernel's shared memory (``smem_a`` in
+    flash_attention.cu: the raw and split K/V tiles, and Q's hi/lo copy
+    above D = 64) stays within the 232 448 B an H100 block may opt into at
+    every head width, with float32 and with bf16 keys; at D = 256 it
+    would not with 32-key tiles."""
+    def smem_a(D, kv_bytes, tile):
+        split = (2 * D + 16) + (2 * D + 4)            # K and V words a key
+        q_copy = 2 * (D // 8) * 128 * 16 if D > 64 else 0
+        return tile * (2 * D * kv_bytes + split * 4) + q_copy
+
+    for D in (32, 64, 128, 256):
+        for kv_bytes in (4, 2):
+            assert smem_a(D, kv_bytes, k7_tile_a(D)) <= 232_448, D
+    assert k7_tile_a(256) == 16 and k7_tile_a(128) == 32
+    assert smem_a(256, 4, 32) == 330_240 and smem_a(256, 2, 32) == 297_472
+    assert smem_a(256, 4, 16) == 230_656
 
 
 def test_the_wrapper_on_the_cpu_is_the_plain_version():

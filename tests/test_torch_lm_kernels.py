@@ -20,6 +20,8 @@ import re
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
@@ -40,7 +42,8 @@ BF16 = dict(rtol=2 ** -8 + 2e-4, atol=2e-5)      # one rounding to bf16
 BF16_STEP = dict(rtol=2 ** -7 + 2e-4, atol=2e-5)  # two roundings apart
 SSD = dict(rtol=2e-4, atol=2e-4)
 
-#: The reference's K7 pins (tests/test_kernels.py:534-541).
+#: The reference's K7 pins (tests/test_kernels.py:534-541), then three at
+#: recurrentgemma-2b's head width 256 (10 query heads over one KV head).
 FA_SHAPES = [
     (1, 2, 2, 128, 128, 64, True, None),      # square causal
     (2, 4, 2, 128, 128, 64, True, None),      # GQA 2:1
@@ -49,6 +52,9 @@ FA_SHAPES = [
     (1, 2, 2, 128, 256, 64, True, 64),        # local window
     (1, 2, 2, 100, 200, 32, True, None),      # ragged (padding path)
     (1, 2, 2, 64, 64, 128, False, None),      # non-causal (cross-attn)
+    (1, 10, 1, 96, 96, 256, True, 40),        # D = 256 (recurrentgemma)
+    (1, 10, 1, 1, 200, 256, True, None),      # D = 256 decode
+    (1, 2, 1, 50, 120, 256, False, None),     # D = 256 non-causal
 ]
 
 #: The reference's SSD pins (tests/test_kernels.py:569-573), and a chunk

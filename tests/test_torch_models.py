@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
@@ -37,8 +39,11 @@ from repro_torch.models import params_from_numpy  # noqa: E402
 BLOCK = dict(rtol=1e-5, atol=1e-6)
 MODEL = dict(rtol=2e-4, atol=2e-5)
 PORTED = ["tinyllama-1.1b", "smollm-135m", "qwen2-7b", "mamba2-1.3b"]
-NOT_PORTED = ["dbrx-132b", "qwen3-moe-235b-a22b", "qwen2-vl-2b",
-              "recurrentgemma-2b", "whisper-base"]
+#: The families ported after the dense and SSM ones, each held to the
+#: reference in its own file (MoE: test_torch_moe.py; VLM, hybrid, audio:
+#: test_torch_{vlm,rglru,whisper}.py).
+LATER = ["dbrx-132b", "qwen3-moe-235b-a22b", "qwen2-vl-2b",
+         "recurrentgemma-2b", "whisper-base"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -347,25 +352,32 @@ def test_init_params_follows_reference_distributions(name):
     assert not torch.equal(ours["embed"], other["embed"])
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
+@pytest.mark.parametrize("name", LATER)
 def test_unported_families_raise(name):
-    """The families still unported raise naming the ROADMAP item.  The MoE
-    family is ported (tests/test_torch_moe.py holds it to the reference),
-    so its two configs give finite logits of the right shape instead; its
-    dense-only pins (decode against prefill) do not hold for MoE, which is
-    why these names stay out of ``PORTED``."""
+    """The families once unported here now run: each config gives finite
+    logits of the right shape through ``registry`` (the MoE family with
+    a load-balance loss).  Each is held to the reference in its own file
+    (tests/test_torch_moe.py, test_torch_vlm.py, test_torch_rglru.py,
+    test_torch_whisper.py); their dense-only pins (decode against prefill
+    with plain inputs) do not fit them, which is why these names stay out
+    of ``PORTED``.  An unknown family still raises."""
     cfg = tconfigs.ARCHS[name].smoke()
+    params = registry.init_params(cfg, 0, device="cpu")
+    batch = {"tokens": torch.zeros((1, 2), dtype=torch.long)}
+    L = 2
+    if cfg.family == "vlm":
+        batch["patches"] = torch.ones((1, 4, cfg.d_model))
+        L += 4
+    if cfg.family == "audio":
+        batch["frames"] = torch.ones((1, cfg.encoder_frames, cfg.d_model))
+    logits, aux = registry.forward(cfg, params, batch)
+    assert logits.shape == (1, L, cfg.vocab)
+    assert bool(logits.isfinite().all())
     if cfg.family == "moe":
-        params = registry.init_params(cfg, 0, device="cpu")
-        logits, aux = registry.forward(cfg, params, {
-            "tokens": torch.zeros((1, 2), dtype=torch.long)})
-        assert logits.shape == (1, 2, cfg.vocab)
-        assert bool(logits.isfinite().all()) and float(aux["moe_aux"]) > 0
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        registry.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        registry.forward(cfg, {}, {"tokens": torch.zeros((1, 2))})
+        assert float(aux["moe_aux"]) > 0
+    with pytest.raises(NotImplementedError, match="no model in the port"):
+        registry.init_params(dataclasses.replace(cfg, family="diffusion"), 0,
+                             device="cpu")
 
 
 def test_entry_points_default_to_the_card():

@@ -21,6 +21,8 @@ from dataclasses import replace
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 torch = pytest.importorskip("torch")
 
 import repro_torch.configs as tconfigs  # noqa: E402

@@ -4,6 +4,8 @@ is its ``exponential`` (XLA:CPU's float32 ``log1p``)."""
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 from hypothesis_compat import given, settings, st  # noqa: E402

@@ -9,6 +9,8 @@ service's; and the ring and latency classes against the reference's."""
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 

@@ -10,6 +10,8 @@ import dataclasses
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
@@ -113,10 +115,13 @@ def test_launcher_prints_the_references_rows(policy, capsys):
     assert len(want) == 10 and got == want
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "tinyllama-1.1b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "tinyllama-1.1b",
+                                  "qwen2-vl-2b", "recurrentgemma-2b",
+                                  "whisper-base"])
 def test_launcher_decode_demo(arch, capsys):
-    """``--decode-demo`` decodes 16 greedy tokens of the smoke model (MoE
-    or dense) after the router lines."""
+    """``--decode-demo`` decodes 16 greedy tokens of the smoke model (MoE,
+    dense, the VLM backbone, the hybrid or Whisper, unprimed as in the
+    reference's launcher) after the router lines."""
     tserve.main(["--arch", arch, "--requests", "20", "--policy", "random",
                  "--decode-demo", "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()

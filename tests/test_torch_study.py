@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
@@ -67,7 +69,12 @@ def _same(a, b, fields):
     for f in fields:
         x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
         assert x.dtype == y.dtype, f
-        assert np.array_equal(x, y), f
+        if not np.array_equal(x, y):
+            bad = np.argwhere(x != y)
+            i = tuple(bad[0])
+            raise AssertionError(
+                f"{f}: {len(bad)} of {x.size} values differ, first at {i}: "
+                f"expected {x[i]!r}, got {y[i]!r}")
 
 
 def _ledger(r):

@@ -18,6 +18,8 @@ import sys
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402

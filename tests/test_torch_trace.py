@@ -16,6 +16,8 @@ import json
 import numpy as np
 import pytest
 
+from _reference_cache import no_persistent_compile_cache  # noqa: F401
+
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
@@ -61,12 +63,26 @@ def _ledger(r):
     return (r.msgs_base, r.msgs_probe, r.msgs_push, r.msgs_flush)
 
 
+def _first_difference(f, a, b):
+    """The first task where plane ``f`` differs, with both values and
+    their bits, for the assertion message."""
+    bad = np.flatnonzero(~((a == b) | (np.isnan(a) & np.isnan(b)))
+                         if a.dtype.kind == "f" else a != b)
+    i = int(bad[0])
+    bits = "" if a.dtype.kind != "f" else (
+        f" (bits {a.view(np.uint32)[i]:#010x} / {b.view(np.uint32)[i]:#010x})"
+        if a.dtype == np.float32 else "")
+    return (f"{f}: {bad.size} of {a.size} tasks differ, first task {i}: "
+            f"reference {a[i]!r}, port {b[i]!r}{bits}")
+
+
 def _same(ref, got, fields=CORE + TRACE, ledger=True):
     for f in fields:
         a, b = getattr(ref, f), getattr(got, f)
         assert a is not None and b is not None, f
-        assert np.asarray(a).dtype == np.asarray(b).dtype, f
-        assert np.array_equal(np.asarray(a), np.asarray(b)), f
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype, f
+        assert np.array_equal(a, b), _first_difference(f, a, b)
     if ledger:
         assert _ledger(ref) == _ledger(got)
 
@@ -207,6 +223,17 @@ def test_traced_carry_round_trips(inputs):
     back = tsim.carry_from_numpy(leaves, device="cpu")
     for f, v in back._asdict().items():
         assert np.array_equal(v.numpy(), leaves[f]), f
+
+
+def test_module_writes_no_compile_cache_entries():
+    """F5 and F6 (ROADMAP §3): while a port test module runs, JAX neither
+    reads nor writes the persistent compilation cache
+    (``_reference_cache``), so every reference executable it runs is
+    compiled in this process, on this host."""
+    from jax._src import compilation_cache
+
+    assert not jax.config.jax_enable_compilation_cache
+    assert not compilation_cache.is_cache_used(jax.devices()[0].client)
 
 
 # ----------------------------------------------------------- cache faults

@@ -41,10 +41,11 @@ _QK = ("        if (kLoQ) mma_tf32(s[n], al, kf.x, kf.y);\n"
 _PV = ("        mma_tf32(acc[n], pl, b0.x, b1.x);\n"
        "        if (lo_kv) mma_tf32(acc[n], ph, b0.y, b1.y);\n"
        "        mma_tf32(acc[n], ph, b0.x, b1.x);\n")
-_SPLIT_LOOP = ("  for (int idx = threadIdx.x; idx < kBKA * D / 4; "
+_SPLIT_LOOP = ("  for (int idx = threadIdx.x; idx < bka<D>() * D / 4; "
                "idx += kThreadsA) {")
 _SPLIT_UNROLLED = ("#pragma unroll\n"
-                   "  for (int i = 0; i < kBKA * D / 4 / kThreadsA; ++i) {\n"
+                   "  for (int i = 0; i < bka<D>() * D / 4 / kThreadsA; ++i)"
+                   " {\n"
                    "    const int idx = threadIdx.x + i * kThreadsA;")
 _EXP2 = "s[n][c] = ok ? exp2f(s[n][c] - m[c >> 1]) : 0.0f;"
 _EX2_APPROX = ("s[n][c] = ok ? [](float x) { float y; "
