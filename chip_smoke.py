@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs twenty-five phases; any failure raises and exits non-zero
+package, and runs twenty-six phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
@@ -240,6 +240,26 @@ package, and runs twenty-five phases; any failure raises and exits non-zero
    K7 launch an attention call a step); a copy card against CPU (2
    layers; recurrentgemma one (R, R, A) block on 300 tokens; whisper two
    encoder and two decoder layers) within 1e-4 of the largest |logit|.
+26. training — (a) K7's backward (``flash_attention`` under autograd, one
+   forward and one backward launch, and ``flash_attention_bwd``) against
+   ``attention_bwd_ref`` on the card in float32 at ``K7_BWD_CASES`` (GQA,
+   Lq < Lk, a window, non-causal, ragged, D = 32 / 64 / 128, two runs of
+   rows) and ``K7_BWD_TIMED`` (tinyllama-1.1b's and qwen3-moe's prefill):
+   each of dq, dk, dv within 2e-4·|ref| + 2e-5·max|ref|, two calls bit for
+   bit, timed beside the plain version and SDPA's backward; a bf16 call,
+   head width 256, ``kv_last`` and K8 (``ssd``) under grad each raise
+   before any launch; (b) tinyllama-1.1b trained at full width and depth
+   (``TRAIN_STEPS`` steps of ``SyntheticLM`` 4 × 1024, lr 1e-3 on the
+   cosine schedule, remat): finite losses, the last below the first, K7
+   launches 2 × 22 forward and 22 backward a step, ms a step, tokens/s
+   and peak memory; (c) a 2-layer copy of those weights, one step's loss
+   (1e-5 relative) and gradients (1e-4 of each leaf's largest value) on
+   the card against the CPU; (d) ``repro_torch.launch.train`` twice on
+   smollm-135m at full width (``LAUNCH_LAYERS`` deep; 8 × 256, 30 steps,
+   a checkpoint every 10, a failure at 15): the losses bit for bit, and
+   the state saved at step 20 restored bit for bit; (e) tinyllama-1.1b's
+   ``forward`` under ``precision.options(dtype=torch.bfloat16)``: finite
+   logits, argmax equal to float32's on ≥ 0.9 of positions, both timed.
 
 The edge cases of the decision template (K1–K4 share it) hold the kernel
 to its plain version, every output exact, at (T, N) = (50, 1), (50, 31),
@@ -261,7 +281,7 @@ after: one launch per block.
 It prints the card's name and power limit, every phase's wall time, a
 ``profile`` JSON line of phase 20's readings, phase 21's
 ``message_reduction`` line and phase 22's ``message_reduction_batched``
-line, the readings of phases 23 to 25, a JSON line of per-kernel
+line, the readings of phases 23 to 26, a JSON line of per-kernel
 measurements, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -287,6 +307,7 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dodoor_fused_sparse.cu"
 KERNEL_SOURCES = {
     "rl_score_matrix": "src/repro_torch/kernels/csrc/rl_score.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
 }
 KERNEL_REPLACES = {
@@ -302,6 +323,9 @@ KERNEL_REPLACES = {
     "dodoor_fused_masked": "src/repro/kernels/dodoor_choice/kernel.py:313",
     "rl_score_matrix": "src/repro/kernels/rl_score/kernel.py:38",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:87",
+    # K7's backward: the Pallas kernel has no backward (no custom_vjp);
+    # the reference differentiates its jnp attention instead.
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:87",
     "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:65",
 }
 #: K3's penalty per remote MB in phase 8: γ/bandwidth = 0.7/1.3, which is
@@ -3664,6 +3688,389 @@ def families_phase(torch) -> tuple:
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 26: training (K7's backward, tinyllama-1.1b, the train launcher)
+# --------------------------------------------------------------------------
+
+#: K7's backward against ``attention_bwd_ref``: (B, H, Hkv, Lq, Lk, D,
+#: causal, window) — the reference's GQA pin, Lq < Lk (24/56), window 16,
+#: non-causal D = 128, ragged 100-row tiles, D = 32 / 64 / 128, then
+#: timed at tinyllama-1.1b's prefill and at qwen3-moe's (D = 128).
+K7_BWD_CASES = [
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 4, 1, 24, 56, 32, True, None),
+    (1, 2, 2, 128, 256, 64, True, 16),
+    (1, 2, 2, 64, 64, 128, False, None),
+    (1, 4, 2, 100, 100, 32, True, None),
+    (2, 8, 2, 100, 300, 128, False, 40),
+    (1, 8, 1, 150, 260, 32, True, 30),      # two runs of rows (dk/dv)
+]
+K7_BWD_TIMED = [(4, 32, 4, 1024, 1024, 64, True, None),
+                (4, 64, 4, 1024, 1024, 128, True, None)]
+#: |Δ| ≤ rtol·|ref| + atol·max|ref| for each of dq, dk, dv: float32 sums
+#: of up to a few thousand products in another order than the plain
+#: version's einsums.
+K7_BWD_RTOL, K7_BWD_ATOL_OF_MAX = 2e-4, 2e-5
+#: (b): tinyllama-1.1b at full width and depth, B × L tokens a step.
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH = (4, 1024)
+TRAIN_STEPS = 8
+#: (c): the 2-layer copy, card against CPU.
+TRAIN_COPY = (2, 256)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_OF_MAX = 1e-4
+#: (d): the launcher's call, run twice, on smollm-135m at full width
+#: (d 576, vocab 49152) cut to LAUNCH_LAYERS of its 30 layers: its
+#: checkpoints (1.6 GB of float32 parameters and moments at 30 layers)
+#: took 2.4 s to write and 4.3 s to read back on the card's machine, and
+#: with them phase 26 ran 77.5 s against the 60 s it may take.
+LAUNCH_ARCH = "smollm-135m"
+LAUNCH_LAYERS = 10
+LAUNCH_ARGV = ["--arch", LAUNCH_ARCH, "--steps", "30", "--batch", "8",
+               "--seq", "256", "--ckpt-every", "10", "--fail-at", "15:4",
+               "--log-every", "100"]
+#: (e): argmax agreement of the bf16 forward with the float32 one, and
+#: |Δlogit| against the largest float32 |logit| (the bound
+#: tests/test_torch_precision.py holds on the CPU).
+BF16_ARGMAX_SHARE = 0.9
+BF16_LOGIT_OF_MAX = 2e-2
+
+
+def k7_bwd_inputs(torch, B, H, Hkv, Lq, Lk, D):
+    rng = np.random.RandomState(B + H + Lq + Lk + D)
+    return [torch.from_numpy(rng.randn(*s).astype(np.float32) * sc).cuda()
+            for s, sc in (((B, H, Lq, D), 0.5), ((B, Hkv, Lk, D), 0.5),
+                          ((B, Hkv, Lk, D), 1.0), ((B, H, Lq, D), 1.0))]
+
+
+def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
+                timed: bool = False):
+    """K7's backward through autograd (``flash_attention`` then
+    ``backward``: one forward and one backward launch) and through its
+    wrapper, against ``attention_bwd_ref`` on the card; with ``timed``
+    also two calls bit for bit, and the kernel, the plain version and
+    SDPA's backward (``torch.autograd.grad`` on a retained graph) timed.
+    Returns a kernels-line row (timed) or None."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, flash_attention, flash_attention_bwd)
+
+    q, k, v, do = k7_bwd_inputs(torch, B, H, Hkv, Lq, Lk, D)
+    want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    LAUNCHES.clear()
+    o = flash_attention(qg, kg, vg, causal=causal, window=window)
+    o.backward(do)
+    torch.cuda.synchronize()
+    check(dict(LAUNCHES) == {"flash_attention": 1, "flash_attention_bwd": 1},
+          f"flash_attention backward: launches {dict(LAUNCHES)}")
+    shape = (f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} D={D} causal={causal} "
+             f"window={window}")
+    err = 0.0
+    o = o.detach()
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    for name, a, b, w in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad),
+                             got, want):
+        atol = K7_BWD_ATOL_OF_MAX * float(w.abs().max())
+        err = max(err, close(f"flash_attention_bwd {shape} {name}", b, w,
+                             rtol=K7_BWD_RTOL, atol=atol))
+        check(torch.equal(a, b), f"flash_attention_bwd {shape} {name}: "
+              f"autograd and the wrapper differ")
+    if not timed:
+        print(f"kernel flash_attention_bwd {shape}: max |Δ| {err:.3g} "
+              f"(within rtol {K7_BWD_RTOL} + {K7_BWD_ATOL_OF_MAX} of max)",
+              flush=True)
+        return None
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd {shape}: two calls differ")
+    ms = event_ms(torch, lambda: flash_attention_bwd(
+        q, k, v, o, do, causal=causal, window=window), reps=20)
+    plain_ms = event_ms(torch, lambda: attention_bwd_ref(
+        q, k, v, do, causal=causal, window=window), reps=10, warmup=2)
+    lib_ms = None
+    if causal and Lq == Lk and window is None:
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+        lib_ms = event_ms(torch, lambda: torch.autograd.grad(
+            os_, (qs, ks, vs), do, retain_graph=True), reps=20)
+    qpos = np.arange(Lq)[:, None] + (Lk - Lq)
+    kpos = np.arange(Lk)[None, :]
+    mask = np.ones((Lq, Lk), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    pairs = int(mask.sum())
+    # q, o, dO read and dq written; k, v read and dk, dv written; 10·D
+    # flops an unmasked pair (q·k, dO·v, P·dO, dS·k, dS·q).  The card's
+    # fastest float32-accurate product is three TF32 MMAs (lo·hi, hi·lo,
+    # hi·hi), as K7's forward runs it (``k7_ops``), so the bound counts 3
+    # terms a product at the TF32 rate; the CUDA cores' float32 rate, which
+    # these kernels run at, is printed beside it.
+    nbytes = 4 * (4 * B * H * Lq + 4 * B * Hkv * Lk) * D
+    flops = 10 * D * B * H * pairs
+    row = row_of("flash_attention_bwd", B * H, Lk, ms, plain_ms, nbytes,
+                 3 * flops, err, library_ms=lib_ms, op_rate=TF32_OPS_PER_S,
+                 Lq=Lq, D=D, rep=H // Hkv)
+    print(f"kernel flash_attention_bwd {shape}: {flops / ms / 1e9:.2f} T "
+          f"op/s float32; {row['bound_ms'] / ms:.4f} of the 3xTF32 bound; "
+          f"bound on the CUDA cores {flops / FP32_OPS_PER_S * 1e6:.3f} us; "
+          f"two calls bit for bit", flush=True)
+    return row
+
+
+def k7_bwd_refusals(torch) -> None:
+    """What the card cannot differentiate raises before any launch: a
+    bf16 call, head width 256, ``kv_last`` under grad, and K8 (``ssd``)
+    under grad."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd
+
+    def refused(name, fn):
+        LAUNCHES.clear()
+        try:
+            fn()
+        except NotImplementedError as e:
+            check(not LAUNCHES, f"{name}: launched {dict(LAUNCHES)} before "
+                  f"refusing")
+            print(f"refused {name}: {e}", flush=True)
+            return
+        raise RuntimeError(f"chip_smoke: {name} did not raise")
+
+    def attn(D, dtype, last=False):
+        q, k, v, _ = k7_bwd_inputs(torch, 1, 2, 1, 8, 8, D)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        kv = (k[:, :, -1:].clone(), v[:, :, -1:].clone()) if last else None
+        return lambda: flash_attention(q.requires_grad_(True), k, v,
+                                       kv_last=kv)
+
+    refused("bf16 backward", attn(64, torch.bfloat16))
+    refused("D = 256 backward", attn(256, torch.float32))
+    refused("kv_last with grad", attn(64, torch.float32, last=True))
+    x = torch.randn(1, 64, 2, 16, device="cuda", requires_grad=True)
+    dt = torch.rand(1, 64, 2, device="cuda")
+    Bm = torch.randn(1, 64, 1, 32, device="cuda")
+    refused("ssd with grad", lambda: ssd(x, dt, -torch.rand(2, device="cuda"),
+                                         Bm, Bm, chunk=64))
+
+
+def train_run(torch, cfg, holder: dict) -> dict:
+    """(b): ``TRAIN_STEPS`` steps of ``make_train_step`` (remat on, lr 1e-3
+    on the cosine schedule) on ``SyntheticLM`` batches, the launches set to
+    0 just before and read just after.  The initial parameters come in
+    ``holder["params"]``, which is emptied, so that each step's old
+    state is freed and the peak memory is the loop's own."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.train import make_train_step
+
+    B, L = TRAIN_BATCH
+    params = holder.pop("params")
+    data = SyntheticLM(cfg.vocab, L, B, seed=0, device="cuda")
+    step_fn = make_train_step(cfg, lr=cosine_schedule(
+        1e-3, warmup=5, total=TRAIN_STEPS), remat=True)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    losses, walls = [], []
+    for step in range(TRAIN_STEPS):
+        batch = data.batch(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    check(counts == want, f"training: launches {counts}, want {want} (a "
+          f"forward and a remat recompute a layer-step, one backward)")
+    check(all(np.isfinite(losses)), f"training: losses {losses}")
+    check(losses[-1] < losses[0], f"training: loss {losses[0]} → "
+          f"{losses[-1]} did not fall")
+    ms = 1e3 * float(np.median(walls[1:]))
+    print(f"train {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"batch {B} x {L}, {TRAIN_STEPS} steps (remat): losses "
+          f"{[round(x, 4) for x in losses]}; {ms:.1f} ms a step (median of "
+          f"steps 1-{TRAIN_STEPS - 1}; first {walls[0] * 1e3:.1f} ms), "
+          f"{B * L / ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 1e9:.2f} GB, launches {counts}", flush=True)
+    return {"params": params, "counts": counts, "ms": ms, "peak": peak}
+
+
+def train_copy(torch, cfg, params) -> None:
+    """(c): a 2-layer copy of the weights, one step's loss and gradients
+    (``loss_and_grads``) on the card against the CPU."""
+    from dataclasses import replace
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import loss_and_grads
+
+    cfg2 = replace(cfg, n_layers=2)
+    p2 = dict(params, layers=tree_map(lambda a: a[:2].clone(),
+                                      params["layers"]))
+    B, L = TRAIN_COPY
+    batch = SyntheticLM(cfg.vocab, L, B, seed=5, device="cuda").batch(0)
+    total, ce, g_card = loss_and_grads(cfg2, p2, batch)
+    t0 = time.perf_counter()
+    cpu_total, cpu_ce, g_cpu = loss_and_grads(
+        cfg2, tree_map(lambda a: a.cpu(), p2),
+        {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    rel = abs(float(ce) - float(cpu_ce)) / abs(float(cpu_ce))
+    check(rel <= TRAIN_LOSS_RTOL, f"train copy: loss {float(ce)!r} on the "
+          f"card, {float(cpu_ce)!r} on the CPU (rel {rel:.3g})")
+    worst = 0.0
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        scale = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max())
+        check(err <= TRAIN_GRAD_OF_MAX * scale, f"train copy: a gradient "
+              f"leaf {tuple(b.shape)} differs by {err:.3g} (max {scale:.3g})")
+        worst = max(worst, err / max(scale, 1e-30))
+    print(f"train 2-layer copy card vs CPU on {B} x {L} tokens: loss "
+          f"{float(ce):.6f} / {float(cpu_ce):.6f} (rel {rel:.3g}); "
+          f"gradients within {worst:.3g} of each leaf's largest value; CPU "
+          f"run {cpu_s:.1f} s", flush=True)
+
+
+def launcher_train_runs(torch) -> None:
+    """(d): ``repro_torch.launch.train.main`` twice at full width
+    (``LAUNCH_LAYERS`` deep) with a checkpoint every 10 steps and a
+    failure at 15: the losses bit for bit (R5 replayed: 35 steps), and the
+    state saved at step 20 restored bit for bit."""
+    import shutil
+    from dataclasses import replace
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves
+
+    saved, io_s = {}, {"save": 0.0, "restore": 0.0}
+    save, restore = Checkpointer.save, Checkpointer.restore
+
+    def recording(self, step, tree):
+        # The train step builds a new state each step and never writes
+        # into an old one, so the saved tensors are kept as they are.
+        saved[step] = tree
+        t0 = time.perf_counter()
+        out = save(self, step, tree)
+        io_s["save"] += time.perf_counter() - t0
+        return out
+
+    def timed_restore(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = restore(self, *args, **kw)
+        io_s["restore"] += time.perf_counter() - t0
+        return out
+
+    runs = []
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    archs = train.ARCHS
+    train.ARCHS = dict(archs, **{LAUNCH_ARCH: replace(
+        archs[LAUNCH_ARCH], n_layers=LAUNCH_LAYERS)})
+    Checkpointer.save, Checkpointer.restore = recording, timed_restore
+    try:
+        for _ in range(2):
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            t0 = time.perf_counter()
+            losses = train.main(LAUNCH_ARGV + ["--ckpt-dir", ckpt_dir])
+            torch.cuda.synchronize()
+            runs.append((losses, time.perf_counter() - t0))
+    finally:
+        Checkpointer.save, Checkpointer.restore = save, restore
+        train.ARCHS = archs
+    (a, wall_a), (b, wall_b) = runs
+    check(len(a) == 35, f"launcher: {len(a)} losses, want 35 (steps 0-14, "
+          f"then 10-29 after the restore)")
+    check(a == b, f"launcher: two runs' losses differ:\n{a}\n{b}")
+    restored, _ = Checkpointer(ckpt_dir).restore(saved[20], step=20)
+    check(all(torch.equal(x, y) for x, y in zip(tree_leaves(restored),
+                                                tree_leaves(saved[20]))),
+          "launcher: the restored state differs from the saved one")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"launcher {LAUNCH_ARCH} ({LAUNCH_LAYERS} layers): 2 runs of "
+          f"{len(a)} steps, losses bit for bit ({a[0]:.4f} → {a[-1]:.4f}); "
+          f"the state saved at step 20 restored bit for bit; {wall_a:.1f} / "
+          f"{wall_b:.1f} s a run, of which checkpoint writes "
+          f"{io_s['save']:.1f} s and reads {io_s['restore']:.1f} s over both",
+          flush=True)
+
+
+def bf16_forward(torch, cfg, params) -> None:
+    """(e): ``forward`` under ``precision.options(dtype=bf16)`` beside the
+    float32 one: finite logits, the largest |Δlogit| against the largest
+    |logit|, the argmax share and the distinct argmax tokens (a share
+    over near-constant argmaxes says little), both times."""
+    from repro_torch.models import precision, registry
+
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab, TRAIN_BATCH)).cuda()
+    out = {}
+    with torch.no_grad():
+        for name, dtype in (("float32", None), ("bf16", torch.bfloat16)):
+            with precision.options(dtype=dtype):
+                registry.forward(cfg, params, {"tokens": tokens[:1, :64]})
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = registry.forward(cfg, params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                out[name] = ((time.perf_counter() - t0) * 1e3, logits)
+                del logits
+    (bf_ms, bf), (f32_ms, f32) = out["bf16"], out["float32"]
+    finite = bool(bf.isfinite().all()) and bool(f32.isfinite().all())
+    top = float(f32.abs().max())
+    diff = float((bf.float() - f32).abs().max())
+    pick = f32.argmax(-1)
+    share = float((bf.argmax(-1) == pick).float().mean())
+    distinct = int(pick.unique().numel())
+    print(f"bf16 forward {cfg.name} on {TRAIN_BATCH[0]} x {TRAIN_BATCH[1]}: "
+          f"{bf_ms:.1f} ms against {f32_ms:.1f} ms in float32; max |Δlogit| "
+          f"{diff:.4g} = {diff / top:.4g} of max |logit| {top:.4g}; argmax "
+          f"agrees on {share:.4f} of positions, {distinct} distinct float32 "
+          f"argmax tokens of {pick.numel()}", flush=True)
+    check(finite, "bf16 forward: non-finite logits")
+    check(diff <= BF16_LOGIT_OF_MAX * top, f"bf16 forward: max |Δlogit| "
+          f"{diff:.4g} above {BF16_LOGIT_OF_MAX} of max |logit| {top:.4g}")
+    check(share >= BF16_ARGMAX_SHARE, f"bf16 forward: argmax agrees with "
+          f"float32 on {share:.3f} of positions (bound {BF16_ARGMAX_SHARE})")
+
+
+def training_phase(torch) -> tuple:
+    """Phase 26: (a) K7's backward against its plain version and its
+    refusals, (b) tinyllama-1.1b training, (c) its 2-layer copy card
+    against CPU, (d) the launcher twice, (e) the bf16 forward.  Returns
+    (K7 forward launches, K7 backward launches, backward rows)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import registry
+
+    no_tf32(torch)
+    for case in K7_BWD_CASES:
+        k7_bwd_case(torch, *case)
+    rows = [k7_bwd_case(torch, *case, timed=True) for case in K7_BWD_TIMED]
+    k7_bwd_refusals(torch)
+    torch.cuda.empty_cache()
+    cfg = ARCHS[TRAIN_ARCH]
+    params = registry.init_params(cfg, 0, device="cuda")
+    train_copy(torch, cfg, params)
+    holder = {"params": params}
+    del params
+    run = train_run(torch, cfg, holder)
+    bf16_forward(torch, cfg, run.pop("params"))
+    torch.cuda.empty_cache()
+    launcher_train_runs(torch)
+    return (run["counts"]["flash_attention"],
+            run["counts"]["flash_attention_bwd"], rows)
+
+
 def head_of(res, k: int):
     """A result's tasks from ``k`` on, ledger kept."""
     arrays = {f: getattr(res, f)[k:] for f in ("server",) + TIME_PLANES}
@@ -3677,7 +4084,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-25) to run after "
+                    help="comma-separated phase numbers (2-26) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -3752,21 +4159,23 @@ def main(argv=None) -> int:
     phase("23 trace, cache faults and grids", observability_phase)
     moe = phase("24 MoE serving and the serve launcher", moe_phase)
     fam = phase("25 VLM, hybrid and audio serving", families_phase)
+    train = phase("26 training", training_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "
               "result)", flush=True)
         return 0
 
-    launches["flash_attention"] += moe[0] + fam[0]
+    launches["flash_attention"] += moe[0] + fam[0] + train[0]
+    launches["flash_attention_bwd"] = train[1]
     launches["dodoor_choice"] = k5[1]
     launches.update(k4[1])
     launches["rl_score_matrix"] = k6[1]
     kernels = []
-    # Each kernel's row at its largest shape (K6 at K = 2; K7 at
-    # tinyllama-1.1b's prefill, K8 at mamba2-1.3b's forward).
+    # Each kernel's row at its largest shape (K6 at K = 2; K7 and its
+    # backward at tinyllama-1.1b's prefill, K8 at mamba2-1.3b's forward).
     for big in (k1[-1], k2[-1], k3[3], k3[-1], k5[0][-1], k4[0][2],
-                k4[0][-1], k6[0][2], k7[0], k8[0]):
+                k4[0][-1], k6[0][2], k7[0], k8[0], train[2][0]):
         kernels.append({
             "name": big["name"], "route": "cuda",
             "source": KERNEL_SOURCES.get(big["name"], KERNEL_SOURCE),

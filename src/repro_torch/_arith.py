@@ -18,7 +18,11 @@ matches both:
   of them); each sum runs left to right — :func:`row_sum`;
 * float32 ``log1p`` is XLA:CPU's own expansion, neither correctly rounded
   nor torch's: a rational function for small arguments and a polynomial
-  ``log`` after a mantissa/exponent split otherwise — :func:`log1p`.
+  ``log`` after a mantissa/exponent split otherwise — :func:`log1p`; and
+  float32 ``log`` is that polynomial (:func:`log`; ≈ 14 % of uniform
+  draws differ from ``torch.log`` by an ulp);
+* ``sqrt`` is correctly rounded, which the CPU build of ``torch.sqrt``
+  is not on ≈ 0.7 % of arguments — :func:`sqrt`.
 
 These were measured against ``jax.jit`` on the CPU backend (JAX 0.9) and
 are pinned by ``tests/test_torch_core.py``.
@@ -51,6 +55,28 @@ def fma(a, b, c) -> torch.Tensor:
     mid = (s.view(torch.int64) & _MID_MASK) == _MID_BIT
     s = torch.where(mid & (err != 0), torch.nextafter(s, s + err), s)
     return s.float()
+
+
+def madd(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` where the reference contracts it: on the CPU
+    :func:`fma` (bit for bit, in float64); on the card one
+    ``torch.addcmul``, the card's own multiply-add (the float64 replay
+    costs several passes over each tensor there)."""
+    dev = next(x.device for x in (a, b, c) if isinstance(x, torch.Tensor))
+    if dev.type == "cpu":
+        return fma(a, b, c)
+    a, b, c = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+               for x in (a, b, c))
+    return torch.addcmul(c, a, b)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root: on the CPU through float64
+    (exact after one rounding, since 53 ≥ 2·24 + 2 bits), on the card
+    ``torch.sqrt`` (IEEE there)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def dot_fma(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -118,8 +144,11 @@ _LN2_LO, _LN2_HI = _f32(0xB95E8083), _f32(0x3F318000)
 _FLT_MIN = _f32(0x00800000)
 
 
-def _log_poly(y: torch.Tensor) -> torch.Tensor:
-    """float32 log(y) for y > 0 finite, as XLA:CPU evaluates it."""
+def log(y: torch.Tensor) -> torch.Tensor:
+    """float32 ``log(y)`` for y in [FLT_MIN, +inf) as XLA:CPU evaluates it:
+    :func:`log1p`'s large branch, and ``jnp.log`` itself (the reference's
+    ``jax.random.gumbel`` is ``-log(-log(u))``); pinned against
+    ``jax.jit(jnp.log)`` by ``tests/test_torch_data.py``."""
     y = torch.clamp_min(y, _FLT_MIN)
     bits = y.view(torch.int32)
     e = ((bits >> 23) - 127).float() + 1.0
@@ -153,4 +182,4 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
     for coef in _NUM[1:]:
         num = fma(num, x, coef)
     small = fma(z2, -0.5, (x * z2) * (num / den)) + x
-    return torch.where(x.abs() < _SMALL_MAX, small, _log_poly(1.0 + x))
+    return torch.where(x.abs() < _SMALL_MAX, small, log(1.0 + x))

@@ -94,6 +94,9 @@
 //    type.
 //
 // No atomics and a fixed order of every sum: two calls give the same bits.
+//
+// The backward (flash_attention_bwd_launch, float32, D <= 128) is four
+// more kernels at the end of this file; its note is there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -993,6 +996,528 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
          (s1 * elt) % 16 == 0 && (s2 * elt) % 16 == 0;
 }
 
+// ------------------------------------------------------------- backward
+//
+// The gradients of o = softmax(q k^T * scale, masked) v for an output
+// gradient dO, with P the softmax:
+//   dV = P^T dO,  dP = dO V^T,  Delta = rowsum(dO * o),
+//   dS = P * (dP - Delta),  dQ = scale dS K,  dK = scale dS^T Q,
+// dK and dV summed over the rep query heads of each key/value head.  The
+// reference's Pallas kernel has no custom_vjp, so there is no TPU
+// backward to replace: the reference trains through its jnp attention,
+// and this backward lets the port train through K7.  Float32 operands,
+// every product an fmaf (the file is built with -fmad=false), no atomics
+// and a fixed order of every sum, so two calls give the same bits:
+//   1. stats: a block per (b, hk, tile of 64 flattened rows) walks the
+//      keys its rows see and writes each row's log2-sum-exp of the logits
+//      scaled by scale * log2(e), and Delta (the forward writes no lse);
+//   2. dk/dv: a block per (b, hk, tile of 64 keys, run of up to
+//      ceil(rep * Lq / runs) flattened rows, `runs` as the caller plans
+//      it) walks the rows of its run that see any
+//      of its keys (all rep heads of the group) and keeps its keys' dK and
+//      dV in registers.  Under a causal mask the first key tiles are seen
+//      by every row and the last by few, so one block a key tile would
+//      leave the card waiting on the first ones: the rows are cut into
+//      runs of equal length instead.  With one run a block writes dK, dV;
+//      with more, each run writes its partial sums to a scratch slot (zeros
+//      for a run that sees none of the tile's keys) and
+//   3. a reduction adds the runs' partials in run order;
+//   4. dq: a block per (b, hk, tile of 64 flattened rows) walks the keys
+//      its rows see, as the stats pass did, and writes dQ once.
+// Rows are flattened position-major as in the forward (row f is position
+// f / rep of head hk * rep + f % rep).  A block is 256 threads, 16 x 16;
+// thread (ty, tx) computes the 4 x 4 logits of rows ty + 16 i and keys
+// tx + 16 j of a 64 x 64 tile, reading float4s along D from row-major
+// tiles of D + 4 words a row (conflict-free for a quarter warp's eight
+// rows), and accumulates its 4 x D/16 outputs (rows or keys ty + 16 i,
+// dims tx * D/16 ...).  Masks are evaluated only on tiles that cross the
+// causal diagonal, a window edge or a ragged end.  Bound on this card:
+// 10 * D flops an unmasked (query, key) pair against q, k, v, o, dO read
+// and dq, dk, dv written once, so arithmetic: float32-accurate products
+// run fastest as three TF32 MMAs each (495 T op/s, 165 effective), as the
+// forward runs them; these passes run on the CUDA cores (67 T op/s) and
+// do 16 * D (the logits three times, dO V^T twice).  Head widths 32, 64
+// and 128.
+
+constexpr int kBT = 64;             // backward: rows and keys a tile
+constexpr int kThreadsBwd = 256;    // 16 x 16 threads
+
+struct BwdArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* dO;
+  float* dq;     // [B, H, Lq, D] contiguous
+  float* dk;     // [B, Hkv, Lk, D] contiguous
+  float* dv;
+  float* lse;    // [B, H, Lq]: log2-sum-exp of the scaled logits
+  float* delta;  // [B, H, Lq]: rowsum(dO * o)
+  float* part;   // runs > 1: [2, runs, B, Hkv, Lk, D] partial dK, dV
+  int B, H, Hkv, Lq, Lk;
+  long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl;
+  long long dsb, dsh, dsl;
+  int causal, window;  // window <= 0: none
+  float scale;
+  int runs;  // dk/dv: runs of ceil(rep * Lq / runs) flattened rows
+};
+
+template <int D>
+__host__ __device__ constexpr int bwd_ld() { return D + 4; }
+
+// Rows [f0, f0 + 64) of a group's flattened query rows of a [B, H, Lq, D]
+// tensor at `src` (batch offset applied) into a row-major tile; zeros for
+// rows at or past `rows`.
+template <int D>
+__device__ void bwd_load_rows(float* dst, const float* src, long long sh,
+                              long long sl, int hk, int rep, int f0,
+                              int rows) {
+  for (int e = threadIdx.x; e < kBT * D; e += kThreadsBwd) {
+    const int r = e / D, d = e % D, f = f0 + r;
+    float x = 0.0f;
+    if (f < rows)
+      x = src[(hk * rep + f % rep) * sh + static_cast<long long>(f / rep) * sl +
+              d];
+    dst[r * bwd_ld<D>() + d] = x;
+  }
+}
+
+// Keys [j0, j0 + 64) of one head of a [B, Hkv, Lk, D] tensor at `src`
+// (batch and head offsets applied); zeros past Lk.
+template <int D>
+__device__ void bwd_load_keys(float* dst, const float* src, long long sl,
+                              int j0, int Lk) {
+  for (int e = threadIdx.x; e < kBT * D; e += kThreadsBwd) {
+    const int r = e / D, d = e % D, j = j0 + r;
+    dst[r * bwd_ld<D>() + d] =
+        j < Lk ? src[static_cast<long long>(j) * sl + d] : 0.0f;
+  }
+}
+
+// s[i][j] = A[ty + 16 i] . Bm[tx + 16 j] over D, fmaf in order of d.
+template <int D>
+__device__ __forceinline__ void bwd_dot(const float* A, const float* Bm,
+                                        float (&s)[4][4], int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * bwd_ld<D>() +
+                                              d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      y[j] = *reinterpret_cast<const float4*>(Bm + (tx + 16 * j) * bwd_ld<D>() +
+                                              d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float acc = s[i][j];
+        acc = fmaf(x[i].x, y[j].x, acc);
+        acc = fmaf(x[i].y, y[j].y, acc);
+        acc = fmaf(x[i].z, y[j].z, acc);
+        acc = fmaf(x[i].w, y[j].w, acc);
+        s[i][j] = acc;
+      }
+  }
+}
+
+// The absolute positions of a thread's four rows ty + 16 i of the tile of
+// flattened rows from f0; a row at or past `rows` gets INT_MIN (it sees no
+// key).
+__device__ __forceinline__ void bwd_row_pos(const BwdArgs& a, int f0, int rep,
+                                            int rows, int ty, int (&ap)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int f = f0 + ty + 16 * i;
+    ap[i] = f < rows ? f / rep + (a.Lk - a.Lq) : -0x7fffffff - 1;
+  }
+}
+
+// Whether the row at absolute position ap sees key j (ap = INT_MIN: none).
+__device__ __forceinline__ bool bwd_sees(const BwdArgs& a, int ap, int j) {
+  return ap >= 0 && j < a.Lk && (!a.causal || j <= ap) &&
+         (a.window <= 0 || j > ap - a.window);
+}
+
+// Whether every (row, key) pair of rows [f0, f0 + 64) and keys [j0, j0 +
+// 64) is visible, so that a tile needs no mask.
+__device__ __forceinline__ bool bwd_tile_full(const BwdArgs& a, int rep,
+                                              int rows, int f0, int j0) {
+  const int off = a.Lk - a.Lq;
+  const int ap_lo = f0 / rep + off, ap_hi = (f0 + kBT - 1) / rep + off;
+  return f0 + kBT <= rows && j0 + kBT <= a.Lk &&
+         (!a.causal || j0 + kBT - 1 <= ap_lo) &&
+         (a.window <= 0 || j0 > ap_hi - a.window);
+}
+
+// The keys [lo, hi) that any of the flattened rows [f0, f_last] sees.
+__device__ __forceinline__ void bwd_keys(const BwdArgs& a, int rep, int f0,
+                                         int f_last, int& lo, int& hi) {
+  const int off = a.Lk - a.Lq;
+  lo = a.window > 0 ? max(0, f0 / rep + off - a.window + 1) : 0;
+  hi = a.causal ? min(a.Lk, f_last / rep + off + 1) : a.Lk;
+}
+
+// The (b, hk) group and the row tile of a stats or dq block: groups
+// fastest, the last row tiles (which see the most keys) first.
+struct BwdRowTile {
+  int b, hk, rep, rows, f0, f_last;
+};
+__device__ __forceinline__ BwdRowTile bwd_row_tile(const BwdArgs& a) {
+  BwdRowTile t;
+  const int groups = a.B * a.Hkv;
+  t.rep = a.H / a.Hkv;
+  t.rows = t.rep * a.Lq;
+  const int ntiles = (t.rows + kBT - 1) / kBT;
+  const int g = blockIdx.x % groups;
+  t.b = g / a.Hkv;
+  t.hk = g % a.Hkv;
+  t.f0 = (ntiles - 1 - static_cast<int>(blockIdx.x) / groups) * kBT;
+  t.f_last = min(t.f0 + kBT, t.rows) - 1;
+  return t;
+}
+
+// Index into [B, H, Lq] of flattened row f of group (b, hk).
+__device__ __forceinline__ long long bwd_row(const BwdArgs& a, int b, int hk,
+                                             int rep, int f) {
+  return (static_cast<long long>(b) * a.H + hk * rep + f % rep) * a.Lq +
+         f / rep;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsBwd)
+    attn_bwd_stats_kernel(const BwdArgs a) {
+  extern __shared__ uint4 smem_u4[];
+  float* Qs = reinterpret_cast<float*>(smem_u4);
+  float* Ks = Qs + kBT * bwd_ld<D>();
+  const BwdRowTile t = bwd_row_tile(a);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  bwd_load_rows<D>(Qs, a.q + t.b * a.qsb, a.qsh, a.qsl, t.hk, t.rep, t.f0,
+                   t.rows);
+  int ap[4];
+  bwd_row_pos(a, t.f0, t.rep, t.rows, ty, ap);
+  int lo, hi;
+  bwd_keys(a, t.rep, t.f0, t.f_last, lo, hi);
+  const float c = a.scale * kLog2e;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.0f;
+  }
+  const float* kh = a.k + t.b * a.ksb + t.hk * a.ksh;
+  for (int j0 = lo; j0 < hi; j0 += kBT) {
+    __syncthreads();
+    bwd_load_keys<D>(Ks, kh, a.ksl, j0, a.Lk);
+    __syncthreads();
+    float s[4][4];
+    bwd_dot<D>(Qs, Ks, s, ty, tx);
+    const bool full = bwd_tile_full(a, t.rep, t.rows, t.f0, j0);
+    // Per row: the tile's largest scaled logit of this thread's keys,
+    // then the running (m, l) rescaled once; a masked logit adds 0.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x[4], mt = kNeg;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = full || bwd_sees(a, ap[i], j0 + tx + 16 * j);
+        x[j] = ok ? s[i][j] * c : kNeg;
+        mt = fmaxf(mt, x[j]);
+      }
+      const float mn = fmaxf(m[i], mt);
+      float add = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        add += x[j] > kNeg ? exp2f(x[j] - mn) : 0.0f;
+      l[i] = fmaf(l[i], exp2f(m[i] - mn), add);
+      m[i] = mn;
+    }
+  }
+  // Merge the 16 lanes of a row (tx) pairwise; every lane ends with the
+  // same (m, l).
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[i], o);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[i], o);
+      const float mm = fmaxf(m[i], mo);
+      l[i] = l[i] * exp2f(m[i] - mm) + lo_ * exp2f(mo - mm);
+      m[i] = mm;
+    }
+  }
+  // Delta of each row: its D products, tx-strided, then the same merge.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int f = t.f0 + ty + 16 * i;
+    float dsum = 0.0f;
+    if (f < t.rows) {
+      const int h = t.hk * t.rep + f % t.rep, pos = f / t.rep;
+      const float* orow = a.o + t.b * a.osb + h * a.osh + pos * a.osl;
+      const float* drow = a.dO + t.b * a.dsb + h * a.dsh + pos * a.dsl;
+      for (int d = tx; d < D; d += 16) dsum = fmaf(drow[d], orow[d], dsum);
+    }
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1)
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
+    if (tx == 0 && f < t.rows) {
+      const long long r = bwd_row(a, t.b, t.hk, t.rep, f);
+      a.lse[r] = m[i] + log2f(l[i]);
+      a.delta[r] = dsum;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsBwd, D <= 64 ? 2 : 1)
+    attn_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int DV = D / 16;
+  extern __shared__ uint4 smem_u4[];
+  float* Qs = reinterpret_cast<float*>(smem_u4);
+  float* Os = Qs + kBT * bwd_ld<D>();   // dO rows
+  float* Ks = Os + kBT * bwd_ld<D>();
+  float* Vs = Ks + kBT * bwd_ld<D>();
+  float* Ss = Vs + kBT * bwd_ld<D>();   // dS [64][65]
+  const BwdRowTile t = bwd_row_tile(a);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  bwd_load_rows<D>(Qs, a.q + t.b * a.qsb, a.qsh, a.qsl, t.hk, t.rep, t.f0,
+                   t.rows);
+  bwd_load_rows<D>(Os, a.dO + t.b * a.dsb, a.dsh, a.dsl, t.hk, t.rep, t.f0,
+                   t.rows);
+  int ap[4];
+  bwd_row_pos(a, t.f0, t.rep, t.rows, ty, ap);
+  float lse[4], del[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int f = t.f0 + ty + 16 * i;
+    const long long r = f < t.rows ? bwd_row(a, t.b, t.hk, t.rep, f) : 0;
+    lse[i] = f < t.rows ? a.lse[r] : 0.0f;
+    del[i] = f < t.rows ? a.delta[r] : 0.0f;
+  }
+  int lo, hi;
+  bwd_keys(a, t.rep, t.f0, t.f_last, lo, hi);
+  const float c = a.scale * kLog2e;
+  float acc[4][DV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DV; ++e) acc[i][e] = 0.0f;
+  const float* kh = a.k + t.b * a.ksb + t.hk * a.ksh;
+  const float* vh = a.v + t.b * a.vsb + t.hk * a.vsh;
+  for (int j0 = lo; j0 < hi; j0 += kBT) {
+    __syncthreads();
+    bwd_load_keys<D>(Ks, kh, a.ksl, j0, a.Lk);
+    bwd_load_keys<D>(Vs, vh, a.vsl, j0, a.Lk);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    bwd_dot<D>(Qs, Ks, s, ty, tx);
+    bwd_dot<D>(Os, Vs, dp, ty, tx);
+    const bool full = bwd_tile_full(a, t.rep, t.rows, t.f0, j0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kk = tx + 16 * j;
+        float ds = 0.0f;
+        if (full || bwd_sees(a, ap[i], j0 + kk))
+          ds = exp2f(s[i][j] * c - lse[i]) * (dp[i][j] - del[i]);
+        Ss[(ty + 16 * i) * (kBT + 1) + kk] = ds;
+      }
+    __syncthreads();
+    for (int kk = 0; kk < kBT; ++kk) {
+      float w[4], kv[DV];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = Ss[(ty + 16 * i) * (kBT + 1) + kk];
+#pragma unroll
+      for (int e = 0; e < DV; ++e) kv[e] = Ks[kk * bwd_ld<D>() + tx * DV + e];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < DV; ++e) acc[i][e] = fmaf(w[i], kv[e], acc[i][e]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int f = t.f0 + ty + 16 * i;
+    if (f >= t.rows) continue;
+    float* out = a.dq + bwd_row(a, t.b, t.hk, t.rep, f) * D + tx * DV;
+#pragma unroll
+    for (int e = 0; e < DV; ++e) out[e] = acc[i][e] * a.scale;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsBwd, D <= 64 ? 2 : 1)
+    attn_bwd_dkdv_kernel(const BwdArgs a) {
+  constexpr int DV = D / 16;
+  extern __shared__ uint4 smem_u4[];
+  float* Ks = reinterpret_cast<float*>(smem_u4);
+  float* Vs = Ks + kBT * bwd_ld<D>();
+  float* Qs = Vs + kBT * bwd_ld<D>();
+  float* Os = Qs + kBT * bwd_ld<D>();   // dO rows
+  float* Ps = Os + kBT * bwd_ld<D>();   // P [64][65]
+  float* Ss = Ps + kBT * (kBT + 1);     // dS [64][65]
+  float* lse_s = Ss + kBT * (kBT + 1);
+  float* del_s = lse_s + kBT;
+  const int groups = a.B * a.Hkv, rep = a.H / a.Hkv, rows = rep * a.Lq;
+  const int g = blockIdx.x % groups, b = g / a.Hkv, hk = g % a.Hkv;
+  // Groups fastest, then runs, then key tiles in order: under a causal
+  // mask the first tiles are seen by the most rows, so the blocks with
+  // full runs go first.
+  const int run = (static_cast<int>(blockIdx.x) / groups) % a.runs;
+  const int j0 = (static_cast<int>(blockIdx.x) / groups / a.runs) * kBT;
+  const int j1 = min(j0 + kBT, a.Lk);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int off = a.Lk - a.Lq;
+  // The flattened rows of this run that see a key of [j0, j1).
+  const int p_lo = a.causal ? max(0, j0 - off) : 0;
+  const int p_hi = a.window > 0 ? min(a.Lq, j1 - 1 + a.window - off) : a.Lq;
+  const int run_rows = (rows + a.runs - 1) / a.runs;
+  const int f_beg = p_lo * rep + run * run_rows;
+  const int f_end = min(p_hi * rep, f_beg + run_rows);
+  float dk[4][DV], dv[4][DV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DV; ++e) {
+      dk[i][e] = 0.0f;
+      dv[i][e] = 0.0f;
+    }
+  if (f_beg < f_end) {
+    bwd_load_keys<D>(Ks, a.k + b * a.ksb + hk * a.ksh, a.ksl, j0, a.Lk);
+    bwd_load_keys<D>(Vs, a.v + b * a.vsb + hk * a.vsh, a.vsl, j0, a.Lk);
+  }
+  const float c = a.scale * kLog2e;
+  for (int f0 = f_beg; f0 < f_end; f0 += kBT) {
+    __syncthreads();
+    bwd_load_rows<D>(Qs, a.q + b * a.qsb, a.qsh, a.qsl, hk, rep, f0, rows);
+    bwd_load_rows<D>(Os, a.dO + b * a.dsb, a.dsh, a.dsl, hk, rep, f0, rows);
+    if (threadIdx.x < kBT) {
+      const int f = f0 + threadIdx.x;
+      const long long r = f < rows ? bwd_row(a, b, hk, rep, f) : 0;
+      lse_s[threadIdx.x] = f < rows ? a.lse[r] : 0.0f;
+      del_s[threadIdx.x] = f < rows ? a.delta[r] : 0.0f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    bwd_dot<D>(Qs, Ks, s, ty, tx);
+    bwd_dot<D>(Os, Vs, dp, ty, tx);
+    int ap[4];
+    bwd_row_pos(a, f0, rep, rows, ty, ap);
+    const bool full = bwd_tile_full(a, rep, rows, f0, j0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kk = tx + 16 * j;
+        float p = 0.0f, ds = 0.0f;
+        if (full || bwd_sees(a, ap[i], j0 + kk)) {
+          p = exp2f(s[i][j] * c - lse_s[r]);
+          ds = p * (dp[i][j] - del_s[r]);
+        }
+        Ps[r * (kBT + 1) + kk] = p;
+        Ss[r * (kBT + 1) + kk] = ds;
+      }
+    }
+    __syncthreads();
+    const int nr = min(kBT, f_end - f0);
+    for (int r = 0; r < nr; ++r) {
+      float pw[4], sw[4], ov[DV], qv[DV];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pw[i] = Ps[r * (kBT + 1) + ty + 16 * i];
+        sw[i] = Ss[r * (kBT + 1) + ty + 16 * i];
+      }
+#pragma unroll
+      for (int e = 0; e < DV; ++e) {
+        ov[e] = Os[r * bwd_ld<D>() + tx * DV + e];
+        qv[e] = Qs[r * bwd_ld<D>() + tx * DV + e];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < DV; ++e) {
+          dv[i][e] = fmaf(pw[i], ov[e], dv[i][e]);
+          dk[i][e] = fmaf(sw[i], qv[e], dk[i][e]);
+        }
+    }
+  }
+  // One run: the gradients.  Several: this run's partial sums (zeros if
+  // it saw none of the tile's keys), which the reduction adds in order.
+  const long long n = static_cast<long long>(a.B) * a.Hkv * a.Lk * D;
+  float* out_k = a.runs == 1 ? a.dk : a.part + run * n;
+  float* out_v = a.runs == 1 ? a.dv : a.part + (a.runs + run) * n;
+  const float sk = a.runs == 1 ? a.scale : 1.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = j0 + ty + 16 * i;
+    if (j >= a.Lk) continue;
+    const long long base =
+        ((static_cast<long long>(b) * a.Hkv + hk) * a.Lk + j) * D + tx * DV;
+#pragma unroll
+    for (int e = 0; e < DV; ++e) {
+      out_k[base + e] = dk[i][e] * sk;
+      out_v[base + e] = dv[i][e];
+    }
+  }
+}
+
+// dK = scale * (sum of the runs' partials), dV = the sum, each element's
+// runs added in run order.
+__global__ void __launch_bounds__(kThreadsBwd)
+    attn_bwd_reduce_kernel(const BwdArgs a, long long n) {
+  const long long e =
+      static_cast<long long>(blockIdx.x) * kThreadsBwd + threadIdx.x;
+  if (e >= n) return;
+  float sk = 0.0f, sv = 0.0f;
+  for (int r = 0; r < a.runs; ++r) {
+    sk += a.part[r * n + e];
+    sv += a.part[(a.runs + r) * n + e];
+  }
+  a.dk[e] = sk * a.scale;
+  a.dv[e] = sv;
+}
+
+template <int D>
+int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t tile = sizeof(float) * kBT * bwd_ld<D>();
+  constexpr size_t ptile = sizeof(float) * kBT * (kBT + 1);
+  constexpr size_t sm_stats = 2 * tile;
+  constexpr size_t sm_dq = 4 * tile + ptile;
+  constexpr size_t sm_dkdv = 4 * tile + 2 * ptile + 2 * kBT * sizeof(float);
+  const int groups = a.B * a.Hkv;
+  const int rtiles = ((a.H / a.Hkv) * a.Lq + kBT - 1) / kBT;
+  const int ktiles = (a.Lk + kBT - 1) / kBT;
+  int err = opt_in(attn_bwd_stats_kernel<D>, sm_stats);
+  if (err == 0) err = opt_in(attn_bwd_dq_kernel<D>, sm_dq);
+  if (err == 0) err = opt_in(attn_bwd_dkdv_kernel<D>, sm_dkdv);
+  if (err != 0) return err;
+  attn_bwd_stats_kernel<D><<<rtiles * groups, kThreadsBwd, sm_stats,
+                             stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  attn_bwd_dkdv_kernel<D><<<ktiles * a.runs * groups, kThreadsBwd, sm_dkdv,
+                            stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  if (a.runs > 1) {
+    const long long n = static_cast<long long>(a.B) * a.Hkv * a.Lk * D;
+    const int blocks = static_cast<int>((n + kThreadsBwd - 1) / kThreadsBwd);
+    attn_bwd_reduce_kernel<<<blocks, kThreadsBwd, 0, stream>>>(a, n);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  attn_bwd_dq_kernel<D><<<rtiles * groups, kThreadsBwd, sm_dq, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q [B, H, Lq, D], k/v [B, Hkv, Lk, D] with unit stride along D and the
@@ -1035,4 +1560,50 @@ extern "C" int flash_attention_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return q_bf16 ? launch_kv<__nv_bfloat16>(a, D, kv_bf16, s)
                 : launch_kv<float>(a, D, kv_bf16, s);
+}
+
+// The backward of flash_attention_launch's function for float32 q [B, H,
+// Lq, D], k, v [B, Hkv, Lk, D], the forward's output o [B, H, Lq, D] and
+// its gradient dO [B, H, Lq, D], each with unit stride along D and the
+// given element strides for batch, head and position: writes dq [B, H,
+// Lq, D] and dk, dv [B, Hkv, Lk, D], contiguous float32, the same causal
+// mask, window (<= 0 for none) and right-aligned queries (Lq <= Lk) as
+// the forward.  `stats` is float32 scratch of 2 * B * H * Lq values;
+// `runs` >= 1 the dk/dv pass's runs of rows, ceil(H / Hkv * Lq / runs)
+// rows each (ops.plan_k7_bwd), and with runs > 1 `part` float32 scratch
+// of 2 * runs * B * Hkv * Lk * D values.  D in {32, 64, 128}; H a
+// multiple of Hkv.
+// Three or four launches on `stream`; returns cudaGetLastError() (0 on
+// success), the error of a shared-memory opt-in, or cudaErrorInvalidValue
+// for arguments it does not take.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, void* dq, void* dk, void* dv, void* stats, void* part,
+    int runs, int B, int H, int Hkv, int Lq, int Lk, int D, long long qsb,
+    long long qsh, long long qsl, long long ksb, long long ksh,
+    long long ksl, long long vsb, long long vsh, long long vsl,
+    long long osb, long long osh, long long osl, long long dsb,
+    long long dsh, long long dsl, int causal, int window, float scale,
+    void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || Lq > Lk || stats == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (runs < 1 || (runs > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || Lq <= 0) return static_cast<int>(cudaGetLastError());
+  float* st = static_cast<float*>(stats);
+  const long long n = static_cast<long long>(B) * H * Lq;
+  const BwdArgs a{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(o),
+                  static_cast<const float*>(dO), static_cast<float*>(dq),
+                  static_cast<float*>(dk), static_cast<float*>(dv), st,
+                  st + n, static_cast<float*>(part), B, H, Hkv, Lq, Lk, qsb,
+                  qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl, dsb,
+                  dsh, dsl, causal, window, scale, runs};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_bwd<32>(a, s);
+    case 64: return launch_bwd<64>(a, s);
+    case 128: return launch_bwd<128>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,7 +1,9 @@
 """Flash attention K7: CUDA kernel (``kernel.py`` launches
 ``csrc/flash_attention.cu``), wrapper (``ops.py``) and plain-torch version
-(``ref.py``) — the same three layers as the JAX reference."""
-from .ops import LAUNCHES, flash_attention
-from .ref import attention_ref
+(``ref.py``) — the same three layers as the JAX reference — and its
+backward, in the same three layers, which the reference does not have."""
+from .ops import LAUNCHES, flash_attention, flash_attention_bwd
+from .ref import attention_bwd_ref, attention_ref
 
-__all__ = ["LAUNCHES", "attention_ref", "flash_attention"]
+__all__ = ["LAUNCHES", "attention_bwd_ref", "attention_ref",
+           "flash_attention", "flash_attention_bwd"]

@@ -50,3 +50,35 @@ def launch_flash_attention(q, k, v, out, *, causal: bool, window,
              None if part is None else part.data_ptr(), splits, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+
+
+_BWD_ARGTYPES = ((_P,) * 10 + (_I,) * 7 + (_L,) * 15
+                 + (_I, _I, ctypes.c_float, _P))
+
+
+def launch_flash_attention_bwd(q, k, v, o, do, dq, dk, dv, stats, *,
+                               causal: bool, window, scale: float,
+                               runs: int = 1, part=None) -> None:
+    """Enqueue K7's backward on the current stream: q, o, do [B, H, Lq, D]
+    and k, v [B, Hkv, Lk, D], float32, unit stride along D (any strides
+    elsewhere); dq [B, H, Lq, D] and dk, dv [B, Hkv, Lk, D] contiguous
+    float32 outputs; ``stats`` float32 scratch of 2·B·H·Lq values (each
+    row's log-sum-exp and rowsum(do ∘ o)); ``runs`` the dk/dv pass's runs
+    of rows (``ops.plan_k7_bwd``) and, with more than one, ``part`` float32
+    scratch of 2·runs·B·Hkv·Lk·D values for their partial sums.  The
+    wrapper in ``ops.py`` checks; raises if the launch is refused."""
+    fn = load("flash_attention").flash_attention_bwd_launch
+    if fn.argtypes is None:          # first use of this library handle
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+    B, H, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(*(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, stats)),
+             None if part is None else part.data_ptr(), runs,
+             B, H, Hkv, Lq, Lk, D, *strides, int(causal),
+             0 if window is None else window, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err}")

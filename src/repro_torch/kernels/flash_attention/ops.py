@@ -16,6 +16,16 @@ Hkv · Lq, a prefill) go to the tensor-core kernel; smaller ones (a
 decode) to the split kernel, whose keys are cut into ``splits`` runs
 (``k7_split_ranges``) that a second launch merges when there is more than
 one.
+
+Gradients.  On the card a call made while grad mode is on, with any of q,
+k, v requiring grad, goes through ``FlashAttention`` (a
+``torch.autograd.Function``): its forward is K7 as above, its backward
+the hand-written backward kernels (``flash_attention_bwd``, counted as
+``"flash_attention_bwd"``).  The backward takes float32 operands at head
+widths 32, 64 and 128; a grad-requiring call it does not take (bf16, D =
+256, or ``kv_last``, which is decode only) raises before any launch,
+never quietly differentiating the plain form.  On the CPU the plain form
+differentiates under autograd as it is.
 """
 from __future__ import annotations
 
@@ -24,11 +34,18 @@ from typing import NamedTuple
 import torch
 
 from .._wrap import LAUNCHES, device_of, sm_count
-from .kernel import launch_flash_attention
-from .ref import attention_ref
+from .kernel import launch_flash_attention, launch_flash_attention_bwd
+from .ref import attention_bwd_ref, attention_ref
 
 #: The head widths the kernel is built for.
 HEAD_DIMS = (32, 64, 128, 256)
+#: The head widths (and dtype) the backward kernels take.
+BWD_HEAD_DIMS = (32, 64, 128)
+#: The backward's dk/dv pass cuts a group's flattened rows (H / Hkv · Lq)
+#: into runs of at most this many, one block per (key tile, run), and
+#: adds the runs' partial sums in a fixed order.  ``plan_k7_bwd`` alone
+#: decides: the kernel cuts the rows into the runs it is given.
+K7_BWD_RUN_ROWS = 1024
 DTYPES = (torch.float32, torch.bfloat16)
 #: Keys a tile of the split kernel; its runs are whole tiles.
 K7_TILE = 64
@@ -94,6 +111,14 @@ def plan_k7(B: int, H: int, Hkv: int, Lq: int, Lk: int, window,
     return K7Plan("decode", -(-tiles // per))
 
 
+def plan_k7_bwd(H: int, Hkv: int, Lq: int) -> int:
+    """The runs of rows of the backward's dk/dv pass: ⌈H / Hkv · Lq /
+    ``K7_BWD_RUN_ROWS``⌉ (8 at tinyllama-1.1b's prefill, 16 at
+    qwen3-moe's).  Under a causal mask one block a key tile would make the
+    first tiles, which every row sees, the pass's critical path."""
+    return max(1, -(-(H // Hkv) * Lq // K7_BWD_RUN_ROWS))
+
+
 def check_causal_rows(fn: str, causal: bool, Lq: int, Lk: int) -> None:
     """Raise for a causal call with more queries than keys: its first
     Lq − Lk query rows have no valid key, where the reference's two forms
@@ -148,6 +173,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                for t in kv_last):
             raise ValueError(f"flash_attention: kv_last must be two "
                              f"{list(want)} tensors of q's dtype {q.dtype}")
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if needs_grad and kv_last is not None:
+        raise NotImplementedError("flash_attention: kv_last is decode only; "
+                                  "a call with it has no backward")
     if device.type == "cpu":
         return _plain(q, k, v, causal=causal, window=window, scale=scale,
                       kv_last=kv_last)
@@ -166,14 +196,106 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                          "stride along D")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be ≥ 1, got {window}")
-    out = torch.empty((B, H, Lq, D), dtype=q.dtype, device=device)
-    plan = plan_k7(B, H, Hkv, Lq, k.shape[2], window, sm_count(device))
+    if needs_grad:
+        check_backward(q, k, v)
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return _launch(q, k, v, causal=causal, window=window, scale=scale,
+                   kv_last=kv_last)
+
+
+def _launch(q, k, v, *, causal, window, scale, kv_last=None):
+    """K7 on checked CUDA operands: one counted call."""
+    B, H, Lq, D = q.shape
+    Hkv = k.shape[1]
+    out = torch.empty((B, H, Lq, D), dtype=q.dtype, device=q.device)
+    plan = plan_k7(B, H, Hkv, Lq, k.shape[2], window, sm_count(q.device))
     part = None
     if plan.splits > 1:
         part = torch.empty(B * Hkv * plan.splits * (H // Hkv) * Lq * (D + 2),
-                           dtype=torch.float32, device=device)
+                           dtype=torch.float32, device=q.device)
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            scale=scale, kv_last=kv_last, splits=plan.splits,
                            part=part)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def check_backward(q, k, v) -> None:
+    """Raise ``NotImplementedError`` for a grad-requiring call on the card
+    that the backward kernels do not take: bf16 operands (the reference's
+    trainer never trains under bf16) and head width 256 (recurrentgemma's;
+    its forward already fills a block's shared memory)."""
+    D = q.shape[3]
+    if D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention: K7 has no backward at head width {D} (it "
+            f"takes {BWD_HEAD_DIMS}); the D = 256 backward is not written "
+            f"yet")
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise NotImplementedError(
+            f"flash_attention: K7's backward takes float32 q, k, v, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}; the bfloat16 backward is "
+            f"not written yet")
+
+
+class FlashAttention(torch.autograd.Function):
+    """K7 with its hand-written backward, for CUDA float32 operands at
+    ``BWD_HEAD_DIMS`` (checked by the caller)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out = _launch(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window=None,
+                        scale=None):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)``, whose
+    output was ``o``, for the output gradient ``do``: float32, dq of q's
+    shape and dk, dv of k's (summed over each group's query heads).  On
+    the card the backward kernels (three launches, a fourth that adds the
+    dk/dv pass's runs when ``plan_k7_bwd`` gives more than one; counted
+    once as ``"flash_attention_bwd"``); on the CPU ``attention_bwd_ref``."""
+    device = device_of("flash_attention_bwd", (q, k, v, o, do))
+    B, H, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    check_causal_rows("flash_attention_bwd", causal, Lq, Lk)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o and do must be q's shape "
+                         f"{tuple(q.shape)}, got {tuple(o.shape)} and "
+                         f"{tuple(do.shape)}")
+    if device.type == "cpu":
+        return attention_bwd_ref(q, k, v, do, causal=causal, window=window,
+                                 scale=scale)
+    check_backward(q, k, v)
+    o, do = o.float(), do.float()
+    if H % Hkv or k.shape != v.shape:
+        raise ValueError(f"flash_attention_bwd: k, v must be [B, Hkv, Lk, "
+                         f"D] with H={H} a multiple of Hkv")
+    q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous()
+                      for t in (q, k, v, o, do))
+    dq = torch.empty((B, H, Lq, D), dtype=torch.float32, device=device)
+    dk = torch.empty((B, Hkv, Lk, D), dtype=torch.float32, device=device)
+    dv = torch.empty_like(dk)
+    stats = torch.empty(2 * B * H * Lq, dtype=torch.float32, device=device)
+    runs = plan_k7_bwd(H, Hkv, Lq)
+    part = None
+    if runs > 1:
+        part = torch.empty(2 * runs * dk.numel(), dtype=torch.float32,
+                           device=device)
+    launch_flash_attention_bwd(q, k, v, o, do, dq, dk, dv, stats,
+                               causal=causal, window=window, scale=scale,
+                               runs=runs, part=part)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -2,7 +2,8 @@
 attention with causal / local-window masks and grouped-query head sharing
 (the reference's ``attention_ref`` oracle).  The wrapper runs it for
 tensors on the CPU; ``chip_smoke.py`` holds the CUDA kernel against it on
-the card."""
+the card.  ``attention_bwd_ref`` is the plain version of its backward:
+the tests and ``chip_smoke.py`` hold the CUDA backward against it."""
 from __future__ import annotations
 
 import torch
@@ -18,22 +19,62 @@ def attention_ref(q, k, v, *, causal: bool = True, window=None,
     cache).  Computed in float32 (bf16 inputs are widened, as the kernel
     accumulates in float32); the result has q's dtype.
     """
-    B, H, Lq, D = q.shape
-    Hkv, Lk = k.shape[1], k.shape[2]
-    rep = H // Hkv
+    probs, vf = _probs(q, k, v, causal, window, scale)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
+
+
+def _mask(Lq: int, Lk: int, causal: bool, window, device):
+    """[Lq, Lk]: True where query i (position Lk − Lq + i) sees key j."""
+    q_pos = torch.arange(Lq, device=device)[:, None] + (Lk - Lq)
+    k_pos = torch.arange(Lk, device=device)[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def _probs(q, k, v, causal, window, scale):
+    """The softmax P [B, H, Lq, Lk] in float32 and v widened and repeated
+    over each group's heads [B, H, Lk, D]."""
+    D = q.shape[3]
+    rep = q.shape[1] // k.shape[1]
     qf, kf, vf = (t.float() for t in (q, k, v))
     kf = kf.repeat_interleave(rep, dim=1)
     vf = vf.repeat_interleave(rep, dim=1)
     scale = scale if scale is not None else D ** -0.5
     logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    q_pos = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
-    k_pos = torch.arange(Lk, device=q.device)[None, :]
-    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
+    mask = _mask(q.shape[2], k.shape[2], causal, window, q.device)
     logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    probs = probs / probs.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
+    return probs / probs.sum(dim=-1, keepdim=True), vf
+
+
+def attention_bwd_ref(q, k, v, do, *, causal: bool = True, window=None,
+                      scale=None):
+    """The gradients (dq, dk, dv) of ``attention_ref`` for the output
+    gradient ``do`` [B, H, Lq, D], written out rather than taken by
+    autograd, in float32: with P the softmax and O = P·V,
+
+        dV = Pᵀ·dO,   dP = dO·Vᵀ,   Δ = rowsum(dO ∘ O),
+        dS = P ∘ (dP − Δ),   dQ = scale·dS·K,   dK = scale·dSᵀ·Q,
+
+    dK and dV summed over the query heads that share each key/value head
+    (GQA).  dq has q's shape, dk and dv k's, all float32."""
+    B, H, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    probs, vf = _probs(q, k, v, causal, window, scale)
+    kf = k.float().repeat_interleave(rep, dim=1)
+    dof = do.float()
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", probs, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (dof * out).sum(dim=-1, keepdim=True)
+    ds = probs * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    group = lambda t: t.reshape(B, Hkv, rep, Lk, D).sum(dim=2)  # noqa: E731
+    return dq, group(dk), group(dv)

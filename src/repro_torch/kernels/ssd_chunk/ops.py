@@ -60,16 +60,29 @@ def k8_blocks(B: int, G: int, NC: int, hpg: int, nh: int) -> list:
             for bgc in range(B * G * NC) for hb in range(nblk)]
 
 
+def no_backward(fn: str, tensors) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and any of
+    ``tensors`` requires grad: the kernel's output has no ``grad_fn``, so
+    training through it would give its inputs no gradient in silence.
+    Mamba-2 trains on the card once K8 has a backward (ROADMAP §1)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{fn}: the SSD chunk kernel K8 has no "
+                                  f"backward; training through it on the "
+                                  f"card is not supported yet")
+
+
 def ssd_chunk(x, delta, dtv, Bm, Cm, *, heads_per_group: int):
     """The SSD intra-chunk block (see ``ref.ssd_chunk_ref``): x [BH, NC, Q,
     P], delta/dtv [BH, NC, Q], Bm/Cm [B, G, NC, Q, S], all float32 →
     (y_intra [BH,NC,Q,P], H_out [BH,NC,S,P], exp_s [BH,NC,Q]).  On the
     card Q ≤ 64, P ≤ 64 and S ≤ 128 (any Q, so a sequence shorter than a
-    chunk is one short chunk)."""
+    chunk is one short chunk), and a call that needs a gradient raises
+    (``no_backward``)."""
     device = device_of("ssd_chunk", (x, delta, dtv, Bm, Cm))
     if device.type == "cpu":
         return ssd_chunk_ref(x, delta, dtv, Bm, Cm,
                              heads_per_group=heads_per_group)
+    no_backward("ssd_chunk", (x, delta, dtv, Bm, Cm))
     BH, NC, Q, P = x.shape
     Bb, G, _, _, S = Bm.shape
     hpg = heads_per_group
@@ -99,7 +112,10 @@ def ssd(x, dt, A, B, C, h0=None, *, chunk: int = 64):
     """Chunked SSD with the oracle's signature (see ``ref.ssd_ref``): x
     [B,L,H,P], dt [B,L,H], A [H], B/C [B,L,G,S].  L must be a multiple of
     ``chunk`` (the model layer pads sequences).  Returns (y [B,L,H,P],
-    h [B,H,S,P] float32)."""
+    h [B,H,S,P] float32).  On the card a call that needs a gradient
+    through x, dt, A, B or C raises in ``ssd_chunk`` (K8 has no backward,
+    and its output would cut the graph); ``h0`` enters through torch ops
+    only."""
     Bb, L, H, P = x.shape
     G, S = B.shape[2], B.shape[3]
     if L % chunk:

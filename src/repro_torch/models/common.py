@@ -6,10 +6,9 @@ layouts: a dense weight is ``[d_in, d_out]`` and applied as ``x @ W``,
 and the layers of a model are stacked along a leading axis (``stack_init``),
 so a JAX parameter tree converts leaf for leaf (``models.convert``).
 
-``attention`` dispatches on the device of its inputs: on the card it is
-the flash-attention kernel K7 (``kernels.flash_attention``), on the CPU
-the chunked running-softmax form below, which computes the same function
-(the reference's ``common.attention``, whose Pallas twin is K7).
+``attention`` is the ``flash_attention`` wrapper's call: the kernel K7 on
+the card, its plain version on the CPU (the reference's
+``common.attention``, whose Pallas twin is K7).
 """
 from __future__ import annotations
 
@@ -21,25 +20,51 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..kernels.flash_attention import flash_attention
-from ..kernels.flash_attention.ops import check_causal_rows
 
 Params = Dict[str, Any]
-
-_NEG = -1e30
 
 
 # ---------------------------------------------------------------------------
 # parameter trees and init helpers
 # ---------------------------------------------------------------------------
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor of a tree of dicts and tuples, keeping
-    the keys and the tuples' order."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every tensor of a tree of dicts and tuples (and to
+    the tensors at the same places of the trees ``rest``), keeping the
+    keys and the tuples' order."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return tuple(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return tuple(tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree in the reference's ``jax.tree.leaves`` order:
+    dict keys sorted, tuples (named ones by field) in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """A tree of ``template``'s structure (dicts and plain tuples) whose
+    tensors are ``leaves``, in :func:`tree_leaves`' order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, tuple):
+            return tuple(build(v) for v in t)
+        return next(it)
+
+    return build(template)
 
 
 def layer(stacked: Params, i: int) -> Params:
@@ -153,85 +178,18 @@ def text_positions3(positions):
 
 
 # ---------------------------------------------------------------------------
-# attention: K7 on the card, chunked running softmax on the CPU
+# attention
 # ---------------------------------------------------------------------------
 
-def _attn_block(q, k, v, m, l, acc, q0: int, k0: int, *, causal: bool,
-                window: Optional[int], kv_offset: int, kv_len: int,
-                scale: float):
-    """One (q-chunk × kv-chunk) update of the running softmax.
-
-    q [B,H,Qc,D]; k, v [B,H,Kc,D]; (m, l) [B,H,Qc,1]; acc [B,H,Qc,D].
-    ``q0``/``k0``: absolute chunk-start positions; ``kv_offset`` = Lk − Lq
-    aligns query positions; keys at or past ``kv_len`` are masked.
-    """
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    Qc, Kc = q.shape[2], k.shape[2]
-    q_pos = q0 + kv_offset + torch.arange(Qc, device=q.device)[:, None]
-    k_pos = k0 + torch.arange(Kc, device=q.device)[None, :]
-    mask = (k_pos < kv_len).expand(Qc, Kc)
-    if causal:
-        mask = mask & (k_pos <= q_pos)
-    if window is not None:
-        mask = mask & (k_pos > q_pos - window)
-    logits = torch.where(mask, logits, torch.full((), _NEG,
-                                                  device=q.device))
-    m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
-    p = torch.exp(logits - m_new)
-    corr = torch.exp(m - m_new)
-    l_new = l * corr + p.sum(dim=-1, keepdim=True)
-    acc_new = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, v.float())
-    return m_new, l_new, acc_new
-
-
-def chunked_attention(q, k, v, *, causal: bool = True,
-                      window: Optional[int] = None, q_chunk: int = 1024,
-                      k_chunk: int = 1024):
-    """The reference's chunked attention: q-chunks each scan exactly the
-    key extent that causality and the window allow, in k-chunks with a
-    running (max, sum, acc), so no [Lq, Lk] logits tensor is made.
-    q [B,H,Lq,D]; k, v [B,Hkv,Lk,D] (queries right-aligned)."""
-    B, H, Lq, D = q.shape
-    Hkv, Lk = k.shape[1], k.shape[2]
-    rep = H // Hkv
-    scale = D ** -0.5
-    kv_offset = Lk - Lq
-    kf = k.repeat_interleave(rep, dim=1)
-    vf = v.repeat_interleave(rep, dim=1)
-    q_chunk = min(q_chunk, Lq)
-    k_chunk = min(k_chunk, Lk)
-    outs = []
-    for q0 in range(0, Lq, q_chunk):
-        qc = min(q_chunk, Lq - q0)
-        q_blk = q[:, :, q0:q0 + qc]
-        hi = Lk if not causal else min(Lk, q0 + qc + kv_offset)
-        lo = 0 if window is None else max(0, q0 + kv_offset - window + 1)
-        lo = (lo // k_chunk) * k_chunk
-        n_k = max(1, -(-(hi - lo) // k_chunk))
-        m = torch.full((B, H, qc, 1), _NEG, device=q.device)
-        l = torch.zeros((B, H, qc, 1), device=q.device)
-        acc = torch.zeros((B, H, qc, D), device=q.device)
-        for ki in range(n_k):
-            k0 = lo + ki * k_chunk
-            m, l, acc = _attn_block(
-                q_blk, kf[:, :, k0:k0 + k_chunk], vf[:, :, k0:k0 + k_chunk],
-                m, l, acc, q0, k0, causal=causal, window=window,
-                kv_offset=kv_offset, kv_len=Lk, scale=scale)
-        outs.append((acc / torch.clamp(l, min=1e-30)).to(q.dtype))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
-
-
-def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-              q_chunk: int = 1024, k_chunk: int = 1024):
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None):
     """Attention. q [B,H,Lq,D]; k, v [B,Hkv,Lk,D] (H divisible by Hkv;
-    queries are right-aligned against keys).  Returns [B,H,Lq,D].  CUDA
-    tensors go to the kernel K7; CPU tensors to ``chunked_attention``.
-    A causal call with Lq > Lk raises ``ValueError`` on either device."""
-    check_causal_rows("attention", causal, q.shape[2], k.shape[2])
-    if q.device.type == "cuda":
-        return flash_attention(q, k, v, causal=causal, window=window)
-    return chunked_attention(q, k, v, causal=causal, window=window,
-                             q_chunk=q_chunk, k_chunk=k_chunk)
+    queries are right-aligned against keys).  Returns [B,H,Lq,D].  The
+    ``flash_attention`` wrapper dispatches: the kernel K7 (forward, and
+    its backward under autograd) for CUDA tensors, the dense plain form
+    ``attention_ref`` for CPU tensors, which computes the reference's
+    chunked running softmax in one block.  A causal call with Lq > Lk
+    raises ``ValueError`` on either device."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 # ---------------------------------------------------------------------------

@@ -46,3 +46,25 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device=None):
         return torch.tensor(arr, dtype=torch.float32).to(device)
 
     return convert("", tree, want)
+
+
+def train_state_from_numpy(cfg: ModelConfig, params_tree, opt_tree, *,
+                           device=None):
+    """A reference train state — ``(params, AdamWState(step, m, v))`` with
+    numpy (or array-like) leaves, e.g. ``jax.tree.map(np.asarray, state)``
+    — to the port's ``(params, optim.AdamWState)`` on ``device`` (the card
+    unless the caller asks for the CPU), so that a state the JAX package
+    trained resumes in the port.  ``opt_tree`` is any object with
+    ``step``, ``m`` and ``v`` (or a (step, m, v) triple); m and v are
+    checked against ``cfg``'s parameter tree as the parameters are."""
+    from ..optim import AdamWState
+
+    step, m, v = ((opt_tree.step, opt_tree.m, opt_tree.v)
+                  if hasattr(opt_tree, "step") else tuple(opt_tree))
+    device = resolve_device(device)
+    params = params_from_numpy(cfg, params_tree, device=device)
+    opt = AdamWState(
+        step=torch.tensor(np.asarray(step), dtype=torch.int32).to(device),
+        m=params_from_numpy(cfg, m, device=device),
+        v=params_from_numpy(cfg, v, device=device))
+    return params, opt

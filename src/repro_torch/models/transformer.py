@@ -26,10 +26,12 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention
+from . import precision
 from .common import (apply_mrope, apply_rope, attention, dense_init,
                      generator, layer, mlp_apply, mlp_init, normal, rms_norm,
                      stack_init, text_positions3)
@@ -289,23 +291,41 @@ def _unembed(cfg, p, x):
     return x @ p["lm_head"]
 
 
+def _layer_fn(cfg: ModelConfig, lp, h, positions, positions3):
+    """One decoder layer on the residual stream h → (h', moe aux of the
+    layer; 0 for a dense one), with the reference's three residual
+    constraints (``precision.constrain``)."""
+    h = precision.constrain(h)
+    a, _ = attn_apply(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps), cfg,
+                      positions, window=cfg.window, positions3=positions3)
+    h = precision.constrain(h + a)
+    f, aux_i = _ffn(lp, h, cfg)
+    return precision.constrain(h + f), aux_i
+
+
 def forward(cfg: ModelConfig, p: Params, batch, *, remat: bool = True,
             unembed: bool = True):
-    """Prefill forward → (logits [B, L, V], aux dict).  batch: tokens
-    [B, L] int; for the VLM backbone also patches [B, n_patches, d]
+    """Training/prefill forward → (logits [B, L, V], aux dict).  batch:
+    tokens [B, L] int; for the VLM backbone also patches [B, n_patches, d]
     (projected by ``patch_proj`` and put ahead of the tokens) and
     optionally positions3 [B, 3, n_patches + L] (the M-RoPE streams;
     ``text_positions3`` of the plain positions without them).
     ``aux["moe_aux"]`` is the MoE layers' mean load-balance loss (0 for a
-    dense model).  ``remat`` (rematerialisation for training) has no
-    effect in the port's inference path."""
+    dense model).  Under ``precision.options(dtype=...)`` the parameters
+    and the residual stream are cast to that dtype at use, as the
+    reference casts them.  ``remat``: while grad mode is on, each layer
+    runs under ``torch.utils.checkpoint`` (non-reentrant), as the
+    reference wraps its layer in ``jax.checkpoint``: the backward pass
+    recomputes the layer's activations from its input instead of keeping
+    them; without grad mode it changes nothing."""
+    p = precision.cast_params(p)
     dev = p["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
-    x = p["embed"][tokens]
+    x = precision.cast_act(p["embed"][tokens])
     positions3 = None
     if cfg.family == "vlm":
-        patches = torch.as_tensor(batch["patches"], device=dev) \
-            @ p["patch_proj"]
+        patches = torch.as_tensor(batch["patches"], device=dev).float() \
+            @ p["patch_proj"].float()
         x = torch.cat([patches.to(x.dtype), x], dim=1)
         if batch.get("positions3") is not None:
             positions3 = torch.as_tensor(batch["positions3"], device=dev)
@@ -314,14 +334,14 @@ def forward(cfg: ModelConfig, p: Params, batch, *, remat: bool = True,
     if cfg.mrope and positions3 is None:
         positions3 = text_positions3(positions)
     aux = torch.zeros((), device=x.device)
+    remat = remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         lp = layer(p["layers"], i)
-        a, _ = attn_apply(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-                          cfg, positions, window=cfg.window,
-                          positions3=positions3)
-        x = x + a
-        f, aux_i = _ffn(lp, x, cfg)
-        x = x + f
+        if remat:
+            x, aux_i = checkpoint(_layer_fn, cfg, lp, x, positions,
+                                  positions3, use_reentrant=False)
+        else:
+            x, aux_i = _layer_fn(cfg, lp, x, positions, positions3)
         aux = aux + aux_i
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
     out = _unembed(cfg, p, x) if unembed else x

@@ -9,7 +9,12 @@ the same seeds:
 * ``split(key, n)[i]``    = threefry2x32(key, (0, i))
 * ``uniform(key, (n,))[i] = unit(y0 ^ y1)`` with
   ``(y0, y1) = threefry2x32(key, (0, i))`` and ``unit`` the f32 mantissa
-  fill ``bitcast((bits >> 9) | 0x3F800000) - 1``;
+  fill ``bitcast((bits >> 9) | 0x3F800000) - 1``; with bounds,
+  ``max(lo, fma(unit, hi − lo, lo))``;
+* ``gumbel(key, shape) = -log(-log(uniform(key, shape, tiny, 1)))`` with
+  XLA:CPU's float32 ``log`` (:func:`repro_torch._arith.log`; JAX 0.9's
+  default, low-range Gumbel), whose ``argmax(noise + logits)`` is
+  ``jax.random.categorical``;
 * ``exponential(key, shape) = -log1p(-uniform(key, shape))`` with
   XLA:CPU's float32 ``log1p`` (:func:`repro_torch._arith.log1p`);
 * ``randint(key, shape, lo, hi)`` = ``lo + (w0 mod s · m + w1 mod s) mod
@@ -26,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from ._arith import log1p
+from ._arith import fma, log, log1p
 from ._device import resolve_device
 
 MASK32 = 0xFFFFFFFF
@@ -91,10 +96,29 @@ def random_bits(key: torch.Tensor, shape=()) -> torch.Tensor:
     return (y0 ^ y1).reshape(key.shape[:-1] + shape)
 
 
-def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in [0, 1) as float32."""
+def uniform(key: torch.Tensor, shape=(), minval=0.0,
+            maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` as float32: in
+    [0, 1) by default; with bounds ``max(minval, unit·(maxval − minval) +
+    minval)``, the multiply-add rounded once as XLA:CPU contracts it (the
+    bounds are float32 values; ``maxval − minval`` is rounded to float32
+    first, as the reference's)."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    unit = bits.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return unit
+    lo = torch.tensor(minval, dtype=torch.float32, device=unit.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=unit.device)
+    return torch.maximum(lo, fma(unit, hi - lo, lo))
+
+
+def gumbel(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` (float32, the default low-range
+    mode) bit for bit: ``-log(-log(u))`` with u uniform in [tiny, 1) and
+    XLA:CPU's ``log`` (≈ 14 % of torch's ``log`` values differ from it by
+    an ulp, which can flip a near-tie argmax)."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    return -log(-log(uniform(key, shape, minval=tiny, maxval=1.0)))
 
 
 def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:

@@ -124,14 +124,16 @@ def test_rope_matches(theta):
     (30, 30, False, None, 7),
 ])
 def test_attention_matches(Lq, Lk, causal, window, chunk):
-    """The chunked plain attention (small chunks, so the k-range skipping
-    and running softmax are exercised) against the reference's."""
+    """The port's attention on the CPU (the ``flash_attention`` wrapper's
+    plain form, the one CPU attention since the chunked copy went) against
+    the reference's chunked attention at small chunks (its k-range
+    skipping and running softmax exercised)."""
     rng = np.random.RandomState(Lq + Lk)
     q = rng.randn(2, 4, Lq, 32).astype(np.float32)
     k = rng.randn(2, 2, Lk, 32).astype(np.float32)
     v = rng.randn(2, 2, Lk, 32).astype(np.float32)
     got = tcommon.attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
-                            window=window, q_chunk=chunk, k_chunk=chunk)
+                            window=window)
     want = jcommon.attention(*map(jnp.asarray, (q, k, v)), causal=causal,
                              window=window, q_chunk=chunk, k_chunk=chunk)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,

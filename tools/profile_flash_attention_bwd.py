@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""Where K7's backward spends its time: each of its three kernels (the
+stats pass, dk/dv, dq) timed on the card under ``torch.profiler``, and the
+whole call with CUDA events, at tinyllama-1.1b's prefill (B, H, Hkv, L,
+D) = (4, 32, 4, 1024, 64) and qwen3-moe's (4, 64, 4, 1024, 128), causal.
+
+    python3 tools/profile_flash_attention_bwd.py [--out FILE]
+
+Prints the card's name and power limit, then per shape the device time
+of each kernel (mean of ``REPS`` calls), the event time of the whole
+call (``chip_smoke.event_ms``), the bound (10·D flops an unmasked pair at
+67 T op/s float32) and the achieved rate on that count; writes the same
+as JSON to ``--out`` if given.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+SHAPES = [(4, 32, 4, 1024, 64), (4, 64, 4, 1024, 128)]
+REPS = 10
+
+
+def main(argv=None) -> int:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_flash_attention_bwd: no CUDA device", file=sys.stderr)
+        return 2
+    print(cs.card_line(), flush=True)
+    cs.no_tf32(torch)
+    out = []
+    for B, H, Hkv, L, D in SHAPES:
+        q, k, v, do = cs.k7_bwd_inputs(torch, B, H, Hkv, L, L, D)
+        o = torch.zeros_like(q)
+
+        def call():
+            return flash_attention_bwd(q, k, v, o, do)
+
+        ms = cs.event_ms(torch, call, reps=20)
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                call()
+            torch.cuda.synchronize()
+        kernels = {}
+        for ev in prof.key_averages():
+            if "attn_bwd" in ev.key:
+                name = ev.key.split("attn_bwd_")[1].split("_kernel")[0]
+                t = getattr(ev, "device_time_total",
+                            getattr(ev, "cuda_time_total", 0.0))
+                kernels[name] = t / REPS / 1e3          # ms a call
+        pairs = B * H * L * (L + 1) // 2
+        ops = 10 * D * pairs
+        row = {"shape": [B, H, Hkv, L, D], "ms": ms, "kernels_ms": kernels,
+               "bound_ms": ops / cs.FP32_OPS_PER_S * 1e3,
+               "tops": ops / ms / 1e9}
+        out.append(row)
+        print(json.dumps(row), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": cs.card_line(), "rows": out}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
