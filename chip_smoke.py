@@ -241,12 +241,16 @@ package, and runs twenty-six phases; any failure raises and exits non-zero
    layers; recurrentgemma one (R, R, A) block on 300 tokens; whisper two
    encoder and two decoder layers) within 1e-4 of the largest |logit|.
 26. training — (a) K7's backward (``flash_attention`` under autograd, one
-   forward and one backward launch, and ``flash_attention_bwd``) against
-   ``attention_bwd_ref`` on the card in float32 at ``K7_BWD_CASES`` (GQA,
-   Lq < Lk, a window, non-causal, ragged, D = 32 / 64 / 128, two runs of
-   rows) and ``K7_BWD_TIMED`` (tinyllama-1.1b's and qwen3-moe's prefill):
-   each of dq, dk, dv within 2e-4·|ref| + 2e-5·max|ref|, two calls bit for
-   bit, timed beside the plain version and SDPA's backward; a bf16 call,
+   forward, which writes the lse, and one backward launch, and
+   ``flash_attention_bwd``) against ``attention_bwd_ref`` on the card in
+   float32 at ``K7_BWD_CASES`` (GQA, Lq < Lk, a window, non-causal,
+   ragged, D = 32 / 64 / 128, two runs of rows, a 16-row group, D = 128
+   causal with a window) and ``K7_BWD_TIMED`` (tinyllama-1.1b's and
+   qwen3-moe's prefill): each of dq, dk, dv within 2e-4·|ref| +
+   2e-5·max|ref|, autograd equal to the wrapper, the forward's lse
+   against ``attention_lse_ref`` and its output equal to the forward's
+   without lse, two calls bit for bit, the backward given the forward's
+   lse timed beside the plain version and SDPA's backward; a bf16 call,
    head width 256, ``kv_last`` and K8 (``ssd``) under grad each raise
    before any launch; (b) tinyllama-1.1b trained at full width and depth
    (``TRAIN_STEPS`` steps of ``SyntheticLM`` 4 × 1024, lr 1e-3 on the
@@ -3694,8 +3698,10 @@ def families_phase(torch) -> tuple:
 
 #: K7's backward against ``attention_bwd_ref``: (B, H, Hkv, Lq, Lk, D,
 #: causal, window) — the reference's GQA pin, Lq < Lk (24/56), window 16,
-#: non-causal D = 128, ragged 100-row tiles, D = 32 / 64 / 128, then
-#: timed at tinyllama-1.1b's prefill and at qwen3-moe's (D = 128).
+#: non-causal D = 128, ragged 100-row tiles, D = 32 / 64 / 128, a group of
+#: 16 rows (the split kernel's regime without grad), D = 128 causal with a
+#: window, then timed at tinyllama-1.1b's prefill and at qwen3-moe's (D =
+#: 128).
 K7_BWD_CASES = [
     (2, 4, 2, 128, 128, 64, True, None),
     (1, 4, 1, 24, 56, 32, True, None),
@@ -3704,6 +3710,8 @@ K7_BWD_CASES = [
     (1, 4, 2, 100, 100, 32, True, None),
     (2, 8, 2, 100, 300, 128, False, 40),
     (1, 8, 1, 150, 260, 32, True, 30),      # two runs of rows (dk/dv)
+    (2, 8, 2, 4, 40, 64, True, None),       # 16 rows a group
+    (1, 4, 2, 130, 200, 128, True, 48),
 ]
 K7_BWD_TIMED = [(4, 32, 4, 1024, 1024, 64, True, None),
                 (4, 64, 4, 1024, 1024, 128, True, None)]
@@ -3711,6 +3719,9 @@ K7_BWD_TIMED = [(4, 32, 4, 1024, 1024, 64, True, None),
 #: of up to a few thousand products in another order than the plain
 #: version's einsums.
 K7_BWD_RTOL, K7_BWD_ATOL_OF_MAX = 2e-4, 2e-5
+#: The forward's lse against ``attention_lse_ref``, in log2 units: 1e-5
+#: of a logit's scale moves P by under 1e-5 relative.
+K7_LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 #: (b): tinyllama-1.1b at full width and depth, B × L tokens a step.
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_BATCH = (4, 1024)
@@ -3746,19 +3757,39 @@ def k7_bwd_inputs(torch, B, H, Hkv, Lq, Lk, D):
 def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
                 timed: bool = False):
     """K7's backward through autograd (``flash_attention`` then
-    ``backward``: one forward and one backward launch) and through its
-    wrapper, against ``attention_bwd_ref`` on the card; with ``timed``
-    also two calls bit for bit, and the kernel, the plain version and
-    SDPA's backward (``torch.autograd.grad`` on a retained graph) timed.
-    Returns a kernels-line row (timed) or None."""
+    ``backward``: one forward, which writes the lse, and one backward
+    launch) and through its wrapper (given no lse), against
+    ``attention_bwd_ref`` on the card; the forward's lse
+    (``flash_attention_lse``) against ``attention_lse_ref``, and its
+    output equal to the forward without lse (bit for bit where both take
+    the tensor-core kernel, more than 16 rows a group; else within
+    ``K7_F32_TOL``).  With ``timed`` also two calls bit for bit, and the
+    backward given the forward's lse (what a train step pays), the plain
+    version and SDPA's backward (``torch.autograd.grad`` on a retained
+    graph) timed.  Returns a kernels-line row (timed) or None."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import (
-        attention_bwd_ref, flash_attention, flash_attention_bwd)
+        attention_bwd_ref, attention_lse_ref, flash_attention,
+        flash_attention_bwd, flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ops import K7_SPLIT_ROWS
 
     q, k, v, do = k7_bwd_inputs(torch, B, H, Hkv, Lq, Lk, D)
     want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    shape = (f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} D={D} causal={causal} "
+             f"window={window}")
+    o_l, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    lse_err = close(f"flash_attention lse {shape}", lse,
+                    attention_lse_ref(q, k, causal=causal, window=window),
+                    **K7_LSE_TOL)
+    o_n = flash_attention(q, k, v, causal=causal, window=window)
+    if (H // Hkv) * Lq > K7_SPLIT_ROWS:
+        check(torch.equal(o_l, o_n), f"flash_attention {shape}: o with "
+              f"and without the lse differ")
+    else:
+        close(f"flash_attention {shape} o with the lse", o_l, o_n,
+              **K7_F32_TOL)
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     LAUNCHES.clear()
     o = flash_attention(qg, kg, vg, causal=causal, window=window)
@@ -3766,10 +3797,10 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
     torch.cuda.synchronize()
     check(dict(LAUNCHES) == {"flash_attention": 1, "flash_attention_bwd": 1},
           f"flash_attention backward: launches {dict(LAUNCHES)}")
-    shape = (f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} D={D} causal={causal} "
-             f"window={window}")
     err = 0.0
     o = o.detach()
+    check(torch.equal(o, o_l), f"flash_attention {shape}: the grad "
+          f"forward's o differs from flash_attention_lse's")
     got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
     for name, a, b, w in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad),
                              got, want):
@@ -3780,14 +3811,15 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
               f"autograd and the wrapper differ")
     if not timed:
         print(f"kernel flash_attention_bwd {shape}: max |Δ| {err:.3g} "
-              f"(within rtol {K7_BWD_RTOL} + {K7_BWD_ATOL_OF_MAX} of max)",
-              flush=True)
+              f"(within rtol {K7_BWD_RTOL} + {K7_BWD_ATOL_OF_MAX} of max); "
+              f"lse max |Δ| {lse_err:.3g}", flush=True)
         return None
-    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window,
+                                lse=lse)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"flash_attention_bwd {shape}: two calls differ")
     ms = event_ms(torch, lambda: flash_attention_bwd(
-        q, k, v, o, do, causal=causal, window=window), reps=20)
+        q, k, v, o, do, causal=causal, window=window, lse=lse), reps=20)
     plain_ms = event_ms(torch, lambda: attention_bwd_ref(
         q, k, v, do, causal=causal, window=window), reps=10, warmup=2)
     lib_ms = None
@@ -3808,18 +3840,21 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
     # q, o, dO read and dq written; k, v read and dk, dv written; 10·D
     # flops an unmasked pair (q·k, dO·v, P·dO, dS·k, dS·q).  The card's
     # fastest float32-accurate product is three TF32 MMAs (lo·hi, hi·lo,
-    # hi·hi), as K7's forward runs it (``k7_ops``), so the bound counts 3
-    # terms a product at the TF32 rate; the CUDA cores' float32 rate, which
-    # these kernels run at, is printed beside it.
+    # hi·hi), as K7's forward and backward run it (``k7_ops``), so the
+    # bound counts 3 terms a product at the TF32 rate; the bound on the
+    # CUDA cores' float32 rate is printed beside it.
     nbytes = 4 * (4 * B * H * Lq + 4 * B * Hkv * Lk) * D
     flops = 10 * D * B * H * pairs
     row = row_of("flash_attention_bwd", B * H, Lk, ms, plain_ms, nbytes,
                  3 * flops, err, library_ms=lib_ms, op_rate=TF32_OPS_PER_S,
                  Lq=Lq, D=D, rep=H // Hkv)
+    executed = 14 * 3 * flops / 10      # 14·D a pair, three products each
     print(f"kernel flash_attention_bwd {shape}: {flops / ms / 1e9:.2f} T "
-          f"op/s float32; {row['bound_ms'] / ms:.4f} of the 3xTF32 bound; "
-          f"bound on the CUDA cores {flops / FP32_OPS_PER_S * 1e6:.3f} us; "
-          f"two calls bit for bit", flush=True)
+          f"op/s (10·D an unmasked pair), {executed / ms / 1e9:.2f} T op/s "
+          f"TF32 executed (14·D, three products each); "
+          f"{row['bound_ms'] / ms:.4f} of the 3xTF32 bound; bound on the CUDA "
+          f"cores {flops / FP32_OPS_PER_S * 1e6:.3f} us; given the "
+          f"forward's lse; two calls bit for bit", flush=True)
     return row
 
 

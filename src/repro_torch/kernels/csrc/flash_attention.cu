@@ -95,8 +95,11 @@
 //
 // No atomics and a fixed order of every sum: two calls give the same bits.
 //
-// The backward (flash_attention_bwd_launch, float32, D <= 128) is four
-// more kernels at the end of this file; its note is there.
+// Under grad, regime A also writes each row's log2-sum-exp (`lse`, m +
+// log2(l) of the online softmax) for the backward, at any group size;
+// without it a call runs exactly as above.  The backward
+// (flash_attention_bwd_launch, float32, D <= 128) is four more kernels at
+// the end of this file; its note is there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +129,7 @@ struct Args {
   float scale;
   int splits;  // regime B: runs of keys a group (1 in regime A)
   int vec;     // k and v rows may be copied in 16-byte pieces
+  float* lse;  // nullptr, or [B, H, Lq]: each row's log2-sum-exp (regime A)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -380,7 +384,9 @@ __device__ __forceinline__ void split_tile(uint32_t* Ksp, uint32_t* Vsp,
   }
 }
 
-template <typename TQ, typename TKV, int D>
+// kLse: also write each row's log2-sum-exp to a.lse (a grad call); the
+// instantiation without it is the serving path's, untouched by the write.
+template <typename TQ, typename TKV, int D, bool kLse>
 __global__ void __launch_bounds__(kThreadsA, D <= 64 ? 3 : 1)
 attn_tc_kernel(const Args a) {
   constexpr int BK = bka<D>();                         // keys a tile
@@ -603,6 +609,17 @@ attn_tc_kernel(const Args a) {
     for (int n = 0; n < NN; ++n) {
       orow[8 * n + 2 * t] = from_f<TQ>(acc[n][2 * i] * inv_l);
       orow[8 * n + 2 * t + 1] = from_f<TQ>(acc[n][2 * i + 1] * inv_l);
+    }
+  }
+  // Under grad: each row's log2-sum-exp of its scaled logits, m + log2(l)
+  // (the quad's four lanes hold the same m and l), for the backward.
+  if (kLse && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (fr[i] >= rows) continue;
+      const int h = hk * rep + fr[i] % rep, pos = fr[i] / rep;
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.Lq + pos] =
+          m[i] + log2f(l[i]);
     }
   }
 }
@@ -934,10 +951,10 @@ int opt_in(Kern kern, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, bool kLse>
 int launch_tc(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_a<TKV, D>();
-  auto kern = attn_tc_kernel<TQ, TKV, D>;
+  auto kern = attn_tc_kernel<TQ, TKV, D, kLse>;
   const int err = opt_in(kern, smem);
   if (err != 0) return err;
   const int rows = (a.H / a.Hkv) * a.Lq;
@@ -968,9 +985,15 @@ int launch_split(const Args& a, cudaStream_t stream) {
 template <typename TQ, typename TKV, int D>
 int launch_regime(const Args& a, cudaStream_t stream) {
   const int rows = (a.H / a.Hkv) * a.Lq;
+  if (a.lse != nullptr) {
+    // Built for what the backward takes only: float32, D <= 128.
+    if constexpr (sizeof(TQ) == 4 && sizeof(TKV) == 4 && D <= 128)
+      return launch_tc<TQ, TKV, D, true>(a, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (rows <= 8) return launch_split<TQ, TKV, D, 8>(a, stream);
   if (rows <= kRowsB) return launch_split<TQ, TKV, D, 16>(a, stream);
-  return launch_tc<TQ, TKV, D>(a, stream);
+  return launch_tc<TQ, TKV, D, false>(a, stream);
 }
 
 template <typename TQ, typename TKV>
@@ -1005,42 +1028,97 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 // dK and dV summed over the rep query heads of each key/value head.  The
 // reference's Pallas kernel has no custom_vjp, so there is no TPU
 // backward to replace: the reference trains through its jnp attention,
-// and this backward lets the port train through K7.  Float32 operands,
-// every product an fmaf (the file is built with -fmad=false), no atomics
-// and a fixed order of every sum, so two calls give the same bits:
-//   1. stats: a block per (b, hk, tile of 64 flattened rows) walks the
-//      keys its rows see and writes each row's log2-sum-exp of the logits
-//      scaled by scale * log2(e), and Delta (the forward writes no lse);
+// and this backward lets the port train through K7.  Float32 operands, no
+// atomics and a fixed order of every sum, so two calls give the same
+// bits.  P is recomputed from the log2-sum-exp that the forward wrote
+// under grad (regime A's `lse`): P = 2^(s * scale * log2(e) - lse).
+//
+// Bound on this card: 10 * D flops an unmasked (query, key) pair (q.k,
+// dO.v, P^T dO, dS K, dS^T Q) against q, k, v, o, dO read and dq, dk, dv
+// written once, so arithmetic.  A float32-accurate product runs fastest
+// as three TF32 MMAs (lo.hi + hi.lo + hi.hi, small terms first, as the
+// forward's `split` and `mma_tf32`; 495 T op/s, 165 effective): 260.6 us
+// at tinyllama-1.1b's prefill, 1042.2 us at qwen3-moe's (D = 128).  These
+// passes do 14 * D, every product so on the tensor cores: dQ is reduced
+// over keys and dK, dV over rows, and without atomics each needs its own
+// pass, so the dq pass forms the logits and dO V^T once more.
+//   1. Delta: D / 4 lanes a row (float4 reads of o and dO, a fixed
+//      shuffle tree) write (lse, Delta) pairs in the group-major order of
+//      flattened rows that the two passes read (`stats`, each group's
+//      rows padded to a multiple of 64 with zeros).
 //   2. dk/dv: a block per (b, hk, tile of 64 keys, run of up to
-//      ceil(rep * Lq / runs) flattened rows, `runs` as the caller plans
-//      it) walks the rows of its run that see any
-//      of its keys (all rep heads of the group) and keeps its keys' dK and
-//      dV in registers.  Under a causal mask the first key tiles are seen
-//      by every row and the last by few, so one block a key tile would
-//      leave the card waiting on the first ones: the rows are cut into
-//      runs of equal length instead.  With one run a block writes dK, dV;
-//      with more, each run writes its partial sums to a scratch slot (zeros
-//      for a run that sees none of the tile's keys) and
+//      ceil(rep * Lq / runs) flattened rows, `runs` as ops.plan_k7_bwd
+//      plans them) walks the rows of its run that see any of its keys, BR
+//      rows a tile.  A warp owns 16 keys, as the forward's warps own 16
+//      rows: S^T = K_w Q^T and dP^T = V_w dO^T as MMA C fragments, P^T =
+//      2^(S^T c - lse) and dS^T = P^T (dP^T - Delta) in place, then the
+//      same values as A fragments of dV += P^T dO and dK += dS^T Q (the
+//      forward's permuted reduction index: C fragment to A fragment with
+//      no shuffle).  dK and dV stay in registers.  Under a causal mask
+//      every row sees the first key tiles, so the rows are cut into runs
+//      of equal length; with one run a block writes dK, dV, with more each
+//      run writes its partial sums to a scratch slot (zeros for a run that
+//      sees none of the tile's keys) and
 //   3. a reduction adds the runs' partials in run order;
-//   4. dq: a block per (b, hk, tile of 64 flattened rows) walks the keys
-//      its rows see, as the stats pass did, and writes dQ once.
+//   4. dq: a block per (b, hk, tile of 64 flattened rows), the last row
+//      tiles first, walks the keys its rows see, 32 a tile: S = Q_w K^T,
+//      dP = dO_w V^T, dS in place, dQ += dS K.
 // Rows are flattened position-major as in the forward (row f is position
-// f / rep of head hk * rep + f % rep).  A block is 256 threads, 16 x 16;
-// thread (ty, tx) computes the 4 x 4 logits of rows ty + 16 i and keys
-// tx + 16 j of a 64 x 64 tile, reading float4s along D from row-major
-// tiles of D + 4 words a row (conflict-free for a quarter warp's eight
-// rows), and accumulates its 4 x D/16 outputs (rows or keys ty + 16 i,
-// dims tx * D/16 ...).  Masks are evaluated only on tiles that cross the
-// causal diagonal, a window edge or a ragged end.  Bound on this card:
-// 10 * D flops an unmasked (query, key) pair against q, k, v, o, dO read
-// and dq, dk, dv written once, so arithmetic: float32-accurate products
-// run fastest as three TF32 MMAs each (495 T op/s, 165 effective), as the
-// forward runs them; these passes run on the CUDA cores (67 T op/s) and
-// do 16 * D (the logits three times, dO V^T twice).  Head widths 32, 64
-// and 128.
+// f / rep of head hk * rep + f % rep).  Masks are evaluated only on tiles
+// that cross the causal diagonal, a window edge or a ragged end; rows
+// outside a block's run and keys past Lk are zeros in its tiles.
+//
+// Operand layout.  Q and dO are the B operand of a product reduced over D
+// (S^T, dP^T: lane (g, t) reads elements 2t, 2t + 1 of row g) and of one
+// reduced over rows (dK, dV: element g of rows 2t and 2t + 1); so is K in
+// the dq pass.  One split tile serves both: row r of D values as D / 2
+// chunks of 16 bytes, chunk c = {hi(2c), lo(2c), hi(2c + 1), lo(2c + 1)}
+// at slot c ^ sw(r), sw(r) = 2 ((r >> 1) & 3) ^ 4 (r & 1), rows unpadded.
+// A quarter warp's 16-byte reads of rows r, r + 1 then fill the two halves
+// of the banks, and a half warp's 8-byte reads of rows 2t land on eight
+// distinct slots: no bank conflict either way (with the rows in order, no
+// padding serves both: the first wants 16 words mod 32, the second 4 mod
+// 16, and a padding costs two blocks an SM at D = 64).  The A fragments
+// (K_w, V_w; Q_w, dO_w) are read from the same tiles, two 16-byte loads a
+// k-step; each lane's offsets into them are worked out once (StLane), so
+// a load is a register plus a constant (the swizzle computed at every
+// load cost 7 % at D = 128 on an H100: tools/ablate_flash_attention.py
+// --backward).  Q and dO rows (dk/dv) or K and V rows (dq) land raw by
+// 16-byte cp.async one tile ahead and are split once a block, as in the
+// forward.  Shared memory and registers: at D <= 64 a block is 4 warps
+// and two fit an SM (115 328 B at D = 64, the most two blocks may take).
+// At D = 128 the tiles take 224 KB and a warp's dK, dV accumulators 128
+// registers, so two warps share each 16-key (16-row) group, each taking
+// half of the row (key) tile, and add their sums in a fixed order at the
+// end: one block of 8 warps an SM, as many warps as two 4-warp blocks.
+// Head widths 32, 64 and 128.
 
-constexpr int kBT = 64;             // backward: rows and keys a tile
-constexpr int kThreadsBwd = 256;    // 16 x 16 threads
+constexpr int kBwdKeys = 64;       // dk/dv: keys a block, 16 a warp group
+constexpr int kBwdRows = 64;       // dq: rows a block, 16 a warp group
+constexpr int kBwdBK = 32;         // dq: keys a tile
+constexpr int kBwdAux = 256;       // threads of the Delta and sum kernels
+
+// Warps sharing one 16-key (dk/dv) or 16-row (dq) group.
+template <int D>
+__host__ __device__ constexpr int bwd_pair() { return D > 64 ? 2 : 1; }
+template <int D>
+__host__ __device__ constexpr int bwd_threads() { return 128 * bwd_pair<D>(); }
+// dk/dv: rows a tile.
+template <int D>
+__host__ __device__ constexpr int bwd_br() { return D > 32 ? 32 : 64; }
+
+// K, V split (64 keys), Q, dO split and raw (BR rows), raw and current
+// (lse, Delta) and the positions of the BR rows.
+template <int D>
+__host__ __device__ constexpr size_t smem_bwd_dkdv() {
+  return 2 * kBwdKeys * D * 8 + 2 * bwd_br<D>() * D * 12 +
+         bwd_br<D>() * (2 * sizeof(float2) + sizeof(int));
+}
+// Q, dO split (64 rows), K, V split and raw (32 keys).
+template <int D>
+__host__ __device__ constexpr size_t smem_bwd_dq() {
+  return 2 * kBwdRows * D * 8 + 2 * kBwdBK * D * 12;
+}
 
 struct BwdArgs {
   const float* q;
@@ -1048,13 +1126,13 @@ struct BwdArgs {
   const float* v;
   const float* o;
   const float* dO;
-  float* dq;     // [B, H, Lq, D] contiguous
-  float* dk;     // [B, Hkv, Lk, D] contiguous
+  const float* lse;  // [B, H, Lq]: the forward's log2-sum-exp
+  float* dq;         // [B, H, Lq, D] contiguous
+  float* dk;         // [B, Hkv, Lk, D] contiguous
   float* dv;
-  float* lse;    // [B, H, Lq]: log2-sum-exp of the scaled logits
-  float* delta;  // [B, H, Lq]: rowsum(dO * o)
-  float* part;   // runs > 1: [2, runs, B, Hkv, Lk, D] partial dK, dV
-  int B, H, Hkv, Lq, Lk;
+  float2* stats;     // [B * Hkv][rows_pad]: (lse, Delta) of flattened rows
+  float* part;       // runs > 1: [2, runs, B, Hkv, Lk, D] partial dK, dV
+  int B, H, Hkv, Lq, Lk, rows_pad;
   long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl;
   long long dsb, dsh, dsl;
   int causal, window;  // window <= 0: none
@@ -1062,318 +1140,252 @@ struct BwdArgs {
   int runs;  // dk/dv: runs of ceil(rep * Lq / runs) flattened rows
 };
 
-template <int D>
-__host__ __device__ constexpr int bwd_ld() { return D + 4; }
+// Copies 8 bytes from global to shared memory (cp.async).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  *static_cast<uint2*>(dst) = *static_cast<const uint2*>(src);
+#endif
+}
 
-// Rows [f0, f0 + 64) of a group's flattened query rows of a [B, H, Lq, D]
-// tensor at `src` (batch offset applied) into a row-major tile; zeros for
-// rows at or past `rows`.
+// The uint4 slot of chunk c (elements 2c, 2c + 1) of row r of a split tile.
 template <int D>
-__device__ void bwd_load_rows(float* dst, const float* src, long long sh,
-                              long long sl, int hk, int rep, int f0,
-                              int rows) {
-  for (int e = threadIdx.x; e < kBT * D; e += kThreadsBwd) {
-    const int r = e / D, d = e % D, f = f0 + r;
-    float x = 0.0f;
-    if (f < rows)
-      x = src[(hk * rep + f % rep) * sh + static_cast<long long>(f / rep) * sl +
-              d];
-    dst[r * bwd_ld<D>() + d] = x;
+__device__ __forceinline__ int st_slot(int r, int c) {
+  return r * (D / 2) + (c ^ ((((r >> 1) & 3) << 1) ^ ((r & 1) << 2)));
+}
+
+// Lane (g, t)'s offsets into the split tiles, so that every fragment load
+// is a base register plus a constant (no swizzle arithmetic in the loops).
+// The lane reads (1) chunk 4s + t of row g of an 8-row group: with sw(g) =
+// 4h + l, slot (4s + t) ^ sw(g) = 4s + (t ^ l) + 4h for even s and 8h
+// less for odd s; and (2) element 8m + g of row 2t + e of a group: with H
+// = (t >> 1) ^ e, its uint2 is 8m + (2t + e) D + (g & 3) + 4 ((g >> 2) ^
+// (t & 1)) + 8H for even m and 16H less for odd m.
+template <int D>
+struct StLane {
+  int p1e, p1o;              // (1), uint4 units: even and odd s
+  int p20e, p20o, p21e, p21o;  // (2), uint2 units: e = 0, 1; even, odd m
+  __device__ __forceinline__ StLane(int g, int t) {
+    const int sw = (((g >> 1) & 3) << 1) ^ ((g & 1) << 2);
+    const int h = sw >> 2, h0 = t >> 1, h1 = h0 ^ 1;
+    const int col = (g & 3) + 4 * ((g >> 2) ^ (t & 1));
+    p1e = g * (D / 2) + (t ^ (sw & 3)) + 4 * h;
+    p1o = p1e - 8 * h;
+    p20e = 2 * t * D + col + 8 * h0;
+    p20o = p20e - 16 * h0;
+    p21e = (2 * t + 1) * D + col + 8 * h1;
+    p21o = p21e - 16 * h1;
+  }
+  // Elements (r0 + g, 8s + 2t) and (r0 + g, 8s + 2t + 1), r0 a multiple
+  // of 8: {hi, lo, hi, lo}.
+  __device__ __forceinline__ uint4 pair(const uint4* T, int r0,
+                                        int s) const {
+    return T[r0 * (D / 2) + ((s & 1) ? p1o : p1e) + 4 * s];
+  }
+  // Element (r0 + 2t + e, 8m + g), r0 a multiple of 8: {hi, lo}.
+  __device__ __forceinline__ uint2 one(const uint4* T, int r0, int e,
+                                       int m) const {
+    const int b = e ? ((m & 1) ? p21o : p21e) : ((m & 1) ? p20o : p20e);
+    return reinterpret_cast<const uint2*>(T)[r0 * D + b + 8 * m];
+  }
+};
+
+// Values (r, d .. d + 3), d a multiple of 4, split into a tile.
+template <int D>
+__device__ __forceinline__ void st_put4(uint4* T, int r, int d, float4 x) {
+  uint32_t h0, l0, h1, l1, h2, l2, h3, l3;
+  split(x.x, h0, l0);
+  split(x.y, h1, l1);
+  split(x.z, h2, l2);
+  split(x.w, h3, l3);
+  T[st_slot<D>(r, d >> 1)] = make_uint4(h0, l0, h1, l1);
+  T[st_slot<D>(r, (d >> 1) + 1)] = make_uint4(h2, l2, h3, l3);
+}
+
+// The A fragment of k-step s of rows r0 + g and r0 + g + 8: columns t and
+// t + 4 hold d = 8s + 2t and 8s + 2t + 1 (the permuted reduction index).
+template <int D>
+__device__ __forceinline__ void st_afrag(const StLane<D>& L, const uint4* T,
+                                         int r0, int s, uint32_t (&ah)[4],
+                                         uint32_t (&al)[4]) {
+  const uint4 x = L.pair(T, r0, s);
+  const uint4 y = L.pair(T, r0 + 8, s);
+  ah[0] = x.x; al[0] = x.y; ah[2] = x.z; al[2] = x.w;
+  ah[1] = y.x; al[1] = y.y; ah[3] = y.z; al[3] = y.w;
+}
+
+// c += a b, float32-accurate: lo_a hi_b + hi_a lo_b + hi_a hi_b.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t b0h,
+                                     uint32_t b1h, uint32_t b0l,
+                                     uint32_t b1l) {
+  mma_tf32(c, al, b0h, b1h);
+  mma_tf32(c, ah, b0l, b1l);
+  mma_tf32(c, ah, b0h, b1h);
+}
+
+// A C fragment split into the A fragment of a product reduced over its
+// columns: A columns t and t + 4 are the C fragment's columns 2t, 2t + 1.
+__device__ __forceinline__ void c_to_a(const float (&c)[4], uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  split(c[0], ah[0], al[0]);
+  split(c[2], ah[1], al[1]);
+  split(c[1], ah[2], al[2]);
+  split(c[3], ah[3], al[3]);
+}
+
+// Rows [0, n) of a split tile from row(r), a row pointer or nullptr (a
+// row of zeros), read directly.
+template <int D, int NT, typename Row>
+__device__ __forceinline__ void bwd_load_split(uint4* T, int n, Row row) {
+  for (int idx = threadIdx.x; idx < n * (D / 4); idx += NT) {
+    const int r = idx / (D / 4), d = (idx % (D / 4)) * 4;
+    const float* p = row(r);
+    const float4 x = p != nullptr ? *reinterpret_cast<const float4*>(p + d)
+                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    st_put4<D>(T, r, d, x);
   }
 }
 
-// Keys [j0, j0 + 64) of one head of a [B, Hkv, Lk, D] tensor at `src`
-// (batch and head offsets applied); zeros past Lk.
-template <int D>
-__device__ void bwd_load_keys(float* dst, const float* src, long long sl,
-                              int j0, int Lk) {
-  for (int e = threadIdx.x; e < kBT * D; e += kThreadsBwd) {
-    const int r = e / D, d = e % D, j = j0 + r;
-    dst[r * bwd_ld<D>() + d] =
-        j < Lk ? src[static_cast<long long>(j) * sl + d] : 0.0f;
+// Enqueues (cp.async) the rows r of [0, n) for which row(r) is not
+// nullptr into the raw tile [n][D].
+template <int D, int NT, typename Row>
+__device__ __forceinline__ void bwd_issue(float* raw, int n, Row row) {
+  for (int idx = threadIdx.x; idx < n * (D / 4); idx += NT) {
+    const int r = idx / (D / 4), e = (idx % (D / 4)) * 4;
+    const float* p = row(r);
+    if (p != nullptr) cp_async16(raw + r * D + e, p + e);
   }
 }
 
-// s[i][j] = A[ty + 16 i] . Bm[tx + 16 j] over D, fmaf in order of d.
-template <int D>
-__device__ __forceinline__ void bwd_dot(const float* A, const float* Bm,
-                                        float (&s)[4][4], int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * bwd_ld<D>() +
-                                              d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      y[j] = *reinterpret_cast<const float4*>(Bm + (tx + 16 * j) * bwd_ld<D>() +
-                                              d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float acc = s[i][j];
-        acc = fmaf(x[i].x, y[j].x, acc);
-        acc = fmaf(x[i].y, y[j].y, acc);
-        acc = fmaf(x[i].z, y[j].z, acc);
-        acc = fmaf(x[i].w, y[j].w, acc);
-        s[i][j] = acc;
-      }
+// The split pass: raw rows [0, n) into a split tile, zeros where !ok(r).
+template <int D, int NT, typename Ok>
+__device__ __forceinline__ void bwd_split(uint4* T, const float* raw, int n,
+                                          Ok ok) {
+  for (int idx = threadIdx.x; idx < n * (D / 4); idx += NT) {
+    const int r = idx / (D / 4), d = (idx % (D / 4)) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (ok(r)) x = *reinterpret_cast<const float4*>(raw + r * D + d);
+    st_put4<D>(T, r, d, x);
   }
 }
 
-// The absolute positions of a thread's four rows ty + 16 i of the tile of
-// flattened rows from f0; a row at or past `rows` gets INT_MIN (it sees no
-// key).
-__device__ __forceinline__ void bwd_row_pos(const BwdArgs& a, int f0, int rep,
-                                            int rows, int ty, int (&ap)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = f0 + ty + 16 * i;
-    ap[i] = f < rows ? f / rep + (a.Lk - a.Lq) : -0x7fffffff - 1;
-  }
-}
-
-// Whether the row at absolute position ap sees key j (ap = INT_MIN: none).
+// Whether the row at absolute position ap sees key j.
 __device__ __forceinline__ bool bwd_sees(const BwdArgs& a, int ap, int j) {
-  return ap >= 0 && j < a.Lk && (!a.causal || j <= ap) &&
+  return j < a.Lk && (!a.causal || j <= ap) &&
          (a.window <= 0 || j > ap - a.window);
 }
 
-// Whether every (row, key) pair of rows [f0, f0 + 64) and keys [j0, j0 +
-// 64) is visible, so that a tile needs no mask.
-__device__ __forceinline__ bool bwd_tile_full(const BwdArgs& a, int rep,
-                                              int rows, int f0, int j0) {
-  const int off = a.Lk - a.Lq;
-  const int ap_lo = f0 / rep + off, ap_hi = (f0 + kBT - 1) / rep + off;
-  return f0 + kBT <= rows && j0 + kBT <= a.Lk &&
-         (!a.causal || j0 + kBT - 1 <= ap_lo) &&
-         (a.window <= 0 || j0 > ap_hi - a.window);
+// Whether rows at absolute positions [p0, p1] see every key of [j0, j0 +
+// n): no mask needed.
+__device__ __forceinline__ bool bwd_full(const BwdArgs& a, int p0, int p1,
+                                         int j0, int n) {
+  return j0 + n <= a.Lk && (!a.causal || j0 + n - 1 <= p0) &&
+         (a.window <= 0 || j0 > p1 - a.window);
 }
 
-// The keys [lo, hi) that any of the flattened rows [f0, f_last] sees.
-__device__ __forceinline__ void bwd_keys(const BwdArgs& a, int rep, int f0,
-                                         int f_last, int& lo, int& hi) {
-  const int off = a.Lk - a.Lq;
-  lo = a.window > 0 ? max(0, f0 / rep + off - a.window + 1) : 0;
-  hi = a.causal ? min(a.Lk, f_last / rep + off + 1) : a.Lk;
+// Row f of a group (b, hk) of a [B, H, Lq, D] tensor at `base` (batch
+// applied) with head and position strides sh, sl.
+__device__ __forceinline__ const float* bwd_qrow(const float* base,
+                                                 long long sh, long long sl,
+                                                 int hk, int rep, int f) {
+  return base + (hk * rep + f % rep) * sh +
+         static_cast<long long>(f / rep) * sl;
 }
 
-// The (b, hk) group and the row tile of a stats or dq block: groups
-// fastest, the last row tiles (which see the most keys) first.
-struct BwdRowTile {
-  int b, hk, rep, rows, f0, f_last;
-};
-__device__ __forceinline__ BwdRowTile bwd_row_tile(const BwdArgs& a) {
-  BwdRowTile t;
-  const int groups = a.B * a.Hkv;
-  t.rep = a.H / a.Hkv;
-  t.rows = t.rep * a.Lq;
-  const int ntiles = (t.rows + kBT - 1) / kBT;
-  const int g = blockIdx.x % groups;
-  t.b = g / a.Hkv;
-  t.hk = g % a.Hkv;
-  t.f0 = (ntiles - 1 - static_cast<int>(blockIdx.x) / groups) * kBT;
-  t.f_last = min(t.f0 + kBT, t.rows) - 1;
-  return t;
+// The pair reduction at D = 128: the warp of half 1 leaves its sums in
+// `red` (shared memory the tiles no longer need, 4 * 32 slots a value),
+// the warp of half 0 adds them to its own, in that order.
+template <int N>
+__device__ __forceinline__ void bwd_pair_sum(float (&x)[N][4], float* red,
+                                             int group, int half, int lane) {
+  const int slot = group * 32 + lane;
+  __syncthreads();   // every warp is done with the tiles
+  if (half == 1) {
+#pragma unroll
+    for (int m = 0; m < N; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(m * 4 + e) * 128 + slot] = x[m][e];
+  }
+  __syncthreads();
+  if (half == 0) {
+#pragma unroll
+    for (int m = 0; m < N; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[m][e] = x[m][e] + red[(m * 4 + e) * 128 + slot];
+  }
 }
 
-// Index into [B, H, Lq] of flattened row f of group (b, hk).
-__device__ __forceinline__ long long bwd_row(const BwdArgs& a, int b, int hk,
-                                             int rep, int f) {
-  return (static_cast<long long>(b) * a.H + hk * rep + f % rep) * a.Lq +
-         f / rep;
+// Delta = rowsum(dO * o) and the forward's lse of each flattened row, as
+// (lse, Delta) at stats[(b * Hkv + hk) * rows_pad + f]; zeros for f >=
+// rep * Lq.  D / 4 lanes a row.
+template <int D>
+__global__ void __launch_bounds__(kBwdAux)
+    attn_bwd_delta_kernel(const BwdArgs a) {
+  constexpr int L = D / 4;
+  const int rep = a.H / a.Hkv, rows = rep * a.Lq;
+  const long long n = static_cast<long long>(a.B) * a.Hkv * a.rows_pad;
+  const long long i = static_cast<long long>(blockIdx.x) * (kBwdAux / L) +
+                      threadIdx.x / L;
+  const int lane = threadIdx.x % L;
+  const int grp = static_cast<int>(i / a.rows_pad);
+  const int f = static_cast<int>(i % a.rows_pad);
+  float sum = 0.0f, lse = 0.0f;
+  if (i < n && f < rows) {
+    const int b = grp / a.Hkv, hk = grp % a.Hkv;
+    const float4 x = *reinterpret_cast<const float4*>(
+        bwd_qrow(a.o + b * a.osb, a.osh, a.osl, hk, rep, f) + 4 * lane);
+    const float4 y = *reinterpret_cast<const float4*>(
+        bwd_qrow(a.dO + b * a.dsb, a.dsh, a.dsl, hk, rep, f) + 4 * lane);
+    sum = x.x * y.x;
+    sum = fmaf(x.y, y.y, sum);
+    sum = fmaf(x.z, y.z, sum);
+    sum = fmaf(x.w, y.w, sum);
+    if (lane == 0) {
+      const int h = hk * rep + f % rep, pos = f / rep;
+      lse = a.lse[(static_cast<long long>(b) * a.H + h) * a.Lq + pos];
+    }
+  }
+#pragma unroll
+  for (int w = 1; w < L; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+  if (i < n && lane == 0) a.stats[i] = make_float2(lse, sum);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsBwd)
-    attn_bwd_stats_kernel(const BwdArgs a) {
-  extern __shared__ uint4 smem_u4[];
-  float* Qs = reinterpret_cast<float*>(smem_u4);
-  float* Ks = Qs + kBT * bwd_ld<D>();
-  const BwdRowTile t = bwd_row_tile(a);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  bwd_load_rows<D>(Qs, a.q + t.b * a.qsb, a.qsh, a.qsl, t.hk, t.rep, t.f0,
-                   t.rows);
-  int ap[4];
-  bwd_row_pos(a, t.f0, t.rep, t.rows, ty, ap);
-  int lo, hi;
-  bwd_keys(a, t.rep, t.f0, t.f_last, lo, hi);
-  const float c = a.scale * kLog2e;
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.0f;
-  }
-  const float* kh = a.k + t.b * a.ksb + t.hk * a.ksh;
-  for (int j0 = lo; j0 < hi; j0 += kBT) {
-    __syncthreads();
-    bwd_load_keys<D>(Ks, kh, a.ksl, j0, a.Lk);
-    __syncthreads();
-    float s[4][4];
-    bwd_dot<D>(Qs, Ks, s, ty, tx);
-    const bool full = bwd_tile_full(a, t.rep, t.rows, t.f0, j0);
-    // Per row: the tile's largest scaled logit of this thread's keys,
-    // then the running (m, l) rescaled once; a masked logit adds 0.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float x[4], mt = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = full || bwd_sees(a, ap[i], j0 + tx + 16 * j);
-        x[j] = ok ? s[i][j] * c : kNeg;
-        mt = fmaxf(mt, x[j]);
-      }
-      const float mn = fmaxf(m[i], mt);
-      float add = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        add += x[j] > kNeg ? exp2f(x[j] - mn) : 0.0f;
-      l[i] = fmaf(l[i], exp2f(m[i] - mn), add);
-      m[i] = mn;
-    }
-  }
-  // Merge the 16 lanes of a row (tx) pairwise; every lane ends with the
-  // same (m, l).
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int o = 1; o < 16; o <<= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], o);
-      const float lo_ = __shfl_xor_sync(0xffffffffu, l[i], o);
-      const float mm = fmaxf(m[i], mo);
-      l[i] = l[i] * exp2f(m[i] - mm) + lo_ * exp2f(mo - mm);
-      m[i] = mm;
-    }
-  }
-  // Delta of each row: its D products, tx-strided, then the same merge.
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = t.f0 + ty + 16 * i;
-    float dsum = 0.0f;
-    if (f < t.rows) {
-      const int h = t.hk * t.rep + f % t.rep, pos = f / t.rep;
-      const float* orow = a.o + t.b * a.osb + h * a.osh + pos * a.osl;
-      const float* drow = a.dO + t.b * a.dsb + h * a.dsh + pos * a.dsl;
-      for (int d = tx; d < D; d += 16) dsum = fmaf(drow[d], orow[d], dsum);
-    }
-#pragma unroll
-    for (int o = 1; o < 16; o <<= 1)
-      dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
-    if (tx == 0 && f < t.rows) {
-      const long long r = bwd_row(a, t.b, t.hk, t.rep, f);
-      a.lse[r] = m[i] + log2f(l[i]);
-      a.delta[r] = dsum;
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsBwd, D <= 64 ? 2 : 1)
-    attn_bwd_dq_kernel(const BwdArgs a) {
-  constexpr int DV = D / 16;
-  extern __shared__ uint4 smem_u4[];
-  float* Qs = reinterpret_cast<float*>(smem_u4);
-  float* Os = Qs + kBT * bwd_ld<D>();   // dO rows
-  float* Ks = Os + kBT * bwd_ld<D>();
-  float* Vs = Ks + kBT * bwd_ld<D>();
-  float* Ss = Vs + kBT * bwd_ld<D>();   // dS [64][65]
-  const BwdRowTile t = bwd_row_tile(a);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  bwd_load_rows<D>(Qs, a.q + t.b * a.qsb, a.qsh, a.qsl, t.hk, t.rep, t.f0,
-                   t.rows);
-  bwd_load_rows<D>(Os, a.dO + t.b * a.dsb, a.dsh, a.dsl, t.hk, t.rep, t.f0,
-                   t.rows);
-  int ap[4];
-  bwd_row_pos(a, t.f0, t.rep, t.rows, ty, ap);
-  float lse[4], del[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = t.f0 + ty + 16 * i;
-    const long long r = f < t.rows ? bwd_row(a, t.b, t.hk, t.rep, f) : 0;
-    lse[i] = f < t.rows ? a.lse[r] : 0.0f;
-    del[i] = f < t.rows ? a.delta[r] : 0.0f;
-  }
-  int lo, hi;
-  bwd_keys(a, t.rep, t.f0, t.f_last, lo, hi);
-  const float c = a.scale * kLog2e;
-  float acc[4][DV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DV; ++e) acc[i][e] = 0.0f;
-  const float* kh = a.k + t.b * a.ksb + t.hk * a.ksh;
-  const float* vh = a.v + t.b * a.vsb + t.hk * a.vsh;
-  for (int j0 = lo; j0 < hi; j0 += kBT) {
-    __syncthreads();
-    bwd_load_keys<D>(Ks, kh, a.ksl, j0, a.Lk);
-    bwd_load_keys<D>(Vs, vh, a.vsl, j0, a.Lk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    bwd_dot<D>(Qs, Ks, s, ty, tx);
-    bwd_dot<D>(Os, Vs, dp, ty, tx);
-    const bool full = bwd_tile_full(a, t.rep, t.rows, t.f0, j0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kk = tx + 16 * j;
-        float ds = 0.0f;
-        if (full || bwd_sees(a, ap[i], j0 + kk))
-          ds = exp2f(s[i][j] * c - lse[i]) * (dp[i][j] - del[i]);
-        Ss[(ty + 16 * i) * (kBT + 1) + kk] = ds;
-      }
-    __syncthreads();
-    for (int kk = 0; kk < kBT; ++kk) {
-      float w[4], kv[DV];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = Ss[(ty + 16 * i) * (kBT + 1) + kk];
-#pragma unroll
-      for (int e = 0; e < DV; ++e) kv[e] = Ks[kk * bwd_ld<D>() + tx * DV + e];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < DV; ++e) acc[i][e] = fmaf(w[i], kv[e], acc[i][e]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = t.f0 + ty + 16 * i;
-    if (f >= t.rows) continue;
-    float* out = a.dq + bwd_row(a, t.b, t.hk, t.rep, f) * D + tx * DV;
-#pragma unroll
-    for (int e = 0; e < DV; ++e) out[e] = acc[i][e] * a.scale;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsBwd, D <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
     attn_bwd_dkdv_kernel(const BwdArgs a) {
-  constexpr int DV = D / 16;
+  constexpr int P = bwd_pair<D>(), NT = bwd_threads<D>(), BR = bwd_br<D>();
+  constexpr int NS = D / 8;          // k-steps over d; 8-column tiles of dK
+  constexpr int NTW = BR / 8 / P;    // 8-row tiles of a row tile a warp takes
+  static_assert(P == 1 || 2 * NS * 4 * 128 * 4 <= 2 * BR * D * 8,
+                "the pair sums fit the row tiles");
   extern __shared__ uint4 smem_u4[];
-  float* Ks = reinterpret_cast<float*>(smem_u4);
-  float* Vs = Ks + kBT * bwd_ld<D>();
-  float* Qs = Vs + kBT * bwd_ld<D>();
-  float* Os = Qs + kBT * bwd_ld<D>();   // dO rows
-  float* Ps = Os + kBT * bwd_ld<D>();   // P [64][65]
-  float* Ss = Ps + kBT * (kBT + 1);     // dS [64][65]
-  float* lse_s = Ss + kBT * (kBT + 1);
-  float* del_s = lse_s + kBT;
+  uint4* Ks = smem_u4;                                   // [64][D] split
+  uint4* Vs = Ks + kBwdKeys * D / 2;
+  uint4* Qs = Vs + kBwdKeys * D / 2;                     // [BR][D] split
+  uint4* Os = Qs + BR * D / 2;                           // dO
+  float* Qr = reinterpret_cast<float*>(Os + BR * D / 2);  // [BR][D] raw
+  float* Or = Qr + BR * D;
+  float2* Sr = reinterpret_cast<float2*>(Or + BR * D);   // [BR] raw stats
+  float2* Sc = Sr + BR;                                  // [BR] the tile's
+  int* Pc = reinterpret_cast<int*>(Sc + BR);             // [BR] positions
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = warp / P, half = warp % P;
   const int groups = a.B * a.Hkv, rep = a.H / a.Hkv, rows = rep * a.Lq;
-  const int g = blockIdx.x % groups, b = g / a.Hkv, hk = g % a.Hkv;
+  const int grp = blockIdx.x % groups, b = grp / a.Hkv, hk = grp % a.Hkv;
   // Groups fastest, then runs, then key tiles in order: under a causal
   // mask the first tiles are seen by the most rows, so the blocks with
   // full runs go first.
   const int run = (static_cast<int>(blockIdx.x) / groups) % a.runs;
-  const int j0 = (static_cast<int>(blockIdx.x) / groups / a.runs) * kBT;
-  const int j1 = min(j0 + kBT, a.Lk);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int j0 = (static_cast<int>(blockIdx.x) / groups / a.runs) * kBwdKeys;
+  const int j1 = min(j0 + kBwdKeys, a.Lk);
   const int off = a.Lk - a.Lq;
   // The flattened rows of this run that see a key of [j0, j1).
   const int p_lo = a.causal ? max(0, j0 - off) : 0;
@@ -1381,74 +1393,127 @@ __global__ void __launch_bounds__(kThreadsBwd, D <= 64 ? 2 : 1)
   const int run_rows = (rows + a.runs - 1) / a.runs;
   const int f_beg = p_lo * rep + run * run_rows;
   const int f_end = min(p_hi * rep, f_beg + run_rows);
-  float dk[4][DV], dv[4][DV];
+  const float* qb = a.q + b * a.qsb;
+  const float* ob = a.dO + b * a.dsb;
+  const float2* sb = a.stats + static_cast<long long>(grp) * a.rows_pad;
+
+  // Rows [f0, f0 + BR) of the run: Q, dO and (lse, Delta) by cp.async.
+  auto issue = [&](int f0) {
+    bwd_issue<D, NT>(Qr, BR, [&](int r) -> const float* {
+      return f0 + r < f_end ? bwd_qrow(qb, a.qsh, a.qsl, hk, rep, f0 + r)
+                            : nullptr;
+    });
+    bwd_issue<D, NT>(Or, BR, [&](int r) -> const float* {
+      return f0 + r < f_end ? bwd_qrow(ob, a.dsh, a.dsl, hk, rep, f0 + r)
+                            : nullptr;
+    });
+    for (int r = tid; r < BR; r += NT)
+      if (f0 + r < f_end) cp_async8(Sr + r, sb + f0 + r);
+  };
+
+  float dk[NS][4], dv[NS][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int m = 0; m < NS; ++m)
 #pragma unroll
-    for (int e = 0; e < DV; ++e) {
-      dk[i][e] = 0.0f;
-      dv[i][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) {
+      dk[m][e] = 0.0f;
+      dv[m][e] = 0.0f;
     }
   if (f_beg < f_end) {
-    bwd_load_keys<D>(Ks, a.k + b * a.ksb + hk * a.ksh, a.ksl, j0, a.Lk);
-    bwd_load_keys<D>(Vs, a.v + b * a.vsb + hk * a.vsh, a.vsl, j0, a.Lk);
+    issue(f_beg);
+    cp_async_commit();
+    const float* kh = a.k + b * a.ksb + hk * a.ksh;
+    const float* vh = a.v + b * a.vsb + hk * a.vsh;
+    bwd_load_split<D, NT>(Ks, kBwdKeys, [&](int r) -> const float* {
+      return j0 + r < a.Lk ? kh + static_cast<long long>(j0 + r) * a.ksl
+                           : nullptr;
+    });
+    bwd_load_split<D, NT>(Vs, kBwdKeys, [&](int r) -> const float* {
+      return j0 + r < a.Lk ? vh + static_cast<long long>(j0 + r) * a.vsl
+                           : nullptr;
+    });
   }
   const float c = a.scale * kLog2e;
-  for (int f0 = f_beg; f0 < f_end; f0 += kBT) {
-    __syncthreads();
-    bwd_load_rows<D>(Qs, a.q + b * a.qsb, a.qsh, a.qsl, hk, rep, f0, rows);
-    bwd_load_rows<D>(Os, a.dO + b * a.dsb, a.dsh, a.dsl, hk, rep, f0, rows);
-    if (threadIdx.x < kBT) {
-      const int f = f0 + threadIdx.x;
-      const long long r = f < rows ? bwd_row(a, b, hk, rep, f) : 0;
-      lse_s[threadIdx.x] = f < rows ? a.lse[r] : 0.0f;
-      del_s[threadIdx.x] = f < rows ? a.delta[r] : 0.0f;
+  const int key0 = j0 + 16 * kw + g;   // this lane's keys: key0, key0 + 8
+  const StLane<D> L(g, t);
+  for (int f0 = f_beg; f0 < f_end; f0 += BR) {
+    cp_async_wait0();
+    __syncthreads();   // tile f0 landed; every warp is done with the last
+    bwd_split<D, NT>(Qs, Qr, BR, [&](int r) { return f0 + r < f_end; });
+    bwd_split<D, NT>(Os, Or, BR, [&](int r) { return f0 + r < f_end; });
+    for (int r = tid; r < BR; r += NT) {
+      Sc[r] = f0 + r < f_end ? Sr[r] : make_float2(0.0f, 0.0f);
+      Pc[r] = (f0 + r) / rep + off;
     }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    bwd_dot<D>(Qs, Ks, s, ty, tx);
-    bwd_dot<D>(Os, Vs, dp, ty, tx);
-    int ap[4];
-    bwd_row_pos(a, f0, rep, rows, ty, ap);
-    const bool full = bwd_tile_full(a, rep, rows, f0, j0);
+    __syncthreads();   // the split tiles are in place; the raw ones free
+    if (f0 + BR < f_end) issue(f0 + BR);
+    cp_async_commit();
+    const bool full =
+        bwd_full(a, f0 / rep + off, (f0 + BR - 1) / rep + off, j0, kBwdKeys);
+
+    // S^T = K_w Q^T and dP^T = V_w dO^T: 8 rows a fragment.
+    float st[NTW][4], dp[NTW][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
+    for (int n = 0; n < NTW; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kk = tx + 16 * j;
-        float p = 0.0f, ds = 0.0f;
-        if (full || bwd_sees(a, ap[i], j0 + kk)) {
-          p = exp2f(s[i][j] * c - lse_s[r]);
-          ds = p * (dp[i][j] - del_s[r]);
-        }
-        Ps[r * (kBT + 1) + kk] = p;
-        Ss[r * (kBT + 1) + kk] = ds;
+      for (int e = 0; e < 4; ++e) {
+        st[n][e] = 0.0f;
+        dp[n][e] = 0.0f;
+      }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      st_afrag<D>(L, Ks, 16 * kw, s, kh, kl);
+      st_afrag<D>(L, Vs, 16 * kw, s, vh, vl);
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int r0 = 8 * (half * NTW + n);
+        const uint4 xq = L.pair(Qs, r0, s);
+        const uint4 xo = L.pair(Os, r0, s);
+        mma3(st[n], kh, kl, xq.x, xq.z, xq.y, xq.w);
+        mma3(dp[n], vh, vl, xo.x, xo.z, xo.y, xo.w);
       }
     }
-    __syncthreads();
-    const int nr = min(kBT, f_end - f0);
-    for (int r = 0; r < nr; ++r) {
-      float pw[4], sw[4], ov[DV], qv[DV];
+    // P^T and dS^T in place: element e is key key0 + 8 (e >> 1), row r +
+    // (e & 1) of the tile.
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pw[i] = Ps[r * (kBT + 1) + ty + 16 * i];
-        sw[i] = Ss[r * (kBT + 1) + ty + 16 * i];
+    for (int n = 0; n < NTW; ++n) {
+      const int r = 8 * (half * NTW + n) + 2 * t;
+      const float2 s0 = Sc[r], s1 = Sc[r + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 sv = (e & 1) ? s1 : s0;
+        float p = exp2f(st[n][e] * c - sv.x);
+        if (!full && !bwd_sees(a, Pc[r + (e & 1)], key0 + 8 * (e >> 1)))
+          p = 0.0f;
+        st[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - sv.y);
       }
+    }
+    // dV += P^T dO and dK += dS^T Q: k-step n takes rows r (A columns t)
+    // and r + 1 (columns t + 4), the fragments' own columns.
 #pragma unroll
-      for (int e = 0; e < DV; ++e) {
-        ov[e] = Os[r * bwd_ld<D>() + tx * DV + e];
-        qv[e] = Qs[r * bwd_ld<D>() + tx * DV + e];
+    for (int n = 0; n < NTW; ++n) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      c_to_a(st[n], ph, pl);
+      c_to_a(dp[n], sh, sl);
+      const int r0 = 8 * (half * NTW + n);
+#pragma unroll
+      for (int m = 0; m < NS; ++m) {
+        const uint2 o0 = L.one(Os, r0, 0, m);
+        const uint2 o1 = L.one(Os, r0, 1, m);
+        const uint2 q0 = L.one(Qs, r0, 0, m);
+        const uint2 q1 = L.one(Qs, r0, 1, m);
+        mma3(dv[m], ph, pl, o0.x, o1.x, o0.y, o1.y);
+        mma3(dk[m], sh, sl, q0.x, q1.x, q0.y, q1.y);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < DV; ++e) {
-          dv[i][e] = fmaf(pw[i], ov[e], dv[i][e]);
-          dk[i][e] = fmaf(sw[i], qv[e], dk[i][e]);
-        }
     }
   }
+  if constexpr (P == 2) {
+    bwd_pair_sum<NS>(dk, reinterpret_cast<float*>(Qs), kw, half, lane);
+    bwd_pair_sum<NS>(dv, reinterpret_cast<float*>(Qs), kw, half, lane);
+  }
+  if (half != 0) return;
   // One run: the gradients.  Several: this run's partial sums (zeros if
   // it saw none of the tile's keys), which the reduction adds in order.
   const long long n = static_cast<long long>(a.B) * a.Hkv * a.Lk * D;
@@ -1456,25 +1521,27 @@ __global__ void __launch_bounds__(kThreadsBwd, D <= 64 ? 2 : 1)
   float* out_v = a.runs == 1 ? a.dv : a.part + (a.runs + run) * n;
   const float sk = a.runs == 1 ? a.scale : 1.0f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int j = j0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int j = key0 + 8 * i;
     if (j >= a.Lk) continue;
     const long long base =
-        ((static_cast<long long>(b) * a.Hkv + hk) * a.Lk + j) * D + tx * DV;
+        ((static_cast<long long>(b) * a.Hkv + hk) * a.Lk + j) * D + 2 * t;
 #pragma unroll
-    for (int e = 0; e < DV; ++e) {
-      out_k[base + e] = dk[i][e] * sk;
-      out_v[base + e] = dv[i][e];
+    for (int m = 0; m < NS; ++m) {
+      *reinterpret_cast<float2*>(out_k + base + 8 * m) =
+          make_float2(dk[m][2 * i] * sk, dk[m][2 * i + 1] * sk);
+      *reinterpret_cast<float2*>(out_v + base + 8 * m) =
+          make_float2(dv[m][2 * i], dv[m][2 * i + 1]);
     }
   }
 }
 
 // dK = scale * (sum of the runs' partials), dV = the sum, each element's
 // runs added in run order.
-__global__ void __launch_bounds__(kThreadsBwd)
+__global__ void __launch_bounds__(kBwdAux)
     attn_bwd_reduce_kernel(const BwdArgs a, long long n) {
   const long long e =
-      static_cast<long long>(blockIdx.x) * kThreadsBwd + threadIdx.x;
+      static_cast<long long>(blockIdx.x) * kBwdAux + threadIdx.x;
   if (e >= n) return;
   float sk = 0.0f, sv = 0.0f;
   for (int r = 0; r < a.runs; ++r) {
@@ -1486,35 +1553,183 @@ __global__ void __launch_bounds__(kThreadsBwd)
 }
 
 template <int D>
+__global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
+    attn_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int P = bwd_pair<D>(), NT = bwd_threads<D>();
+  constexpr int NS = D / 8;               // k-steps over d; tiles of dQ
+  constexpr int NTW = kBwdBK / 8 / P;     // 8-key tiles a warp takes
+  static_assert(P == 1 || NS * 4 * 128 * 4 <= 2 * kBwdBK * D * 8,
+                "the pair sums fit the key tiles");
+  extern __shared__ uint4 smem_u4[];
+  uint4* Qs = smem_u4;                                    // [64][D] split
+  uint4* Os = Qs + kBwdRows * D / 2;                      // dO
+  uint4* Ks = Os + kBwdRows * D / 2;                      // [32][D] split
+  uint4* Vs = Ks + kBwdBK * D / 2;
+  float* Kr = reinterpret_cast<float*>(Vs + kBwdBK * D / 2);  // [32][D] raw
+  float* Vr = Kr + kBwdBK * D;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp / P, half = warp % P;
+  const int groups = a.B * a.Hkv, rep = a.H / a.Hkv, rows = rep * a.Lq;
+  const int rtiles = (rows + kBwdRows - 1) / kBwdRows;
+  const int grp = blockIdx.x % groups, b = grp / a.Hkv, hk = grp % a.Hkv;
+  // Groups fastest, the last row tiles (which see the most keys) first.
+  const int f0 =
+      (rtiles - 1 - static_cast<int>(blockIdx.x) / groups) * kBwdRows;
+  const int f_last = min(f0 + kBwdRows, rows) - 1;
+  const int off = a.Lk - a.Lq;
+  const int p0 = f0 / rep + off, p1 = f_last / rep + off;
+  const int lo = a.window > 0 ? max(0, p0 - a.window + 1) : 0;
+  const int hi = a.causal ? min(a.Lk, p1 + 1) : a.Lk;
+  const int kt0 = (lo / kBwdBK) * kBwdBK;
+  const int ntiles = hi > kt0 ? (hi - kt0 + kBwdBK - 1) / kBwdBK : 0;
+  const float* kh = a.k + b * a.ksb + hk * a.ksh;
+  const float* vh = a.v + b * a.vsb + hk * a.vsh;
+
+  // Keys [kt, kt + 32) of K and V by cp.async (none past Lk).
+  auto issue = [&](int kt) {
+    bwd_issue<D, NT>(Kr, kBwdBK, [&](int r) -> const float* {
+      return kt + r < a.Lk ? kh + static_cast<long long>(kt + r) * a.ksl
+                           : nullptr;
+    });
+    bwd_issue<D, NT>(Vr, kBwdBK, [&](int r) -> const float* {
+      return kt + r < a.Lk ? vh + static_cast<long long>(kt + r) * a.vsl
+                           : nullptr;
+    });
+  };
+  if (ntiles > 0) issue(kt0);
+  cp_async_commit();
+  const float* qb = a.q + b * a.qsb;
+  const float* ob = a.dO + b * a.dsb;
+  bwd_load_split<D, NT>(Qs, kBwdRows, [&](int r) -> const float* {
+    return f0 + r < rows ? bwd_qrow(qb, a.qsh, a.qsl, hk, rep, f0 + r)
+                         : nullptr;
+  });
+  bwd_load_split<D, NT>(Os, kBwdRows, [&](int r) -> const float* {
+    return f0 + r < rows ? bwd_qrow(ob, a.dsh, a.dsl, hk, rep, f0 + r)
+                         : nullptr;
+  });
+  // This lane's rows f0 + 16 rw + g and + 8: (lse, Delta) and positions
+  // (the padding past `rows` holds zeros).
+  const int fr = f0 + 16 * rw + g;
+  const float2* sb = a.stats + static_cast<long long>(grp) * a.rows_pad;
+  const float2 sv[2] = {sb[fr], sb[fr + 8]};
+  const int ap[2] = {fr / rep + off, (fr + 8) / rep + off};
+  const float c = a.scale * kLog2e;
+  const StLane<D> L(g, t);
+
+  float acc[NS][4];
+#pragma unroll
+  for (int m = 0; m < NS; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int kt = kt0 + it * kBwdBK;
+    cp_async_wait0();
+    __syncthreads();   // tile it landed; every warp is done with tile it - 1
+    bwd_split<D, NT>(Ks, Kr, kBwdBK, [&](int r) { return kt + r < a.Lk; });
+    bwd_split<D, NT>(Vs, Vr, kBwdBK, [&](int r) { return kt + r < a.Lk; });
+    __syncthreads();   // the split tiles are in place; the raw ones free
+    if (it + 1 < ntiles) issue(kt + kBwdBK);
+    cp_async_commit();
+    const bool full = bwd_full(a, p0, p1, kt, kBwdBK);
+
+    // S = Q_w K^T and dP = dO_w V^T: 8 keys a fragment.
+    float s[NTW][4], dp[NTW][4];
+#pragma unroll
+    for (int n = 0; n < NTW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = 0.0f;
+        dp[n][e] = 0.0f;
+      }
+#pragma unroll
+    for (int ks = 0; ks < NS; ++ks) {
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      st_afrag<D>(L, Qs, 16 * rw, ks, qh, ql);
+      st_afrag<D>(L, Os, 16 * rw, ks, oh, ol);
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int r0 = 8 * (half * NTW + n);
+        const uint4 xk = L.pair(Ks, r0, ks);
+        const uint4 xv = L.pair(Vs, r0, ks);
+        mma3(s[n], qh, ql, xk.x, xk.z, xk.y, xk.w);
+        mma3(dp[n], oh, ol, xv.x, xv.z, xv.y, xv.w);
+      }
+    }
+    // dS in place: element e is row g + 8 (e >> 1), key kj + (e & 1).
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      const int kj = kt + 8 * (half * NTW + n) + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 w = sv[e >> 1];
+        float p = exp2f(s[n][e] * c - w.x);
+        if (!full && !bwd_sees(a, ap[e >> 1], kj + (e & 1))) p = 0.0f;
+        s[n][e] = p * (dp[n][e] - w.y);
+      }
+    }
+    // dQ += dS K: k-step n takes keys kj (A columns t) and kj + 1.
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      uint32_t dh[4], dl[4];
+      c_to_a(s[n], dh, dl);
+      const int r0 = 8 * (half * NTW + n);
+#pragma unroll
+      for (int m = 0; m < NS; ++m) {
+        const uint2 k0 = L.one(Ks, r0, 0, m);
+        const uint2 k1 = L.one(Ks, r0, 1, m);
+        mma3(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);
+      }
+    }
+  }
+  if constexpr (P == 2)
+    bwd_pair_sum<NS>(acc, reinterpret_cast<float*>(Ks), rw, half, lane);
+  if (half != 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int f = fr + 8 * i;
+    if (f >= rows) continue;
+    float* out = a.dq + ((static_cast<long long>(b) * a.H + hk * rep +
+                          f % rep) * a.Lq + f / rep) * D + 2 * t;
+#pragma unroll
+    for (int m = 0; m < NS; ++m)
+      *reinterpret_cast<float2*>(out + 8 * m) =
+          make_float2(acc[m][2 * i] * a.scale, acc[m][2 * i + 1] * a.scale);
+  }
+}
+
+template <int D>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t tile = sizeof(float) * kBT * bwd_ld<D>();
-  constexpr size_t ptile = sizeof(float) * kBT * (kBT + 1);
-  constexpr size_t sm_stats = 2 * tile;
-  constexpr size_t sm_dq = 4 * tile + ptile;
-  constexpr size_t sm_dkdv = 4 * tile + 2 * ptile + 2 * kBT * sizeof(float);
+  constexpr int NT = bwd_threads<D>();
+  constexpr size_t sm_dkdv = smem_bwd_dkdv<D>(), sm_dq = smem_bwd_dq<D>();
+  constexpr int rows_a_block = kBwdAux / (D / 4);   // Delta kernel
   const int groups = a.B * a.Hkv;
-  const int rtiles = ((a.H / a.Hkv) * a.Lq + kBT - 1) / kBT;
-  const int ktiles = (a.Lk + kBT - 1) / kBT;
-  int err = opt_in(attn_bwd_stats_kernel<D>, sm_stats);
+  const int rtiles = ((a.H / a.Hkv) * a.Lq + kBwdRows - 1) / kBwdRows;
+  const int ktiles = (a.Lk + kBwdKeys - 1) / kBwdKeys;
+  int err = opt_in(attn_bwd_dkdv_kernel<D>, sm_dkdv);
   if (err == 0) err = opt_in(attn_bwd_dq_kernel<D>, sm_dq);
-  if (err == 0) err = opt_in(attn_bwd_dkdv_kernel<D>, sm_dkdv);
   if (err != 0) return err;
-  attn_bwd_stats_kernel<D><<<rtiles * groups, kThreadsBwd, sm_stats,
-                             stream>>>(a);
+  const long long nst = static_cast<long long>(groups) * a.rows_pad;
+  attn_bwd_delta_kernel<D><<<static_cast<int>((nst + rows_a_block - 1) /
+                                              rows_a_block),
+                             kBwdAux, 0, stream>>>(a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  attn_bwd_dkdv_kernel<D><<<ktiles * a.runs * groups, kThreadsBwd, sm_dkdv,
-                            stream>>>(a);
+  attn_bwd_dkdv_kernel<D><<<ktiles * a.runs * groups, NT, sm_dkdv, stream>>>(
+      a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   if (a.runs > 1) {
     const long long n = static_cast<long long>(a.B) * a.Hkv * a.Lk * D;
-    const int blocks = static_cast<int>((n + kThreadsBwd - 1) / kThreadsBwd);
-    attn_bwd_reduce_kernel<<<blocks, kThreadsBwd, 0, stream>>>(a, n);
+    const int blocks = static_cast<int>((n + kBwdAux - 1) / kBwdAux);
+    attn_bwd_reduce_kernel<<<blocks, kBwdAux, 0, stream>>>(a, n);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
-  attn_bwd_dq_kernel<D><<<rtiles * groups, kThreadsBwd, sm_dq, stream>>>(a);
+  attn_bwd_dq_kernel<D><<<rtiles * groups, NT, sm_dq, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1532,7 +1747,11 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 // regime B with `splits` runs of keys (ops.plan_k7); with splits > 1,
 // `part` is float32 scratch of B * Hkv * splits * rows * (D + 2) values
 // and a second kernel merges the runs into o.  Every other call takes
-// regime A and needs splits = 1.  Launches on `stream` and returns
+// regime A and needs splits = 1.  `lse`: nullptr, or float32 [B, H, Lq],
+// contiguous, which then receives each row's log2-sum-exp of its logits
+// scaled by scale * log2(e) (what the backward reads); such a call takes
+// regime A at any group size, and float32 q, k, v with D <= 128 (the
+// backward's).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or the error of the shared-memory
 // opt-in, or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int flash_attention_launch(
@@ -1542,11 +1761,12 @@ extern "C" int flash_attention_launch(
     long long ksh, long long ksl, long long vsb, long long vsh,
     long long vsl, long long klsb, long long klsh, long long vlsb,
     long long vlsh, int causal, int window, float scale, int q_bf16,
-    int kv_bf16, void* part, int splits, void* stream) {
+    int kv_bf16, void* part, int splits, void* lse, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   if ((kl == nullptr) != (vl == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool split_regime = (H / Hkv) * static_cast<long long>(Lq) <= kRowsB;
+  const bool split_regime =
+      lse == nullptr && (H / Hkv) * static_cast<long long>(Lq) <= kRowsB;
   if (splits < 1 || (!split_regime && splits != 1) ||
       (splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1556,49 +1776,58 @@ extern "C" int flash_attention_launch(
                   aligned16(v, vsb, vsh, vsl, elt);
   const Args a{q, k, v, o, kl, vl, static_cast<float*>(part), B, H, Hkv, Lq,
                Lk, qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, klsb, klsh,
-               vlsb, vlsh, causal, window, scale, splits, vec};
+               vlsb, vlsh, causal, window, scale, splits, vec,
+               static_cast<float*>(lse)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return q_bf16 ? launch_kv<__nv_bfloat16>(a, D, kv_bf16, s)
                 : launch_kv<float>(a, D, kv_bf16, s);
 }
 
 // The backward of flash_attention_launch's function for float32 q [B, H,
-// Lq, D], k, v [B, Hkv, Lk, D], the forward's output o [B, H, Lq, D] and
-// its gradient dO [B, H, Lq, D], each with unit stride along D and the
-// given element strides for batch, head and position: writes dq [B, H,
-// Lq, D] and dk, dv [B, Hkv, Lk, D], contiguous float32, the same causal
-// mask, window (<= 0 for none) and right-aligned queries (Lq <= Lk) as
-// the forward.  `stats` is float32 scratch of 2 * B * H * Lq values;
+// Lq, D], k, v [B, Hkv, Lk, D], the forward's output o [B, H, Lq, D], its
+// gradient dO [B, H, Lq, D] and its log2-sum-exp lse [B, H, Lq]
+// (contiguous, as flash_attention_launch writes it): q, k, v, o and dO
+// with unit stride along D, 16-byte aligned rows and the given element
+// strides (multiples of 4) for batch, head and position.  Writes dq [B,
+// H, Lq, D] and dk, dv [B, Hkv, Lk, D], contiguous float32, for the same
+// causal mask, window (<= 0 for none) and right-aligned queries (Lq <=
+// Lk) as the forward.  `stats` is float32 scratch of 2 * B * Hkv *
+// rows_pad values, rows_pad = H / Hkv * Lq rounded up to a multiple of 64;
 // `runs` >= 1 the dk/dv pass's runs of rows, ceil(H / Hkv * Lq / runs)
 // rows each (ops.plan_k7_bwd), and with runs > 1 `part` float32 scratch
 // of 2 * runs * B * Hkv * Lk * D values.  D in {32, 64, 128}; H a
-// multiple of Hkv.
-// Three or four launches on `stream`; returns cudaGetLastError() (0 on
-// success), the error of a shared-memory opt-in, or cudaErrorInvalidValue
-// for arguments it does not take.
+// multiple of Hkv.  Three or four launches on `stream`; returns
+// cudaGetLastError() (0 on success), the error of a shared-memory opt-in,
+// or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dO, void* dq, void* dk, void* dv, void* stats, void* part,
-    int runs, int B, int H, int Hkv, int Lq, int Lk, int D, long long qsb,
-    long long qsh, long long qsl, long long ksb, long long ksh,
-    long long ksl, long long vsb, long long vsh, long long vsl,
-    long long osb, long long osh, long long osl, long long dsb,
-    long long dsh, long long dsl, int causal, int window, float scale,
-    void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || Lq > Lk || stats == nullptr)
+    const void* dO, const void* lse, void* dq, void* dk, void* dv,
+    void* stats, void* part, int runs, int B, int H, int Hkv, int Lq,
+    int Lk, int D, long long qsb, long long qsh, long long qsl,
+    long long ksb, long long ksh, long long ksl, long long vsb,
+    long long vsh, long long vsl, long long osb, long long osh,
+    long long osl, long long dsb, long long dsh, long long dsl, int causal,
+    int window, float scale, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || Lq > Lk || stats == nullptr ||
+      lse == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (runs < 1 || (runs > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(q, qsb, qsh, qsl, 4) || !aligned16(k, ksb, ksh, ksl, 4) ||
+      !aligned16(v, vsb, vsh, vsl, 4) || !aligned16(o, osb, osh, osl, 4) ||
+      !aligned16(dO, dsb, dsh, dsl, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || Lq <= 0) return static_cast<int>(cudaGetLastError());
-  float* st = static_cast<float*>(stats);
-  const long long n = static_cast<long long>(B) * H * Lq;
+  const int rows_pad = ((H / Hkv) * Lq + kBwdRows - 1) / kBwdRows * kBwdRows;
   const BwdArgs a{static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<const float*>(o),
-                  static_cast<const float*>(dO), static_cast<float*>(dq),
-                  static_cast<float*>(dk), static_cast<float*>(dv), st,
-                  st + n, static_cast<float*>(part), B, H, Hkv, Lq, Lk, qsb,
-                  qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl, dsb,
-                  dsh, dsl, causal, window, scale, runs};
+                  static_cast<const float*>(dO),
+                  static_cast<const float*>(lse), static_cast<float*>(dq),
+                  static_cast<float*>(dk), static_cast<float*>(dv),
+                  static_cast<float2*>(stats), static_cast<float*>(part), B,
+                  H, Hkv, Lq, Lk, rows_pad, qsb, qsh, qsl, ksb, ksh, ksl,
+                  vsb, vsh, vsl, osb, osh, osl, dsb, dsh, dsl, causal,
+                  window, scale, runs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch_bwd<32>(a, s);

@@ -12,12 +12,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = ((_P,) * 6 + (_I,) * 6 + (_L,) * 13
-             + (_I, _I, ctypes.c_float, _I, _I, _P, _I, _P))
+             + (_I, _I, ctypes.c_float, _I, _I, _P, _I, _P, _P))
 
 
 def launch_flash_attention(q, k, v, out, *, causal: bool, window,
                            scale: float, kv_last=None, splits: int = 1,
-                           part=None) -> None:
+                           part=None, lse=None) -> None:
     """Enqueue K7 on the current stream of the tensors' device: q [B, H,
     Lq, D] float32 or bfloat16; k, v [B, Hkv, Lk, D] of one of those
     dtypes, read in q's; each with unit stride along D (any strides
@@ -28,7 +28,11 @@ def launch_flash_attention(q, k, v, out, *, causal: bool, window,
     of at most 16 rows (H / Hkv · Lq) is cut into (``ops.plan_k7``; 1 for
     larger groups); with ``splits`` > 1, ``part`` is float32 scratch of
     B·Hkv·splits·rows·(D + 2) values and a second kernel merges the runs.
-    The wrapper in ``ops.py`` checks; raises if the launch is refused."""
+    ``lse``: None, or float32 [B, H, Lq] contiguous, which receives each
+    row's log2-sum-exp of its logits scaled by scale·log2 e (the
+    backward's input); such a call takes the tensor-core kernel at any
+    group size, float32 q, k, v with D ≤ 128 only, and ``splits`` = 1.  The wrapper in ``ops.py``
+    checks; raises if the launch is refused."""
     fn = load("flash_attention").flash_attention_launch
     if fn.argtypes is None:          # first use of this library handle
         fn.argtypes = _ARGTYPES
@@ -47,26 +51,30 @@ def launch_flash_attention(q, k, v, out, *, causal: bool, window,
              *v.stride()[:3], *last_strides, int(causal),
              0 if window is None else window, float(scale),
              int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-             None if part is None else part.data_ptr(), splits, stream)
+             None if part is None else part.data_ptr(), splits,
+             None if lse is None else lse.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
 
 
-_BWD_ARGTYPES = ((_P,) * 10 + (_I,) * 7 + (_L,) * 15
+_BWD_ARGTYPES = ((_P,) * 11 + (_I,) * 7 + (_L,) * 15
                  + (_I, _I, ctypes.c_float, _P))
 
 
-def launch_flash_attention_bwd(q, k, v, o, do, dq, dk, dv, stats, *,
+def launch_flash_attention_bwd(q, k, v, o, do, lse, dq, dk, dv, stats, *,
                                causal: bool, window, scale: float,
                                runs: int = 1, part=None) -> None:
     """Enqueue K7's backward on the current stream: q, o, do [B, H, Lq, D]
-    and k, v [B, Hkv, Lk, D], float32, unit stride along D (any strides
-    elsewhere); dq [B, H, Lq, D] and dk, dv [B, Hkv, Lk, D] contiguous
-    float32 outputs; ``stats`` float32 scratch of 2·B·H·Lq values (each
-    row's log-sum-exp and rowsum(do ∘ o)); ``runs`` the dk/dv pass's runs
-    of rows (``ops.plan_k7_bwd``) and, with more than one, ``part`` float32
-    scratch of 2·runs·B·Hkv·Lk·D values for their partial sums.  The
-    wrapper in ``ops.py`` checks; raises if the launch is refused."""
+    and k, v [B, Hkv, Lk, D], float32, unit stride along D, 16-byte aligned
+    rows and other strides multiples of 4; ``lse`` the forward's [B, H, Lq]
+    float32 (``launch_flash_attention(lse=...)``); dq [B, H, Lq, D] and dk,
+    dv [B, Hkv, Lk, D] contiguous float32 outputs; ``stats`` float32
+    scratch of 2·B·Hkv·rows_pad values (rows_pad = H / Hkv · Lq rounded up
+    to a multiple of 64: each row's lse and rowsum(do ∘ o)); ``runs`` the
+    dk/dv pass's runs of rows (``ops.plan_k7_bwd``) and, with more than
+    one, ``part`` float32 scratch of 2·runs·B·Hkv·Lk·D values for their
+    partial sums.  The wrapper in ``ops.py`` checks; raises if the launch
+    is refused."""
     fn = load("flash_attention").flash_attention_bwd_launch
     if fn.argtypes is None:          # first use of this library handle
         fn.argtypes = _BWD_ARGTYPES
@@ -75,7 +83,8 @@ def launch_flash_attention_bwd(q, k, v, o, do, dq, dk, dv, stats, *,
     Hkv, Lk = k.shape[1], k.shape[2]
     strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, stats)),
+    err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
+                                      stats)),
              None if part is None else part.data_ptr(), runs,
              B, H, Hkv, Lq, Lk, D, *strides, int(causal),
              0 if window is None else window, float(scale), stream)

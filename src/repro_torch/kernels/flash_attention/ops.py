@@ -19,9 +19,13 @@ one.
 
 Gradients.  On the card a call made while grad mode is on, with any of q,
 k, v requiring grad, goes through ``FlashAttention`` (a
-``torch.autograd.Function``): its forward is K7 as above, its backward
-the hand-written backward kernels (``flash_attention_bwd``, counted as
-``"flash_attention_bwd"``).  The backward takes float32 operands at head
+``torch.autograd.Function``): its forward is K7's tensor-core kernel at
+any group size, which then also writes each row's log2-sum-exp (the
+split kernel writes none, so a grad call of at most 16 rows a group
+takes the tensor-core kernel too), and its backward the hand-written
+backward kernels given that lse (``flash_attention_bwd``, counted as
+``"flash_attention_bwd"``).  ``flash_attention_lse`` returns the output
+and the lse of one such forward.  The backward takes float32 operands at head
 widths 32, 64 and 128; a grad-requiring call it does not take (bf16, D =
 256, or ``kv_last``, which is decode only) raises before any launch,
 never quietly differentiating the plain form.  On the CPU the plain form
@@ -35,7 +39,7 @@ import torch
 
 from .._wrap import LAUNCHES, device_of, sm_count
 from .kernel import launch_flash_attention, launch_flash_attention_bwd
-from .ref import attention_bwd_ref, attention_ref
+from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 #: The head widths the kernel is built for.
 HEAD_DIMS = (32, 64, 128, 256)
@@ -46,6 +50,9 @@ BWD_HEAD_DIMS = (32, 64, 128)
 #: adds the runs' partial sums in a fixed order.  ``plan_k7_bwd`` alone
 #: decides: the kernel cuts the rows into the runs it is given.
 K7_BWD_RUN_ROWS = 1024
+#: Flattened rows a block of the backward's dq pass; each group's rows of
+#: its (lse, Δ) scratch are padded to a multiple of this.
+K7_BWD_ROWS = 64
 DTYPES = (torch.float32, torch.bfloat16)
 #: Keys a tile of the split kernel; its runs are whole tiles.
 K7_TILE = 64
@@ -139,6 +146,45 @@ def _plain(q, k, v, *, causal, window, scale, kv_last):
                          window=window, scale=scale)
 
 
+def _check(fn: str, q, k, v, causal, window, kv_last):
+    """The device of a call, after the checks every device makes (shapes,
+    causal rows, kv_last) and, on the card, the kernel's own (head width,
+    dtypes, unit stride along D, window ≥ 1)."""
+    operands = (q, k, v) + (tuple(kv_last) if kv_last is not None else ())
+    device = device_of(fn, operands)
+    B, H, Lq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or \
+            k.shape[3] != D:
+        raise ValueError(f"{fn}: k and v must be [B, Hkv, Lk, D] "
+                         f"= [{B}, ·, ·, {D}], got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    Hkv = k.shape[1]
+    check_causal_rows(fn, causal, Lq, k.shape[2])
+    if kv_last is not None:
+        want = (B, Hkv, 1, D)
+        if any(tuple(t.shape) != want or t.dtype != q.dtype
+               for t in kv_last):
+            raise ValueError(f"{fn}: kv_last must be two "
+                             f"{list(want)} tensors of q's dtype {q.dtype}")
+    if device.type == "cpu":
+        return device
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"{fn}: H={H} is not a multiple of Hkv={Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{fn}: the kernel takes head widths "
+                         f"{HEAD_DIMS}, got {D}")
+    if q.dtype not in DTYPES or k.dtype not in DTYPES or v.dtype != k.dtype:
+        raise TypeError(f"{fn}: q and k, v (one dtype) must each "
+                        f"be in {DTYPES}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if any(t.stride(3) != 1 for t in operands):
+        raise ValueError(f"{fn}: q, k, v and kv_last need unit "
+                         "stride along D")
+    if window is not None and window < 1:
+        raise ValueError(f"{fn}: window must be ≥ 1, got {window}")
+    return device
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     scale=None, kv_last=None):
     """Flash attention with the oracle's signature: q [B, H, Lq, D],
@@ -156,23 +202,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     where it lies).  A causal call with Lq > Lk would leave its first
     queries no key to attend to; it raises ``ValueError`` on every device,
     before it dispatches."""
-    operands = (q, k, v) + (tuple(kv_last) if kv_last is not None else ())
-    device = device_of("flash_attention", operands)
-    B, H, Lq, D = q.shape
-    scale = scale if scale is not None else D ** -0.5
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or \
-            k.shape[3] != D:
-        raise ValueError(f"flash_attention: k and v must be [B, Hkv, Lk, D] "
-                         f"= [{B}, ·, ·, {D}], got {tuple(k.shape)} and "
-                         f"{tuple(v.shape)}")
-    Hkv = k.shape[1]
-    check_causal_rows("flash_attention", causal, Lq, k.shape[2])
-    if kv_last is not None:
-        want = (B, Hkv, 1, D)
-        if any(tuple(t.shape) != want or t.dtype != q.dtype
-               for t in kv_last):
-            raise ValueError(f"flash_attention: kv_last must be two "
-                             f"{list(want)} tensors of q's dtype {q.dtype}")
+    device = _check("flash_attention", q, k, v, causal, window, kv_last)
+    scale = scale if scale is not None else q.shape[3] ** -0.5
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     if needs_grad and kv_last is not None:
@@ -181,21 +212,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if device.type == "cpu":
         return _plain(q, k, v, causal=causal, window=window, scale=scale,
                       kv_last=kv_last)
-    if Hkv < 1 or H % Hkv:
-        raise ValueError(f"flash_attention: H={H} is not a multiple of "
-                         f"Hkv={Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes head widths "
-                         f"{HEAD_DIMS}, got {D}")
-    if q.dtype not in DTYPES or k.dtype not in DTYPES or v.dtype != k.dtype:
-        raise TypeError(f"flash_attention: q and k, v (one dtype) must each "
-                        f"be in {DTYPES}, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
-    if any(t.stride(3) != 1 for t in operands):
-        raise ValueError("flash_attention: q, k, v and kv_last need unit "
-                         "stride along D")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention: window must be ≥ 1, got {window}")
     if needs_grad:
         check_backward(q, k, v)
         return FlashAttention.apply(q, k, v, causal, window, scale)
@@ -203,21 +219,48 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                    kv_last=kv_last)
 
 
-def _launch(q, k, v, *, causal, window, scale, kv_last=None):
-    """K7 on checked CUDA operands: one counted call."""
+def flash_attention_lse(q, k, v, *, causal: bool = True, window=None,
+                        scale=None):
+    """``flash_attention``'s output and each query row's log2-sum-exp of
+    its logits scaled by scale·log₂ e (float32 [B, H, Lq]): the forward
+    that training runs, whose lse ``flash_attention_bwd`` takes.  No
+    gradient flows through it.  On the card one counted
+    ``"flash_attention"`` call of the tensor-core kernel at any group
+    size, for what the backward takes (float32, ``BWD_HEAD_DIMS``; else
+    ``check_backward`` raises); on the CPU the plain versions,
+    ``attention_ref`` and ``attention_lse_ref``."""
+    device = _check("flash_attention_lse", q, k, v, causal, window, None)
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    if device.type == "cpu":
+        return (_plain(q, k, v, causal=causal, window=window, scale=scale,
+                       kv_last=None),
+                attention_lse_ref(q, k, causal=causal, window=window,
+                                  scale=scale))
+    check_backward(q, k, v)
+    with torch.no_grad():
+        return _launch(q, k, v, causal=causal, window=window, scale=scale,
+                       lse=True)
+
+
+def _launch(q, k, v, *, causal, window, scale, kv_last=None, lse=False):
+    """K7 on checked CUDA operands: one counted call.  With ``lse`` the
+    tensor-core kernel at any group size, returning (o, lse)."""
     B, H, Lq, D = q.shape
     Hkv = k.shape[1]
     out = torch.empty((B, H, Lq, D), dtype=q.dtype, device=q.device)
-    plan = plan_k7(B, H, Hkv, Lq, k.shape[2], window, sm_count(q.device))
+    plan = (K7Plan("prefill", 1) if lse else
+            plan_k7(B, H, Hkv, Lq, k.shape[2], window, sm_count(q.device)))
+    lse_t = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+             if lse else None)
     part = None
     if plan.splits > 1:
         part = torch.empty(B * Hkv * plan.splits * (H // Hkv) * Lq * (D + 2),
                            dtype=torch.float32, device=q.device)
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            scale=scale, kv_last=kv_last, splits=plan.splits,
-                           part=part)
+                           part=part, lse=lse_t)
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse_t) if lse else out
 
 
 def check_backward(q, k, v) -> None:
@@ -244,28 +287,41 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out = _launch(q, k, v, causal=causal, window=window, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _launch(q, k, v, causal=causal, window=window,
+                           scale=scale, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, scale)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, scale = ctx.args
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=causal,
-                                         window=window, scale=scale)
+                                         window=window, scale=scale, lse=lse)
         return dq, dk, dv, None, None, None
 
 
+def _aligned16(t) -> bool:
+    """Whether the backward reads ``t`` as it lies: unit stride along D,
+    16-byte aligned rows, other strides multiples of 4 floats."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 4 == 0 for s in t.stride()[:3]))
+
+
 def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window=None,
-                        scale=None):
+                        scale=None, lse=None):
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)``, whose
     output was ``o``, for the output gradient ``do``: float32, dq of q's
-    shape and dk, dv of k's (summed over each group's query heads).  On
-    the card the backward kernels (three launches, a fourth that adds the
-    dk/dv pass's runs when ``plan_k7_bwd`` gives more than one; counted
-    once as ``"flash_attention_bwd"``); on the CPU ``attention_bwd_ref``."""
+    shape and dk, dv of k's (summed over each group's query heads).
+    ``lse``: the forward's log2-sum-exp [B, H, Lq] (``flash_attention_lse``;
+    what ``FlashAttention`` saves), or None.  On the card the backward
+    kernels (Δ, dk/dv, dq, and a fourth that adds the dk/dv pass's runs
+    when ``plan_k7_bwd`` gives more than one; counted once as
+    ``"flash_attention_bwd"``), given ``lse`` or, without it, the lse of
+    one more forward (counted as ``"flash_attention"``: the same bits as
+    the forward's, so this call and autograd agree bit for bit); on the
+    CPU ``attention_bwd_ref``, which needs no lse."""
     device = device_of("flash_attention_bwd", (q, k, v, o, do))
     B, H, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
@@ -283,18 +339,29 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window=None,
     if H % Hkv or k.shape != v.shape:
         raise ValueError(f"flash_attention_bwd: k, v must be [B, Hkv, Lk, "
                          f"D] with H={H} a multiple of Hkv")
-    q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous()
+    q, k, v, o, do = (t if _aligned16(t) else t.contiguous()
                       for t in (q, k, v, o, do))
+    if lse is None:
+        _, lse = _launch(q, k, v, causal=causal, window=window, scale=scale,
+                         lse=True)
+    elif (lse.shape != (B, H, Lq) or lse.dtype != torch.float32
+          or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"float32 [{B}, {H}, {Lq}] on {q.device} (the "
+                         f"forward's), got {lse.dtype} {tuple(lse.shape)} "
+                         f"on {lse.device}")
     dq = torch.empty((B, H, Lq, D), dtype=torch.float32, device=device)
     dk = torch.empty((B, Hkv, Lk, D), dtype=torch.float32, device=device)
     dv = torch.empty_like(dk)
-    stats = torch.empty(2 * B * H * Lq, dtype=torch.float32, device=device)
+    rows_pad = -(-(H // Hkv) * Lq // K7_BWD_ROWS) * K7_BWD_ROWS
+    stats = torch.empty(2 * B * Hkv * rows_pad, dtype=torch.float32,
+                        device=device)
     runs = plan_k7_bwd(H, Hkv, Lq)
     part = None
     if runs > 1:
         part = torch.empty(2 * runs * dk.numel(), dtype=torch.float32,
                            device=device)
-    launch_flash_attention_bwd(q, k, v, o, do, dq, dk, dv, stats,
+    launch_flash_attention_bwd(q, k, v, o, do, lse, dq, dk, dv, stats,
                                causal=causal, window=window, scale=scale,
                                runs=runs, part=part)
     LAUNCHES["flash_attention_bwd"] += 1

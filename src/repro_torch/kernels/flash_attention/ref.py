@@ -3,8 +3,12 @@ attention with causal / local-window masks and grouped-query head sharing
 (the reference's ``attention_ref`` oracle).  The wrapper runs it for
 tensors on the CPU; ``chip_smoke.py`` holds the CUDA kernel against it on
 the card.  ``attention_bwd_ref`` is the plain version of its backward:
-the tests and ``chip_smoke.py`` hold the CUDA backward against it."""
+the tests and ``chip_smoke.py`` hold the CUDA backward against it, and
+``attention_lse_ref`` is the plain version of the log2-sum-exp the
+kernel's forward writes for it."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -35,18 +39,31 @@ def _mask(Lq: int, Lk: int, causal: bool, window, device):
     return mask
 
 
+def _logits(q, k, causal, window, scale):
+    """The masked logits [B, H, Lq, Lk] in float32 (−inf where masked)."""
+    rep = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(rep, dim=1)
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    mask = _mask(q.shape[2], k.shape[2], causal, window, q.device)
+    return logits.masked_fill(~mask, float("-inf"))
+
+
+def attention_lse_ref(q, k, *, causal: bool = True, window=None,
+                      scale=None):
+    """Each query row's log-sum-exp of its visible logits, in log2 units:
+    log₂ Σⱼ 2^(q·kⱼ·scale·log₂ e) = logsumexp(q·k·scale) / ln 2, float32
+    [B, H, Lq] — what K7's forward writes under grad for the backward."""
+    lse = torch.logsumexp(_logits(q, k, causal, window, scale), dim=-1)
+    return lse / math.log(2.0)
+
+
 def _probs(q, k, v, causal, window, scale):
     """The softmax P [B, H, Lq, Lk] in float32 and v widened and repeated
     over each group's heads [B, H, Lk, D]."""
-    D = q.shape[3]
     rep = q.shape[1] // k.shape[1]
-    qf, kf, vf = (t.float() for t in (q, k, v))
-    kf = kf.repeat_interleave(rep, dim=1)
-    vf = vf.repeat_interleave(rep, dim=1)
-    scale = scale if scale is not None else D ** -0.5
-    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    mask = _mask(q.shape[2], k.shape[2], causal, window, q.device)
-    logits = logits.masked_fill(~mask, float("-inf"))
+    vf = v.float().repeat_interleave(rep, dim=1)
+    logits = _logits(q, k, causal, window, scale)
     probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     return probs / probs.sum(dim=-1, keepdim=True), vf
 

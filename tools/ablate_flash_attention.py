@@ -19,6 +19,16 @@ overlap, so the differences do not add up).  Each variant runs twice, in
 turns.  Prints the card's name and power limit, each variant's times and
 max |Δ| against the plain version, the prefill kernel's registers and
 spill bytes, and a JSON summary last.  Needs a CUDA device.
+
+    python3 tools/ablate_flash_attention.py --backward [--out FILE]
+
+does the same for K7's backward (``BWD_VARIANTS``, built into
+``build/ablate_flash_attention_bwd/``): each variant's whole backward
+(``flash_attention_bwd_launch``, given the forward's lse) at
+tinyllama-1.1b's and qwen3-moe's causal prefill (``K7_BWD_TIMED``), the
+unchanged kernel also with the dk/dv pass's rows cut into runs of
+``BWD_RUN_ROWS``, and the registers and spill bytes of the dk/dv and dq
+kernels at D = 64 and 128.
 """
 from __future__ import annotations
 
@@ -89,28 +99,90 @@ VARIANTS = {
 }
 
 
-def build_variants() -> dict:
-    """Write and compile every variant (one nvcc each, all at once);
-    return {name: (ctypes handle, (registers, bytes of spill stores) of
-    the float32 D = 64 prefill kernel)}."""
+_DVDK = ("      uint32_t ph[4], pl[4], sh[4], sl[4];\n"
+         "      c_to_a(st[n], ph, pl);\n"
+         "      c_to_a(dp[n], sh, sl);\n"
+         "      const int r0 = 8 * (half * NTW + n);\n"
+         "#pragma unroll\n"
+         "      for (int m = 0; m < NS; ++m) {\n"
+         "        const uint2 o0 = L.one(Os, r0, 0, m);\n"
+         "        const uint2 o1 = L.one(Os, r0, 1, m);\n"
+         "        const uint2 q0 = L.one(Qs, r0, 0, m);\n"
+         "        const uint2 q1 = L.one(Qs, r0, 1, m);\n"
+         "        mma3(dv[m], ph, pl, o0.x, o1.x, o0.y, o1.y);\n"
+         "        mma3(dk[m], sh, sl, q0.x, q1.x, q0.y, q1.y);\n"
+         "      }\n")
+_DV_THEN_DK = ("      uint32_t ph[4], pl[4];\n"
+               "      c_to_a(st[n], ph, pl);\n"
+               "      const int r0 = 8 * (half * NTW + n);\n"
+               "#pragma unroll\n"
+               "      for (int m = 0; m < NS; ++m) {\n"
+               "        const uint2 o0 = L.one(Os, r0, 0, m);\n"
+               "        const uint2 o1 = L.one(Os, r0, 1, m);\n"
+               "        mma3(dv[m], ph, pl, o0.x, o1.x, o0.y, o1.y);\n"
+               "      }\n"
+               "    }\n"
+               "#pragma unroll\n"
+               "    for (int n = 0; n < NTW; ++n) {\n"
+               "      uint32_t sh[4], sl[4];\n"
+               "      c_to_a(dp[n], sh, sl);\n"
+               "      const int r0 = 8 * (half * NTW + n);\n"
+               "#pragma unroll\n"
+               "      for (int m = 0; m < NS; ++m) {\n"
+               "        const uint2 q0 = L.one(Qs, r0, 0, m);\n"
+               "        const uint2 q1 = L.one(Qs, r0, 1, m);\n"
+               "        mma3(dk[m], sh, sl, q0.x, q1.x, q0.y, q1.y);\n"
+               "      }\n")
+_MMA3 = ("  mma_tf32(c, al, b0h, b1h);\n"
+         "  mma_tf32(c, ah, b0l, b1l);\n"
+         "  mma_tf32(c, ah, b0h, b1h);\n")
+#: The backward's variants: name: ((text, replacement), ...).
+BWD_VARIANTS = {
+    "full": (),
+    # the dk/dv pass's dV products for all row fragments, then its dK
+    # products (fewer fragments live at once)
+    "dv_then_dk": ((_DVDK, _DV_THEN_DK),),
+    # tiles of 64 rows at D = 64 in the dk/dv pass (one block an SM)
+    "br64": (("constexpr int bwd_br() { return D > 32 ? 32 : 64; }",
+              "constexpr int bwd_br() { return D > 64 ? 32 : 64; }"),),
+    # one TF32 product (hi·hi) instead of three, in every pass
+    "one_product": ((_MMA3, "  mma_tf32(c, ah, b0h, b1h);\n"),),
+}
+#: Rows a run of the dk/dv pass the unchanged backward is also timed at.
+BWD_RUN_ROWS = (512, 2048, 4096)
+
+
+def build_variants(variants=None, out_dir=OUT_DIR, kernels=(
+        "attn_tc_kernelIffLi64ELb0EEvNS_4ArgsE",), baseline=None) -> dict:
+    """Write and compile every variant (one nvcc each, all at once), and
+    the source at ``baseline`` unedited as variant "baseline" if given;
+    return {name: (ctypes handle, {kernel: (registers, bytes of spill
+    stores)})} for the mangled-name tails ``kernels`` (by default the
+    float32 D = 64 prefill kernel)."""
     from repro_torch.kernels import _build
 
+    variants = dict(VARIANTS if variants is None else variants)
     src = open(SOURCE).read()
-    os.makedirs(OUT_DIR, exist_ok=True)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
+    if baseline:
+        variants["baseline"] = ()
+    os.makedirs(out_dir, exist_ok=True)
+    texts = {}
+    for name, edits in variants.items():     # every edit checked first
+        text = open(baseline).read() if name == "baseline" else src
         for old, new in edits:
             if text.count(old) != 1:
                 raise RuntimeError(f"ablate_flash_attention: variant {name} "
                                    f"does not find {old!r} once")
             text = text.replace(old, new)
-        cu = os.path.join(OUT_DIR, f"{name}.cu")
+        texts[name] = text
+    procs = {}
+    for name, text in texts.items():
+        cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             os.path.join(OUT_DIR, f"{name}.so"), cu],
+             os.path.join(out_dir, f"{name}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -118,20 +190,92 @@ def build_variants() -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"ablate_flash_attention: {name} failed to "
                                f"build:\n{log[-4000:]}")
-        regs = re.search(r"attn_tc_kernelIffLi64EEEvNS_4ArgsE\n.*?Used (\d+) "
-                         r"registers", log, re.S)
-        spill = re.search(r"attn_tc_kernelIffLi64EEEvNS_4ArgsE\n\s*\d+ bytes "
-                          r"stack frame, (\d+) bytes spill stores", log)
-        libs[name] = (ctypes.CDLL(os.path.join(OUT_DIR, f"{name}.so")),
-                      (int(regs.group(1)) if regs else None,
-                       int(spill.group(1)) if spill else None))
+        found = {}
+        for kern in kernels:
+            regs = re.search(re.escape(kern) + r"\n.*?Used (\d+) registers",
+                             log, re.S)
+            spill = re.search(re.escape(kern) + r"\n\s*\d+ bytes stack "
+                              r"frame, (\d+) bytes spill stores", log)
+            found[kern] = (int(regs.group(1)) if regs else None,
+                           int(spill.group(1)) if spill else None)
+        libs[name] = (ctypes.CDLL(os.path.join(out_dir, f"{name}.so")),
+                      found)
     return libs
+
+
+def backward(cs, torch, out, baseline=None) -> int:
+    """The ``--backward`` mode (see the module's docstring)."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_lse)
+    from repro_torch.kernels.flash_attention.kernel import _BWD_ARGTYPES
+    from repro_torch.kernels.flash_attention.ops import K7_BWD_ROWS
+
+    card = cs.card_line()
+    print(card, flush=True)
+    cs.no_tf32(torch)
+    kernels = [f"attn_bwd_{k}_kernelILi{D}EEEvNS_7BwdArgsE"
+               for k in ("dkdv", "dq") for D in (64, 128)]
+    libs = build_variants(BWD_VARIANTS, OUT_DIR + "_bwd", kernels, baseline)
+    stream = torch.cuda.current_stream().cuda_stream
+    us, err = {}, {}
+    for shape in cs.K7_BWD_TIMED:
+        B, H, Hkv, Lq, Lk, D, causal, window = shape
+        q, k, v, do = cs.k7_bwd_inputs(torch, B, H, Hkv, Lq, Lk, D)
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+        want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+        rows = H // Hkv * Lq
+        rows_pad = -(-rows // K7_BWD_ROWS) * K7_BWD_ROWS
+        stats = torch.empty(2 * B * Hkv * rows_pad, device="cuda")
+        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(k))
+        strides = [x for t in (q, k, v, o, do) for x in t.stride()[:3]]
+        runs_of = {None: -(-rows // 1024)}
+        runs_of.update({r: -(-rows // r) for r in BWD_RUN_ROWS})
+        for name, (lib, _) in libs.items():
+            fn = lib.flash_attention_bwd_launch
+            fn.argtypes = _BWD_ARGTYPES
+            fn.restype = ctypes.c_int
+            for rr, runs in runs_of.items():
+                if rr is not None and name != "full":
+                    continue
+                part = torch.empty(2 * runs * k.numel(), device="cuda")
+
+                def go(fn=fn, runs=runs, part=part):
+                    e = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse)
+                             + outs), stats.data_ptr(), part.data_ptr(),
+                           runs, B, H, Hkv, Lq, Lk, D, *strides, int(causal),
+                           0, float(D ** -0.5), stream)
+                    if e:
+                        raise RuntimeError(f"ablate_flash_attention: CUDA "
+                                           f"error {e}")
+                key = f"D={D} {name}" + ("" if rr is None else
+                                         f" runs of {rr} rows")
+                go()
+                torch.cuda.synchronize()
+                err[key] = max(float((a - b).abs().max())
+                               for a, b in zip(outs, want))
+                us[key] = [1e3 * cs.event_ms(torch, go, reps=20)
+                           for _ in range(2)]
+                print(f"{key}: {', '.join(f'{t:.3f}' for t in us[key])} us, "
+                      f"max |Δ| {err[key]:.3g}", flush=True)
+    summary = {"card": card, "us": us, "max_abs_err": err,
+               "registers": {n: r for n, (_, r) in libs.items()}}
+    if out:
+        with open(out, "w") as f:
+            json.dump(summary, f, indent=1)
+    print(json.dumps(summary), flush=True)
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the summary JSON to this file")
+    ap.add_argument("--backward", action="store_true",
+                    help="ablate K7's backward instead of its forward")
+    ap.add_argument("--baseline", default=None,
+                    help="with --backward: also time this copy of "
+                         "flash_attention.cu (say, the parent commit's) "
+                         "unedited, in turns with the variants")
     a = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs          # puts ROOT/src first on sys.path
@@ -141,6 +285,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_flash_attention: no CUDA device", file=sys.stderr)
         return 2
+    if a.backward:
+        return backward(cs, torch, a.out, a.baseline)
     from repro_torch.kernels._wrap import sm_count
     from repro_torch.kernels.flash_attention.kernel import _ARGTYPES
     from repro_torch.kernels.flash_attention.ops import plan_k7
@@ -175,7 +321,7 @@ def main() -> int:
                 None, None, B, H, Hkv, Lq, Lk, D, *q.stride()[:3],
                 *k.stride()[:3], *v.stride()[:3], 0, 0, 0, 0, int(causal),
                 0 if window is None else window, float(D ** -0.5), 0, 0,
-                part.data_ptr(), splits, stream)
+                part.data_ptr(), splits, None, stream)
 
         def go():
             err = fn(*args)
@@ -199,7 +345,8 @@ def main() -> int:
         print(f"{key}: {', '.join(f'{t:.3f}' for t in times)} us, max |Δ| "
               f"{err[key]:.3g}", flush=True)
     summary = {"card": card,
-               "registers": {n: r for n, (_, r) in libs.items()},
+               "registers": {n: list(r.values())[0]
+                             for n, (_, r) in libs.items()},
                "splits": cases["decode"][6], "us": us, "max_abs_err": err}
     print("registers, spill bytes (float32 D = 64 prefill kernel): "
           + ", ".join(f"{n} {r[0]}, {r[1]}"

@@ -16,12 +16,16 @@ Lk = 1024 (``K7_DECODE``), and the serving decode over a bf16 cache
 read in place with the step's own key and value as the last row
 (``K7_CACHE``); then runs phase 18's ``forward`` of tinyllama-1.1b on
 4 × 1024 tokens (weights from seed 0) after a warm-up, three times, on
-the host clock ending in a sync.  It prints one JSON line per child and,
-last, a JSON summary with every child's numbers beside the card's name
-and power limit.  Needs a CUDA device.
+the host clock ending in a sync.  Each child also reports a digest of
+every output (K7's at each shape, the forward's logits), so that two
+checkouts whose kernels should compute the same bits can be seen to.  It
+prints one JSON line per child and, last, a JSON summary with every
+child's numbers beside the card's name and power limit.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 import time
@@ -44,17 +48,25 @@ def child(root: str) -> dict:
 
     _build.build(("flash_attention",))
     cs.no_tf32(torch)
-    us = {}
+    us, digest = {}, {}
+
+    def bits(key, t):
+        digest[key] = hashlib.sha256(
+            t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        ).hexdigest()[:16]
+
     for B, H, Hkv, Lq, Lk, D, causal, window in (
             list(cs.K7_PINS) + [cs.K7_PREFILL, cs.K7_DECODE]):
         rng = np.random.RandomState(Lq + Lk)
         q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
                    for s in ((B, H, Lq, D), (B, Hkv, Lk, D),
                              (B, Hkv, Lk, D)))
-        us[f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} D={D} causal={causal} "
-           f"window={window}"] = 1e3 * cs.event_ms(
+        key = (f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} D={D} causal={causal} "
+               f"window={window}")
+        us[key] = 1e3 * cs.event_ms(
             torch, lambda: flash_attention(q, k, v, causal=causal,
                                            window=window))
+        bits(key, flash_attention(q, k, v, causal=causal, window=window))
     B, H, Hkv, Lk, D, slots = cs.K7_CACHE
     rng = np.random.RandomState(Lk)
     q = torch.from_numpy(rng.randn(B, H, 1, D).astype(np.float32)).cuda()
@@ -63,9 +75,11 @@ def child(root: str) -> dict:
     kt, vt = (torch.from_numpy(rng.randn(B, Hkv, 1, D).astype(np.float32))
               .cuda() for _ in range(2))
     k, v = kc[:, :, :Lk], vc[:, :, :Lk]
-    us[f"B={B} H={H} Hkv={Hkv} Lq=1 Lk={Lk} of {slots} D={D} over a "
-       f"bfloat16 cache"] = 1e3 * cs.event_ms(
+    key = (f"B={B} H={H} Hkv={Hkv} Lq=1 Lk={Lk} of {slots} D={D} over a "
+           f"bfloat16 cache")
+    us[key] = 1e3 * cs.event_ms(
         torch, lambda: flash_attention(q, k, v, kv_last=(kt, vt)))
+    bits(key, flash_attention(q, k, v, kv_last=(kt, vt)))
 
     cfg = ARCHS["tinyllama-1.1b"]
     params = registry.init_params(cfg, 0, device="cuda")
@@ -76,10 +90,12 @@ def child(root: str) -> dict:
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        registry.forward(cfg, params, {"tokens": tokens})
+        logits, _ = registry.forward(cfg, params, {"tokens": tokens})
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
-    return {"root": root, "k7_us": us, "forward_ms": walls}
+    bits("tinyllama-1.1b forward logits", logits)
+    return {"root": root, "k7_us": us, "forward_ms": walls,
+            "digest": digest}
 
 
 if __name__ == "__main__":

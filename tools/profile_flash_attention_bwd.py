@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Where K7's backward spends its time: each of its three kernels (the
-stats pass, dk/dv, dq) timed on the card under ``torch.profiler``, and the
-whole call with CUDA events, at tinyllama-1.1b's prefill (B, H, Hkv, L,
-D) = (4, 32, 4, 1024, 64) and qwen3-moe's (4, 64, 4, 1024, 128), causal.
+"""Where K7's backward spends its time: each of its kernels (Δ, dk/dv,
+the sum of the dk/dv runs, dq) timed on the card under
+``torch.profiler``, and the whole call with CUDA events, given the
+forward's lse (``flash_attention_lse``, as a train step runs it), at
+tinyllama-1.1b's prefill (B, H, Hkv, L, D) = (4, 32, 4, 1024, 64) and
+qwen3-moe's (4, 64, 4, 1024, 128), causal.
 
     python3 tools/profile_flash_attention_bwd.py [--out FILE]
 
 Prints the card's name and power limit, then per shape the device time
 of each kernel (mean of ``REPS`` calls), the event time of the whole
-call (``chip_smoke.event_ms``), the bound (10·D flops an unmasked pair at
-67 T op/s float32) and the achieved rate on that count; writes the same
-as JSON to ``--out`` if given.  Needs a CUDA device.
+call (``chip_smoke.event_ms``), the bound as ``chip_smoke.k7_bwd_case``
+counts it (10·D flops an unmasked pair, each product float32-accurate as
+three TF32 MMAs at 495 T op/s) beside the bound on the CUDA cores' 67 T
+op/s float32, and the achieved rate on the 10·D count; writes the same as
+JSON to ``--out`` if given.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ def main(argv=None) -> int:
     import torch
 
     import chip_smoke as cs
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_lse)
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -44,10 +49,10 @@ def main(argv=None) -> int:
     out = []
     for B, H, Hkv, L, D in SHAPES:
         q, k, v, do = cs.k7_bwd_inputs(torch, B, H, Hkv, L, L, D)
-        o = torch.zeros_like(q)
+        o, lse = flash_attention_lse(q, k, v)
 
         def call():
-            return flash_attention_bwd(q, k, v, o, do)
+            return flash_attention_bwd(q, k, v, o, do, lse=lse)
 
         ms = cs.event_ms(torch, call, reps=20)
         from torch.profiler import ProfilerActivity, profile
@@ -66,7 +71,8 @@ def main(argv=None) -> int:
         pairs = B * H * L * (L + 1) // 2
         ops = 10 * D * pairs
         row = {"shape": [B, H, Hkv, L, D], "ms": ms, "kernels_ms": kernels,
-               "bound_ms": ops / cs.FP32_OPS_PER_S * 1e3,
+               "bound_ms": 3 * ops / cs.TF32_OPS_PER_S * 1e3,
+               "bound_fp32_ms": ops / cs.FP32_OPS_PER_S * 1e3,
                "tops": ops / ms / 1e9}
         out.append(row)
         print(json.dumps(row), flush=True)
