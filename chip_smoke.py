@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs twenty-six phases; any failure raises and exits non-zero
+package, and runs twenty-seven phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
@@ -250,9 +250,9 @@ package, and runs twenty-six phases; any failure raises and exits non-zero
    2e-5·max|ref|, autograd equal to the wrapper, the forward's lse
    against ``attention_lse_ref`` and its output equal to the forward's
    without lse, two calls bit for bit, the backward given the forward's
-   lse timed beside the plain version and SDPA's backward; a bf16 call,
-   head width 256, ``kv_last`` and K8 (``ssd``) under grad each raise
-   before any launch; (b) tinyllama-1.1b trained at full width and depth
+   lse timed beside the plain version and SDPA's backward; a bf16 call
+   and ``kv_last`` under grad each raise before any launch; (b)
+   tinyllama-1.1b trained at full width and depth
    (``TRAIN_STEPS`` steps of ``SyntheticLM`` 4 × 1024, lr 1e-3 on the
    cosine schedule, remat): finite losses, the last below the first, K7
    launches 2 × 22 forward and 22 backward a step, ms a step, tokens/s
@@ -264,6 +264,26 @@ package, and runs twenty-six phases; any failure raises and exits non-zero
    the state saved at step 20 restored bit for bit; (e) tinyllama-1.1b's
    ``forward`` under ``precision.options(dtype=torch.bfloat16)``: finite
    logits, argmax equal to float32's on ≥ 0.9 of positions, both timed.
+27. training of every family — (a) K8's backward (``ssd_chunk_bwd``)
+   against ``ssd_chunk_bwd_ref`` at ``K8_SHAPES`` and ``K8_BWD_MORE``
+   (several runs of heads, one head a group, a short chunk), through the
+   wrapper and through the launcher with 1, 2, 3 and all heads a block,
+   each of dx, ddelta, ddt, dB, dC within 2e-4·|ref| + 2e-5·max|ref|, two
+   calls bit for bit, timed at mamba2-1.3b's training shape
+   (``TRAIN_SSM_SHAPE``) beside the plain version; (b) K7's backward at
+   head width 256 at ``K7_BWD_256_CASES`` (GQA over one KV head, a window,
+   non-causal, Lq < Lk, 16 rows a group, two runs) with phase 26's
+   checks, timed at recurrentgemma-2b's prefill beside the plain version
+   and SDPA's backward (its window as a mask); (c) mamba2-1.3b at full
+   width and depth and recurrentgemma-2b at full width
+   (``TRAIN_HYBRID_LAYERS`` deep) trained ``TRAIN_STEPS`` steps on
+   ``SyntheticLM`` (lr 1e-3, cosine): finite losses, the last below the
+   first, launches a step 48 K8 and 48 K8 backward, and one K7 forward
+   and one backward an attention layer; ms a step, tokens/s, peak memory;
+   (d) one train step of cut copies of mamba2-1.3b, recurrentgemma-2b,
+   qwen3-moe-235b-a22b (1 layer, a batch whose routes agree on both
+   devices), qwen2-vl-2b and whisper-base, card against CPU, within phase
+   26's gates.
 
 The edge cases of the decision template (K1–K4 share it) hold the kernel
 to its plain version, every output exact, at (T, N) = (50, 1), (50, 31),
@@ -285,7 +305,7 @@ after: one launch per block.
 It prints the card's name and power limit, every phase's wall time, a
 ``profile`` JSON line of phase 20's readings, phase 21's
 ``message_reduction`` line and phase 22's ``message_reduction_batched``
-line, the readings of phases 23 to 26, a JSON line of per-kernel
+line, the readings of phases 23 to 27, a JSON line of per-kernel
 measurements, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
@@ -312,7 +332,10 @@ KERNEL_SOURCES = {
     "rl_score_matrix": "src/repro_torch/kernels/csrc/rl_score.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd_d256":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
     "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+    "ssd_chunk_bwd": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
 }
 KERNEL_REPLACES = {
     "dodoor_fused_sparse": "src/repro/kernels/dodoor_choice/kernel.py:455",
@@ -330,7 +353,12 @@ KERNEL_REPLACES = {
     # K7's backward: the Pallas kernel has no backward (no custom_vjp);
     # the reference differentiates its jnp attention instead.
     "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:87",
+    "flash_attention_bwd_d256":
+        "src/repro/kernels/flash_attention/kernel.py:87",
     "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:65",
+    # K8's backward: the Pallas kernel has no backward either; the
+    # reference differentiates its jnp chunk scan (models/mamba2.py:30).
+    "ssd_chunk_bwd": "src/repro/kernels/ssd_chunk/kernel.py:65",
 }
 #: K3's penalty per remote MB in phase 8: γ/bandwidth = 0.7/1.3, which is
 #: not a power of two, so a wrong rounding of the penalty shows.
@@ -3801,7 +3829,7 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
     o = o.detach()
     check(torch.equal(o, o_l), f"flash_attention {shape}: the grad "
           f"forward's o differs from flash_attention_lse's")
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    got = flash_attention_bwd(q, k, v, do, causal=causal, window=window)
     for name, a, b, w in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad),
                              got, want):
         atol = K7_BWD_ATOL_OF_MAX * float(w.abs().max())
@@ -3814,21 +3842,14 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
               f"(within rtol {K7_BWD_RTOL} + {K7_BWD_ATOL_OF_MAX} of max); "
               f"lse max |Δ| {lse_err:.3g}", flush=True)
         return None
-    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window,
+    again = flash_attention_bwd(q, k, v, do, causal=causal, window=window,
                                 lse=lse)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"flash_attention_bwd {shape}: two calls differ")
     ms = event_ms(torch, lambda: flash_attention_bwd(
-        q, k, v, o, do, causal=causal, window=window, lse=lse), reps=20)
+        q, k, v, do, causal=causal, window=window, lse=lse), reps=20)
     plain_ms = event_ms(torch, lambda: attention_bwd_ref(
         q, k, v, do, causal=causal, window=window), reps=10, warmup=2)
-    lib_ms = None
-    if causal and Lq == Lk and window is None:
-        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
-        os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                             enable_gqa=True)
-        lib_ms = event_ms(torch, lambda: torch.autograd.grad(
-            os_, (qs, ks, vs), do, retain_graph=True), reps=20)
     qpos = np.arange(Lq)[:, None] + (Lk - Lq)
     kpos = np.arange(Lk)[None, :]
     mask = np.ones((Lq, Lk), bool)
@@ -3836,6 +3857,17 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
+    lib_ms = None
+    if causal and Lq == Lk:
+        # A window goes to SDPA as a boolean mask (True: attend).
+        kw = (dict(is_causal=True) if window is None else
+              dict(attn_mask=torch.from_numpy(mask).cuda()))
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        os_ = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                             **kw)
+        lib_ms = event_ms(torch, lambda: torch.autograd.grad(
+            os_, (qs, ks, vs), do, retain_graph=True), reps=20)
+        del os_
     pairs = int(mask.sum())
     # q, o, dO read and dq written; k, v read and dk, dv written; 10·D
     # flops an unmasked pair (q·k, dO·v, P·dO, dS·k, dS·q).  The card's
@@ -3848,10 +3880,12 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
     row = row_of("flash_attention_bwd", B * H, Lk, ms, plain_ms, nbytes,
                  3 * flops, err, library_ms=lib_ms, op_rate=TF32_OPS_PER_S,
                  Lq=Lq, D=D, rep=H // Hkv)
-    executed = 14 * 3 * flops / 10      # 14·D a pair, three products each
+    # 18·D a pair executed (the Δ sweep's q·k and dO·v, the dk/dv pass's
+    # four products, the dq pass's three), three TF32 products each.
+    executed = 18 * 3 * flops / 10
     print(f"kernel flash_attention_bwd {shape}: {flops / ms / 1e9:.2f} T "
           f"op/s (10·D an unmasked pair), {executed / ms / 1e9:.2f} T op/s "
-          f"TF32 executed (14·D, three products each); "
+          f"TF32 executed (18·D, three products each); "
           f"{row['bound_ms'] / ms:.4f} of the 3xTF32 bound; bound on the CUDA "
           f"cores {flops / FP32_OPS_PER_S * 1e6:.3f} us; given the "
           f"forward's lse; two calls bit for bit", flush=True)
@@ -3860,11 +3894,10 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
 
 def k7_bwd_refusals(torch) -> None:
     """What the card cannot differentiate raises before any launch: a
-    bf16 call, head width 256, ``kv_last`` under grad, and K8 (``ssd``)
-    under grad."""
+    bf16 call and ``kv_last`` under grad (head width 256 and K8 have
+    backwards since phase 27's kernels, which it checks)."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_chunk import ssd
 
     def refused(name, fn):
         LAUNCHES.clear()
@@ -3885,27 +3918,23 @@ def k7_bwd_refusals(torch) -> None:
                                        kv_last=kv)
 
     refused("bf16 backward", attn(64, torch.bfloat16))
-    refused("D = 256 backward", attn(256, torch.float32))
     refused("kv_last with grad", attn(64, torch.float32, last=True))
-    x = torch.randn(1, 64, 2, 16, device="cuda", requires_grad=True)
-    dt = torch.rand(1, 64, 2, device="cuda")
-    Bm = torch.randn(1, 64, 1, 32, device="cuda")
-    refused("ssd with grad", lambda: ssd(x, dt, -torch.rand(2, device="cuda"),
-                                         Bm, Bm, chunk=64))
 
 
-def train_run(torch, cfg, holder: dict) -> dict:
+def train_run(torch, cfg, holder: dict, shape=None, want=None) -> dict:
     """(b): ``TRAIN_STEPS`` steps of ``make_train_step`` (remat on, lr 1e-3
-    on the cosine schedule) on ``SyntheticLM`` batches, the launches set to
-    0 just before and read just after.  The initial parameters come in
-    ``holder["params"]``, which is emptied, so that each step's old
-    state is freed and the peak memory is the loop's own."""
+    on the cosine schedule) on ``SyntheticLM`` batches of ``shape`` (B, L)
+    (``TRAIN_BATCH``), the launches set to 0 just before and read just
+    after and held to ``want`` (the dense family's by default).  The
+    initial parameters come in ``holder["params"]``, which is emptied, so
+    that each step's old state is freed and the peak memory is the loop's
+    own."""
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import LAUNCHES
     from repro_torch.optim import adamw_init, cosine_schedule
     from repro_torch.train import make_train_step
 
-    B, L = TRAIN_BATCH
+    B, L = shape or TRAIN_BATCH
     params = holder.pop("params")
     data = SyntheticLM(cfg.vocab, L, B, seed=0, device="cuda")
     step_fn = make_train_step(cfg, lr=cosine_schedule(
@@ -3924,10 +3953,10 @@ def train_run(torch, cfg, holder: dict) -> dict:
         walls.append(time.perf_counter() - t0)
     counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
-    check(counts == want, f"training: launches {counts}, want {want} (a "
-          f"forward and a remat recompute a layer-step, one backward)")
+    want = want or {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+                    "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    check(counts == want, f"training {cfg.name}: launches {counts}, want "
+          f"{want}")
     check(all(np.isfinite(losses)), f"training: losses {losses}")
     check(losses[-1] < losses[0], f"training: loss {losses[0]} → "
           f"{losses[-1]} did not fall")
@@ -4106,6 +4135,273 @@ def training_phase(torch) -> tuple:
             run["counts"]["flash_attention_bwd"], rows)
 
 
+# --------------------------------------------------------------------------
+# phase 27: training of every family (K8's backward, K7's backward at head
+# width 256, mamba2-1.3b and recurrentgemma-2b trained, five copies)
+# --------------------------------------------------------------------------
+
+#: (a): K8's backward against ``ssd_chunk_bwd_ref`` at ``K8_SHAPES`` and
+#: three more, (B, L, H, P, G, S, chunk): five heads a group (runs of
+#: nh < hpg, a short last one), one head a group, a 17-step chunk with
+#: odd widths.  Each through the wrapper and through the launcher with 1,
+#: 2, 3 and all heads of a group a block, on NaN-filled outputs.
+K8_BWD_MORE = [(1, 128, 10, 16, 2, 32, 32), (2, 64, 4, 32, 4, 32, 32),
+               (2, 34, 4, 24, 2, 48, 17)]
+K8_BWD_NAMES = ("dx", "ddelta", "ddt", "dB", "dC")
+#: |Δ| ≤ rtol·|ref| + atol·max|ref| for each of K8's five gradients (the
+#: K7 backward's gate): float32 sums of up to a few thousand products in
+#: another order than the plain version's einsums, and ddelta a reverse
+#: cumulative sum of differences.
+K8_BWD_RTOL, K8_BWD_ATOL_OF_MAX = 2e-4, 2e-5
+#: (c): mamba2-1.3b trained at full width and depth (48 layers) on B × L
+#: tokens a step; K8's backward is timed at this shape in (a).  remat has
+#: no effect in the family (as in the reference), so every layer keeps its
+#: activations for the backward.
+TRAIN_SSM_SHAPE = (2, 1024)
+#: (b): K7's backward at head width 256 against ``attention_bwd_ref``:
+#: GQA over one KV head, causal with a window and Lq < Lk, non-causal,
+#: non-causal Lq < Lk with a window, a group of 16 rows, and 5 000 rows a
+#: group (two runs of the dk/dv pass); timed at recurrentgemma-2b's
+#: prefill, ``K7_RG_PREFILL`` (phase 25's forward shape).
+K7_BWD_256_CASES = [
+    (2, 10, 1, 128, 128, 256, True, None),
+    (1, 4, 1, 200, 300, 256, True, 64),
+    (1, 2, 2, 100, 100, 256, False, None),
+    (1, 4, 2, 50, 120, 256, False, 30),
+    (2, 8, 1, 2, 40, 256, True, None),
+    (1, 10, 1, 500, 500, 256, True, 100),
+]
+#: (c): recurrentgemma-2b trained at full width, cut to TRAIN_HYBRID_LAYERS
+#: of its 26 layers (two (R, R, A) blocks: two attention layers) on B × L
+#: tokens past its 2048 window: at full depth its float32 parameters,
+#: gradients and AdamW's old and new state (≈ 2.7 B parameters × 7
+#: copies) do not fit 80 GB.
+TRAIN_HYBRID_LAYERS = 6
+TRAIN_HYBRID_SHAPE = (1, 4096)
+#: (d): the copies, card against CPU, (B, L) each: mamba2 and qwen2-vl at
+#: 2 layers, recurrentgemma one (R, R, A) block, whisper two encoder and
+#: two decoder layers (``two_layers``), qwen3-moe 1 layer.
+TRAIN_COPIES = {"mamba2-1.3b": (2, 256), "recurrentgemma-2b": (1, 300),
+                "qwen3-moe-235b-a22b": (1, 256), "qwen2-vl-2b": (1, 128),
+                "whisper-base": (1, 64)}
+#: The MoE copy's batch: seeds tried in turn until every (token, choice)
+#: route of the forward agrees, card and CPU (a flipped route moves the
+#: gradients of two experts' weights); the serving gate's allowance,
+#: ``MOE_ROUTE_SHARE`` of the routes, bounds each try.
+TRAIN_MOE_SEEDS = 8
+
+
+def k8_bwd_operands(torch, B, L, H, P, G, S, chunk):
+    """K8's operands as ``ssd`` lays them out, then output gradients dy,
+    dH, des from a seed; and the heads a group."""
+    _, ops, hpg = k8_operands(torch, B, L, H, P, G, S, chunk)
+    rng = np.random.RandomState(L + H + S)
+    BH, NC = B * H, L // chunk
+    grads = [torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+             for s in ((BH, NC, chunk, P), (BH, NC, S, P), (BH, NC, chunk))]
+    return ops + grads, hpg
+
+
+def k8_bwd_case(torch, B, L, H, P, G, S, chunk, timed: bool = False):
+    """K8's backward against ``ssd_chunk_bwd_ref`` on the card through the
+    wrapper (two calls bit for bit) and, untimed, the launcher with 1, 2,
+    3 and all heads a block on NaN-filled outputs and scratch; with
+    ``timed`` the wrapper and the plain version timed.  Returns a
+    kernels-line row (timed) or None."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd, ssd_chunk_bwd_ref
+    from repro_torch.kernels.ssd_chunk.kernel import launch_ssd_chunk_bwd
+
+    args, hpg = k8_bwd_operands(torch, B, L, H, P, G, S, chunk)
+    want = ssd_chunk_bwd_ref(*args, heads_per_group=hpg)
+    shape = f"B={B} L={L} H={H} P={P} G={G} S={S} Q={chunk}"
+    runs = {"wrapper": ssd_chunk_bwd(*args, heads_per_group=hpg)}
+    for nh in ([] if timed else
+               sorted({1, 2, 3, hpg} & set(range(1, hpg + 1)))):
+        out = [torch.full_like(w, float("nan")) for w in want]
+        nblk = -(-hpg // nh)
+        part = (torch.full((2 * nblk * args[3].numel(),), float("nan"),
+                           device="cuda") if nblk > 1 else None)
+        launch_ssd_chunk_bwd(*args, *out, part, heads_per_group=hpg, nh=nh)
+        runs[f"nh={nh}"] = out
+    torch.cuda.synchronize()
+    err = 0.0
+    for run, got in runs.items():
+        for name, g, w in zip(K8_BWD_NAMES, got, want):
+            err = max(err, close(
+                f"ssd_chunk_bwd {shape} {run} {name}", g, w, K8_BWD_RTOL,
+                K8_BWD_ATOL_OF_MAX * float(w.abs().max())))
+    again = ssd_chunk_bwd(*args, heads_per_group=hpg)
+    check(all(torch.equal(a, b) for a, b in zip(runs["wrapper"], again)),
+          f"ssd_chunk_bwd {shape}: two calls differ")
+    print(f"kernel ssd_chunk_bwd {shape}: {', '.join(runs)}: max |Δ| "
+          f"{err:.3g} (within rtol {K8_BWD_RTOL} + {K8_BWD_ATOL_OF_MAX} of "
+          f"max); two calls bit for bit", flush=True)
+    if not timed:
+        return None
+    ms = event_ms(torch, lambda: ssd_chunk_bwd(*args, heads_per_group=hpg))
+    plain_ms = event_ms(torch, lambda: ssd_chunk_bwd_ref(
+        *args, heads_per_group=hpg), reps=10, warmup=2)
+    BH, NC = B * H, L // chunk
+    # x, dy, dx [BH, L, P]; delta, dt, des in and ddelta, ddt out [BH, L];
+    # B, C in and dB, dC out [B, G, L, S]; dH [BH, NC, S, P] in.
+    nbytes = 4 * (3 * BH * L * P + 5 * BH * L + 4 * B * G * L * S
+                  + BH * NC * S * P)
+    # The work the function needs: C·Bᵀ, ΣZ·B and ΣZᵀ·C over the causal
+    # triangle once per (batch, group, chunk), Z summed over the group's
+    # heads; per (bh, chunk) dy·xᵀ and Gᵀ·dy on the triangle, x·dHᵀ and
+    # B·dH.
+    tri = chunk * (chunk + 1) // 2
+    ops_n = (B * G * NC * 3 * 2 * tri * S
+             + BH * NC * (4 * tri * P + 4 * chunk * S * P))
+    return row_of("ssd_chunk_bwd", BH, NC, ms, plain_ms, nbytes, ops_n, err,
+                  Q=chunk, P=P, S=S)
+
+
+def family_train_batch(torch, cfg, B: int, L: int, seed: int, device: str):
+    """A train batch for ``cfg``'s family: ``family_batch``'s inputs and
+    labels for its text positions, from a seed."""
+    batch = family_batch(torch, cfg, B, L, seed, device)
+    n_tok = batch["tokens"].shape[1]
+    batch["labels"] = torch.from_numpy(np.random.RandomState(seed + 1)
+                                       .randint(0, cfg.vocab, (B, n_tok))
+                                       ).to(device)
+    return batch
+
+
+def copy_config(cfg):
+    """The copy's config: ``two_layers``' cut, the MoE's 1 layer."""
+    from dataclasses import replace
+
+    if cfg.family == "moe":
+        return replace(cfg, n_layers=1)
+    if cfg.family == "hybrid":
+        return replace(cfg, n_layers=len(cfg.block_pattern))
+    if cfg.family == "audio":
+        return replace(cfg, n_layers=2, encoder_layers=2)
+    return replace(cfg, n_layers=2)
+
+
+def family_copy(torch, name: str) -> None:
+    """(d): one train step's loss and gradients (``loss_and_grads``) of a
+    cut copy of ``name`` at full width, weights from a seed, on the card
+    against the CPU: the loss within ``TRAIN_LOSS_RTOL`` and each
+    gradient leaf within ``TRAIN_GRAD_OF_MAX`` of its largest value.  The
+    MoE's batch is the first of ``TRAIN_MOE_SEEDS`` whose routes agree on
+    both devices (and the step's own routes are compared again)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import loss_and_grads
+
+    cfg = copy_config(ARCHS[name])
+    B, L = TRAIN_COPIES[name]
+    params = registry.init_params(cfg, 1, device="cuda")
+    t0 = time.perf_counter()
+    cpu_p = tree_map(lambda a: a.cpu(), params)
+    moe = cfg.family == "moe"
+
+    def routes(fn):
+        out, rec = moe_recorded(fn) if moe else (fn(), [])
+        return out, torch.cat([torch.cat([r[0].cpu(), r[1].cpu()], 1)
+                               for r in rec]) if rec else None
+
+    seed, tries = 11, []
+    for seed in range(11, 11 + (TRAIN_MOE_SEEDS if moe else 1)):
+        batch = family_train_batch(torch, cfg, B, L, seed, "cuda")
+        cpu_b = {k: v.cpu() for k, v in batch.items()}
+        if not moe:
+            break
+        with torch.no_grad():
+            _, g_r = routes(lambda: registry.forward(cfg, params, batch))
+            _, c_r = routes(lambda: registry.forward(cfg, cpu_p, cpu_b))
+        share = float((g_r != c_r).float().mean())
+        check(share <= MOE_ROUTE_SHARE, f"train copy {name}: {share:.4g} of "
+              f"the routes differ (bound {MOE_ROUTE_SHARE})")
+        tries.append(share)
+        if share == 0.0:
+            break
+    else:
+        raise RuntimeError(f"chip_smoke: train copy {name}: no batch of "
+                           f"{TRAIN_MOE_SEEDS} seeds with every route equal "
+                           f"(shares {tries})")
+    LAUNCHES.clear()
+    (total, ce, g_card), g_r = routes(lambda: loss_and_grads(cfg, params,
+                                                             batch))
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    (c_total, c_ce, g_cpu), c_r = routes(lambda: loss_and_grads(
+        cfg, cpu_p, cpu_b))
+    cpu_s = time.perf_counter() - t0
+    if moe:
+        check(torch.equal(g_r, c_r), f"train copy {name}: the step's routes "
+              f"differ, card against CPU")
+    rel = abs(float(ce) - float(c_ce)) / abs(float(c_ce))
+    check(rel <= TRAIN_LOSS_RTOL, f"train copy {name}: loss {float(ce)!r} on "
+          f"the card, {float(c_ce)!r} on the CPU (rel {rel:.3g})")
+    worst = 0.0
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        scale = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max())
+        check(err <= TRAIN_GRAD_OF_MAX * scale, f"train copy {name}: a "
+              f"gradient leaf {tuple(b.shape)} differs by {err:.3g} (max "
+              f"{scale:.3g})")
+        worst = max(worst, err / max(scale, 1e-30))
+    kernel = "ssd_chunk" if cfg.family == "ssm" else "flash_attention"
+    check(counts.get(kernel, 0) > 0 and counts.get(kernel + "_bwd", 0) > 0,
+          f"train copy {name}: launches {counts}")
+    extra = (f"; routes equal on seed {seed} (shares of the tries {tries})"
+             if moe else "")
+    print(f"train copy {name} ({cfg.n_layers} layers) card vs CPU on {B} x "
+          f"{L}: loss {float(ce):.6f} / {float(c_ce):.6f} (rel {rel:.3g}); "
+          f"gradients within {worst:.3g} of each leaf's largest value; "
+          f"launches {counts}{extra}; CPU side {cpu_s:.1f} s", flush=True)
+
+
+def family_training_phase(torch) -> tuple:
+    """Phase 27: (a) K8's backward, (b) K7's backward at head width 256,
+    (c) mamba2-1.3b and recurrentgemma-2b trained on the card, (d) five
+    copies card against CPU.  Returns (launches by kernel in (c), rows of
+    the kernels line)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import registry
+
+    no_tf32(torch)
+    for shape in K8_SHAPES + K8_BWD_MORE:
+        k8_bwd_case(torch, *shape)
+    rows = [k8_bwd_case(torch, TRAIN_SSM_SHAPE[0], TRAIN_SSM_SHAPE[1], 64,
+                        64, 1, 128, 64, timed=True)]
+    for case in K7_BWD_256_CASES:
+        k7_bwd_case(torch, *case)
+    rows.append(dict(k7_bwd_case(torch, *K7_RG_PREFILL, timed=True),
+                     name="flash_attention_bwd_d256"))
+    torch.cuda.empty_cache()
+    launches = {}
+    ssm = ARCHS["mamba2-1.3b"]
+    hybrid = replace(ARCHS["recurrentgemma-2b"],
+                     n_layers=TRAIN_HYBRID_LAYERS)
+    attn = sum(1 for k in hybrid._layer_kinds() if k == "attn")
+    for cfg, shape, want in (
+            (ssm, TRAIN_SSM_SHAPE,
+             {"ssd_chunk": ssm.n_layers * TRAIN_STEPS,
+              "ssd_chunk_bwd": ssm.n_layers * TRAIN_STEPS}),
+            (hybrid, TRAIN_HYBRID_SHAPE,
+             {"flash_attention": attn * TRAIN_STEPS,
+              "flash_attention_bwd": attn * TRAIN_STEPS})):
+        holder = {"params": registry.init_params(cfg, 0, device="cuda")}
+        run = train_run(torch, cfg, holder, shape=shape, want=want)
+        for k, n in run["counts"].items():
+            launches[k] = launches.get(k, 0) + n
+        del run, holder
+        torch.cuda.empty_cache()
+    for name in TRAIN_COPIES:
+        family_copy(torch, name)
+        torch.cuda.empty_cache()
+    return launches, rows
+
+
 def head_of(res, k: int):
     """A result's tasks from ``k`` on, ledger kept."""
     arrays = {f: getattr(res, f)[k:] for f in ("server",) + TIME_PLANES}
@@ -4119,7 +4415,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-26) to run after "
+                    help="comma-separated phase numbers (2-27) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -4195,22 +4491,30 @@ def main(argv=None) -> int:
     moe = phase("24 MoE serving and the serve launcher", moe_phase)
     fam = phase("25 VLM, hybrid and audio serving", families_phase)
     train = phase("26 training", training_phase)
+    fam_train = phase("27 training of every family", family_training_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "
               "result)", flush=True)
         return 0
 
-    launches["flash_attention"] += moe[0] + fam[0] + train[0]
+    launches["flash_attention"] += (moe[0] + fam[0] + train[0]
+                                    + fam_train[0]["flash_attention"])
     launches["flash_attention_bwd"] = train[1]
+    launches["ssd_chunk"] += fam_train[0]["ssd_chunk"]
+    launches["ssd_chunk_bwd"] = fam_train[0]["ssd_chunk_bwd"]
+    launches["flash_attention_bwd_d256"] = fam_train[0]["flash_attention_bwd"]
     launches["dodoor_choice"] = k5[1]
     launches.update(k4[1])
     launches["rl_score_matrix"] = k6[1]
     kernels = []
     # Each kernel's row at its largest shape (K6 at K = 2; K7 and its
-    # backward at tinyllama-1.1b's prefill, K8 at mamba2-1.3b's forward).
+    # backward at tinyllama-1.1b's prefill, K8 at mamba2-1.3b's forward,
+    # K8's backward at mamba2-1.3b's training shape, K7's backward at
+    # head width 256 at recurrentgemma-2b's prefill).
     for big in (k1[-1], k2[-1], k3[3], k3[-1], k5[0][-1], k4[0][2],
-                k4[0][-1], k6[0][2], k7[0], k8[0], train[2][0]):
+                k4[0][-1], k6[0][2], k7[0], k8[0], train[2][0],
+                *fam_train[1]):
         kernels.append({
             "name": big["name"], "route": "cuda",
             "source": KERNEL_SOURCES.get(big["name"], KERNEL_SOURCE),

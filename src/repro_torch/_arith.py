@@ -43,7 +43,9 @@ def fma(a, b, c) -> torch.Tensor:
     values is exact in float64; the float64 sum rounds once, and where it
     lands exactly on a float32 rounding midpoint it is moved one float64
     step towards its rounding error (Two-Sum), so that the float32
-    rounding sees which side of the midpoint the exact sum lies on."""
+    rounding sees which side of the midpoint the exact sum lies on.  Under
+    autograd the step is added as a constant (``nextafter`` has no
+    derivative), so the gradient is that of a·b + c."""
     dev = next(x.device for x in (a, b, c) if isinstance(x, torch.Tensor))
     a, b, c = (torch.as_tensor(x, dtype=torch.float32, device=dev)
                for x in (a, b, c))
@@ -53,6 +55,11 @@ def fma(a, b, c) -> torch.Tensor:
     bb = s - p
     err = (p - (s - bb)) + (cd - bb)
     mid = (s.view(torch.int64) & _MID_MASK) == _MID_BIT
+    if torch.is_grad_enabled() and s.requires_grad:
+        sd = s.detach()
+        step = torch.nextafter(sd, sd + err.detach()) - sd   # exact
+        return (s + torch.where(mid & (err != 0), step,
+                                torch.zeros_like(sd))).float()
     s = torch.where(mid & (err != 0), torch.nextafter(s, s + err), s)
     return s.float()
 

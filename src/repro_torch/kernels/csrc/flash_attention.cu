@@ -98,8 +98,9 @@
 // Under grad, regime A also writes each row's log2-sum-exp (`lse`, m +
 // log2(l) of the online softmax) for the backward, at any group size;
 // without it a call runs exactly as above.  The backward
-// (flash_attention_bwd_launch, float32, D <= 128) is four more kernels at
-// the end of this file; its note is there.
+// (flash_attention_bwd_launch, float32, every head width) is four more
+// kernels at the end of this file, with tiles of their own at D = 256;
+// its note is there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -986,8 +987,8 @@ template <typename TQ, typename TKV, int D>
 int launch_regime(const Args& a, cudaStream_t stream) {
   const int rows = (a.H / a.Hkv) * a.Lq;
   if (a.lse != nullptr) {
-    // Built for what the backward takes only: float32, D <= 128.
-    if constexpr (sizeof(TQ) == 4 && sizeof(TKV) == 4 && D <= 128)
+    // Built for what the backward takes only: float32.
+    if constexpr (sizeof(TQ) == 4 && sizeof(TKV) == 4)
       return launch_tc<TQ, TKV, D, true>(a, stream);
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1023,7 +1024,7 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 //
 // The gradients of o = softmax(q k^T * scale, masked) v for an output
 // gradient dO, with P the softmax:
-//   dV = P^T dO,  dP = dO V^T,  Delta = rowsum(dO * o),
+//   dV = P^T dO,  dP = dO V^T,  Delta = rowsum(P * dP) = rowsum(dO * o),
 //   dS = P * (dP - Delta),  dQ = scale dS K,  dK = scale dS^T Q,
 // dK and dV summed over the rep query heads of each key/value head.  The
 // reference's Pallas kernel has no custom_vjp, so there is no TPU
@@ -1035,18 +1036,34 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 //
 // Bound on this card: 10 * D flops an unmasked (query, key) pair (q.k,
 // dO.v, P^T dO, dS K, dS^T Q) against q, k, v, o, dO read and dq, dk, dv
-// written once, so arithmetic.  A float32-accurate product runs fastest
+// written once (o as the function's input: the kernels take Delta from
+// the sweep and do not read it), so arithmetic.  A float32-accurate product runs fastest
 // as three TF32 MMAs (lo.hi + hi.lo + hi.hi, small terms first, as the
 // forward's `split` and `mma_tf32`; 495 T op/s, 165 effective): 260.6 us
 // at tinyllama-1.1b's prefill, 1042.2 us at qwen3-moe's (D = 128).  These
-// passes do 14 * D, every product so on the tensor cores: dQ is reduced
+// passes do 18 * D, every product so on the tensor cores: dQ is reduced
 // over keys and dK, dV over rows, and without atomics each needs its own
-// pass, so the dq pass forms the logits and dO V^T once more.
-//   1. Delta: D / 4 lanes a row (float4 reads of o and dO, a fixed
-//      shuffle tree) write (lse, Delta) pairs in the group-major order of
-//      flattened rows that the two passes read (`stats`, each group's
-//      rows padded to a multiple of 64 with zeros).
-//   2. dk/dv: a block per (b, hk, tile of 64 keys, run of up to
+// pass, so the dq pass forms the logits and dO V^T once more, and the
+// sweep that sums Delta a third time.
+//   1. lse: each row's lse, staged as (lse, 0) pairs in the group-major
+//      order of flattened rows that the passes read (`stats`, each
+//      group's rows padded to a multiple of 64 with zeros).
+//   2. sweep: the dq pass's walk (below) without dQ: S, dP and P in
+//      place, and Delta = sum_j P dP of each row summed in float32 in
+//      registers (a lane's columns, then the quad's and a pair's lanes in
+//      a fixed order) into the stats.  Delta is rowsum(dO * o) as well,
+//      but o as the forward wrote it carries the tensor cores' float32
+//      accumulation over every key tile, biased towards zero (a mean
+//      signed error of -9.1e-6 of |o| at whisper-base's cross-attention
+//      over 1 500 frames, against -6e-9 for the plain float32 version:
+//      tools/k7_output_bias.py on an H100 80GB HBM3 at 700 W), and an
+//      error of Delta does not cancel in dQ = scale sum_j dS_ij K_j, whose
+//      dS_ij sum to zero over j when Delta is that of the same P and dP:
+//      with Delta from o, a projection's gradient in chip_smoke.py phase
+//      27's whisper-base train-step copy was 1.4e-4 of its largest value
+//      off the CPU's (the gate is 1e-4), with the sweep 2.3e-5 (o itself
+//      is the serving forward's, bit for bit).
+//   3. dk/dv: a block per (b, hk, tile of 64 keys, run of up to
 //      ceil(rep * Lq / runs) flattened rows, `runs` as ops.plan_k7_bwd
 //      plans them) walks the rows of its run that see any of its keys, BR
 //      rows a tile.  A warp owns 16 keys, as the forward's warps own 16
@@ -1059,8 +1076,8 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 //      of equal length; with one run a block writes dK, dV, with more each
 //      run writes its partial sums to a scratch slot (zeros for a run that
 //      sees none of the tile's keys) and
-//   3. a reduction adds the runs' partials in run order;
-//   4. dq: a block per (b, hk, tile of 64 flattened rows), the last row
+//   4. a reduction adds the runs' partials in run order;
+//   5. dq: a block per (b, hk, tile of 64 flattened rows), the last row
 //      tiles first, walks the keys its rows see, 32 a tile: S = Q_w K^T,
 //      dP = dO_w V^T, dS in place, dQ += dS K.
 // Rows are flattened position-major as in the forward (row f is position
@@ -1091,7 +1108,34 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 // registers, so two warps share each 16-key (16-row) group, each taking
 // half of the row (key) tile, and add their sums in a fixed order at the
 // end: one block of 8 warps an SM, as many warps as two 4-warp blocks.
-// Head widths 32, 64 and 128.
+//
+// D = 256 (recurrentgemma-2b) has passes of its own ("wide").  A 64-key
+// K, V split tile alone would take 256 KB, a 64-row Q, dO one as much, and
+// a warp's 16 x 256 dK and dV accumulators 256 registers.  So D is split:
+// 8 warps, warp w takes the 16 keys (dk/dv) or 16 rows (dq) w / 4 of the
+// block's 32 and the quarter w % 4 of D (64 columns).  A warp's products
+// reduced over D (S^T and dP^T, or S and dP) cover its quarter only: the
+// four quarters' partial C fragments go through shared memory and every
+// warp adds them in quarter order, so the four hold the same sums; P and
+// dS follow in place, and the products reduced over rows (keys) add into
+// the warp's 16 x 64 accumulators of its quarter (64 registers for dK and
+// dV, 32 for dQ).  The block's own operand (K, V for dk/dv; Q, dO for dq)
+// is split once into the swizzled split tiles above.  The operand it
+// walks (Q, dO rows; K, V keys) comes 16 rows (keys) a tile, by 16-byte
+// cp.async into one of two raw float32 tiles while the other is computed
+// on, and is split into hi and lo parts as each fragment is read: no
+// split pass and one barrier less a tile (the raw tiles' own swizzle is
+// at raw_pair).  A tile costs two block barriers (one for the copies,
+// one for the quarters' sums).  Shared memory: 213 248 B (dk/dv) and 212
+// 992 B (dq), one 8-warp block an SM; the dk/dv pass cuts the rows into
+// runs of at most 4 096 (ops.plan_k7_bwd).  Without the sweep, tiles of
+// 16 walked by a block of 16 (and a split pass) took 28.2 ms at
+// recurrentgemma-2b's prefill, tiles of 32 walked by 16 without the split
+// pass 19.9 ms, and this design 16.7-16.9 ms; the sweep adds 5.1 ms
+// (tools/ablate_flash_attention.py --backward, paired, and
+// tools/profile_flash_attention_bwd.py, on an H100 80GB HBM3 at 700 W): a
+// block of 32 halves the walked operand's traffic from L2.
+// Head widths 32, 64, 128 and 256.
 
 constexpr int kBwdKeys = 64;       // dk/dv: keys a block, 16 a warp group
 constexpr int kBwdRows = 64;       // dq: rows a block, 16 a warp group
@@ -1124,7 +1168,6 @@ struct BwdArgs {
   const float* q;
   const float* k;
   const float* v;
-  const float* o;
   const float* dO;
   const float* lse;  // [B, H, Lq]: the forward's log2-sum-exp
   float* dq;         // [B, H, Lq, D] contiguous
@@ -1133,8 +1176,7 @@ struct BwdArgs {
   float2* stats;     // [B * Hkv][rows_pad]: (lse, Delta) of flattened rows
   float* part;       // runs > 1: [2, runs, B, Hkv, Lk, D] partial dK, dV
   int B, H, Hkv, Lq, Lk, rows_pad;
-  long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl;
-  long long dsb, dsh, dsl;
+  long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, dsb, dsh, dsl;
   int causal, window;  // window <= 0: none
   float scale;
   int runs;  // dk/dv: runs of ceil(rep * Lq / runs) flattened rows
@@ -1321,39 +1363,25 @@ __device__ __forceinline__ void bwd_pair_sum(float (&x)[N][4], float* red,
   }
 }
 
-// Delta = rowsum(dO * o) and the forward's lse of each flattened row, as
-// (lse, Delta) at stats[(b * Hkv + hk) * rows_pad + f]; zeros for f >=
-// rep * Lq.  D / 4 lanes a row.
-template <int D>
+// Each flattened row's lse (the forward's) staged as (lse, 0) at
+// stats[(b * Hkv + hk) * rows_pad + f], zeros for f >= rep * Lq; the
+// sweep then writes each row's Delta.
 __global__ void __launch_bounds__(kBwdAux)
-    attn_bwd_delta_kernel(const BwdArgs a) {
-  constexpr int L = D / 4;
+    attn_bwd_lse_kernel(const BwdArgs a) {
   const int rep = a.H / a.Hkv, rows = rep * a.Lq;
   const long long n = static_cast<long long>(a.B) * a.Hkv * a.rows_pad;
-  const long long i = static_cast<long long>(blockIdx.x) * (kBwdAux / L) +
-                      threadIdx.x / L;
-  const int lane = threadIdx.x % L;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kBwdAux + threadIdx.x;
+  if (i >= n) return;
   const int grp = static_cast<int>(i / a.rows_pad);
   const int f = static_cast<int>(i % a.rows_pad);
-  float sum = 0.0f, lse = 0.0f;
-  if (i < n && f < rows) {
+  float lse = 0.0f;
+  if (f < rows) {
     const int b = grp / a.Hkv, hk = grp % a.Hkv;
-    const float4 x = *reinterpret_cast<const float4*>(
-        bwd_qrow(a.o + b * a.osb, a.osh, a.osl, hk, rep, f) + 4 * lane);
-    const float4 y = *reinterpret_cast<const float4*>(
-        bwd_qrow(a.dO + b * a.dsb, a.dsh, a.dsl, hk, rep, f) + 4 * lane);
-    sum = x.x * y.x;
-    sum = fmaf(x.y, y.y, sum);
-    sum = fmaf(x.z, y.z, sum);
-    sum = fmaf(x.w, y.w, sum);
-    if (lane == 0) {
-      const int h = hk * rep + f % rep, pos = f / rep;
-      lse = a.lse[(static_cast<long long>(b) * a.H + h) * a.Lq + pos];
-    }
+    const int h = hk * rep + f % rep, pos = f / rep;
+    lse = a.lse[(static_cast<long long>(b) * a.H + h) * a.Lq + pos];
   }
-#pragma unroll
-  for (int w = 1; w < L; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-  if (i < n && lane == 0) a.stats[i] = make_float2(lse, sum);
+  a.stats[i] = make_float2(lse, 0.0f);
 }
 
 template <int D>
@@ -1552,9 +1580,12 @@ __global__ void __launch_bounds__(kBwdAux)
   a.dv[e] = sv;
 }
 
-template <int D>
-__global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
-    attn_bwd_dq_kernel(const BwdArgs a) {
+// The dq pass, or with kSweep the sweep: the same walk over the keys
+// (S and dP), then Delta = sum_j P dP of each row (a float32 sum a lane,
+// the quad's four and the pair's two added in order) into stats.y in
+// place of dQ.
+template <int D, bool kSweep>
+__device__ __forceinline__ void bwd_dq_body(const BwdArgs& a) {
   constexpr int P = bwd_pair<D>(), NT = bwd_threads<D>();
   constexpr int NS = D / 8;               // k-steps over d; tiles of dQ
   constexpr int NTW = kBwdBK / 8 / P;     // 8-key tiles a warp takes
@@ -1619,9 +1650,9 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   const float c = a.scale * kLog2e;
   const StLane<D> L(g, t);
 
-  float acc[NS][4];
+  float acc[kSweep ? 1 : NS][4];
 #pragma unroll
-  for (int m = 0; m < NS; ++m)
+  for (int m = 0; m < (kSweep ? 1 : NS); ++m)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
 
@@ -1659,7 +1690,8 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
         mma3(dp[n], oh, ol, xv.x, xv.z, xv.y, xv.w);
       }
     }
-    // dS in place: element e is row g + 8 (e >> 1), key kj + (e & 1).
+    // dS in place (the sweep: P dP into acc[0][row]): element e is row g
+    // + 8 (e >> 1), key kj + (e & 1).
 #pragma unroll
     for (int n = 0; n < NTW; ++n) {
       const int kj = kt + 8 * (half * NTW + n) + 2 * t;
@@ -1668,26 +1700,46 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
         const float2 w = sv[e >> 1];
         float p = exp2f(s[n][e] * c - w.x);
         if (!full && !bwd_sees(a, ap[e >> 1], kj + (e & 1))) p = 0.0f;
-        s[n][e] = p * (dp[n][e] - w.y);
+        if constexpr (kSweep)
+          acc[0][e >> 1] = fmaf(p, dp[n][e], acc[0][e >> 1]);
+        else
+          s[n][e] = p * (dp[n][e] - w.y);
       }
     }
     // dQ += dS K: k-step n takes keys kj (A columns t) and kj + 1.
+    if constexpr (!kSweep) {
 #pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-      uint32_t dh[4], dl[4];
-      c_to_a(s[n], dh, dl);
-      const int r0 = 8 * (half * NTW + n);
+      for (int n = 0; n < NTW; ++n) {
+        uint32_t dh[4], dl[4];
+        c_to_a(s[n], dh, dl);
+        const int r0 = 8 * (half * NTW + n);
 #pragma unroll
-      for (int m = 0; m < NS; ++m) {
-        const uint2 k0 = L.one(Ks, r0, 0, m);
-        const uint2 k1 = L.one(Ks, r0, 1, m);
-        mma3(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);
+        for (int m = 0; m < NS; ++m) {
+          const uint2 k0 = L.one(Ks, r0, 0, m);
+          const uint2 k1 = L.one(Ks, r0, 1, m);
+          mma3(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);
+        }
       }
     }
   }
+  if constexpr (kSweep) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      acc[0][i] += __shfl_xor_sync(0xffffffffu, acc[0][i], 1);
+      acc[0][i] += __shfl_xor_sync(0xffffffffu, acc[0][i], 2);
+    }
+  }
   if constexpr (P == 2)
-    bwd_pair_sum<NS>(acc, reinterpret_cast<float*>(Ks), rw, half, lane);
+    bwd_pair_sum<kSweep ? 1 : NS>(acc, reinterpret_cast<float*>(Ks), rw,
+                                  half, lane);
   if (half != 0) return;
+  if constexpr (kSweep) {
+    float2* st = a.stats + static_cast<long long>(grp) * a.rows_pad;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (t == 0 && fr + 8 * i < rows) st[fr + 8 * i].y = acc[0][i];
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int f = fr + 8 * i;
@@ -1702,24 +1754,502 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
 }
 
 template <int D>
+__global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
+    attn_bwd_dq_kernel(const BwdArgs a) {
+  bwd_dq_body<D, false>(a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
+    attn_bwd_sweep_kernel(const BwdArgs a) {
+  bwd_dq_body<D, true>(a);
+}
+
+// ------------------------------------------------- backward at D = 256
+
+constexpr int kWideKeys = 32;      // dk/dv: keys a block, 16 a warp group
+constexpr int kWideBR = 16;        // dk/dv: rows a tile
+constexpr int kWideRows = 32;      // dq: rows a block, 16 a warp group
+constexpr int kWideBK = 16;        // dq: keys a tile
+constexpr int kWideThreads = 256;  // 2 groups x 4 quarters of D
+
+// K, V split (32 keys), two buffers of raw Q, dO (16 rows) and of their
+// (lse, Delta), the quarters' partials [8 warps][2][2][32] float4.
+template <int D>
+__host__ __device__ constexpr size_t smem_bwd_dkdv_wide() {
+  return 2 * kWideKeys * D * 8 + 2 * 2 * kWideBR * D * 4 +
+         8 * 2 * 2 * 32 * sizeof(float4) + 2 * kWideBR * sizeof(float2);
+}
+// Q, dO split (32 rows), two buffers of raw K, V (16 keys), the partials.
+template <int D>
+__host__ __device__ constexpr size_t smem_bwd_dq_wide() {
+  return 2 * kWideRows * D * 8 + 2 * 2 * kWideBK * D * 4 +
+         8 * 2 * 2 * 32 * sizeof(float4);
+}
+
+// The raw tiles hold float32 rows as they are, each row's 8-byte chunks
+// (elements 2c, 2c + 1) at slot c ^ rsw(r): a half warp's 8-byte reads
+// of chunk 4s + t of rows r0 + g (g < 4 or g >= 4) and a warp's 4-byte
+// reads of element 8m + g of rows r0 + 2t + e each fall on the 32 banks
+// once (r0 a multiple of 8), and a 16-byte piece (chunks 2j, 2j + 1)
+// stays whole.  The operands are split into TF32 hi and lo parts as they
+// are read (raw_pair, raw_one), so no split pass runs.
+__device__ __forceinline__ int rsw(int r) { return ((r ^ (r >> 1)) & 3) << 2; }
+
+template <int D>
+__device__ __forceinline__ void raw_pair(const float* T, int r, int c,
+                                         uint32_t& h0, uint32_t& h1,
+                                         uint32_t& l0, uint32_t& l1) {
+  const float2 x = *reinterpret_cast<const float2*>(T + r * D +
+                                                    2 * (c ^ rsw(r)));
+  split(x.x, h0, l0);
+  split(x.y, h1, l1);
+}
+
+template <int D>
+__device__ __forceinline__ void raw_one(const float* T, int r, int d,
+                                        uint32_t& h, uint32_t& l) {
+  split(T[r * D + 2 * ((d >> 1) ^ rsw(r)) + (d & 1)], h, l);
+}
+
+// Enqueues rows [0, n) of a raw tile from row(r) by 16-byte cp.async, and
+// writes zeros for the rows where row(r) is nullptr.
+template <int D, int NT, typename Row>
+__device__ __forceinline__ void wide_issue(float* T, int n, Row row) {
+  for (int idx = threadIdx.x; idx < n * (D / 4); idx += NT) {
+    const int r = idx / (D / 4), e = (idx % (D / 4)) * 4;
+    float* dst = T + r * D + 2 * ((e >> 1) ^ rsw(r));
+    const float* p = row(r);
+    if (p != nullptr)
+      cp_async16(dst, p + e);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// Warp (group, quarter)'s partial C fragments x[n] (product 0) and y[n]
+// (1) for its two 8-row or 8-key fragments n into Ex, a block barrier,
+// then the four quarters' of its group added in quarter order (the same
+// sums on the four warps).
+__device__ __forceinline__ void wide_exchange(float4* Ex, int group,
+                                             int quarter, int lane,
+                                             float (&x)[2][4],
+                                             float (&y)[2][4]) {
+  const auto at = [&](int q, int n, int p) {
+    return ((((group * 4 + q) * 2 + n) * 2 + p) * 32) + lane;
+  };
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    Ex[at(quarter, n, 0)] = make_float4(x[n][0], x[n][1], x[n][2], x[n][3]);
+    Ex[at(quarter, n, 1)] = make_float4(y[n][0], y[n][1], y[n][2], y[n][3]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    float4 sx = Ex[at(0, n, 0)], sy = Ex[at(0, n, 1)];
+#pragma unroll
+    for (int q = 1; q < 4; ++q) {
+      const float4 px = Ex[at(q, n, 0)], py = Ex[at(q, n, 1)];
+      sx.x += px.x; sx.y += px.y; sx.z += px.z; sx.w += px.w;
+      sy.x += py.x; sy.y += py.y; sy.z += py.z; sy.w += py.w;
+    }
+    x[n][0] = sx.x; x[n][1] = sx.y; x[n][2] = sx.z; x[n][3] = sx.w;
+    y[n][0] = sy.x; y[n][1] = sy.y; y[n][2] = sy.z; y[n][3] = sy.w;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    attn_bwd_dkdv_wide_kernel(const BwdArgs a) {
+  constexpr int NT = kWideThreads, BR = kWideBR, NK = kWideKeys;
+  constexpr int NQ = D / 32;   // a quarter's k-steps, and 8-column tiles
+  extern __shared__ uint4 smem_u4[];
+  uint4* Ks = smem_u4;                                   // [32][D] split
+  uint4* Vs = Ks + NK * D / 2;
+  float* R = reinterpret_cast<float*>(Vs + NK * D / 2);  // [2][Q, dO][16][D]
+  float4* Ex = reinterpret_cast<float4*>(R + 2 * 2 * BR * D);
+  float2* St = reinterpret_cast<float2*>(Ex + 8 * 2 * 2 * 32);  // [2][16]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kg = warp >> 2, quarter = warp & 3;   // keys 16 kg .. 16 kg + 15
+  const int groups = a.B * a.Hkv, rep = a.H / a.Hkv, rows = rep * a.Lq;
+  const int grp = blockIdx.x % groups, b = grp / a.Hkv, hk = grp % a.Hkv;
+  // Groups fastest, then runs, then key tiles in order (as the D <= 128
+  // pass).
+  const int run = (static_cast<int>(blockIdx.x) / groups) % a.runs;
+  const int j0 = (static_cast<int>(blockIdx.x) / groups / a.runs) * NK;
+  const int j1 = min(j0 + NK, a.Lk);
+  const int off = a.Lk - a.Lq;
+  const int p_lo = a.causal ? max(0, j0 - off) : 0;
+  const int p_hi = a.window > 0 ? min(a.Lq, j1 - 1 + a.window - off) : a.Lq;
+  const int run_rows = (rows + a.runs - 1) / a.runs;
+  const int f_beg = p_lo * rep + run * run_rows;
+  const int f_end = min(p_hi * rep, f_beg + run_rows);
+  const float* qb = a.q + b * a.qsb;
+  const float* ob = a.dO + b * a.dsb;
+  const float2* sb = a.stats + static_cast<long long>(grp) * a.rows_pad;
+
+  // Rows [f0, f0 + 16) of the run into buffer u: Q, dO and (lse, Delta)
+  // by cp.async, zeros past f_end.
+  auto issue = [&](int f0, int u) {
+    float* Qr = R + u * 2 * BR * D;
+    wide_issue<D, NT>(Qr, BR, [&](int r) -> const float* {
+      return f0 + r < f_end ? bwd_qrow(qb, a.qsh, a.qsl, hk, rep, f0 + r)
+                            : nullptr;
+    });
+    wide_issue<D, NT>(Qr + BR * D, BR, [&](int r) -> const float* {
+      return f0 + r < f_end ? bwd_qrow(ob, a.dsh, a.dsl, hk, rep, f0 + r)
+                            : nullptr;
+    });
+    for (int r = tid; r < BR; r += NT) {
+      if (f0 + r < f_end)
+        cp_async8(St + u * BR + r, sb + f0 + r);
+      else
+        St[u * BR + r] = make_float2(0.0f, 0.0f);
+    }
+  };
+
+  float dk[NQ][4], dv[NQ][4];
+#pragma unroll
+  for (int m = 0; m < NQ; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[m][e] = 0.0f;
+      dv[m][e] = 0.0f;
+    }
+  if (f_beg < f_end) {
+    issue(f_beg, 0);
+    cp_async_commit();
+    const float* kh = a.k + b * a.ksb + hk * a.ksh;
+    const float* vh = a.v + b * a.vsb + hk * a.vsh;
+    bwd_load_split<D, NT>(Ks, NK, [&](int r) -> const float* {
+      return j0 + r < a.Lk ? kh + static_cast<long long>(j0 + r) * a.ksl
+                           : nullptr;
+    });
+    bwd_load_split<D, NT>(Vs, NK, [&](int r) -> const float* {
+      return j0 + r < a.Lk ? vh + static_cast<long long>(j0 + r) * a.vsl
+                           : nullptr;
+    });
+  }
+  const float c = a.scale * kLog2e;
+  const int key0 = j0 + 16 * kg + g;   // this lane's keys: key0, key0 + 8
+  const int s0 = NQ * quarter;         // the quarter's first k-step, tile
+  const StLane<D> L(g, t);
+  int u = 0;                           // the buffer of this tile
+  for (int f0 = f_beg; f0 < f_end; f0 += BR, u ^= 1) {
+    cp_async_wait0();
+    __syncthreads();   // tile f0 landed; every warp is done with the other
+    if (f0 + BR < f_end) issue(f0 + BR, u ^ 1);
+    cp_async_commit();
+    const float* Qr = R + u * 2 * BR * D;
+    const float* Or = Qr + BR * D;
+    const float2* Sc = St + u * BR;
+    const bool full =
+        bwd_full(a, f0 / rep + off, (f0 + BR - 1) / rep + off, j0, NK);
+
+    // The quarter's S^T = K Q^T and dP^T = V dO^T of the warp's 16 keys
+    // over the tile's rows 8 n + (0..7).
+    float st[2][4], dp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[n][e] = 0.0f;
+        dp[n][e] = 0.0f;
+      }
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int s = s0 + i;
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      st_afrag<D>(L, Ks, 16 * kg, s, kh, kl);
+      st_afrag<D>(L, Vs, 16 * kg, s, vh, vl);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int r = 8 * n + g;
+        uint32_t h0, h1, l0, l1;
+        raw_pair<D>(Qr, r, 4 * s + t, h0, h1, l0, l1);
+        mma3(st[n], kh, kl, h0, h1, l0, l1);
+        raw_pair<D>(Or, r, 4 * s + t, h0, h1, l0, l1);
+        mma3(dp[n], vh, vl, h0, h1, l0, l1);
+      }
+    }
+    wide_exchange(Ex, kg, quarter, lane, st, dp);
+    // P^T and dS^T in place: element e of fragment n is key key0 + 8 (e
+    // >> 1), row 8 n + 2t + (e & 1) of the tile.
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int r = 8 * n + 2 * t;
+      const float2 v0 = Sc[r], v1 = Sc[r + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 sv = (e & 1) ? v1 : v0;
+        float p = exp2f(st[n][e] * c - sv.x);
+        if (!full && !bwd_sees(a, (f0 + r + (e & 1)) / rep + off,
+                               key0 + 8 * (e >> 1)))
+          p = 0.0f;
+        st[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - sv.y);
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q: k-step n takes rows 8 n + 2t and +
+    // 1 (the fragments' own columns); the quarter's columns.
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      c_to_a(st[n], ph, pl);
+      c_to_a(dp[n], sh, sl);
+      const int r = 8 * n + 2 * t;
+#pragma unroll
+      for (int m = 0; m < NQ; ++m) {
+        const int d = 8 * (s0 + m) + g;
+        uint32_t o0h, o0l, o1h, o1l, q0h, q0l, q1h, q1l;
+        raw_one<D>(Or, r, d, o0h, o0l);
+        raw_one<D>(Or, r + 1, d, o1h, o1l);
+        raw_one<D>(Qr, r, d, q0h, q0l);
+        raw_one<D>(Qr, r + 1, d, q1h, q1l);
+        mma3(dv[m], ph, pl, o0h, o1h, o0l, o1l);
+        mma3(dk[m], sh, sl, q0h, q1h, q0l, q1l);
+      }
+    }
+  }
+  // One run: the gradients.  Several: this run's partial sums.
+  const long long n = static_cast<long long>(a.B) * a.Hkv * a.Lk * D;
+  float* out_k = a.runs == 1 ? a.dk : a.part + run * n;
+  float* out_v = a.runs == 1 ? a.dv : a.part + (a.runs + run) * n;
+  const float sk = a.runs == 1 ? a.scale : 1.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = key0 + 8 * i;
+    if (j >= a.Lk) continue;
+    const long long base =
+        ((static_cast<long long>(b) * a.Hkv + hk) * a.Lk + j) * D + 2 * t;
+#pragma unroll
+    for (int m = 0; m < NQ; ++m) {
+      const int col = 8 * (s0 + m);
+      *reinterpret_cast<float2*>(out_k + base + col) =
+          make_float2(dk[m][2 * i] * sk, dk[m][2 * i + 1] * sk);
+      *reinterpret_cast<float2*>(out_v + base + col) =
+          make_float2(dv[m][2 * i], dv[m][2 * i + 1]);
+    }
+  }
+}
+
+// The D = 256 dq pass, or with kSweep its sweep (as bwd_dq_body; quarter
+// 0 of each row group sums P dP).
+template <int D, bool kSweep>
+__device__ __forceinline__ void bwd_dq_wide_body(const BwdArgs& a) {
+  constexpr int NT = kWideThreads, BQ = kWideRows, BK = kWideBK;
+  constexpr int NQ = D / 32;
+  extern __shared__ uint4 smem_u4[];
+  uint4* Qs = smem_u4;                                    // [32][D] split
+  uint4* Os = Qs + BQ * D / 2;                            // dO
+  float* R = reinterpret_cast<float*>(Os + BQ * D / 2);   // [2][K, V][16][D]
+  float4* Ex = reinterpret_cast<float4*>(R + 2 * 2 * BK * D);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp >> 2, quarter = warp & 3;   // rows 16 rg .. 16 rg + 15
+  const int groups = a.B * a.Hkv, rep = a.H / a.Hkv, rows = rep * a.Lq;
+  const int rtiles = (rows + BQ - 1) / BQ;
+  const int grp = blockIdx.x % groups, b = grp / a.Hkv, hk = grp % a.Hkv;
+  // Groups fastest, the last row tiles (which see the most keys) first.
+  const int f0 = (rtiles - 1 - static_cast<int>(blockIdx.x) / groups) * BQ;
+  const int f_last = min(f0 + BQ, rows) - 1;
+  const int off = a.Lk - a.Lq;
+  const int p0 = f0 / rep + off, p1 = f_last / rep + off;
+  const int lo = a.window > 0 ? max(0, p0 - a.window + 1) : 0;
+  const int hi = a.causal ? min(a.Lk, p1 + 1) : a.Lk;
+  const int kt0 = (lo / BK) * BK;
+  const int ntiles = hi > kt0 ? (hi - kt0 + BK - 1) / BK : 0;
+  const float* kh = a.k + b * a.ksb + hk * a.ksh;
+  const float* vh = a.v + b * a.vsb + hk * a.vsh;
+
+  // Keys [kt, kt + 16) of K and V into buffer u (zeros past Lk).
+  auto issue = [&](int kt, int u) {
+    float* Kr = R + u * 2 * BK * D;
+    wide_issue<D, NT>(Kr, BK, [&](int r) -> const float* {
+      return kt + r < a.Lk ? kh + static_cast<long long>(kt + r) * a.ksl
+                           : nullptr;
+    });
+    wide_issue<D, NT>(Kr + BK * D, BK, [&](int r) -> const float* {
+      return kt + r < a.Lk ? vh + static_cast<long long>(kt + r) * a.vsl
+                           : nullptr;
+    });
+  };
+  if (ntiles > 0) issue(kt0, 0);
+  cp_async_commit();
+  const float* qb = a.q + b * a.qsb;
+  const float* ob = a.dO + b * a.dsb;
+  bwd_load_split<D, NT>(Qs, BQ, [&](int r) -> const float* {
+    return f0 + r < rows ? bwd_qrow(qb, a.qsh, a.qsl, hk, rep, f0 + r)
+                         : nullptr;
+  });
+  bwd_load_split<D, NT>(Os, BQ, [&](int r) -> const float* {
+    return f0 + r < rows ? bwd_qrow(ob, a.dsh, a.dsl, hk, rep, f0 + r)
+                         : nullptr;
+  });
+  // This lane's rows f0 + 16 rg + g and + 8: (lse, Delta) and positions
+  // (the padding past `rows` holds zeros).
+  const int fr = f0 + 16 * rg + g;
+  const float2* sb = a.stats + static_cast<long long>(grp) * a.rows_pad;
+  const float2 sv[2] = {sb[fr], sb[fr + 8]};
+  const int ap[2] = {fr / rep + off, (fr + 8) / rep + off};
+  const float c = a.scale * kLog2e;
+  const int s0 = NQ * quarter;
+  const StLane<D> L(g, t);
+
+  float acc[kSweep ? 1 : NQ][4];
+#pragma unroll
+  for (int m = 0; m < (kSweep ? 1 : NQ); ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int kt = kt0 + it * BK, u = it & 1;
+    cp_async_wait0();
+    __syncthreads();   // tile it landed; every warp is done with the other
+    if (it + 1 < ntiles) issue(kt + BK, u ^ 1);
+    cp_async_commit();
+    const float* Kr = R + u * 2 * BK * D;
+    const float* Vr = Kr + BK * D;
+    const bool full = bwd_full(a, p0, p1, kt, BK);
+
+    // The quarter's S = Q K^T and dP = dO V^T of the warp's 16 rows over
+    // the tile's keys 8 n + (0..7).
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = 0.0f;
+        dp[n][e] = 0.0f;
+      }
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int ks = s0 + i;
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      st_afrag<D>(L, Qs, 16 * rg, ks, qh, ql);
+      st_afrag<D>(L, Os, 16 * rg, ks, oh, ol);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int r = 8 * n + g;
+        uint32_t h0, h1, l0, l1;
+        raw_pair<D>(Kr, r, 4 * ks + t, h0, h1, l0, l1);
+        mma3(s[n], qh, ql, h0, h1, l0, l1);
+        raw_pair<D>(Vr, r, 4 * ks + t, h0, h1, l0, l1);
+        mma3(dp[n], oh, ol, h0, h1, l0, l1);
+      }
+    }
+    wide_exchange(Ex, rg, quarter, lane, s, dp);
+    // dS in place (the sweep: P dP into acc[0][row]): element e of
+    // fragment n is row fr + 8 (e >> 1), key kj + (e & 1).
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int kj = kt + 8 * n + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 w = sv[e >> 1];
+        float p = exp2f(s[n][e] * c - w.x);
+        if (!full && !bwd_sees(a, ap[e >> 1], kj + (e & 1))) p = 0.0f;
+        if constexpr (kSweep)
+          acc[0][e >> 1] = fmaf(p, dp[n][e], acc[0][e >> 1]);
+        else
+          s[n][e] = p * (dp[n][e] - w.y);
+      }
+    }
+    // dQ += dS K: k-step n takes keys 8 n + 2t and + 1; the quarter's
+    // columns.
+    if constexpr (!kSweep) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        uint32_t dh[4], dl[4];
+        c_to_a(s[n], dh, dl);
+        const int r = 8 * n + 2 * t;
+#pragma unroll
+        for (int m = 0; m < NQ; ++m) {
+          const int d = 8 * (s0 + m) + g;
+          uint32_t k0h, k0l, k1h, k1l;
+          raw_one<D>(Kr, r, d, k0h, k0l);
+          raw_one<D>(Kr, r + 1, d, k1h, k1l);
+          mma3(acc[m], dh, dl, k0h, k1h, k0l, k1l);
+        }
+      }
+    }
+  }
+  if constexpr (kSweep) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      acc[0][i] += __shfl_xor_sync(0xffffffffu, acc[0][i], 1);
+      acc[0][i] += __shfl_xor_sync(0xffffffffu, acc[0][i], 2);
+      if (quarter == 0 && t == 0 && fr + 8 * i < rows)
+        a.stats[static_cast<long long>(grp) * a.rows_pad + fr + 8 * i].y =
+            acc[0][i];
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int f = fr + 8 * i;
+    if (f >= rows) continue;
+    float* out = a.dq + ((static_cast<long long>(b) * a.H + hk * rep +
+                          f % rep) * a.Lq + f / rep) * D + 2 * t;
+#pragma unroll
+    for (int m = 0; m < NQ; ++m)
+      *reinterpret_cast<float2*>(out + 8 * (s0 + m)) =
+          make_float2(acc[m][2 * i] * a.scale, acc[m][2 * i + 1] * a.scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    attn_bwd_dq_wide_kernel(const BwdArgs a) {
+  bwd_dq_wide_body<D, false>(a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    attn_bwd_sweep_wide_kernel(const BwdArgs a) {
+  bwd_dq_wide_body<D, true>(a);
+}
+
+template <int D>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int NT = bwd_threads<D>();
-  constexpr size_t sm_dkdv = smem_bwd_dkdv<D>(), sm_dq = smem_bwd_dq<D>();
-  constexpr int rows_a_block = kBwdAux / (D / 4);   // Delta kernel
+  constexpr bool kWide = D > 128;
+  constexpr int NT = kWide ? kWideThreads : bwd_threads<D>();
+  constexpr size_t sm_dkdv =
+      kWide ? smem_bwd_dkdv_wide<D>() : smem_bwd_dkdv<D>();
+  constexpr size_t sm_dq = kWide ? smem_bwd_dq_wide<D>() : smem_bwd_dq<D>();
+  constexpr int kRowsBlk = kWide ? kWideRows : kBwdRows;
+  constexpr int kKeysBlk = kWide ? kWideKeys : kBwdKeys;
+  void (*dkdv)(BwdArgs);   // the passes of the head width (one built each)
+  void (*dq)(BwdArgs);
+  void (*sweep)(BwdArgs);
+  if constexpr (kWide) {
+    dkdv = attn_bwd_dkdv_wide_kernel<D>;
+    dq = attn_bwd_dq_wide_kernel<D>;
+    sweep = attn_bwd_sweep_wide_kernel<D>;
+  } else {
+    dkdv = attn_bwd_dkdv_kernel<D>;
+    dq = attn_bwd_dq_kernel<D>;
+    sweep = attn_bwd_sweep_kernel<D>;
+  }
   const int groups = a.B * a.Hkv;
-  const int rtiles = ((a.H / a.Hkv) * a.Lq + kBwdRows - 1) / kBwdRows;
-  const int ktiles = (a.Lk + kBwdKeys - 1) / kBwdKeys;
-  int err = opt_in(attn_bwd_dkdv_kernel<D>, sm_dkdv);
-  if (err == 0) err = opt_in(attn_bwd_dq_kernel<D>, sm_dq);
+  const int rtiles = ((a.H / a.Hkv) * a.Lq + kRowsBlk - 1) / kRowsBlk;
+  const int ktiles = (a.Lk + kKeysBlk - 1) / kKeysBlk;
+  int err = opt_in(dkdv, sm_dkdv);
+  if (err == 0) err = opt_in(dq, sm_dq);
+  if (err == 0) err = opt_in(sweep, sm_dq);
   if (err != 0) return err;
   const long long nst = static_cast<long long>(groups) * a.rows_pad;
-  attn_bwd_delta_kernel<D><<<static_cast<int>((nst + rows_a_block - 1) /
-                                              rows_a_block),
-                             kBwdAux, 0, stream>>>(a);
+  attn_bwd_lse_kernel<<<static_cast<int>((nst + kBwdAux - 1) / kBwdAux),
+                        kBwdAux, 0, stream>>>(a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  attn_bwd_dkdv_kernel<D><<<ktiles * a.runs * groups, NT, sm_dkdv, stream>>>(
-      a);
+  sweep<<<rtiles * groups, NT, sm_dq, stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  dkdv<<<ktiles * a.runs * groups, NT, sm_dkdv, stream>>>(a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   if (a.runs > 1) {
@@ -1729,7 +2259,7 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
-  attn_bwd_dq_kernel<D><<<rtiles * groups, NT, sm_dq, stream>>>(a);
+  dq<<<rtiles * groups, NT, sm_dq, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1750,8 +2280,7 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 // regime A and needs splits = 1.  `lse`: nullptr, or float32 [B, H, Lq],
 // contiguous, which then receives each row's log2-sum-exp of its logits
 // scaled by scale * log2(e) (what the backward reads); such a call takes
-// regime A at any group size, and float32 q, k, v with D <= 128 (the
-// backward's).  Launches on `stream` and returns
+// regime A at any group size, and float32 q, k, v (the backward's).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or the error of the shared-memory
 // opt-in, or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int flash_attention_launch(
@@ -1784,55 +2313,52 @@ extern "C" int flash_attention_launch(
 }
 
 // The backward of flash_attention_launch's function for float32 q [B, H,
-// Lq, D], k, v [B, Hkv, Lk, D], the forward's output o [B, H, Lq, D], its
-// gradient dO [B, H, Lq, D] and its log2-sum-exp lse [B, H, Lq]
-// (contiguous, as flash_attention_launch writes it): q, k, v, o and dO
-// with unit stride along D, 16-byte aligned rows and the given element
-// strides (multiples of 4) for batch, head and position.  Writes dq [B,
+// Lq, D], k, v [B, Hkv, Lk, D], the gradient dO [B, H, Lq, D] of its
+// output and its log2-sum-exp lse [B, H, Lq] (contiguous, as
+// flash_attention_launch writes it): q, k, v and dO with unit stride
+// along D, 16-byte aligned rows and the given element strides (multiples
+// of 4) for batch, head and position.  Writes dq [B,
 // H, Lq, D] and dk, dv [B, Hkv, Lk, D], contiguous float32, for the same
 // causal mask, window (<= 0 for none) and right-aligned queries (Lq <=
 // Lk) as the forward.  `stats` is float32 scratch of 2 * B * Hkv *
 // rows_pad values, rows_pad = H / Hkv * Lq rounded up to a multiple of 64;
 // `runs` >= 1 the dk/dv pass's runs of rows, ceil(H / Hkv * Lq / runs)
 // rows each (ops.plan_k7_bwd), and with runs > 1 `part` float32 scratch
-// of 2 * runs * B * Hkv * Lk * D values.  D in {32, 64, 128}; H a
-// multiple of Hkv.  Three or four launches on `stream`; returns
+// of 2 * runs * B * Hkv * Lk * D values.  D in {32, 64, 128, 256}; H a
+// multiple of Hkv.  Four or five launches on `stream`; returns
 // cudaGetLastError() (0 on success), the error of a shared-memory opt-in,
 // or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int flash_attention_bwd_launch(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dO, const void* lse, void* dq, void* dk, void* dv,
-    void* stats, void* part, int runs, int B, int H, int Hkv, int Lq,
-    int Lk, int D, long long qsb, long long qsh, long long qsl,
-    long long ksb, long long ksh, long long ksl, long long vsb,
-    long long vsh, long long vsl, long long osb, long long osh,
-    long long osl, long long dsb, long long dsh, long long dsl, int causal,
-    int window, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const void* dO,
+    const void* lse, void* dq, void* dk, void* dv, void* stats, void* part,
+    int runs, int B, int H, int Hkv, int Lq, int Lk, int D, long long qsb,
+    long long qsh, long long qsl, long long ksb, long long ksh,
+    long long ksl, long long vsb, long long vsh, long long vsl,
+    long long dsb, long long dsh, long long dsl, int causal, int window,
+    float scale, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0 || Lq > Lk || stats == nullptr ||
       lse == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (runs < 1 || (runs > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(q, qsb, qsh, qsl, 4) || !aligned16(k, ksb, ksh, ksl, 4) ||
-      !aligned16(v, vsb, vsh, vsl, 4) || !aligned16(o, osb, osh, osl, 4) ||
-      !aligned16(dO, dsb, dsh, dsl, 4))
+      !aligned16(v, vsb, vsh, vsl, 4) || !aligned16(dO, dsb, dsh, dsl, 4))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || Lq <= 0) return static_cast<int>(cudaGetLastError());
   const int rows_pad = ((H / Hkv) * Lq + kBwdRows - 1) / kBwdRows * kBwdRows;
   const BwdArgs a{static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<const float*>(o),
-                  static_cast<const float*>(dO),
+                  static_cast<const float*>(v), static_cast<const float*>(dO),
                   static_cast<const float*>(lse), static_cast<float*>(dq),
                   static_cast<float*>(dk), static_cast<float*>(dv),
                   static_cast<float2*>(stats), static_cast<float*>(part), B,
                   H, Hkv, Lq, Lk, rows_pad, qsb, qsh, qsl, ksb, ksh, ksl,
-                  vsb, vsh, vsl, osb, osh, osl, dsb, dsh, dsl, causal,
-                  window, scale, runs};
+                  vsb, vsh, vsl, dsb, dsh, dsl, causal, window, scale, runs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch_bwd<32>(a, s);
     case 64: return launch_bwd<64>(a, s);
     case 128: return launch_bwd<128>(a, s);
+    case 256: return launch_bwd<256>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -71,6 +71,11 @@
 // upper halves of the diagonal tiles, and rows and columns past Q, P and
 // S.  No tensor cores: the reference's tolerance (2e-4) is held in
 // float32, and TF32 keeps about three digits.
+//
+// The backward (ssd_chunk_bwd_launch, at the end of this file) has no TPU
+// counterpart: the Pallas kernel has no custom_vjp, and the reference
+// trains through its jnp chunk scan (src/repro/models/mamba2.py:30).  Its
+// note is with it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -564,5 +569,445 @@ extern "C" int ssd_chunk_launch(const void* x, const void* delta,
       static_cast<const float*>(Cm), static_cast<float*>(y),
       static_cast<float*>(Hs), static_cast<float*>(exp_s), NC, Q, P, S, hpg,
       nh, nblk, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// ------------------------------------------------------------- backward
+//
+// The gradients of the block above for the output gradients dy [Q, P],
+// dH [S, P] and des [Q] of one (bh, chunk) cell, with M[t, u] =
+// exp(min(s_t - s_u, 0)) [u <= t], CB = C B^T, G = CB * M * dt_u and w_u =
+// e_u dt_u, e_u = exp(s_{Q-1} - s_u):
+//   dG = dy x^T (on the triangle), F = dG * M, Z = F * dt_u;
+//   dx = G^T dy + w * (B dH);
+//   dC = Z B,  dB = Z^T C + w * (x dH^T),  summed over the heads of a group;
+//   dw_u = B_u . (x dH^T)_u,  ddt_u = sum_{t >= u} F CB [t, u] + dw_u e_u;
+//   ds_t = sum_{u < t} E[t, u] - sum_{t' > t} E[t', t] + des_t exp(s_t)
+//          + [t = Q-1] sum_{u < Q-1} w_u dw_u - [t < Q-1] w_t dw_t,
+// with E = Z * CB strictly below the diagonal (M's row and column terms,
+// which cancel on it); ddelta is the reverse cumulative sum of ds.
+//
+// Design.  One block of 512 threads (16 warps) per (batch, group, chunk,
+// run of nh heads), the grid of the forward (ops.py::k8_blocks).  B, C and
+// C B^T are read and formed once a block.  Since B and C are shared by
+// the heads of a group, dC = (sum_h Z_h) B and dB's first term (sum_h
+// Z_h)^T C: the block sums Z over its heads, in head order, in shared
+// memory, and forms both products once at its end; the per-head term
+// w * (x dH^T) of dB is summed in registers (each thread owns the same (u,
+// s) of every head).  With one run a block writes dB and dC; with more,
+// each run writes its partial sums and a second kernel adds them in run
+// order: no atomics, so two calls give the same bits.  Per head: the
+// head's x, dy, dH and steps land in shared memory, warp 0 scans the
+// deltas, then every product runs with warp w on rows 4w..4w+3 (t or u)
+// and lane l on columns l, l + 32 (u, p) or l + 32j (s), each a float32
+// fmaf sum in a fixed order; warp 0 then forms ds, ddelta and ddt.  Row
+// strides are odd (S + 1, Q + 1 words), so the reads of a column across
+// lanes (x, B and dH rows) fall on distinct banks.  A simple kernel: the
+// tensor cores and 3xTF32 are left for later.
+//
+// Shared memory (floats): B, C [Q][129], C B^T, sum Z, G, F CB, x, dy
+// [Q][65], dH [S][65] and seven step vectors: 200 960 bytes, one block an
+// SM.
+
+constexpr int kBwdThreads = 512;           // 16 warps, 4 rows each
+constexpr int kLdB = kMaxS + 1;            // B and C
+constexpr int kLdT = kMaxQ + 1;            // [Q][Q] tiles, x, dy and dH
+constexpr int kBwdWords =
+    2 * kMaxQ * kLdB + 6 * kMaxQ * kLdT + kMaxS * kLdT + 7 * kMaxQ;
+constexpr int kSumThreads = 256;           // the runs' sum
+
+// The warp's sum of v in a fixed order, lane 0's, on every lane.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// blockIdx.x as in ssd_chunk_kernel.  dB and dC go to oB, oC plus hb *
+// run_stride (the run's partial sums, or the gradients with one run).
+__global__ void __launch_bounds__(kBwdThreads, 1)
+ssd_chunk_bwd_kernel(const float* __restrict__ x,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ dtv,
+                     const float* __restrict__ Bm,
+                     const float* __restrict__ Cm,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ dH,
+                     const float* __restrict__ des, float* __restrict__ dx,
+                     float* __restrict__ ddelta, float* __restrict__ ddt,
+                     float* __restrict__ oB, float* __restrict__ oC, int NC,
+                     int Q, int P, int S, int hpg, int nh, int nblk,
+                     long long run_stride) {
+  const int hb = blockIdx.x % nblk;
+  const int bgc = blockIdx.x / nblk;       // (b * G + g) * NC + c
+  const int c = bgc % NC, bg = bgc / NC;
+  const int h_first = hb * nh, h_last = min(h_first + nh, hpg);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  extern __shared__ __align__(16) float sm[];
+  float* Bs = sm;                          // [Q][kLdB]
+  float* Cs = Bs + kMaxQ * kLdB;
+  float* CBs = Cs + kMaxQ * kLdB;          // C B^T [t][u]
+  float* Zs = CBs + kMaxQ * kLdT;          // sum over heads of Z [t][u]
+  float* Gs = Zs + kMaxQ * kLdT;           // the head's G [t][u]
+  float* Fs = Gs + kMaxQ * kLdT;           // the head's F * CB [t][u]
+  float* xs = Fs + kMaxQ * kLdT;           // x [u][p]
+  float* ys = xs + kMaxQ * kLdT;           // dy [t][p]
+  float* hs = ys + kMaxQ * kLdT;           // dH [s][p]
+  float* sv = hs + kMaxS * kLdT;           // s
+  float* dts = sv + kMaxQ;                 // dt
+  float* wv = dts + kMaxQ;                 // w
+  float* ev = wv + kMaxQ;                  // exp(s_{Q-1} - s)
+  float* desv = ev + kMaxQ;                // des
+  float* rowv = desv + kMaxQ;              // the deltas, then E's row sums
+  float* dwv = rowv + kMaxQ;               // dw
+
+  {
+    const long long bc = static_cast<long long>(bgc) * Q * S;
+    for (int i = tid; i < Q * S; i += kBwdThreads) {
+      const int r = i / S, k = i - r * S;
+      Bs[r * kLdB + k] = Bm[bc + i];
+      Cs[r * kLdB + k] = Cm[bc + i];
+    }
+    for (int i = tid; i < kMaxQ * kLdT; i += kBwdThreads) Zs[i] = 0.0f;
+  }
+  __syncthreads();
+
+  // Warp w's rows r0..r0+3 (clamped to the chunk in rr), lane l's columns
+  // u = l, l + 32 (clamped in uc) and s = l + 32j (clamped in sc).
+  const int r0 = 4 * warp;
+  int rr[4], uc[2], sc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rr[i] = min(r0 + i, Q - 1);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) uc[j] = min(lane + 32 * j, Q - 1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sc[j] = min(lane + 32 * j, S - 1);
+
+  // C B^T, rows t, columns u.
+  {
+    float acc[4][2] = {};
+    for (int k = 0; k < S; ++k) {
+      const float b0 = Bs[uc[0] * kLdB + k], b1 = Bs[uc[1] * kLdB + k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float cv = Cs[rr[i] * kLdB + k];
+        acc[i][0] = fmaf(cv, b0, acc[i][0]);
+        acc[i][1] = fmaf(cv, b1, acc[i][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) CBs[(r0 + i) * kLdT + lane + 32 * j] =
+          acc[i][j];
+  }
+
+  float dbh[4][4] = {};   // (u, s): sum over the heads of w * (x dH^T)
+  for (int h = h_first; h < h_last; ++h) {
+    const long long cell = (static_cast<long long>(bg) * hpg + h) * NC + c;
+    __syncthreads();   // C B^T is in; the last head's tiles are dead
+    for (int i = tid; i < Q * P; i += kBwdThreads) {
+      const int r = i / P, p = i - r * P;
+      xs[r * kLdT + p] = x[cell * Q * P + i];
+      ys[r * kLdT + p] = dy[cell * Q * P + i];
+    }
+    for (int i = tid; i < S * P; i += kBwdThreads) {
+      const int r = i / P, p = i - r * P;
+      hs[r * kLdT + p] = dH[cell * S * P + i];
+    }
+    if (tid < Q) {
+      rowv[tid] = delta[cell * Q + tid];
+      dts[tid] = dtv[cell * Q + tid];
+      desv[tid] = des[cell * Q + tid];
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const Steps st = scan_steps(rowv, dts, Q, lane);
+      const float last =
+          __shfl_sync(0xffffffffu, Q > 32 ? st.sb : st.sa, (Q - 1) & 31);
+      if (lane < Q) {
+        sv[lane] = st.sa;
+        wv[lane] = st.wa;
+        ev[lane] = expf(last - st.sa);
+      }
+      if (lane + 32 < Q) {
+        sv[lane + 32] = st.sb;
+        wv[lane + 32] = st.wb;
+        ev[lane + 32] = expf(last - st.sb);
+      }
+    }
+    __syncthreads();
+
+    // dG = dy x^T, rows t, columns u; then G, F CB, Z's sum and E's row
+    // sums.
+    {
+      float acc[4][2] = {};
+      for (int p = 0; p < P; ++p) {
+        const float x0 = xs[uc[0] * kLdT + p], x1 = xs[uc[1] * kLdT + p];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float d = ys[rr[i] * kLdT + p];
+          acc[i][0] = fmaf(d, x0, acc[i][0]);
+          acc[i][1] = fmaf(d, x1, acc[i][1]);
+        }
+      }
+      const float su[2] = {sv[uc[0]], sv[uc[1]]};
+      const float du[2] = {dts[uc[0]], dts[uc[1]]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = r0 + i;
+        float row = 0.0f;
+        if (t < Q) {
+          const float st_ = sv[t];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int u = lane + 32 * j;
+            float z = 0.0f, g = 0.0f, fcb = 0.0f;
+            if (u <= t) {
+              const float m = expf(fminf(st_ - su[j], 0.0f));
+              const float cb = CBs[t * kLdT + u];
+              const float f = acc[i][j] * m;
+              z = f * du[j];
+              g = cb * m * du[j];
+              fcb = f * cb;
+              if (u < t) row += fcb * du[j];
+            }
+            Zs[t * kLdT + u] += z;
+            Gs[t * kLdT + u] = g;
+            Fs[t * kLdT + u] = fcb;
+          }
+        }
+        row = warp_sum(row);
+        if (lane == 0 && t < Q) rowv[t] = row;
+      }
+    }
+
+    // x dH^T, rows u, columns s: dw, and w * (x dH^T) into dbh.
+    {
+      float acc[4][4] = {};
+      for (int p = 0; p < P; ++p) {
+        float hv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) hv[j] = hs[sc[j] * kLdT + p];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float xv = xs[rr[i] * kLdT + p];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv, hv[j], acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = r0 + i;
+        float part = 0.0f;
+        if (u < Q) {
+          const float wu = wv[u];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (lane + 32 * j >= S) continue;
+            part = fmaf(Bs[u * kLdB + lane + 32 * j], acc[i][j], part);
+            dbh[i][j] = fmaf(wu, acc[i][j], dbh[i][j]);
+          }
+        }
+        part = warp_sum(part);
+        if (lane == 0 && u < Q) dwv[u] = part;
+      }
+    }
+    __syncthreads();   // G, F CB, E's row sums and dw are in
+
+    // dx = G^T dy + w * (B dH), rows u, columns p = lane, lane + 32.
+    {
+      const int p0 = min(lane, P - 1), p1 = min(lane + 32, P - 1);
+      float a1[4][2] = {}, a2[4][2] = {};
+      for (int t = r0; t < Q; ++t) {
+        const float y0 = ys[t * kLdT + p0], y1 = ys[t * kLdT + p1];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float g = Gs[t * kLdT + r0 + i];
+          a1[i][0] = fmaf(g, y0, a1[i][0]);
+          a1[i][1] = fmaf(g, y1, a1[i][1]);
+        }
+      }
+      for (int k = 0; k < S; ++k) {
+        const float h0 = hs[k * kLdT + p0], h1 = hs[k * kLdT + p1];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float b = Bs[rr[i] * kLdB + k];
+          a2[i][0] = fmaf(b, h0, a2[i][0]);
+          a2[i][1] = fmaf(b, h1, a2[i][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = r0 + i;
+        if (u >= Q) continue;
+        const float wu = wv[u];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int p = lane + 32 * j;
+          if (p < P) dx[(cell * Q + u) * P + p] = fmaf(wu, a2[i][j], a1[i][j]);
+        }
+      }
+    }
+
+    // Warp 0: ddt, ds and its reverse cumulative sum ddelta, lane l steps
+    // l and l + 32.
+    if (warp == 0) {
+      float ds[2] = {0.0f, 0.0f}, wdw[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int t = lane + 32 * k;
+        if (t >= Q) continue;
+        float col = 0.0f;   // sum_{t' > t} F CB [t', t]
+        for (int tt = t + 1; tt < Q; ++tt) col += Fs[tt * kLdT + t];
+        const float dw = dwv[t];
+        ddt[cell * Q + t] = (col + Fs[t * kLdT + t]) + dw * ev[t];
+        wdw[k] = wv[t] * dw;
+        float d = rowv[t] - dts[t] * col + desv[t] * expf(sv[t]);
+        if (t < Q - 1) d -= wdw[k];
+        ds[k] = d;
+      }
+      const float wsum = warp_sum((lane < Q - 1 ? wdw[0] : 0.0f) +
+                                  (lane + 32 < Q - 1 ? wdw[1] : 0.0f));
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        if (lane + 32 * k == Q - 1) ds[k] += wsum;
+      // Suffix sums: within each half by shuffles, then the second
+      // half's total added to the first.
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float a0 = __shfl_down_sync(0xffffffffu, ds[0], off);
+        const float a1 = __shfl_down_sync(0xffffffffu, ds[1], off);
+        if (lane + off < 32) {
+          ds[0] += a0;
+          ds[1] += a1;
+        }
+      }
+      ds[0] += __shfl_sync(0xffffffffu, ds[1], 0);
+      if (lane < Q) ddelta[cell * Q + lane] = ds[0];
+      if (lane + 32 < Q) ddelta[cell * Q + lane + 32] = ds[1];
+    }
+  }
+  __syncthreads();   // Z's sum over the run's heads is complete
+
+  // dC = Z B (rows t, u <= t) and dB = Z^T C (rows u, t >= u) plus dbh,
+  // columns s.
+  {
+    const long long base =
+        hb * run_stride + static_cast<long long>(bgc) * Q * S;
+    float ac[4][4] = {}, ab[4][4] = {};
+    const int uend = min(Q, r0 + 4);
+    for (int u = 0; u < uend; ++u) {
+      float bv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[u * kLdB + sc[j]];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float z = Zs[rr[i] * kLdT + u];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ac[i][j] = fmaf(z, bv[j], ac[i][j]);
+      }
+    }
+    for (int t = r0; t < Q; ++t) {
+      float cv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cv[j] = Cs[t * kLdB + sc[j]];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float z = Zs[t * kLdT + r0 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ab[i][j] = fmaf(z, cv[j], ab[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + i;
+      if (r >= Q) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int s = lane + 32 * j;
+        if (s >= S) continue;
+        oC[base + r * S + s] = ac[i][j];
+        oB[base + r * S + s] = ab[i][j] + dbh[i][j];
+      }
+    }
+  }
+}
+
+// dB, dC = the runs' partial sums (part: runs of dB, then runs of dC, n
+// values each), each element's runs added in run order.
+__global__ void __launch_bounds__(kSumThreads)
+ssd_chunk_bwd_sum_kernel(const float* __restrict__ part,
+                         float* __restrict__ dB, float* __restrict__ dC,
+                         int runs, long long n) {
+  const long long e =
+      static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x;
+  if (e >= n) return;
+  float sb = 0.0f, sc = 0.0f;
+  for (int r = 0; r < runs; ++r) {
+    sb += part[r * n + e];
+    sc += part[(runs + r) * n + e];
+  }
+  dB[e] = sb;
+  dC[e] = sc;
+}
+
+}  // namespace
+
+// The backward of ssd_chunk_launch's function: the forward's inputs x,
+// delta, dtv, Bm, Cm and the gradients dy [BH, NC, Q, P], dH [BH, NC, S,
+// P], des [BH, NC, Q] of its outputs, contiguous float32; writes dx [BH,
+// NC, Q, P], ddelta, ddt [BH, NC, Q] and dB, dC [B, G, NC, Q, S] (summed
+// over the heads of each group).  nh heads a block (1 <= nh <= hpg), so
+// ceil(hpg / nh) runs a group; with more than one, `part` is float32
+// scratch of 2 * runs * B * G * NC * Q * S values and a second kernel adds
+// the runs.  Q <= 64, P <= 64, S <= 128.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success), the error of the shared-memory
+// opt-in, or cudaErrorInvalidValue for arguments it does not take.
+extern "C" int ssd_chunk_bwd_launch(
+    const void* x, const void* delta, const void* dtv, const void* Bm,
+    const void* Cm, const void* dy, const void* dH, const void* des,
+    void* dx, void* ddelta, void* ddt, void* dB, void* dC, void* part,
+    int BH, int NC, int Q, int P, int S, int B, int G, int hpg, int nh,
+    void* stream) {
+  if (Q < 1 || Q > kMaxQ || P < 1 || P > kMaxP || S < 1 || S > kMaxS ||
+      B < 1 || G < 1 || hpg < 1 || nh < 1 || nh > hpg ||
+      BH != B * G * hpg || NC < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nblk = (hpg + nh - 1) / nh;
+  if (nblk > 1 && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (NC == 0) return static_cast<int>(cudaGetLastError());
+  const long long blocks = static_cast<long long>(B) * G * NC * nblk;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * kBwdWords;
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(B) * G * NC * Q * S;
+  float* pf = static_cast<float*>(part);
+  float* oB = nblk > 1 ? pf : static_cast<float*>(dB);
+  float* oC = nblk > 1 ? pf + nblk * n : static_cast<float*>(dC);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ssd_chunk_bwd_kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem,
+                         s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(delta),
+      static_cast<const float*>(dtv), static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), static_cast<const float*>(dy),
+      static_cast<const float*>(dH), static_cast<const float*>(des),
+      static_cast<float*>(dx), static_cast<float*>(ddelta),
+      static_cast<float*>(ddt), oB, oC, NC, Q, P, S, hpg, nh, nblk,
+      nblk > 1 ? n : 0);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e != 0 || nblk == 1) return e;
+  ssd_chunk_bwd_sum_kernel<<<static_cast<unsigned>((n + kSumThreads - 1) /
+                                                   kSumThreads),
+                             kSumThreads, 0, s>>>(
+      pf, static_cast<float*>(dB), static_cast<float*>(dC), nblk, n);
   return static_cast<int>(cudaGetLastError());
 }

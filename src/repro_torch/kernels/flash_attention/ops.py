@@ -25,10 +25,12 @@ split kernel writes none, so a grad call of at most 16 rows a group
 takes the tensor-core kernel too), and its backward the hand-written
 backward kernels given that lse (``flash_attention_bwd``, counted as
 ``"flash_attention_bwd"``).  ``flash_attention_lse`` returns the output
-and the lse of one such forward.  The backward takes float32 operands at head
-widths 32, 64 and 128; a grad-requiring call it does not take (bf16, D =
-256, or ``kv_last``, which is decode only) raises before any launch,
-never quietly differentiating the plain form.  On the CPU the plain form
+and the lse of one such forward.  The backward takes float32 operands at
+every head width (at 256 with tiles of its own: 32 keys a dk/dv block and
+32 rows a dq block, each walking raw tiles of 16, D split over warps); a
+grad-requiring call it does not
+take (bf16, or ``kv_last``, which is decode only) raises before any
+launch, never quietly differentiating the plain form.  On the CPU the plain form
 differentiates under autograd as it is.
 """
 from __future__ import annotations
@@ -44,12 +46,14 @@ from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 #: The head widths the kernel is built for.
 HEAD_DIMS = (32, 64, 128, 256)
 #: The head widths (and dtype) the backward kernels take.
-BWD_HEAD_DIMS = (32, 64, 128)
+BWD_HEAD_DIMS = (32, 64, 128, 256)
 #: The backward's dk/dv pass cuts a group's flattened rows (H / Hkv · Lq)
 #: into runs of at most this many, one block per (key tile, run), and
 #: adds the runs' partial sums in a fixed order.  ``plan_k7_bwd`` alone
 #: decides: the kernel cuts the rows into the runs it is given.
 K7_BWD_RUN_ROWS = 1024
+#: The same at D = 256, whose dk/dv blocks hold 32 keys instead of 64.
+K7_BWD_RUN_ROWS_WIDE = 4096
 #: Flattened rows a block of the backward's dq pass; each group's rows of
 #: its (lse, Δ) scratch are padded to a multiple of this.
 K7_BWD_ROWS = 64
@@ -118,12 +122,15 @@ def plan_k7(B: int, H: int, Hkv: int, Lq: int, Lk: int, window,
     return K7Plan("decode", -(-tiles // per))
 
 
-def plan_k7_bwd(H: int, Hkv: int, Lq: int) -> int:
+def plan_k7_bwd(H: int, Hkv: int, Lq: int, D: int = 64) -> int:
     """The runs of rows of the backward's dk/dv pass: ⌈H / Hkv · Lq /
     ``K7_BWD_RUN_ROWS``⌉ (8 at tinyllama-1.1b's prefill, 16 at
-    qwen3-moe's).  Under a causal mask one block a key tile would make the
-    first tiles, which every row sees, the pass's critical path."""
-    return max(1, -(-(H // Hkv) * Lq // K7_BWD_RUN_ROWS))
+    qwen3-moe's), and at D = 256 ⌈H / Hkv · Lq / ``K7_BWD_RUN_ROWS_WIDE``⌉
+    (10 at recurrentgemma-2b's 4 096 positions).  Under a causal mask one
+    block a key tile would make the first tiles, which every row sees, the
+    pass's critical path."""
+    per = K7_BWD_RUN_ROWS_WIDE if D > 128 else K7_BWD_RUN_ROWS
+    return max(1, -(-(H // Hkv) * Lq // per))
 
 
 def check_causal_rows(fn: str, causal: bool, Lq: int, Lk: int) -> None:
@@ -226,8 +233,8 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, window=None,
     that training runs, whose lse ``flash_attention_bwd`` takes.  No
     gradient flows through it.  On the card one counted
     ``"flash_attention"`` call of the tensor-core kernel at any group
-    size, for what the backward takes (float32, ``BWD_HEAD_DIMS``; else
-    ``check_backward`` raises); on the CPU the plain versions,
+    size, for what the backward takes (float32; else ``check_backward``
+    raises); on the CPU the plain versions,
     ``attention_ref`` and ``attention_lse_ref``."""
     device = _check("flash_attention_lse", q, k, v, causal, window, None)
     scale = scale if scale is not None else q.shape[3] ** -0.5
@@ -266,14 +273,13 @@ def _launch(q, k, v, *, causal, window, scale, kv_last=None, lse=False):
 def check_backward(q, k, v) -> None:
     """Raise ``NotImplementedError`` for a grad-requiring call on the card
     that the backward kernels do not take: bf16 operands (the reference's
-    trainer never trains under bf16) and head width 256 (recurrentgemma's;
-    its forward already fills a block's shared memory)."""
+    trainer never trains under bf16), or a head width outside
+    ``BWD_HEAD_DIMS``."""
     D = q.shape[3]
     if D not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention: K7 has no backward at head width {D} (it "
-            f"takes {BWD_HEAD_DIMS}); the D = 256 backward is not written "
-            f"yet")
+            f"takes {BWD_HEAD_DIMS})")
     if any(t.dtype != torch.float32 for t in (q, k, v)):
         raise NotImplementedError(
             f"flash_attention: K7's backward takes float32 q, k, v, got "
@@ -289,15 +295,15 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, scale):
         out, lse = _launch(q, k, v, causal=causal, window=window,
                            scale=scale, lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.args = (causal, window, scale)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, lse = ctx.saved_tensors
         causal, window, scale = ctx.args
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=causal,
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, causal=causal,
                                          window=window, scale=scale, lse=lse)
         return dq, dk, dv, None, None, None
 
@@ -309,38 +315,40 @@ def _aligned16(t) -> bool:
             and all(s % 4 == 0 for s in t.stride()[:3]))
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window=None,
+def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window=None,
                         scale=None, lse=None):
-    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)``, whose
-    output was ``o``, for the output gradient ``do``: float32, dq of q's
-    shape and dk, dv of k's (summed over each group's query heads).
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
+    output gradient ``do``: float32, dq of q's shape and dk, dv of k's
+    (summed over each group's query heads).
     ``lse``: the forward's log2-sum-exp [B, H, Lq] (``flash_attention_lse``;
     what ``FlashAttention`` saves), or None.  On the card the backward
-    kernels (Δ, dk/dv, dq, and a fourth that adds the dk/dv pass's runs
-    when ``plan_k7_bwd`` gives more than one; counted once as
-    ``"flash_attention_bwd"``), given ``lse`` or, without it, the lse of
-    one more forward (counted as ``"flash_attention"``: the same bits as
-    the forward's, so this call and autograd agree bit for bit); on the
-    CPU ``attention_bwd_ref``, which needs no lse."""
-    device = device_of("flash_attention_bwd", (q, k, v, o, do))
+    kernels (the lse staged, the sweep that sums each row's Δ = Σ P·dP
+    from the backward's own P and dP, dk/dv, dq, and one more that adds
+    the dk/dv pass's runs when ``plan_k7_bwd`` gives more than one;
+    counted once as ``"flash_attention_bwd"``), given ``lse`` or, without
+    it, the lse of one more forward (counted as ``"flash_attention"``: the
+    same bits as the forward's, so this call and autograd agree bit for
+    bit).  Neither needs the forward's output: the sweep's Δ is the
+    reference's rowsum(do ∘ o) without the rounding o accumulated in the
+    forward.  On the CPU ``attention_bwd_ref``, which needs no lse."""
+    device = device_of("flash_attention_bwd", (q, k, v, do))
     B, H, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
     check_causal_rows("flash_attention_bwd", causal, Lq, Lk)
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"flash_attention_bwd: o and do must be q's shape "
-                         f"{tuple(q.shape)}, got {tuple(o.shape)} and "
-                         f"{tuple(do.shape)}")
+    if do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: do must be q's shape "
+                         f"{tuple(q.shape)}, got {tuple(do.shape)}")
     if device.type == "cpu":
         return attention_bwd_ref(q, k, v, do, causal=causal, window=window,
                                  scale=scale)
     check_backward(q, k, v)
-    o, do = o.float(), do.float()
+    do = do.float()
     if H % Hkv or k.shape != v.shape:
         raise ValueError(f"flash_attention_bwd: k, v must be [B, Hkv, Lk, "
                          f"D] with H={H} a multiple of Hkv")
-    q, k, v, o, do = (t if _aligned16(t) else t.contiguous()
-                      for t in (q, k, v, o, do))
+    q, k, v, do = (t if _aligned16(t) else t.contiguous()
+                   for t in (q, k, v, do))
     if lse is None:
         _, lse = _launch(q, k, v, causal=causal, window=window, scale=scale,
                          lse=True)
@@ -356,12 +364,12 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window=None,
     rows_pad = -(-(H // Hkv) * Lq // K7_BWD_ROWS) * K7_BWD_ROWS
     stats = torch.empty(2 * B * Hkv * rows_pad, dtype=torch.float32,
                         device=device)
-    runs = plan_k7_bwd(H, Hkv, Lq)
+    runs = plan_k7_bwd(H, Hkv, Lq, D)
     part = None
     if runs > 1:
         part = torch.empty(2 * runs * dk.numel(), dtype=torch.float32,
                            device=device)
-    launch_flash_attention_bwd(q, k, v, o, do, lse, dq, dk, dv, stats,
+    launch_flash_attention_bwd(q, k, v, do, lse, dq, dk, dv, stats,
                                causal=causal, window=window, scale=scale,
                                runs=runs, part=part)
     LAUNCHES["flash_attention_bwd"] += 1

@@ -8,9 +8,9 @@ Wires the port's substrate together: config → model → synthetic pipeline
 → AdamW with the cosine schedule → checkpoint/restore → failure injection
 → straggler monitor.  It runs on the card unless ``--device cpu`` is
 given; on the card every attention layer runs K7 forward and its
-backward kernels.  The families whose every kernel has a backward train
-there (dense, MoE, VLM, audio at head widths 32–128); Mamba-2 (K8) and
-the RG-LRU hybrid (K7 at head width 256) raise.
+backward kernels, and every Mamba-2 mixer K8 and its backward, so every
+family trains there (in float32: a bf16 call needing a gradient
+raises).
 
 The resume path replays the reference's, fault included (ROADMAP §3,
 R5): the checkpoint saved at step s holds the state *after* step s's

@@ -8,8 +8,9 @@ chunk's for the backward, as the reference's scan keeps its residuals).
 
 Gradients come from ``torch.autograd`` through the port's forward: on the
 card every attention layer's forward is K7 and its backward the
-hand-written backward kernels (``kernels.flash_attention``); K8 and K7
-at head width 256 or in bf16 have no backward and raise under grad.  The
+hand-written backward kernels (``kernels.flash_attention``), and every
+Mamba-2 mixer's intra-chunk block K8 with its hand-written backward
+(``kernels.ssd_chunk``); a bf16 call needing a gradient raises.  The
 reference's ``abstract_train_state`` is dry-run tooling and is not
 ported (ROADMAP §1 item 7).
 """

@@ -27,7 +27,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_bwd_ref, flash_attention, flash_attention_bwd)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     BWD_HEAD_DIMS, check_backward)
-from repro_torch.kernels.ssd_chunk.ops import no_backward  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ops as k8ops  # noqa: E402
+from repro_torch.kernels.ssd_chunk import (  # noqa: E402
+    ssd_chunk_bwd_ref, ssd_chunk_ref)
 from repro_torch.models import common as tcommon  # noqa: E402
 
 RTOL, ATOL_OF_MAX = 1e-5, 1e-6
@@ -121,9 +123,8 @@ def test_cpu_backward_wrapper_is_the_plain_version():
     bit for bit, and launches nothing; the output gradient of a GQA call
     reaches each key/value head once per query head of its group."""
     q, k, v, do = map(torch.from_numpy, _inputs(1, 4, 2, 24, 40, 32))
-    o = flash_attention(q, k, v, window=7)
     LAUNCHES.clear()
-    got = flash_attention_bwd(q, k, v, o, do, window=7)
+    got = flash_attention_bwd(q, k, v, do, window=7)
     want = attention_bwd_ref(q, k, v, do, window=7)
     assert not LAUNCHES
     for g, w in zip(got, want):
@@ -152,11 +153,11 @@ def test_grad_with_kv_last_raises():
 
 @pytest.mark.parametrize("D,dtype,ok", [
     (32, torch.float32, True), (64, torch.float32, True),
-    (128, torch.float32, True), (256, torch.float32, False),
+    (128, torch.float32, True), (256, torch.float32, True),
     (64, torch.bfloat16, False)])
 def test_backward_refusals(D, dtype, ok):
-    """The card's backward takes float32 at head widths 32, 64 and 128;
-    the rest raise, naming the missing backward, before any launch."""
+    """The card's backward takes float32 at head widths 32, 64, 128 and
+    256; bf16 raises, naming the missing backward, before any launch."""
     q = torch.zeros(1, 2, 4, D, dtype=dtype)
     k = torch.zeros(1, 1, 4, D, dtype=dtype)
     if ok:
@@ -167,16 +168,43 @@ def test_backward_refusals(D, dtype, ok):
         check_backward(q, k, k)
 
 
-def test_k8_guard_raises_only_when_a_gradient_is_needed():
-    """K8 has no backward: ``no_backward`` (which ``ssd_chunk``, and so
-    ``ssd``, calls on the card) raises when grad mode is on and an input
-    requires grad, and not otherwise."""
-    x = torch.zeros(3)
-    no_backward("ssd", (x, x))
-    with pytest.raises(NotImplementedError, match="K8 has no backward"):
-        no_backward("ssd", (x, x.clone().requires_grad_(True)))
+def test_k8_guard_raises_only_when_a_gradient_is_needed(monkeypatch):
+    """K8 has a backward now, so nothing raises: on the card ``ssd_chunk``
+    under grad, with an input requiring grad, goes through ``SSDChunk``
+    (its outputs keep a grad_fn, whose backward is K8's), and otherwise
+    through the kernel alone.  The card is stood in for by CPU tensors:
+    the device reads as CUDA and the launch is the plain forward,
+    detached, as the kernel's output is."""
+    launched = []
+
+    def launch(x, delta, dtv, Bm, Cm, hpg):
+        launched.append(torch.is_grad_enabled())
+        with torch.no_grad():
+            return ssd_chunk_ref(x, delta, dtv, Bm, Cm, heads_per_group=hpg)
+
+    monkeypatch.setattr(k8ops, "_launch", launch)
+    monkeypatch.setattr(k8ops, "device_of",
+                        lambda fn, ts: torch.device("cuda"))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 1, 8, 4).astype(np.float32))
+    dt = torch.from_numpy(0.1 + rng.rand(2, 1, 8).astype(np.float32))
+    Bm = torch.from_numpy(rng.randn(1, 1, 1, 8, 6).astype(np.float32))
+    ins = (x, -dt, dt, Bm, Bm * 0.5)
+    outs = k8ops.ssd_chunk(*ins, heads_per_group=2)
+    assert all(o.grad_fn is None for o in outs)
+    leaf = x.clone().requires_grad_(True)
+    outs = k8ops.ssd_chunk(leaf, *ins[1:], heads_per_group=2)
+    assert all(type(o.grad_fn).__name__ == "SSDChunkBackward" for o in outs)
     with torch.no_grad():
-        no_backward("ssd", (x, x.clone().requires_grad_(True)))
+        assert all(o.grad_fn is None for o in k8ops.ssd_chunk(
+            leaf, *ins[1:], heads_per_group=2))
+    assert launched == [True, False, False]
+    monkeypatch.undo()
+    dy = torch.ones_like(outs[0])
+    (got,) = torch.autograd.grad(outs[0], leaf, dy)
+    want = ssd_chunk_bwd_ref(*ins, dy, torch.zeros_like(outs[1]),
+                             torch.zeros_like(outs[2]), heads_per_group=2)[0]
+    assert torch.equal(got, want)
 
 
 # ------------------------------------------------------------- on the card

@@ -11,7 +11,8 @@
   opt into, eight warps an SM at every head width.
 - A plain-torch mirror of the backward's decomposition: the lse from a
   mirror of the forward's tensor-core regime (64-row blocks, 32-key
-  tiles, online softmax), the Δ pass, the dk/dv pass (64-key blocks, runs
+  tiles, online softmax), the Δ sweep (Σ P·dP of each row), the dk/dv
+  pass (64-key blocks, runs
   of rows, tiles of 64 rows at D = 32 and 32 above, the warp pairs'
   halves at D = 128 added in order, the runs' partials in run order), the
   dq pass (64-row blocks, 32-key tiles, pairs at D = 128), every product
@@ -146,7 +147,7 @@ def test_cpu_wrappers_are_the_plain_versions():
     o, lse = flash_attention_lse(q, k, v, window=16)
     assert torch.equal(o, attention_ref(q, k, v, window=16))
     assert torch.equal(lse, attention_lse_ref(q, k, window=16))
-    got = flash_attention_bwd(q, k, v, o, do, window=16, lse=lse)
+    got = flash_attention_bwd(q, k, v, do, window=16, lse=lse)
     for g, w in zip(got, attention_bwd_ref(q, k, v, do, window=16)):
         assert torch.equal(g, w)
     assert not LAUNCHES
@@ -373,6 +374,12 @@ def _visible(pos, keys, causal, window, Lk):
     return ok
 
 
+def _visible_rows(rows, rep, off, Lk, causal, window):
+    """[rows, Lk]: flattened row f (position f // rep + off) sees key j."""
+    pos = torch.arange(rows) // rep + off
+    return _visible(pos, torch.arange(Lk), causal, window, Lk)
+
+
 def mirror_backward(q, k, v, do, *, causal, window, scale, terms=3,
                     runs=None):
     """The backward's four passes in plain torch on float32 operands;
@@ -381,7 +388,7 @@ def mirror_backward(q, k, v, do, *, causal, window, scale, terms=3,
     Hkv, Lk = k.shape[1], k.shape[2]
     rep, off, rows = H // Hkv, Lk - Lq, H // Hkv * Lq
     q, k, v, do = (t.float() for t in (q, k, v, do))
-    o, lse = mirror_forward(q, k, v, causal=causal, window=window,
+    _, lse = mirror_forward(q, k, v, causal=causal, window=window,
                             scale=scale, terms=terms)
     c = torch.tensor(scale, dtype=torch.float32) * LOG2E
     prod = lambda a, b: tc_matmul(a, b, terms)  # noqa: E731
@@ -394,13 +401,19 @@ def mirror_backward(q, k, v, do, *, causal, window, scale, terms=3,
     for b in range(B):
         for hk in range(Hkv):
             heads = slice(hk * rep, (hk + 1) * rep)
-            # 1. Δ and the lse of each flattened row, zeros past `rows`.
+            # 1, 2. the lse and Δ of each flattened row, zeros past `rows`.
             Q, dO = torch.zeros(pad, D), torch.zeros(pad, D)
             Q[:rows] = _rows(q[b, heads], rep, Lq)
             dO[:rows] = _rows(do[b, heads], rep, Lq)
             st = torch.zeros(pad, 2)
             st[:rows, 0] = lse[b, heads].T.reshape(rows)
-            st[:rows, 1] = (dO[:rows] * _rows(o[b, heads], rep, Lq)).sum(1)
+            # Δ = Σ_j P dP of each row, from the backward's own P and dP
+            # (the sweep), not from o.
+            P_ = torch.exp2(prod(Q[:rows], k[b, hk].T) * c
+                            - st[:rows, 0][:, None])
+            P_ = torch.where(_visible_rows(rows, rep, off, Lk, causal,
+                                           window), P_, 0.0)
+            st[:rows, 1] = (P_ * prod(dO[:rows], v[b, hk].T)).sum(1)
             # 2, 3. dk/dv: 64-key blocks, runs of rows, BR-row tiles.
             dk_sum = torch.zeros(Lk + KEYS, D)
             dv_sum = torch.zeros(Lk + KEYS, D)
@@ -533,10 +546,10 @@ def test_cuda_lse_and_backward_given_it(shape):
         pytest.skip("needs a CUDA device (the kernels have no CPU form)")
     B, H, Hkv, Lq, Lk, D, causal, window = shape
     q, k, v, do = (t.cuda() for t in _tensors(shape))
-    o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    _, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(lse.cpu().numpy(), attention_lse_ref(
         q, k, causal=causal, window=window).cpu().numpy(), **cs.K7_LSE_TOL)
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window,
+    got = flash_attention_bwd(q, k, v, do, causal=causal, window=window,
                               lse=lse)
     want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):

@@ -25,10 +25,11 @@ spill bytes, and a JSON summary last.  Needs a CUDA device.
 does the same for K7's backward (``BWD_VARIANTS``, built into
 ``build/ablate_flash_attention_bwd/``): each variant's whole backward
 (``flash_attention_bwd_launch``, given the forward's lse) at
-tinyllama-1.1b's and qwen3-moe's causal prefill (``K7_BWD_TIMED``), the
+tinyllama-1.1b's and qwen3-moe's causal prefill (``K7_BWD_TIMED``) and
+at recurrentgemma-2b's (``K7_RG_PREFILL``: D = 256, window 2048), the
 unchanged kernel also with the dk/dv pass's rows cut into runs of
-``BWD_RUN_ROWS``, and the registers and spill bytes of the dk/dv and dq
-kernels at D = 64 and 128.
+``BWD_RUN_ROWS`` (D ≤ 128), and the registers and spill bytes of the
+dk/dv and dq kernels at D = 64 and 128 and of the D = 256 passes.
 """
 from __future__ import annotations
 
@@ -208,28 +209,32 @@ def backward(cs, torch, out, baseline=None) -> int:
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      flash_attention_lse)
     from repro_torch.kernels.flash_attention.kernel import _BWD_ARGTYPES
-    from repro_torch.kernels.flash_attention.ops import K7_BWD_ROWS
+    from repro_torch.kernels.flash_attention.ops import (K7_BWD_ROWS,
+                                                         plan_k7_bwd)
 
     card = cs.card_line()
     print(card, flush=True)
     cs.no_tf32(torch)
     kernels = [f"attn_bwd_{k}_kernelILi{D}EEEvNS_7BwdArgsE"
-               for k in ("dkdv", "dq") for D in (64, 128)]
+               for k in ("dkdv", "dq") for D in (64, 128)] + [
+        f"attn_bwd_{k}_wide_kernelILi256EEEvNS_7BwdArgsE"
+        for k in ("dkdv", "dq")]
     libs = build_variants(BWD_VARIANTS, OUT_DIR + "_bwd", kernels, baseline)
     stream = torch.cuda.current_stream().cuda_stream
     us, err = {}, {}
-    for shape in cs.K7_BWD_TIMED:
+    for shape in list(cs.K7_BWD_TIMED) + [cs.K7_RG_PREFILL]:
         B, H, Hkv, Lq, Lk, D, causal, window = shape
         q, k, v, do = cs.k7_bwd_inputs(torch, B, H, Hkv, Lq, Lk, D)
-        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+        _, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
         want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
         rows = H // Hkv * Lq
         rows_pad = -(-rows // K7_BWD_ROWS) * K7_BWD_ROWS
         stats = torch.empty(2 * B * Hkv * rows_pad, device="cuda")
         outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(k))
-        strides = [x for t in (q, k, v, o, do) for x in t.stride()[:3]]
-        runs_of = {None: -(-rows // 1024)}
-        runs_of.update({r: -(-rows // r) for r in BWD_RUN_ROWS})
+        strides = [x for t in (q, k, v, do) for x in t.stride()[:3]]
+        runs_of = {None: plan_k7_bwd(H, Hkv, Lq, D)}
+        if D <= 128:
+            runs_of.update({r: -(-rows // r) for r in BWD_RUN_ROWS})
         for name, (lib, _) in libs.items():
             fn = lib.flash_attention_bwd_launch
             fn.argtypes = _BWD_ARGTYPES
@@ -240,10 +245,10 @@ def backward(cs, torch, out, baseline=None) -> int:
                 part = torch.empty(2 * runs * k.numel(), device="cuda")
 
                 def go(fn=fn, runs=runs, part=part):
-                    e = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse)
+                    e = fn(*(t.data_ptr() for t in (q, k, v, do, lse)
                              + outs), stats.data_ptr(), part.data_ptr(),
                            runs, B, H, Hkv, Lq, Lk, D, *strides, int(causal),
-                           0, float(D ** -0.5), stream)
+                           window or 0, float(D ** -0.5), stream)
                     if e:
                         raise RuntimeError(f"ablate_flash_attention: CUDA "
                                            f"error {e}")
@@ -274,8 +279,9 @@ def main() -> int:
                     help="ablate K7's backward instead of its forward")
     ap.add_argument("--baseline", default=None,
                     help="with --backward: also time this copy of "
-                         "flash_attention.cu (say, the parent commit's) "
-                         "unedited, in turns with the variants")
+                         "flash_attention.cu (say, the parent commit's; its "
+                         "flash_attention_bwd_launch must take the same "
+                         "arguments) unedited, in turns with the variants")
     a = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs          # puts ROOT/src first on sys.path

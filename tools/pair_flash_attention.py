@@ -12,7 +12,9 @@ measurement in the order old, new, new, old, each building its
 checkout's K7.  A child times ``flash_attention`` with CUDA events
 (``event_ms`` of its ``chip_smoke.py``) at the reference's seven pins
 (``K7_PINS``), tinyllama-1.1b's prefill (``K7_PREFILL``) and decode at
-Lk = 1024 (``K7_DECODE``), and the serving decode over a bf16 cache
+Lk = 1024 (``K7_DECODE``), recurrentgemma-2b's prefill and decode at
+head width 256 (``K7_RG_PREFILL``, ``K7_RG_DECODE``), and the serving
+decode over a bf16 cache
 read in place with the step's own key and value as the last row
 (``K7_CACHE``); then runs phase 18's ``forward`` of tinyllama-1.1b on
 4 × 1024 tokens (weights from seed 0) after a warm-up, three times, on
@@ -56,7 +58,8 @@ def child(root: str) -> dict:
         ).hexdigest()[:16]
 
     for B, H, Hkv, Lq, Lk, D, causal, window in (
-            list(cs.K7_PINS) + [cs.K7_PREFILL, cs.K7_DECODE]):
+            list(cs.K7_PINS) + [cs.K7_PREFILL, cs.K7_DECODE,
+                                cs.K7_RG_PREFILL, cs.K7_RG_DECODE]):
         rng = np.random.RandomState(Lq + Lk)
         q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
                    for s in ((B, H, Lq, D), (B, Hkv, Lk, D),

@@ -3,8 +3,9 @@
 the sum of the dk/dv runs, dq) timed on the card under
 ``torch.profiler``, and the whole call with CUDA events, given the
 forward's lse (``flash_attention_lse``, as a train step runs it), at
-tinyllama-1.1b's prefill (B, H, Hkv, L, D) = (4, 32, 4, 1024, 64) and
-qwen3-moe's (4, 64, 4, 1024, 128), causal.
+tinyllama-1.1b's prefill (B, H, Hkv, L, D) = (4, 32, 4, 1024, 64),
+qwen3-moe's (4, 64, 4, 1024, 128) and recurrentgemma-2b's (2, 10, 1,
+4096, 256) with its 2048-key window (the D = 256 passes), causal.
 
     python3 tools/profile_flash_attention_bwd.py [--out FILE]
 
@@ -27,7 +28,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-SHAPES = [(4, 32, 4, 1024, 64), (4, 64, 4, 1024, 128)]
+#: (B, H, Hkv, L, D, window), causal.
+SHAPES = [(4, 32, 4, 1024, 64, None), (4, 64, 4, 1024, 128, None),
+          (2, 10, 1, 4096, 256, 2048)]
 REPS = 10
 
 
@@ -47,12 +50,12 @@ def main(argv=None) -> int:
     print(cs.card_line(), flush=True)
     cs.no_tf32(torch)
     out = []
-    for B, H, Hkv, L, D in SHAPES:
+    for B, H, Hkv, L, D, window in SHAPES:
         q, k, v, do = cs.k7_bwd_inputs(torch, B, H, Hkv, L, L, D)
-        o, lse = flash_attention_lse(q, k, v)
+        _, lse = flash_attention_lse(q, k, v, window=window)
 
         def call():
-            return flash_attention_bwd(q, k, v, o, do, lse=lse)
+            return flash_attention_bwd(q, k, v, do, window=window, lse=lse)
 
         ms = cs.event_ms(torch, call, reps=20)
         from torch.profiler import ProfilerActivity, profile
@@ -68,9 +71,11 @@ def main(argv=None) -> int:
                 t = getattr(ev, "device_time_total",
                             getattr(ev, "cuda_time_total", 0.0))
                 kernels[name] = t / REPS / 1e3          # ms a call
-        pairs = B * H * L * (L + 1) // 2
+        w = window or L                  # keys a row sees: min(i + 1, w)
+        pairs = B * H * (w * (w + 1) // 2 + (L - w) * w)
         ops = 10 * D * pairs
-        row = {"shape": [B, H, Hkv, L, D], "ms": ms, "kernels_ms": kernels,
+        row = {"shape": [B, H, Hkv, L, D], "window": window, "ms": ms,
+               "kernels_ms": kernels,
                "bound_ms": 3 * ops / cs.TF32_OPS_PER_S * 1e3,
                "bound_fp32_ms": ops / cs.FP32_OPS_PER_S * 1e3,
                "tops": ops / ms / 1e9}
