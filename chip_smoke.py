@@ -250,8 +250,10 @@ package, and runs twenty-seven phases; any failure raises and exits non-zero
    2e-5·max|ref|, autograd equal to the wrapper, the forward's lse
    against ``attention_lse_ref`` and its output equal to the forward's
    without lse, two calls bit for bit, the backward given the forward's
-   lse timed beside the plain version and SDPA's backward; a bf16 call
-   and ``kv_last`` under grad each raise before any launch; (b)
+   lse and output timed beside the plain version and SDPA's backward; a
+   bf16 call and ``kv_last`` under grad each raise before any launch; the
+   forward's output against float64 attention at ``K7_BIAS_SHAPES``, its
+   mean signed error within ``K7_BIAS_MAX`` (F7); (b)
    tinyllama-1.1b trained at full width and depth
    (``TRAIN_STEPS`` steps of ``SyntheticLM`` 4 × 1024, lr 1e-3 on the
    cosine schedule, remat): finite losses, the last below the first, K7
@@ -269,7 +271,9 @@ package, and runs twenty-seven phases; any failure raises and exits non-zero
    (several runs of heads, one head a group, a short chunk), through the
    wrapper and through the launcher with 1, 2, 3 and all heads a block,
    each of dx, ddelta, ddt, dB, dC within 2e-4·|ref| + 2e-5·max|ref|, two
-   calls bit for bit, timed at mamba2-1.3b's training shape
+   calls bit for bit, each gradient's mean signed error against the
+   plain version in float64 printed beside the float32 plain version's,
+   timed at mamba2-1.3b's training shape
    (``TRAIN_SSM_SHAPE``) beside the plain version; (b) K7's backward at
    head width 256 at ``K7_BWD_256_CASES`` (GQA over one KV head, a window,
    non-causal, Lq < Lk, 16 rows a group, two runs) with phase 26's
@@ -3750,6 +3754,21 @@ K7_BWD_RTOL, K7_BWD_ATOL_OF_MAX = 2e-4, 2e-5
 #: The forward's lse against ``attention_lse_ref``, in log2 units: 1e-5
 #: of a logit's scale moves P by under 1e-5 relative.
 K7_LSE_TOL = dict(rtol=1e-5, atol=1e-5)
+#: The bias of K7's forward output (``k7_bias_rows``: the mean signed error
+#: along the exact value's sign over the mean |exact|, against float64
+#: attention on the card), (B, H, Hkv, Lq, Lk, D, causal, window):
+#: whisper-base's cross-attention (64 queries over 1 500 frames),
+#: tinyllama-1.1b's and recurrentgemma-2b's causal prefills.  The backward
+#: takes Δ = rowsum(dO ∘ o) from this output, and a bias of o does not
+#: cancel in dQ.  ``K7_BIAS_MAX`` bounds |bias| shape by shape: a tenth of
+#: what a running tensor-core accumulator over every key tile gave (−9.07e-6,
+#: −2.11e-6 and −7.03e-6 of |o| on an H100 80GB HBM3 at 700 W,
+#: ``tools/k7_output_bias.py``), while the plain float32 version gives
+#: −6e-9 to −1e-10.
+K7_BIAS_SHAPES = [(1, 8, 8, 64, 1500, 64, False, None),
+                  (4, 32, 4, 1024, 1024, 64, True, None),
+                  (2, 10, 1, 4096, 4096, 256, True, 2048)]
+K7_BIAS_MAX = (9.07e-7, 2.1e-7, 7.0e-7)
 #: (b): tinyllama-1.1b at full width and depth, B × L tokens a step.
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_BATCH = (4, 1024)
@@ -3775,6 +3794,89 @@ BF16_ARGMAX_SHARE = 0.9
 BF16_LOGIT_OF_MAX = 2e-2
 
 
+def signed_error(got, want) -> tuple:
+    """(max |got − want| / max |want|, the mean signed error along want's
+    sign over the mean |want|: negative when got is shrunk towards zero),
+    computed in float64."""
+    d = got.double() - want
+    return (float(d.abs().max() / want.abs().max()),
+            float((d * want.sign()).mean() / want.abs().mean()))
+
+
+def k7_exact(torch, q, k, v, causal, window, scale):
+    """Attention in float64 on q's device, a head at a time, GQA by
+    repeating k and v."""
+    rep = q.shape[1] // k.shape[1]
+    Lq, Lk = q.shape[2], k.shape[2]
+    qpos = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+    kpos = torch.arange(Lk, device=q.device)[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for h in range(q.shape[1]):
+        s = torch.matmul(q[:, h].double(), k[:, h // rep].double()
+                         .transpose(1, 2)) * scale
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        out[:, h] = torch.matmul(p, v[:, h // rep].double())
+        del s, p
+    return out
+
+
+def k7_bias_inputs(torch, B, H, Hkv, Lq, Lk, D):
+    """q, k, v, dO for ``K7_BIAS_SHAPES`` from a seed, on the card."""
+    rng = np.random.RandomState(Lq + Lk + D)
+    return [torch.from_numpy(rng.randn(*s).astype(np.float32) * sc).cuda()
+            for s, sc in (((B, H, Lq, D), 0.5), ((B, Hkv, Lk, D), 0.5),
+                          ((B, Hkv, Lk, D), 1.0), ((B, H, Lq, D), 1.0))]
+
+
+def k7_bias_rows(torch, shapes=K7_BIAS_SHAPES) -> list:
+    """For each shape, K7's forward output (``flash_attention``; the grad
+    forward's equals it bit for bit) and the plain version's
+    (``attention_ref``, float32 on the card) against float64 attention:
+    ``signed_error`` of o and of Δ = rowsum(dO ∘ o)."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+
+    rows = []
+    for B, H, Hkv, Lq, Lk, D, causal, window in shapes:
+        q, k, v, do = k7_bias_inputs(torch, B, H, Hkv, Lq, Lk, D)
+        want = k7_exact(torch, q, k, v, causal, window, D ** -0.5)
+        delta = (do.double() * want).sum(-1)
+        row = {"shape": [B, H, Hkv, Lq, Lk, D], "causal": causal,
+               "window": window}
+        with torch.no_grad():
+            for name, o in (("k7", flash_attention(q, k, v, causal=causal,
+                                                   window=window)),
+                            ("plain", attention_ref(q, k, v, causal=causal,
+                                                    window=window))):
+                row[name] = {"o": signed_error(o, want),
+                             "delta": signed_error((do * o).sum(-1), delta)}
+        rows.append(row)
+        del q, k, v, do, want, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k7_bias_check(torch) -> None:
+    """F7's gate: |bias of K7's o| ≤ ``K7_BIAS_MAX`` at each of
+    ``K7_BIAS_SHAPES``."""
+    for row, limit in zip(k7_bias_rows(torch), K7_BIAS_MAX):
+        bias = row["k7"]["o"][1]
+        print(f"bias flash_attention {row['shape']} causal={row['causal']} "
+              f"window={row['window']}: o {bias:.3g} of |o| (limit "
+              f"{limit:.3g}; plain {row['plain']['o'][1]:.3g}), Δ "
+              f"{row['k7']['delta'][1]:.3g} (plain "
+              f"{row['plain']['delta'][1]:.3g}); max |Δo| "
+              f"{row['k7']['o'][0]:.3g} of max |o|", flush=True)
+        check(abs(bias) <= limit, f"flash_attention {row['shape']}: the "
+              f"output's mean signed error {bias:.3g} of |o| exceeds "
+              f"{limit:.3g} (F7)")
+
+
 def k7_bwd_inputs(torch, B, H, Hkv, Lq, Lk, D):
     rng = np.random.RandomState(B + H + Lq + Lk + D)
     return [torch.from_numpy(rng.randn(*s).astype(np.float32) * sc).cuda()
@@ -3792,9 +3894,10 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
     output equal to the forward without lse (bit for bit where both take
     the tensor-core kernel, more than 16 rows a group; else within
     ``K7_F32_TOL``).  With ``timed`` also two calls bit for bit, and the
-    backward given the forward's lse (what a train step pays), the plain
-    version and SDPA's backward (``torch.autograd.grad`` on a retained
-    graph) timed.  Returns a kernels-line row (timed) or None."""
+    backward given the forward's lse and output (what a train step pays),
+    the plain version and SDPA's backward (``torch.autograd.grad`` on a
+    retained graph) timed.  Returns a kernels-line row (timed) or
+    None."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import LAUNCHES
@@ -3843,11 +3946,11 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
               f"lse max |Δ| {lse_err:.3g}", flush=True)
         return None
     again = flash_attention_bwd(q, k, v, do, causal=causal, window=window,
-                                lse=lse)
+                                lse=lse, o=o_l)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"flash_attention_bwd {shape}: two calls differ")
     ms = event_ms(torch, lambda: flash_attention_bwd(
-        q, k, v, do, causal=causal, window=window, lse=lse), reps=20)
+        q, k, v, do, causal=causal, window=window, lse=lse, o=o_l), reps=20)
     plain_ms = event_ms(torch, lambda: attention_bwd_ref(
         q, k, v, do, causal=causal, window=window), reps=10, warmup=2)
     qpos = np.arange(Lq)[:, None] + (Lk - Lq)
@@ -3880,12 +3983,12 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
     row = row_of("flash_attention_bwd", B * H, Lk, ms, plain_ms, nbytes,
                  3 * flops, err, library_ms=lib_ms, op_rate=TF32_OPS_PER_S,
                  Lq=Lq, D=D, rep=H // Hkv)
-    # 18·D a pair executed (the Δ sweep's q·k and dO·v, the dk/dv pass's
-    # four products, the dq pass's three), three TF32 products each.
-    executed = 18 * 3 * flops / 10
+    # 14·D a pair executed (the dk/dv pass's four products, the dq pass's
+    # three), three TF32 products each.
+    executed = 14 * 3 * flops / 10
     print(f"kernel flash_attention_bwd {shape}: {flops / ms / 1e9:.2f} T "
           f"op/s (10·D an unmasked pair), {executed / ms / 1e9:.2f} T op/s "
-          f"TF32 executed (18·D, three products each); "
+          f"TF32 executed (14·D, three products each); "
           f"{row['bound_ms'] / ms:.4f} of the 3xTF32 bound; bound on the CUDA "
           f"cores {flops / FP32_OPS_PER_S * 1e6:.3f} us; given the "
           f"forward's lse; two calls bit for bit", flush=True)
@@ -4110,9 +4213,10 @@ def bf16_forward(torch, cfg, params) -> None:
 
 def training_phase(torch) -> tuple:
     """Phase 26: (a) K7's backward against its plain version and its
-    refusals, (b) tinyllama-1.1b training, (c) its 2-layer copy card
-    against CPU, (d) the launcher twice, (e) the bf16 forward.  Returns
-    (K7 forward launches, K7 backward launches, backward rows)."""
+    refusals, and the forward's bias (F7), (b) tinyllama-1.1b training,
+    (c) its 2-layer copy card against CPU, (d) the launcher twice, (e) the
+    bf16 forward.  Returns (K7 forward launches, K7 backward launches,
+    backward rows)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import registry
 
@@ -4121,6 +4225,7 @@ def training_phase(torch) -> tuple:
         k7_bwd_case(torch, *case)
     rows = [k7_bwd_case(torch, *case, timed=True) for case in K7_BWD_TIMED]
     k7_bwd_refusals(torch)
+    k7_bias_check(torch)
     torch.cuda.empty_cache()
     cfg = ARCHS[TRAIN_ARCH]
     params = registry.init_params(cfg, 0, device="cuda")
@@ -4233,9 +4338,19 @@ def k8_bwd_case(torch, B, L, H, P, G, S, chunk, timed: bool = False):
     again = ssd_chunk_bwd(*args, heads_per_group=hpg)
     check(all(torch.equal(a, b) for a, b in zip(runs["wrapper"], again)),
           f"ssd_chunk_bwd {shape}: two calls differ")
+    # The mean signed error of each gradient, the kernel's and the plain
+    # version's, against the plain version evaluated in float64.
+    exact = ssd_chunk_bwd_ref(*(a.double() for a in args),
+                              heads_per_group=hpg)
+    bias = ", ".join(
+        f"{name} {signed_error(g, w)[1]:.3g} (plain "
+        f"{signed_error(p, w)[1]:.3g})"
+        for name, g, p, w in zip(K8_BWD_NAMES, runs["wrapper"], want, exact))
+    del exact
     print(f"kernel ssd_chunk_bwd {shape}: {', '.join(runs)}: max |Δ| "
           f"{err:.3g} (within rtol {K8_BWD_RTOL} + {K8_BWD_ATOL_OF_MAX} of "
-          f"max); two calls bit for bit", flush=True)
+          f"max); two calls bit for bit; mean signed error of |ref| "
+          f"against float64: {bias}", flush=True)
     if not timed:
         return None
     ms = event_ms(torch, lambda: ssd_chunk_bwd(*args, heads_per_group=hpg))
@@ -4249,12 +4364,19 @@ def k8_bwd_case(torch, B, L, H, P, G, S, chunk, timed: bool = False):
     # The work the function needs: C·Bᵀ, ΣZ·B and ΣZᵀ·C over the causal
     # triangle once per (batch, group, chunk), Z summed over the group's
     # heads; per (bh, chunk) dy·xᵀ and Gᵀ·dy on the triangle, x·dHᵀ and
-    # B·dH.
+    # B·dH.  The kernel runs every product as three TF32 MMAs (float32
+    # accurate), so the bound counts three terms a product at the TF32
+    # rate; the bound on the CUDA cores' float32 rate is printed beside it.
     tri = chunk * (chunk + 1) // 2
     ops_n = (B * G * NC * 3 * 2 * tri * S
              + BH * NC * (4 * tri * P + 4 * chunk * S * P))
-    return row_of("ssd_chunk_bwd", BH, NC, ms, plain_ms, nbytes, ops_n, err,
-                  Q=chunk, P=P, S=S)
+    row = row_of("ssd_chunk_bwd", BH, NC, ms, plain_ms, nbytes, 3 * ops_n,
+                 err, op_rate=TF32_OPS_PER_S, Q=chunk, P=P, S=S)
+    print(f"kernel ssd_chunk_bwd {shape}: bound of the operations "
+          f"{3 * ops_n / TF32_OPS_PER_S * 1e6:.3f} us (3xTF32), "
+          f"{ops_n / FP32_OPS_PER_S * 1e6:.3f} us on the CUDA cores; bytes "
+          f"{nbytes / HBM_BYTES_PER_S * 1e6:.3f} us", flush=True)
+    return row
 
 
 def family_train_batch(torch, cfg, B: int, L: int, seed: int, device: str):

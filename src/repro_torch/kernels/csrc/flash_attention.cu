@@ -45,16 +45,21 @@
 //    3xTF32: x = hi + lo with hi = tf32_rna(x) and lo = tf32_rna(x - hi),
 //    and x * y = lo_x hi_y + hi_x lo_y + hi_x hi_y (lo lo dropped, ~2^-22
 //    relative), three m16n8k8 MMAs into a float32 accumulator, small
-//    terms first.  A bfloat16 value is exact in TF32: its lo is 0, and the
+//    terms first.  The tensor cores' float32 accumulation truncates, so
+//    P V sums each key tile into partials that start at zero, and each
+//    lands in the output's accumulator as one fmaf, acc corr + partial,
+//    rounded to nearest (a running accumulator over every key tile
+//    biased o towards zero).  A bfloat16 value is exact in TF32: its lo
+//    is 0, and the
 //    MMAs that would carry it are not issued (a bf16 q drops lo_q hi_k;
 //    k and v read as bf16, without a float32 last row, drop hi_q lo_k and
 //    hi_p lo_v).  The bound of this route is 3 x the flops at 495 T op/s
 //    (104 us at tinyllama's prefill).  A block is 4 warps and 64 rows;
 //    each warp runs its 16 x 32 logits tile and its 16 x D accumulator as
 //    MMA fragments.  Q's hi and lo fragments are made once a block
-//    (registers at D <= 64; at D >= 128 a lane-private copy in shared
+//    (hi in registers at D <= 64, the rest a lane-private copy in shared
 //    memory, read back each key tile).  K and V come in tiles of 32 keys
-//    (a 51.7 KB block at D = 64 and at most 168 registers a thread, so
+//    (a 68.1 KB block at D = 64 and at most 168 registers a thread, so
 //    three blocks share an SM; at D = 256 tiles of 16 keys, since 32 keys
 //    and Q's copy would take 330 KB against the 227 KB a block may opt
 //    into): a tile's raw rows land by 16-byte cp.async
@@ -98,8 +103,8 @@
 // Under grad, regime A also writes each row's log2-sum-exp (`lse`, m +
 // log2(l) of the online softmax) for the backward, at any group size;
 // without it a call runs exactly as above.  The backward
-// (flash_attention_bwd_launch, float32, every head width) is four more
-// kernels at the end of this file, with tiles of their own at D = 256;
+// (flash_attention_bwd_launch, float32, every head width) is three or four
+// more kernels at the end of this file, with tiles of their own at D = 256;
 // its note is there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -217,6 +222,39 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 #endif
 }
 
+// c = A B, TF32 in, float32 out: mma_tf32 into an accumulator of zeros,
+// given as an input operand of its own, so that a partial needs no
+// registers zeroed before its first product.
+__device__ __forceinline__ void mma_tf32_z(float (&c)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
+#else
+  for (int i = 0; i < 4; ++i) c[i] = 0.0f;
+  mma_tf32(c, a, b0, b1);
+#endif
+}
+
+// 2^x as ex2.approx.ftz.f32 (a few ulp; a subnormal result is 0), which
+// exp2f wraps in a range reduction P's arguments (<= 0) do not need: the
+// prefill 2-4 % faster at D = 64 / 128 (tools/ablate_flash_attention.py,
+// variant exp2f, on an H100 80GB HBM3 at 700 W).
+__device__ __forceinline__ float ex2(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return exp2f(x);
+#endif
+}
+
 // Copies 16 bytes from global to shared memory without staging them in
 // registers (cp.async).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -305,11 +343,13 @@ __host__ __device__ constexpr int vsp_stride() { return 2 * D + 4; }
 template <int D>
 __host__ __device__ constexpr int bka() { return D > 128 ? kBKA / 2 : kBKA; }
 
+// Q's lane-private fragments: hi and lo at D > 64, lo alone at D <= 64
+// (hi in registers there).
 template <typename TKV, int D>
 __host__ __device__ constexpr size_t smem_a() {
   return bka<D>() * (2 * D * sizeof(TKV) +
                      (ksp_stride<D>() + vsp_stride<D>()) * 4) +
-         (D > 64 ? 2 * (D / 8) * kThreadsA * sizeof(uint4) : 0);
+         (D > 64 ? 2 : 1) * (D / 8) * kThreadsA * sizeof(uint4);
 }
 
 // Enqueues the raw rows of key tile [kt, kt + bka<D>()) of K and V:
@@ -393,7 +433,8 @@ attn_tc_kernel(const Args a) {
   constexpr int BK = bka<D>();                         // keys a tile
   constexpr int NT = BK / 8;                           // key fragments
   constexpr bool kLoQ = sizeof(TQ) == 4;               // q has a lo part
-  constexpr bool kQReg = D <= 64;                      // Q kept in registers
+  constexpr bool kQReg = D <= 64;                      // Q's hi in registers
+  constexpr int NC = D > 128 ? 16 : 4;                 // o's tiles a chunk
   constexpr int KSP = ksp_stride<D>(), VSP = vsp_stride<D>();
   constexpr int NS = D / 8;                            // k-steps over d
   constexpr int NN = D / 8;                            // 8-column tiles of o
@@ -402,7 +443,7 @@ attn_tc_kernel(const Args a) {
   uint32_t* Vsp = Ksp + BK * KSP;                        // [BK][VSP]
   TKV* Kr = reinterpret_cast<TKV*>(Vsp + BK * VSP);      // [BK][D]
   TKV* Vr = Kr + BK * D;                                 // [BK][D]
-  uint4* Qf = reinterpret_cast<uint4*>(Vr + BK * D);     // D > 64 only
+  uint4* Qf = reinterpret_cast<uint4*>(Vr + BK * D);     // Q's fragments
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -447,8 +488,10 @@ attn_tc_kernel(const Args a) {
   }
 
   // Q's hi and lo fragments, made once: k-step s holds d = 8s + 2t (A
-  // columns t) and 8s + 2t + 1 (columns t + 4) of rows g and g + 8.
-  uint32_t qh[kQReg ? NS : 1][4], ql[kQReg ? NS : 1][4];
+  // columns t) and 8s + 2t + 1 (columns t + 4) of rows g and g + 8.  At
+  // D <= 64 hi stays in registers and lo goes to shared memory, which
+  // leaves the registers for P V's partials (three blocks an SM).
+  uint32_t qh[kQReg ? NS : 1][4];
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
     float x0[2] = {0.0f, 0.0f}, x1[2] = {0.0f, 0.0f};
@@ -468,10 +511,8 @@ attn_tc_kernel(const Args a) {
     split(x1[1], h4[3], l4[3]);
     if constexpr (kQReg) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qh[s][i] = h4[i];
-        ql[s][i] = l4[i];
-      }
+      for (int i = 0; i < 4; ++i) qh[s][i] = h4[i];
+      Qf[s * kThreadsA + tid] = make_uint4(l4[0], l4[1], l4[2], l4[3]);
     } else {
       Qf[(2 * s) * kThreadsA + tid] = make_uint4(h4[0], h4[1], h4[2], h4[3]);
       Qf[(2 * s + 1) * kThreadsA + tid] =
@@ -508,9 +549,10 @@ attn_tc_kernel(const Args a) {
       uint32_t ah[4], al[4];
       if constexpr (kQReg) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ah[i] = qh[ks][i];
-          al[i] = ql[ks][i];
+        for (int i = 0; i < 4; ++i) ah[i] = qh[ks][i];
+        if (kLoQ) {
+          const uint4 lv = Qf[ks * kThreadsA + tid];
+          al[0] = lv.x; al[1] = lv.y; al[2] = lv.z; al[3] = lv.w;
         }
       } else {
         const uint4 hv = Qf[(2 * ks) * kThreadsA + tid];
@@ -564,7 +606,7 @@ attn_tc_kernel(const Args a) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const bool ok = (okbits >> (4 * n + c)) & 1u;
-        s[n][c] = ok ? exp2f(s[n][c] - m[c >> 1]) : 0.0f;   // p
+        s[n][c] = ok ? ex2(s[n][c] - m[c >> 1]) : 0.0f;   // p
         sum[c >> 1] += s[n][c];
       }
 #pragma unroll
@@ -573,29 +615,53 @@ attn_tc_kernel(const Args a) {
       sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
       l[i] = l[i] * corr[i] + sum[i];
     }
-#pragma unroll
-    for (int n = 0; n < NN; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[n][c] *= corr[c >> 1];
 
-    // O += P V: k-step j takes keys 8j + 2t (A columns t) and 8j + 2t + 1
-    // (columns t + 4), which are the logits fragment's own columns.
+    // O = O corr + P V: k-step j takes keys 8j + 2t (A columns t) and 8j +
+    // 2t + 1 (columns t + 4), which are the logits fragment's own columns.
+    // The key tile's P V goes into partials that start at zero, NC
+    // 8-column tiles of o at a time (a chunk), and each lands in acc by one
+    // fmaf, acc corr + partial, rounded to nearest (the rescale's multiply
+    // and the add in one instruction): the tensor cores' float32
+    // accumulation drops low bits towards zero, and chained into acc
+    // across every key tile it shrank o (F7: a mean signed error of -9.1e-6
+    // of |o| at whisper-base's cross-attention, tools/k7_output_bias.py);
+    // a partial of one tile's keys loses bits of its own size only.  The
+    // k-steps stay outer, so consecutive MMAs go to different partials;
+    // P is split again for each chunk.  A warp issues in order, so each
+    // chunk's landing waits for its last products: chunks of 4 tiles cost
+    // nothing measurable at D <= 128, and at D = 256 (one warp a
+    // scheduler, 16-key tiles) chunks of 16 lost least, 15 % against the
+    // running accumulator (chunks of 4, 8 and 16 and the running order
+    // timed with tools/ablate_flash_attention.py on an H100 80GB HBM3 at
+    // 700 W).
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t ph[4], pl[4];
-      split(s[j][0], ph[0], pl[0]);
-      split(s[j][2], ph[1], pl[1]);
-      split(s[j][1], ph[2], pl[2]);
-      split(s[j][3], ph[3], pl[3]);
-      const uint32_t* v0 = Vsp + (8 * j + 2 * t) * VSP + 2 * g;
+    for (int n0 = 0; n0 < NN; n0 += NC) {
+      float c[NC][4];
 #pragma unroll
-      for (int n = 0; n < NN; ++n) {
-        const uint2 b0 = *reinterpret_cast<const uint2*>(v0 + 16 * n);
-        const uint2 b1 = *reinterpret_cast<const uint2*>(v0 + VSP + 16 * n);
-        mma_tf32(acc[n], pl, b0.x, b1.x);
-        if (lo_kv) mma_tf32(acc[n], ph, b0.y, b1.y);
-        mma_tf32(acc[n], ph, b0.x, b1.x);
+      for (int j = 0; j < NT; ++j) {
+        uint32_t ph[4], pl[4];
+        split(s[j][0], ph[0], pl[0]);
+        split(s[j][2], ph[1], pl[1]);
+        split(s[j][1], ph[2], pl[2]);
+        split(s[j][3], ph[3], pl[3]);
+        const uint32_t* v0 = Vsp + (8 * j + 2 * t) * VSP + 2 * g + 16 * n0;
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          const uint2 b0 = *reinterpret_cast<const uint2*>(v0 + 16 * n);
+          const uint2 b1 = *reinterpret_cast<const uint2*>(v0 + VSP + 16 * n);
+          if (j == 0)
+            mma_tf32_z(c[n], pl, b0.x, b1.x);
+          else
+            mma_tf32(c[n], pl, b0.x, b1.x);
+          if (lo_kv) mma_tf32(c[n], ph, b0.y, b1.y);
+          mma_tf32(c[n], ph, b0.x, b1.x);
+        }
       }
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n0 + n][e] = fmaf(acc[n0 + n][e], corr[e >> 1], c[n][e]);
     }
   }
 
@@ -1036,34 +1102,27 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 //
 // Bound on this card: 10 * D flops an unmasked (query, key) pair (q.k,
 // dO.v, P^T dO, dS K, dS^T Q) against q, k, v, o, dO read and dq, dk, dv
-// written once (o as the function's input: the kernels take Delta from
-// the sweep and do not read it), so arithmetic.  A float32-accurate product runs fastest
+// written once, so arithmetic.  A float32-accurate product runs fastest
 // as three TF32 MMAs (lo.hi + hi.lo + hi.hi, small terms first, as the
 // forward's `split` and `mma_tf32`; 495 T op/s, 165 effective): 260.6 us
 // at tinyllama-1.1b's prefill, 1042.2 us at qwen3-moe's (D = 128).  These
-// passes do 18 * D, every product so on the tensor cores: dQ is reduced
+// passes do 14 * D, every product so on the tensor cores: dQ is reduced
 // over keys and dK, dV over rows, and without atomics each needs its own
-// pass, so the dq pass forms the logits and dO V^T once more, and the
-// sweep that sums Delta a third time.
-//   1. lse: each row's lse, staged as (lse, 0) pairs in the group-major
-//      order of flattened rows that the passes read (`stats`, each
-//      group's rows padded to a multiple of 64 with zeros).
-//   2. sweep: the dq pass's walk (below) without dQ: S, dP and P in
-//      place, and Delta = sum_j P dP of each row summed in float32 in
-//      registers (a lane's columns, then the quad's and a pair's lanes in
-//      a fixed order) into the stats.  Delta is rowsum(dO * o) as well,
-//      but o as the forward wrote it carries the tensor cores' float32
-//      accumulation over every key tile, biased towards zero (a mean
-//      signed error of -9.1e-6 of |o| at whisper-base's cross-attention
-//      over 1 500 frames, against -6e-9 for the plain float32 version:
-//      tools/k7_output_bias.py on an H100 80GB HBM3 at 700 W), and an
-//      error of Delta does not cancel in dQ = scale sum_j dS_ij K_j, whose
-//      dS_ij sum to zero over j when Delta is that of the same P and dP:
-//      with Delta from o, a projection's gradient in chip_smoke.py phase
-//      27's whisper-base train-step copy was 1.4e-4 of its largest value
-//      off the CPU's (the gate is 1e-4), with the sweep 2.3e-5 (o itself
-//      is the serving forward's, bit for bit).
-//   3. dk/dv: a block per (b, hk, tile of 64 keys, run of up to
+// pass, so the dq pass forms the logits and dO V^T once more.
+//   1. Delta: each row's lse and Delta = rowsum(dO * o), staged as
+//      (lse, Delta) pairs in the group-major order of flattened rows that
+//      the passes read (`stats`, each group's rows padded to a multiple
+//      of 64 with zeros).  An error of Delta does not cancel in dQ =
+//      scale sum_j dS_ij K_j (whose dS_ij sum to zero over j when Delta is
+//      that of the same P and dP), so o must be unbiased: the forward adds
+//      each key tile's tensor-core partial with a rounding add (regime A).
+//      With o from a running tensor-core accumulator (a mean signed error
+//      of -9.1e-6 of |o| at whisper-base's cross-attention,
+//      tools/k7_output_bias.py on an H100 80GB HBM3 at 700 W), a
+//      projection's gradient in chip_smoke.py phase 27's whisper-base
+//      train-step copy was 1.4e-4 of its largest value off the CPU's (the
+//      gate is 1e-4).
+//   2. dk/dv: a block per (b, hk, tile of 64 keys, run of up to
 //      ceil(rep * Lq / runs) flattened rows, `runs` as ops.plan_k7_bwd
 //      plans them) walks the rows of its run that see any of its keys, BR
 //      rows a tile.  A warp owns 16 keys, as the forward's warps own 16
@@ -1076,8 +1135,8 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 //      of equal length; with one run a block writes dK, dV, with more each
 //      run writes its partial sums to a scratch slot (zeros for a run that
 //      sees none of the tile's keys) and
-//   4. a reduction adds the runs' partials in run order;
-//   5. dq: a block per (b, hk, tile of 64 flattened rows), the last row
+//   3. a reduction adds the runs' partials in run order;
+//   4. dq: a block per (b, hk, tile of 64 flattened rows), the last row
 //      tiles first, walks the keys its rows see, 32 a tile: S = Q_w K^T,
 //      dP = dO_w V^T, dS in place, dQ += dS K.
 // Rows are flattened position-major as in the forward (row f is position
@@ -1128,13 +1187,12 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 // at raw_pair).  A tile costs two block barriers (one for the copies,
 // one for the quarters' sums).  Shared memory: 213 248 B (dk/dv) and 212
 // 992 B (dq), one 8-warp block an SM; the dk/dv pass cuts the rows into
-// runs of at most 4 096 (ops.plan_k7_bwd).  Without the sweep, tiles of
-// 16 walked by a block of 16 (and a split pass) took 28.2 ms at
-// recurrentgemma-2b's prefill, tiles of 32 walked by 16 without the split
-// pass 19.9 ms, and this design 16.7-16.9 ms; the sweep adds 5.1 ms
-// (tools/ablate_flash_attention.py --backward, paired, and
-// tools/profile_flash_attention_bwd.py, on an H100 80GB HBM3 at 700 W): a
-// block of 32 halves the walked operand's traffic from L2.
+// runs of at most 4 096 (ops.plan_k7_bwd).  Tiles of 16 walked by a
+// block of 16 (and a split pass) took 28.2 ms at recurrentgemma-2b's
+// prefill, tiles of 32 walked by 16 without the split pass 19.9 ms, and
+// this design 16.7-16.9 ms (tools/ablate_flash_attention.py --backward,
+// paired, on an H100 80GB HBM3 at 700 W): a block of 32 halves the
+// walked operand's traffic from L2.
 // Head widths 32, 64, 128 and 256.
 
 constexpr int kBwdKeys = 64;       // dk/dv: keys a block, 16 a warp group
@@ -1169,6 +1227,7 @@ struct BwdArgs {
   const float* k;
   const float* v;
   const float* dO;
+  const float* o;    // [B, H, Lq, D]: the forward's output
   const float* lse;  // [B, H, Lq]: the forward's log2-sum-exp
   float* dq;         // [B, H, Lq, D] contiguous
   float* dk;         // [B, Hkv, Lk, D] contiguous
@@ -1177,6 +1236,7 @@ struct BwdArgs {
   float* part;       // runs > 1: [2, runs, B, Hkv, Lk, D] partial dK, dV
   int B, H, Hkv, Lq, Lk, rows_pad;
   long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, dsb, dsh, dsl;
+  long long osb, osh, osl;
   int causal, window;  // window <= 0: none
   float scale;
   int runs;  // dk/dv: runs of ceil(rep * Lq / runs) flattened rows
@@ -1268,6 +1328,25 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
   mma_tf32(c, al, b0h, b1h);
   mma_tf32(c, ah, b0l, b1l);
   mma_tf32(c, ah, b0h, b1h);
+}
+
+// c += a b as a partial that starts at zero and is added to c with a
+// float32 add that rounds to nearest: the tensor cores' float32
+// accumulation drops low bits towards zero, and chained into dQ (or, at
+// D = 256, dK and dV) over every walked fragment it biased them towards
+// zero (as it did o, F7); a partial of one fragment's 8 keys or rows
+// loses bits of its own size only.
+__device__ __forceinline__ void mma3_add(float (&c)[4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         uint32_t b0h, uint32_t b1h,
+                                         uint32_t b0l, uint32_t b1l) {
+  float p[4];
+  mma_tf32_z(p, al, b0h, b1h);
+  mma_tf32(p, ah, b0l, b1l);
+  mma_tf32(p, ah, b0h, b1h);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += p[e];
 }
 
 // A C fragment split into the A fragment of a product reduced over its
@@ -1363,25 +1442,47 @@ __device__ __forceinline__ void bwd_pair_sum(float (&x)[N][4], float* red,
   }
 }
 
-// Each flattened row's lse (the forward's) staged as (lse, 0) at
-// stats[(b * Hkv + hk) * rows_pad + f], zeros for f >= rep * Lq; the
-// sweep then writes each row's Delta.
+// Each flattened row's (lse, Delta) at stats[(b * Hkv + hk) * rows_pad +
+// f], zeros for f >= rep * Lq: the forward's lse, and Delta = rowsum(dO *
+// o) of the forward's output o, summed in float32 in a fixed order: L =
+// min(D / 4, 32) lanes a row, each adding the products of its D / (4 L)
+// float4 pieces of o and dO in order, then a shuffle tree over the L
+// lanes.  One read of o and dO.
+template <int D>
 __global__ void __launch_bounds__(kBwdAux)
-    attn_bwd_lse_kernel(const BwdArgs a) {
+    attn_bwd_delta_kernel(const BwdArgs a) {
+  constexpr int L = D / 4 < 32 ? D / 4 : 32;   // lanes a row
+  constexpr int NV = D / (4 * L);              // float4 pieces a lane
   const int rep = a.H / a.Hkv, rows = rep * a.Lq;
   const long long n = static_cast<long long>(a.B) * a.Hkv * a.rows_pad;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kBwdAux + threadIdx.x;
-  if (i >= n) return;
+  const long long i = static_cast<long long>(blockIdx.x) * (kBwdAux / L) +
+                      threadIdx.x / L;
+  const int lane = threadIdx.x % L;
   const int grp = static_cast<int>(i / a.rows_pad);
   const int f = static_cast<int>(i % a.rows_pad);
-  float lse = 0.0f;
-  if (f < rows) {
+  float sum = 0.0f, lse = 0.0f;
+  if (i < n && f < rows) {
     const int b = grp / a.Hkv, hk = grp % a.Hkv;
-    const int h = hk * rep + f % rep, pos = f / rep;
-    lse = a.lse[(static_cast<long long>(b) * a.H + h) * a.Lq + pos];
+    const float* orow = bwd_qrow(a.o + b * a.osb, a.osh, a.osl, hk, rep, f);
+    const float* drow = bwd_qrow(a.dO + b * a.dsb, a.dsh, a.dsl, hk, rep, f);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int d = 4 * (lane + L * j);
+      const float4 x = *reinterpret_cast<const float4*>(orow + d);
+      const float4 y = *reinterpret_cast<const float4*>(drow + d);
+      sum = fmaf(x.x, y.x, sum);
+      sum = fmaf(x.y, y.y, sum);
+      sum = fmaf(x.z, y.z, sum);
+      sum = fmaf(x.w, y.w, sum);
+    }
+    if (lane == 0) {
+      const int h = hk * rep + f % rep, pos = f / rep;
+      lse = a.lse[(static_cast<long long>(b) * a.H + h) * a.Lq + pos];
+    }
   }
-  a.stats[i] = make_float2(lse, 0.0f);
+#pragma unroll
+  for (int w = 1; w < L; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+  if (i < n && lane == 0) a.stats[i] = make_float2(lse, sum);
 }
 
 template <int D>
@@ -1519,21 +1620,47 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
       }
     }
     // dV += P^T dO and dK += dS^T Q: k-step n takes rows r (A columns t)
-    // and r + 1 (columns t + 4), the fragments' own columns.
+    // and r + 1 (columns t + 4), the fragments' own columns.  Each 8-column
+    // tile m of dK and dV sums the row tile's fragments into partials that
+    // start at zero and adds them with a rounding float32 add (as
+    // mma3_add does a fragment: the tensor cores' truncating accumulation
+    // chained over every row biased dK and dV towards zero).  A partial a
+    // row tile rather than a fragment: at D = 128 the latter spilled at
+    // 255 registers and took 11 % longer, this 6 % (against the chained
+    // accumulators; tools/ablate_flash_attention.py --backward on an H100
+    // 80GB HBM3 at 700 W).
+    uint32_t ph[NTW][4], pl[NTW][4], sh[NTW][4], sl[NTW][4];
 #pragma unroll
     for (int n = 0; n < NTW; ++n) {
-      uint32_t ph[4], pl[4], sh[4], sl[4];
-      c_to_a(st[n], ph, pl);
-      c_to_a(dp[n], sh, sl);
-      const int r0 = 8 * (half * NTW + n);
+      c_to_a(st[n], ph[n], pl[n]);
+      c_to_a(dp[n], sh[n], sl[n]);
+    }
 #pragma unroll
-      for (int m = 0; m < NS; ++m) {
+    for (int m = 0; m < NS; ++m) {
+      float pv[4], pk[4];
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int r0 = 8 * (half * NTW + n);
         const uint2 o0 = L.one(Os, r0, 0, m);
         const uint2 o1 = L.one(Os, r0, 1, m);
         const uint2 q0 = L.one(Qs, r0, 0, m);
         const uint2 q1 = L.one(Qs, r0, 1, m);
-        mma3(dv[m], ph, pl, o0.x, o1.x, o0.y, o1.y);
-        mma3(dk[m], sh, sl, q0.x, q1.x, q0.y, q1.y);
+        if (n == 0) {
+          mma_tf32_z(pv, pl[n], o0.x, o1.x);
+          mma_tf32_z(pk, sl[n], q0.x, q1.x);
+        } else {
+          mma_tf32(pv, pl[n], o0.x, o1.x);
+          mma_tf32(pk, sl[n], q0.x, q1.x);
+        }
+        mma_tf32(pv, ph[n], o0.y, o1.y);
+        mma_tf32(pv, ph[n], o0.x, o1.x);
+        mma_tf32(pk, sh[n], q0.y, q1.y);
+        mma_tf32(pk, sh[n], q0.x, q1.x);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dv[m][e] += pv[e];
+        dk[m][e] += pk[e];
       }
     }
   }
@@ -1580,12 +1707,9 @@ __global__ void __launch_bounds__(kBwdAux)
   a.dv[e] = sv;
 }
 
-// The dq pass, or with kSweep the sweep: the same walk over the keys
-// (S and dP), then Delta = sum_j P dP of each row (a float32 sum a lane,
-// the quad's four and the pair's two added in order) into stats.y in
-// place of dQ.
-template <int D, bool kSweep>
-__device__ __forceinline__ void bwd_dq_body(const BwdArgs& a) {
+template <int D>
+__global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
+    attn_bwd_dq_kernel(const BwdArgs a) {
   constexpr int P = bwd_pair<D>(), NT = bwd_threads<D>();
   constexpr int NS = D / 8;               // k-steps over d; tiles of dQ
   constexpr int NTW = kBwdBK / 8 / P;     // 8-key tiles a warp takes
@@ -1650,9 +1774,9 @@ __device__ __forceinline__ void bwd_dq_body(const BwdArgs& a) {
   const float c = a.scale * kLog2e;
   const StLane<D> L(g, t);
 
-  float acc[kSweep ? 1 : NS][4];
+  float acc[NS][4];
 #pragma unroll
-  for (int m = 0; m < (kSweep ? 1 : NS); ++m)
+  for (int m = 0; m < NS; ++m)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
 
@@ -1690,8 +1814,7 @@ __device__ __forceinline__ void bwd_dq_body(const BwdArgs& a) {
         mma3(dp[n], oh, ol, xv.x, xv.z, xv.y, xv.w);
       }
     }
-    // dS in place (the sweep: P dP into acc[0][row]): element e is row g
-    // + 8 (e >> 1), key kj + (e & 1).
+    // dS in place: element e is row g + 8 (e >> 1), key kj + (e & 1).
 #pragma unroll
     for (int n = 0; n < NTW; ++n) {
       const int kj = kt + 8 * (half * NTW + n) + 2 * t;
@@ -1700,46 +1823,26 @@ __device__ __forceinline__ void bwd_dq_body(const BwdArgs& a) {
         const float2 w = sv[e >> 1];
         float p = exp2f(s[n][e] * c - w.x);
         if (!full && !bwd_sees(a, ap[e >> 1], kj + (e & 1))) p = 0.0f;
-        if constexpr (kSweep)
-          acc[0][e >> 1] = fmaf(p, dp[n][e], acc[0][e >> 1]);
-        else
-          s[n][e] = p * (dp[n][e] - w.y);
+        s[n][e] = p * (dp[n][e] - w.y);
       }
     }
     // dQ += dS K: k-step n takes keys kj (A columns t) and kj + 1.
-    if constexpr (!kSweep) {
 #pragma unroll
-      for (int n = 0; n < NTW; ++n) {
-        uint32_t dh[4], dl[4];
-        c_to_a(s[n], dh, dl);
-        const int r0 = 8 * (half * NTW + n);
+    for (int n = 0; n < NTW; ++n) {
+      uint32_t dh[4], dl[4];
+      c_to_a(s[n], dh, dl);
+      const int r0 = 8 * (half * NTW + n);
 #pragma unroll
-        for (int m = 0; m < NS; ++m) {
-          const uint2 k0 = L.one(Ks, r0, 0, m);
-          const uint2 k1 = L.one(Ks, r0, 1, m);
-          mma3(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);
-        }
+      for (int m = 0; m < NS; ++m) {
+        const uint2 k0 = L.one(Ks, r0, 0, m);
+        const uint2 k1 = L.one(Ks, r0, 1, m);
+        mma3_add(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);
       }
     }
   }
-  if constexpr (kSweep) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      acc[0][i] += __shfl_xor_sync(0xffffffffu, acc[0][i], 1);
-      acc[0][i] += __shfl_xor_sync(0xffffffffu, acc[0][i], 2);
-    }
-  }
   if constexpr (P == 2)
-    bwd_pair_sum<kSweep ? 1 : NS>(acc, reinterpret_cast<float*>(Ks), rw,
-                                  half, lane);
+    bwd_pair_sum<NS>(acc, reinterpret_cast<float*>(Ks), rw, half, lane);
   if (half != 0) return;
-  if constexpr (kSweep) {
-    float2* st = a.stats + static_cast<long long>(grp) * a.rows_pad;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (t == 0 && fr + 8 * i < rows) st[fr + 8 * i].y = acc[0][i];
-    return;
-  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int f = fr + 8 * i;
@@ -1751,18 +1854,6 @@ __device__ __forceinline__ void bwd_dq_body(const BwdArgs& a) {
       *reinterpret_cast<float2*>(out + 8 * m) =
           make_float2(acc[m][2 * i] * a.scale, acc[m][2 * i + 1] * a.scale);
   }
-}
-
-template <int D>
-__global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
-    attn_bwd_dq_kernel(const BwdArgs a) {
-  bwd_dq_body<D, false>(a);
-}
-
-template <int D>
-__global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
-    attn_bwd_sweep_kernel(const BwdArgs a) {
-  bwd_dq_body<D, true>(a);
 }
 
 // ------------------------------------------------- backward at D = 256
@@ -2008,8 +2099,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         raw_one<D>(Or, r + 1, d, o1h, o1l);
         raw_one<D>(Qr, r, d, q0h, q0l);
         raw_one<D>(Qr, r + 1, d, q1h, q1l);
-        mma3(dv[m], ph, pl, o0h, o1h, o0l, o1l);
-        mma3(dk[m], sh, sl, q0h, q1h, q0l, q1l);
+        mma3_add(dv[m], ph, pl, o0h, o1h, o0l, o1l);
+        mma3_add(dk[m], sh, sl, q0h, q1h, q0l, q1l);
       }
     }
   }
@@ -2035,10 +2126,10 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
-// The D = 256 dq pass, or with kSweep its sweep (as bwd_dq_body; quarter
-// 0 of each row group sums P dP).
-template <int D, bool kSweep>
-__device__ __forceinline__ void bwd_dq_wide_body(const BwdArgs& a) {
+// The D = 256 dq pass.
+template <int D>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    attn_bwd_dq_wide_kernel(const BwdArgs a) {
   constexpr int NT = kWideThreads, BQ = kWideRows, BK = kWideBK;
   constexpr int NQ = D / 32;
   extern __shared__ uint4 smem_u4[];
@@ -2099,9 +2190,9 @@ __device__ __forceinline__ void bwd_dq_wide_body(const BwdArgs& a) {
   const int s0 = NQ * quarter;
   const StLane<D> L(g, t);
 
-  float acc[kSweep ? 1 : NQ][4];
+  float acc[NQ][4];
 #pragma unroll
-  for (int m = 0; m < (kSweep ? 1 : NQ); ++m)
+  for (int m = 0; m < NQ; ++m)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
 
@@ -2142,8 +2233,8 @@ __device__ __forceinline__ void bwd_dq_wide_body(const BwdArgs& a) {
       }
     }
     wide_exchange(Ex, rg, quarter, lane, s, dp);
-    // dS in place (the sweep: P dP into acc[0][row]): element e of
-    // fragment n is row fr + 8 (e >> 1), key kj + (e & 1).
+    // dS in place: element e of fragment n is row fr + 8 (e >> 1), key kj
+    // + (e & 1).
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
       const int kj = kt + 8 * n + 2 * t;
@@ -2152,41 +2243,25 @@ __device__ __forceinline__ void bwd_dq_wide_body(const BwdArgs& a) {
         const float2 w = sv[e >> 1];
         float p = exp2f(s[n][e] * c - w.x);
         if (!full && !bwd_sees(a, ap[e >> 1], kj + (e & 1))) p = 0.0f;
-        if constexpr (kSweep)
-          acc[0][e >> 1] = fmaf(p, dp[n][e], acc[0][e >> 1]);
-        else
-          s[n][e] = p * (dp[n][e] - w.y);
+        s[n][e] = p * (dp[n][e] - w.y);
       }
     }
     // dQ += dS K: k-step n takes keys 8 n + 2t and + 1; the quarter's
     // columns.
-    if constexpr (!kSweep) {
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        uint32_t dh[4], dl[4];
-        c_to_a(s[n], dh, dl);
-        const int r = 8 * n + 2 * t;
+    for (int n = 0; n < 2; ++n) {
+      uint32_t dh[4], dl[4];
+      c_to_a(s[n], dh, dl);
+      const int r = 8 * n + 2 * t;
 #pragma unroll
-        for (int m = 0; m < NQ; ++m) {
-          const int d = 8 * (s0 + m) + g;
-          uint32_t k0h, k0l, k1h, k1l;
-          raw_one<D>(Kr, r, d, k0h, k0l);
-          raw_one<D>(Kr, r + 1, d, k1h, k1l);
-          mma3(acc[m], dh, dl, k0h, k1h, k0l, k1l);
-        }
+      for (int m = 0; m < NQ; ++m) {
+        const int d = 8 * (s0 + m) + g;
+        uint32_t k0h, k0l, k1h, k1l;
+        raw_one<D>(Kr, r, d, k0h, k0l);
+        raw_one<D>(Kr, r + 1, d, k1h, k1l);
+        mma3_add(acc[m], dh, dl, k0h, k1h, k0l, k1l);
       }
     }
-  }
-  if constexpr (kSweep) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      acc[0][i] += __shfl_xor_sync(0xffffffffu, acc[0][i], 1);
-      acc[0][i] += __shfl_xor_sync(0xffffffffu, acc[0][i], 2);
-      if (quarter == 0 && t == 0 && fr + 8 * i < rows)
-        a.stats[static_cast<long long>(grp) * a.rows_pad + fr + 8 * i].y =
-            acc[0][i];
-    }
-    return;
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -2202,18 +2277,6 @@ __device__ __forceinline__ void bwd_dq_wide_body(const BwdArgs& a) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWideThreads, 1)
-    attn_bwd_dq_wide_kernel(const BwdArgs a) {
-  bwd_dq_wide_body<D, false>(a);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kWideThreads, 1)
-    attn_bwd_sweep_wide_kernel(const BwdArgs a) {
-  bwd_dq_wide_body<D, true>(a);
-}
-
-template <int D>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   constexpr bool kWide = D > 128;
   constexpr int NT = kWide ? kWideThreads : bwd_threads<D>();
@@ -2222,31 +2285,26 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   constexpr size_t sm_dq = kWide ? smem_bwd_dq_wide<D>() : smem_bwd_dq<D>();
   constexpr int kRowsBlk = kWide ? kWideRows : kBwdRows;
   constexpr int kKeysBlk = kWide ? kWideKeys : kBwdKeys;
+  constexpr int kRowsAux = kBwdAux / (D / 4 < 32 ? D / 4 : 32);
   void (*dkdv)(BwdArgs);   // the passes of the head width (one built each)
   void (*dq)(BwdArgs);
-  void (*sweep)(BwdArgs);
   if constexpr (kWide) {
     dkdv = attn_bwd_dkdv_wide_kernel<D>;
     dq = attn_bwd_dq_wide_kernel<D>;
-    sweep = attn_bwd_sweep_wide_kernel<D>;
   } else {
     dkdv = attn_bwd_dkdv_kernel<D>;
     dq = attn_bwd_dq_kernel<D>;
-    sweep = attn_bwd_sweep_kernel<D>;
   }
   const int groups = a.B * a.Hkv;
   const int rtiles = ((a.H / a.Hkv) * a.Lq + kRowsBlk - 1) / kRowsBlk;
   const int ktiles = (a.Lk + kKeysBlk - 1) / kKeysBlk;
   int err = opt_in(dkdv, sm_dkdv);
   if (err == 0) err = opt_in(dq, sm_dq);
-  if (err == 0) err = opt_in(sweep, sm_dq);
   if (err != 0) return err;
   const long long nst = static_cast<long long>(groups) * a.rows_pad;
-  attn_bwd_lse_kernel<<<static_cast<int>((nst + kBwdAux - 1) / kBwdAux),
-                        kBwdAux, 0, stream>>>(a);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  sweep<<<rtiles * groups, NT, sm_dq, stream>>>(a);
+  attn_bwd_delta_kernel<D>
+      <<<static_cast<int>((nst + kRowsAux - 1) / kRowsAux), kBwdAux, 0,
+         stream>>>(a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   dkdv<<<ktiles * a.runs * groups, NT, sm_dkdv, stream>>>(a);
@@ -2313,11 +2371,11 @@ extern "C" int flash_attention_launch(
 }
 
 // The backward of flash_attention_launch's function for float32 q [B, H,
-// Lq, D], k, v [B, Hkv, Lk, D], the gradient dO [B, H, Lq, D] of its
-// output and its log2-sum-exp lse [B, H, Lq] (contiguous, as
-// flash_attention_launch writes it): q, k, v and dO with unit stride
-// along D, 16-byte aligned rows and the given element strides (multiples
-// of 4) for batch, head and position.  Writes dq [B,
+// Lq, D], k, v [B, Hkv, Lk, D], its output o [B, H, Lq, D], the gradient
+// dO [B, H, Lq, D] of that output and its log2-sum-exp lse [B, H, Lq]
+// (contiguous, as flash_attention_launch writes it): q, k, v, o and dO
+// with unit stride along D, 16-byte aligned rows and the given element
+// strides (multiples of 4) for batch, head and position.  Writes dq [B,
 // H, Lq, D] and dk, dv [B, Hkv, Lk, D], contiguous float32, for the same
 // causal mask, window (<= 0 for none) and right-aligned queries (Lq <=
 // Lk) as the forward.  `stats` is float32 scratch of 2 * B * Hkv *
@@ -2325,34 +2383,38 @@ extern "C" int flash_attention_launch(
 // `runs` >= 1 the dk/dv pass's runs of rows, ceil(H / Hkv * Lq / runs)
 // rows each (ops.plan_k7_bwd), and with runs > 1 `part` float32 scratch
 // of 2 * runs * B * Hkv * Lk * D values.  D in {32, 64, 128, 256}; H a
-// multiple of Hkv.  Four or five launches on `stream`; returns
+// multiple of Hkv.  Three or four launches on `stream`; returns
 // cudaGetLastError() (0 on success), the error of a shared-memory opt-in,
 // or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int flash_attention_bwd_launch(
-    const void* q, const void* k, const void* v, const void* dO,
-    const void* lse, void* dq, void* dk, void* dv, void* stats, void* part,
-    int runs, int B, int H, int Hkv, int Lq, int Lk, int D, long long qsb,
-    long long qsh, long long qsl, long long ksb, long long ksh,
-    long long ksl, long long vsb, long long vsh, long long vsl,
-    long long dsb, long long dsh, long long dsl, int causal, int window,
-    float scale, void* stream) {
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* lse, void* dq, void* dk, void* dv,
+    void* stats, void* part, int runs, int B, int H, int Hkv, int Lq,
+    int Lk, int D, long long qsb, long long qsh, long long qsl,
+    long long ksb, long long ksh, long long ksl, long long vsb,
+    long long vsh, long long vsl, long long osb, long long osh,
+    long long osl, long long dsb, long long dsh, long long dsl, int causal,
+    int window, float scale, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0 || Lq > Lk || stats == nullptr ||
       lse == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (runs < 1 || (runs > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(q, qsb, qsh, qsl, 4) || !aligned16(k, ksb, ksh, ksl, 4) ||
-      !aligned16(v, vsb, vsh, vsl, 4) || !aligned16(dO, dsb, dsh, dsl, 4))
+      !aligned16(v, vsb, vsh, vsl, 4) || !aligned16(o, osb, osh, osl, 4) ||
+      !aligned16(dO, dsb, dsh, dsl, 4))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || Lq <= 0) return static_cast<int>(cudaGetLastError());
   const int rows_pad = ((H / Hkv) * Lq + kBwdRows - 1) / kBwdRows * kBwdRows;
   const BwdArgs a{static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<const float*>(dO),
+                  static_cast<const float*>(o),
                   static_cast<const float*>(lse), static_cast<float*>(dq),
                   static_cast<float*>(dk), static_cast<float*>(dv),
                   static_cast<float2*>(stats), static_cast<float*>(part), B,
                   H, Hkv, Lq, Lk, rows_pad, qsb, qsh, qsl, ksb, ksh, ksl,
-                  vsb, vsh, vsl, dsb, dsh, dsl, causal, window, scale, runs};
+                  vsb, vsh, vsl, dsb, dsh, dsl, osb, osh, osl, causal, window,
+                  scale, runs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch_bwd<32>(a, s);

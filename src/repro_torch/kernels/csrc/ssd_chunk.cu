@@ -589,34 +589,227 @@ namespace {
 // with E = Z * CB strictly below the diagonal (M's row and column terms,
 // which cancel on it); ddelta is the reverse cumulative sum of ds.
 //
-// Design.  One block of 512 threads (16 warps) per (batch, group, chunk,
-// run of nh heads), the grid of the forward (ops.py::k8_blocks).  B, C and
-// C B^T are read and formed once a block.  Since B and C are shared by
-// the heads of a group, dC = (sum_h Z_h) B and dB's first term (sum_h
-// Z_h)^T C: the block sums Z over its heads, in head order, in shared
-// memory, and forms both products once at its end; the per-head term
-// w * (x dH^T) of dB is summed in registers (each thread owns the same (u,
-// s) of every head).  With one run a block writes dB and dC; with more,
-// each run writes its partial sums and a second kernel adds them in run
-// order: no atomics, so two calls give the same bits.  Per head: the
-// head's x, dy, dH and steps land in shared memory, warp 0 scans the
-// deltas, then every product runs with warp w on rows 4w..4w+3 (t or u)
-// and lane l on columns l, l + 32 (u, p) or l + 32j (s), each a float32
-// fmaf sum in a fixed order; warp 0 then forms ds, ddelta and ddt.  Row
-// strides are odd (S + 1, Q + 1 words), so the reads of a column across
-// lanes (x, B and dH rows) fall on distinct banks.  A simple kernel: the
-// tensor cores and 3xTF32 are left for later.
+// Bound.  At mamba2-1.3b's B = 2, L = 1024 (G = 1, 64 heads, Q = P = 64,
+// S = 128) the products need 5.4 Gflop (C B^T, sum Z B and sum Z^T C on
+// the triangle once a (batch, group, chunk); dy x^T and G^T dy on the
+// triangle, x dH^T and B dH a cell) against 175 MB moved once (x, dy,
+// dx, dH, B, C, dB, dC and the step vectors): 52.1 us of bytes at 3.35
+// TB/s, 33 us of operations as three TF32 MMAs a product at 495 T op/s
+// (81.1 us on the CUDA cores' float32 67 T op/s), so bytes bound it.
 //
-// Shared memory (floats): B, C [Q][129], C B^T, sum Z, G, F CB, x, dy
-// [Q][65], dH [S][65] and seven step vectors: 200 960 bytes, one block an
-// SM.
+// Design.  One block of 512 threads (16 warps) per (batch, group, chunk,
+// run of nh heads), the grid of the forward (ops.py::k8_blocks, nh from
+// ops.py::plan_k8_bwd).  Since B and C are shared by the heads of a
+// group, dC = (sum_h Z_h) B and dB's first term (sum_h Z_h)^T C: the
+// block sums Z over its heads in shared memory, in head order (each warp
+// adds the same cells of every head), and forms both products once at its
+// end; the per-head term w * (x dH^T) of dB is summed in registers (each
+// warp owns the same (u, s) cells of every head).  With one run a block
+// writes dB and dC; with more, each run writes its partial sums and a
+// second kernel adds them in run order.
+//
+// Every product runs on the tensor cores as m16n8k8 mma.sync, float32
+// accurate by 3xTF32 (x = hi + lo, lo.hi + hi.lo + hi.hi, small terms
+// first; flash_attention.cu's `split` and `mma_tf32`), each operand split
+// into its TF32 parts as its fragment is read from shared memory (no split
+// pass, no doubled tiles).  An accumulator starts at zero for each
+// product of a head; the sums over heads (sum Z, the dB term) and over
+// runs are float32 adds in a fixed order, with no atomics: two calls give
+// the same bits.  Warp w = (mi, nj) = (w / 4, w % 4) owns rows 16 mi ..
+// 16 mi + 15 of every product:
+//   - C B^T (once a block), dG = dy x^T, G and sum Z: the 8-column tiles
+//     j of {nj, nj + 4} that reach the causal triangle (j <= 2 mi + 1),
+//     20 tiles over 16 warps; the warp forms G (zeros above the diagonal)
+//     and F from dG's fragments and stores G for dx;
+//   - x dH^T, dB and dC: columns 32 nj .. 32 nj + 31 of S;
+//   - dx: columns 16 nj .. 16 nj + 15 of P, G^T read across G's rows
+//     over the t >= 16 mi its rows need, after a block barrier.
+// Every warp scans the head's deltas itself with shuffles (no barrier, no
+// lone warp); the column sums of F CB (ddt, ds) and the row sums of E and
+// of B * (x dH^T) (ds, dw) come out of the fragments by shuffles and are
+// added over warps in a fixed order from small per-head arrays.  One warp
+// (head j's is warp j mod 16) then forms ddt, ds and ddelta of head j
+// while the others run head j + 1 (the arrays are double-buffered).  The
+// next head's x, dy, dH and steps land by cp.async (16-byte pieces where
+// the widths allow) while the current one computes: two block barriers a
+// head (head j in; G in).  Rows and columns past Q, P and S are zeros in
+// the tiles, so the products run at the full 64 / 128 extents.  What
+// outlives a head stays out of registers (sum Z, C B^T, G and the steps
+// the finishing warp reads are in shared memory), so the block's 16 warps
+// fit 128 registers a thread.
+//
+// Shared memory (floats), one block an SM: B [64][128], C B^T, G and sum
+// Z [64][64], two head buffers of x, dy [64][64], dH [128][64] and three
+// step vectors, two sets of per-head sums and steps [17][64]: 223 232
+// bytes of the 232 448 a block may opt into.  C lands in the second head
+// buffer until C B^T is formed, and again in a dead buffer at the end.
+// The tiles are unpadded, element (r, c) at r * W + (c ^ swz(r)): every
+// fragment read, along a row (rows g, columns t) or across rows (rows t,
+// columns g), falls on 32 distinct banks.
 
-constexpr int kBwdThreads = 512;           // 16 warps, 4 rows each
-constexpr int kLdB = kMaxS + 1;            // B and C
-constexpr int kLdT = kMaxQ + 1;            // [Q][Q] tiles, x, dy and dH
-constexpr int kBwdWords =
-    2 * kMaxQ * kLdB + 6 * kMaxQ * kLdT + kMaxS * kLdT + 7 * kMaxQ;
+constexpr int kBwdThreads = 512;           // 16 warps
 constexpr int kSumThreads = 256;           // the runs' sum
+// A head's words: x, dy [Q][P], dH [S][P], then delta, dt, des.
+constexpr int kHeadWords = 2 * kMaxQ * kMaxP + kMaxS * kMaxP + 3 * kMaxQ;
+// A head's sums over warps and steps for the warp that finishes it
+// (kPart* below).
+constexpr int kPartWords = 17 * kMaxQ;
+constexpr int kBwdWords =
+    kMaxQ * kMaxS + 3 * kMaxQ * kMaxQ + 2 * kHeadWords + 2 * kPartWords;
+static_assert(2 * kMaxQ * kMaxP >= kMaxQ * kMaxS,
+              "C fits a head buffer's x and dy");
+
+// x rounded to TF32, to nearest with ties away from zero, and x = hi + lo
+// (flash_attention.cu's tf32_rna and split).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += A (16 x 8, row) * B (8 x 8, col), TF32 in, float32 accumulate.
+// Lane (g, t) = (lane / 4, lane % 4) holds a = {A[g][t], A[g+8][t],
+// A[g][t+4], A[g+8][t+4]}, b = {B[t][g], B[t+4][g]} and c = {C[g][2t],
+// C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#else
+  // The same product from the lanes' fragments, gathered by shuffles; the
+  // tensor cores read the top 19 bits of each operand.
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t m19 = 0xffffe000u;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int kk = 0; kk < 8; ++kk) {
+    const int src = kk & 3, hi = kk >> 2;
+    const float a_g = __uint_as_float(
+        __shfl_sync(0xffffffffu, a[hi ? 2 : 0], g * 4 + src) & m19);
+    const float a_g8 = __uint_as_float(
+        __shfl_sync(0xffffffffu, a[hi ? 3 : 1], g * 4 + src) & m19);
+    const float b_0 = __uint_as_float(
+        __shfl_sync(0xffffffffu, hi ? b1 : b0, (2 * t) * 4 + src) & m19);
+    const float b_1 = __uint_as_float(
+        __shfl_sync(0xffffffffu, hi ? b1 : b0, (2 * t + 1) * 4 + src) & m19);
+    acc[0] += a_g * b_0;
+    acc[1] += a_g * b_1;
+    acc[2] += a_g8 * b_0;
+    acc[3] += a_g8 * b_1;
+  }
+  for (int i = 0; i < 4; ++i) c[i] += acc[i];
+#endif
+}
+
+// An A fragment split into its TF32 parts.
+struct FragA {
+  uint32_t h[4], l[4];
+  __device__ __forceinline__ explicit FragA(const float (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(a[i], h[i], l[i]);
+  }
+};
+
+// c += A B, float32-accurate: lo_a hi_b + hi_a lo_b + hi_a hi_b, B's
+// fragment {b[0], b[1]} split as it is used.
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const float (&b)[2]) {
+  uint32_t h0, l0, h1, l1;
+  split(b[0], h0, l0);
+  split(b[1], h1, l1);
+  mma_tf32(c, a.l, h0, h1);
+  mma_tf32(c, a.h, l0, l1);
+  mma_tf32(c, a.h, h0, h1);
+}
+
+// The swizzle of row r: bits 2..4 of a column XORed with a permutation of
+// r mod 8 whose halves (r mod 8 < 4, >= 4) differ in their top two bits.
+__device__ __forceinline__ int swz(int r) {
+  return (((r & 3) << 1) | ((r >> 2) & 1)) << 2;
+}
+
+// Element (r, c) of a swizzled tile of row width W (a multiple of 32).
+template <int W>
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * W + (c ^ swz(r));
+}
+
+// A fragments of rows m0 .. m0 + 15 and k-step columns k0 .. k0 + 7 of a
+// tile holding A (row m) or A^T (row k); B fragments of columns n0 .. n0
+// + 7 from a tile holding B^T (row n) or B (row k).
+template <int W>
+__device__ __forceinline__ void frag_a(const float* T, int m0, int k0,
+                                       int g, int t, float (&a)[4]) {
+  a[0] = T[sw<W>(m0 + g, k0 + t)];
+  a[1] = T[sw<W>(m0 + g + 8, k0 + t)];
+  a[2] = T[sw<W>(m0 + g, k0 + t + 4)];
+  a[3] = T[sw<W>(m0 + g + 8, k0 + t + 4)];
+}
+template <int W>
+__device__ __forceinline__ void frag_at(const float* T, int m0, int k0,
+                                        int g, int t, float (&a)[4]) {
+  a[0] = T[sw<W>(k0 + t, m0 + g)];
+  a[1] = T[sw<W>(k0 + t, m0 + g + 8)];
+  a[2] = T[sw<W>(k0 + t + 4, m0 + g)];
+  a[3] = T[sw<W>(k0 + t + 4, m0 + g + 8)];
+}
+template <int W>
+__device__ __forceinline__ void frag_bn(const float* T, int n0, int k0,
+                                        int g, int t, float (&b)[2]) {
+  b[0] = T[sw<W>(n0 + g, k0 + t)];
+  b[1] = T[sw<W>(n0 + g, k0 + t + 4)];
+}
+template <int W>
+__device__ __forceinline__ void frag_bk(const float* T, int n0, int k0,
+                                        int g, int t, float (&b)[2]) {
+  b[0] = T[sw<W>(k0 + t, n0 + g)];
+  b[1] = T[sw<W>(k0 + t + 4, n0 + g)];
+}
+
+// Rows x cols floats (row stride cols) into a swizzled tile of width W by
+// cp.async (16-byte pieces with vec), by the n threads numbered t.
+template <int W>
+__device__ __forceinline__ void load_sw(float* dst, const float* src,
+                                        int rows, int cols, bool vec, int t,
+                                        int n) {
+  if (vec) {
+    const int c4 = cols >> 2;
+    for (int i = t; i < rows * c4; i += n) {
+      const int r = i / c4, k = (i - r * c4) << 2;
+      cp_async<16>(dst + sw<W>(r, k), src + r * cols + k);
+    }
+  } else {
+    for (int i = t; i < rows * cols; i += n) {
+      const int r = i / cols;
+      cp_async<4>(dst + sw<W>(r, i - r * cols), src + i);
+    }
+  }
+}
+
+// Zeros at the elements (r, c) of an R x W swizzled tile with r >= rows
+// or c >= cols (never where load_sw writes).
+template <int R, int W>
+__device__ __forceinline__ void zero_pad(float* dst, int rows, int cols,
+                                         int t, int n) {
+  for (int i = t; i < R * W; i += n) {
+    const int r = i / W, c = i - r * W;
+    if (r >= rows || c >= cols) dst[sw<W>(r, c)] = 0.0f;
+  }
+}
+
+// Step i's value of a head as a warp's lanes hold it (lane l: steps l in
+// va and l + 32 in vb), on every lane for its own i.
+__device__ __forceinline__ float step_of(float va, float vb, int i) {
+  const float a = __shfl_sync(0xffffffffu, va, i & 31);
+  const float b = __shfl_sync(0xffffffffu, vb, i & 31);
+  return i < 32 ? a : b;
+}
 
 // The warp's sum of v in a fixed order, lane 0's, on every lane.
 __device__ __forceinline__ float warp_sum(float v) {
@@ -625,6 +818,67 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return __shfl_sync(0xffffffffu, v, 0);
 }
+
+// A head's sums over warps and its steps, which the warp that finishes
+// the head reads (word offsets into a part): F CB's strict column sums
+// [4 mi][Q], its diagonal [Q], E's row sums [4 nj][Q], dw's [4 nj][Q], then
+// the steps s, dt, exp(s_{Q-1} - s) and des [Q] each.
+constexpr int kPartCol = 0, kPartDiag = 4 * kMaxQ, kPartRow = 5 * kMaxQ,
+              kPartDw = 9 * kMaxQ, kPartS = 13 * kMaxQ, kPartDt = 14 * kMaxQ,
+              kPartE = 15 * kMaxQ, kPartDes = 16 * kMaxQ;
+
+// ddt, ds and its reverse cumulative sum ddelta of the head at `cell`,
+// from its part, by one warp, lane l steps l and l + 32; each sum over
+// warps added in warp order.
+__device__ __forceinline__ void bwd_finish(const float* part, long long cell,
+                                           int Q, int lane,
+                                           float* __restrict__ ddt,
+                                           float* __restrict__ ddelta) {
+  float ds[2] = {0.0f, 0.0f}, wdw[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int t = lane + 32 * k;
+    if (t >= Q) continue;
+    float col = 0.0f;   // sum_{t' > t} F CB [t', t]
+    for (int mi = t >> 4; mi < 4; ++mi) col += part[kPartCol + mi * kMaxQ + t];
+    float row = 0.0f, dw = 0.0f;
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      row += part[kPartRow + nj * kMaxQ + t];
+      dw += part[kPartDw + nj * kMaxQ + t];
+    }
+    const float s = part[kPartS + t], dt = part[kPartDt + t];
+    const float e = part[kPartE + t], des = part[kPartDes + t];
+    ddt[cell * Q + t] = (col + part[kPartDiag + t]) + dw * e;
+    wdw[k] = (e * dt) * dw;
+    float d = row - dt * col + des * expf(s);
+    if (t < Q - 1) d -= wdw[k];
+    ds[k] = d;
+  }
+  const float wsum = warp_sum((lane < Q - 1 ? wdw[0] : 0.0f) +
+                              (lane + 32 < Q - 1 ? wdw[1] : 0.0f));
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (lane + 32 * k == Q - 1) ds[k] += wsum;
+  // Suffix sums: within each half by shuffles, then the second half's
+  // total added to the first.
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float a0 = __shfl_down_sync(0xffffffffu, ds[0], off);
+    const float a1 = __shfl_down_sync(0xffffffffu, ds[1], off);
+    if (lane + off < 32) {
+      ds[0] += a0;
+      ds[1] += a1;
+    }
+  }
+  ds[0] += __shfl_sync(0xffffffffu, ds[1], 0);
+  if (lane < Q) ddelta[cell * Q + lane] = ds[0];
+  if (lane + 32 < Q) ddelta[cell * Q + lane + 32] = ds[1];
+}
+
+// Bits of the backward's `vec` argument: x, dy, dH and B, C copied in
+// 16-byte pieces; dx and dB, dC stored in 8-byte ones.
+constexpr int kVecXH = 1, kVecBCB = 2, kVecDX = 4, kVecDBC = 8;
 
 // blockIdx.x as in ssd_chunk_kernel.  dB and dC go to oB, oC plus hb *
 // run_stride (the run's partial sums, or the gradients with one run).
@@ -640,299 +894,370 @@ ssd_chunk_bwd_kernel(const float* __restrict__ x,
                      float* __restrict__ ddelta, float* __restrict__ ddt,
                      float* __restrict__ oB, float* __restrict__ oC, int NC,
                      int Q, int P, int S, int hpg, int nh, int nblk,
-                     long long run_stride) {
+                     long long run_stride, int vec) {
   const int hb = blockIdx.x % nblk;
   const int bgc = blockIdx.x / nblk;       // (b * G + g) * NC + c
   const int c = bgc % NC, bg = bgc / NC;
-  const int h_first = hb * nh, h_last = min(h_first + nh, hpg);
+  const int h_first = hb * nh, nheads = min(h_first + nh, hpg) - h_first;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = warp >> 2, nj = warp & 3;
+  const int r0 = 16 * mi;                  // the warp's rows
+  // The warp's 8-column tiles of C B^T, dG, G and sum Z: nj and nj + 4
+  // where they reach the triangle.
+  const bool has[2] = {nj <= 2 * mi + 1, nj + 4 <= 2 * mi + 1};
 
   extern __shared__ __align__(16) float sm[];
-  float* Bs = sm;                          // [Q][kLdB]
-  float* Cs = Bs + kMaxQ * kLdB;
-  float* CBs = Cs + kMaxQ * kLdB;          // C B^T [t][u]
-  float* Zs = CBs + kMaxQ * kLdT;          // sum over heads of Z [t][u]
-  float* Gs = Zs + kMaxQ * kLdT;           // the head's G [t][u]
-  float* Fs = Gs + kMaxQ * kLdT;           // the head's F * CB [t][u]
-  float* xs = Fs + kMaxQ * kLdT;           // x [u][p]
-  float* ys = xs + kMaxQ * kLdT;           // dy [t][p]
-  float* hs = ys + kMaxQ * kLdT;           // dH [s][p]
-  float* sv = hs + kMaxS * kLdT;           // s
-  float* dts = sv + kMaxQ;                 // dt
-  float* wv = dts + kMaxQ;                 // w
-  float* ev = wv + kMaxQ;                  // exp(s_{Q-1} - s)
-  float* desv = ev + kMaxQ;                // des
-  float* rowv = desv + kMaxQ;              // the deltas, then E's row sums
-  float* dwv = rowv + kMaxQ;               // dw
+  float* Bs = sm;                          // [64][128] B (row u)
+  float* CBs = Bs + kMaxQ * kMaxS;         // [64][64] C B^T (row t)
+  float* Gs = CBs + kMaxQ * kMaxQ;         // [64][64] the head's G (row t)
+  float* Zs = Gs + kMaxQ * kMaxQ;          // [64][64] sum Z (row t)
+  float* hbuf[2] = {Zs + kMaxQ * kMaxQ, Zs + kMaxQ * kMaxQ + kHeadWords};
+  float* parts = hbuf[1] + kHeadWords;     // [2][kPartWords]
+  float* Cs = hbuf[1];                     // [64][128] C (row t), at first
+  const long long cell0 = (static_cast<long long>(bg) * hpg + h_first) * NC + c;
 
-  {
-    const long long bc = static_cast<long long>(bgc) * Q * S;
-    for (int i = tid; i < Q * S; i += kBwdThreads) {
-      const int r = i / S, k = i - r * S;
-      Bs[r * kLdB + k] = Bm[bc + i];
-      Cs[r * kLdB + k] = Cm[bc + i];
+  // Head j of the run into buffer j % 2, as one group of copies (an
+  // empty one past the last head).
+  const auto load_head = [&](int j) {
+    if (j < nheads) {
+      const long long cl = cell0 + static_cast<long long>(j) * NC;
+      float* hbj = hbuf[j & 1];
+      load_sw<kMaxP>(hbj, x + cl * Q * P, Q, P, vec & kVecXH, tid,
+                     kBwdThreads);
+      load_sw<kMaxP>(hbj + kMaxQ * kMaxP, dy + cl * Q * P, Q, P,
+                     vec & kVecXH, tid, kBwdThreads);
+      load_sw<kMaxP>(hbj + 2 * kMaxQ * kMaxP, dH + cl * S * P, S, P,
+                     vec & kVecXH, tid, kBwdThreads);
+      float* stp = hbj + 2 * kMaxQ * kMaxP + kMaxS * kMaxP;
+      if (tid < Q) {
+        cp_async<4>(stp + tid, delta + cl * Q + tid);
+        cp_async<4>(stp + kMaxQ + tid, dtv + cl * Q + tid);
+        cp_async<4>(stp + 2 * kMaxQ + tid, des + cl * Q + tid);
+      }
     }
-    for (int i = tid; i < kMaxQ * kLdT; i += kBwdThreads) Zs[i] = 0.0f;
-  }
+    cp_async_commit();
+  };
+  const auto zero_head = [&](float* hbj) {
+    zero_pad<kMaxQ, kMaxP>(hbj, Q, P, tid, kBwdThreads);
+    zero_pad<kMaxQ, kMaxP>(hbj + kMaxQ * kMaxP, Q, P, tid, kBwdThreads);
+    zero_pad<kMaxS, kMaxP>(hbj + 2 * kMaxQ * kMaxP, S, P, tid, kBwdThreads);
+  };
+  // Element e of the warp's C fragment of 8-column tile q: row r0 + g +
+  // 8 (e >> 1), column 8 (nj + 4 q) + 2t + (e & 1); a pair e, e + 1 is one
+  // 8-byte word of a swizzled tile.
+  const auto at_pair = [&](int q, int i) {
+    return sw<kMaxQ>(r0 + g + 8 * i, 8 * (nj + 4 * q) + 2 * t);
+  };
+
+  // The chunk's B and C and the first head; zeros past Q, P and S.
+  const long long bc = static_cast<long long>(bgc) * Q * S;
+  load_sw<kMaxS>(Bs, Bm + bc, Q, S, vec & kVecBCB, tid, kBwdThreads);
+  load_sw<kMaxS>(Cs, Cm + bc, Q, S, vec & kVecBCB, tid, kBwdThreads);
+  load_head(0);
+  zero_pad<kMaxQ, kMaxS>(Bs, Q, S, tid, kBwdThreads);
+  zero_pad<kMaxQ, kMaxS>(Cs, Q, S, tid, kBwdThreads);
+  zero_head(hbuf[0]);
+  cp_async_wait<0>();
   __syncthreads();
 
-  // Warp w's rows r0..r0+3 (clamped to the chunk in rr), lane l's columns
-  // u = l, l + 32 (clamped in uc) and s = l + 32j (clamped in sc).
-  const int r0 = 4 * warp;
-  int rr[4], uc[2], sc[4];
+  // C B^T over the warp's tiles, reduced over S, into shared memory; sum
+  // Z's tiles start at zero.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) rr[i] = min(r0 + i, Q - 1);
-#pragma unroll
-  for (int j = 0; j < 2; ++j) uc[j] = min(lane + 32 * j, Q - 1);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) sc[j] = min(lane + 32 * j, S - 1);
-
-  // C B^T, rows t, columns u.
-  {
-    float acc[4][2] = {};
-    for (int k = 0; k < S; ++k) {
-      const float b0 = Bs[uc[0] * kLdB + k], b1 = Bs[uc[1] * kLdB + k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float cv = Cs[rr[i] * kLdB + k];
-        acc[i][0] = fmaf(cv, b0, acc[i][0]);
-        acc[i][1] = fmaf(cv, b1, acc[i][1]);
-      }
+  for (int q = 0; q < 2; ++q) {
+    if (!has[q]) continue;
+    float cb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int ks = 0; ks < kMaxS / 8; ++ks) {
+      float af[4], b[2];
+      frag_a<kMaxS>(Cs, r0, 8 * ks, g, t, af);
+      frag_bn<kMaxS>(Bs, 8 * (nj + 4 * q), 8 * ks, g, t, b);
+      mma3(cb, FragA(af), b);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) CBs[(r0 + i) * kLdT + lane + 32 * j] =
-          acc[i][j];
+    for (int i = 0; i < 2; ++i) {
+      *reinterpret_cast<float2*>(CBs + at_pair(q, i)) =
+          make_float2(cb[2 * i], cb[2 * i + 1]);
+      *reinterpret_cast<float2*>(Zs + at_pair(q, i)) = make_float2(0.0f, 0.0f);
+    }
   }
 
-  float dbh[4][4] = {};   // (u, s): sum over the heads of w * (x dH^T)
-  for (int h = h_first; h < h_last; ++h) {
-    const long long cell = (static_cast<long long>(bg) * hpg + h) * NC + c;
-    __syncthreads();   // C B^T is in; the last head's tiles are dead
-    for (int i = tid; i < Q * P; i += kBwdThreads) {
-      const int r = i / P, p = i - r * P;
-      xs[r * kLdT + p] = x[cell * Q * P + i];
-      ys[r * kLdT + p] = dy[cell * Q * P + i];
-    }
-    for (int i = tid; i < S * P; i += kBwdThreads) {
-      const int r = i / P, p = i - r * P;
-      hs[r * kLdT + p] = dH[cell * S * P + i];
-    }
-    if (tid < Q) {
-      rowv[tid] = delta[cell * Q + tid];
-      dts[tid] = dtv[cell * Q + tid];
-      desv[tid] = des[cell * Q + tid];
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const Steps st = scan_steps(rowv, dts, Q, lane);
+  float dbh[4][4] = {};    // (u, s): sum over heads of w * (x dH^T)
+  for (int j = 0; j < nheads; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();   // head j is in; every warp is done with head j - 1
+    if (j == 0) zero_head(hbuf[1]);   // C is dead
+    load_head(j + 1);
+    float* part = parts + (j & 1) * kPartWords;
+    const long long cell = cell0 + static_cast<long long>(j) * NC;
+    if (j > 0 && warp == ((j - 1) & 15))
+      bwd_finish(parts + ((j - 1) & 1) * kPartWords, cell - NC, Q, lane, ddt,
+                 ddelta);
+
+    const float* xs = hbuf[j & 1];
+    const float* ys = xs + kMaxQ * kMaxP;
+    const float* hs = ys + kMaxQ * kMaxP;
+    const float* stp = hs + kMaxS * kMaxP;
+    const Steps st = scan_steps(stp, stp + kMaxQ, Q, lane);
+    if (warp == 0) {   // the steps the finishing warp reads
       const float last =
           __shfl_sync(0xffffffffu, Q > 32 ? st.sb : st.sa, (Q - 1) & 31);
-      if (lane < Q) {
-        sv[lane] = st.sa;
-        wv[lane] = st.wa;
-        ev[lane] = expf(last - st.sa);
-      }
-      if (lane + 32 < Q) {
-        sv[lane + 32] = st.sb;
-        wv[lane + 32] = st.wb;
-        ev[lane + 32] = expf(last - st.sb);
-      }
-    }
-    __syncthreads();
-
-    // dG = dy x^T, rows t, columns u; then G, F CB, Z's sum and E's row
-    // sums.
-    {
-      float acc[4][2] = {};
-      for (int p = 0; p < P; ++p) {
-        const float x0 = xs[uc[0] * kLdT + p], x1 = xs[uc[1] * kLdT + p];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float d = ys[rr[i] * kLdT + p];
-          acc[i][0] = fmaf(d, x0, acc[i][0]);
-          acc[i][1] = fmaf(d, x1, acc[i][1]);
-        }
-      }
-      const float su[2] = {sv[uc[0]], sv[uc[1]]};
-      const float du[2] = {dts[uc[0]], dts[uc[1]]};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = r0 + i;
-        float row = 0.0f;
-        if (t < Q) {
-          const float st_ = sv[t];
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int u = lane + 32 * j;
-            float z = 0.0f, g = 0.0f, fcb = 0.0f;
-            if (u <= t) {
-              const float m = expf(fminf(st_ - su[j], 0.0f));
-              const float cb = CBs[t * kLdT + u];
-              const float f = acc[i][j] * m;
-              z = f * du[j];
-              g = cb * m * du[j];
-              fcb = f * cb;
-              if (u < t) row += fcb * du[j];
-            }
-            Zs[t * kLdT + u] += z;
-            Gs[t * kLdT + u] = g;
-            Fs[t * kLdT + u] = fcb;
-          }
-        }
-        row = warp_sum(row);
-        if (lane == 0 && t < Q) rowv[t] = row;
-      }
-    }
-
-    // x dH^T, rows u, columns s: dw, and w * (x dH^T) into dbh.
-    {
-      float acc[4][4] = {};
-      for (int p = 0; p < P; ++p) {
-        float hv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) hv[j] = hs[sc[j] * kLdT + p];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float xv = xs[rr[i] * kLdT + p];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv, hv[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int u = r0 + i;
-        float part = 0.0f;
-        if (u < Q) {
-          const float wu = wv[u];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (lane + 32 * j >= S) continue;
-            part = fmaf(Bs[u * kLdB + lane + 32 * j], acc[i][j], part);
-            dbh[i][j] = fmaf(wu, acc[i][j], dbh[i][j]);
-          }
-        }
-        part = warp_sum(part);
-        if (lane == 0 && u < Q) dwv[u] = part;
-      }
-    }
-    __syncthreads();   // G, F CB, E's row sums and dw are in
-
-    // dx = G^T dy + w * (B dH), rows u, columns p = lane, lane + 32.
-    {
-      const int p0 = min(lane, P - 1), p1 = min(lane + 32, P - 1);
-      float a1[4][2] = {}, a2[4][2] = {};
-      for (int t = r0; t < Q; ++t) {
-        const float y0 = ys[t * kLdT + p0], y1 = ys[t * kLdT + p1];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float g = Gs[t * kLdT + r0 + i];
-          a1[i][0] = fmaf(g, y0, a1[i][0]);
-          a1[i][1] = fmaf(g, y1, a1[i][1]);
-        }
-      }
-      for (int k = 0; k < S; ++k) {
-        const float h0 = hs[k * kLdT + p0], h1 = hs[k * kLdT + p1];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float b = Bs[rr[i] * kLdB + k];
-          a2[i][0] = fmaf(b, h0, a2[i][0]);
-          a2[i][1] = fmaf(b, h1, a2[i][1]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int u = r0 + i;
-        if (u >= Q) continue;
-        const float wu = wv[u];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int p = lane + 32 * j;
-          if (p < P) dx[(cell * Q + u) * P + p] = fmaf(wu, a2[i][j], a1[i][j]);
-        }
-      }
-    }
-
-    // Warp 0: ddt, ds and its reverse cumulative sum ddelta, lane l steps
-    // l and l + 32.
-    if (warp == 0) {
-      float ds[2] = {0.0f, 0.0f}, wdw[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
-        const int t = lane + 32 * k;
-        if (t >= Q) continue;
-        float col = 0.0f;   // sum_{t' > t} F CB [t', t]
-        for (int tt = t + 1; tt < Q; ++tt) col += Fs[tt * kLdT + t];
-        const float dw = dwv[t];
-        ddt[cell * Q + t] = (col + Fs[t * kLdT + t]) + dw * ev[t];
-        wdw[k] = wv[t] * dw;
-        float d = rowv[t] - dts[t] * col + desv[t] * expf(sv[t]);
-        if (t < Q - 1) d -= wdw[k];
-        ds[k] = d;
+        const int i = lane + 32 * k;
+        if (i >= Q) continue;
+        const float s = k ? st.sb : st.sa;
+        part[kPartS + i] = s;
+        part[kPartDt + i] = k ? st.db : st.da;
+        part[kPartE + i] = expf(last - s);
+        part[kPartDes + i] = stp[2 * kMaxQ + i];
       }
-      const float wsum = warp_sum((lane < Q - 1 ? wdw[0] : 0.0f) +
-                                  (lane + 32 < Q - 1 ? wdw[1] : 0.0f));
+    }
+    // The steps of the warp's rows r0 + g and r0 + g + 8.
+    const float s_r[2] = {step_of(st.sa, st.sb, r0 + g),
+                          step_of(st.sa, st.sb, r0 + g + 8)};
+    const float w_r[2] = {step_of(st.wa, st.wb, r0 + g),
+                          step_of(st.wa, st.wb, r0 + g + 8)};
+
+    // dG = dy x^T on the warp's tiles (rows t, columns u), reduced over
+    // P; then G and F (M on the triangle), Z into sum Z, and F CB's column
+    // sums (strict, and the diagonal) and E's row sums.
+    {
+      float rows[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int k = 0; k < 2; ++k)
-        if (lane + 32 * k == Q - 1) ds[k] += wsum;
-      // Suffix sums: within each half by shuffles, then the second
-      // half's total added to the first.
+      for (int q = 0; q < 2; ++q) {
+        if (!has[q]) continue;
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float a0 = __shfl_down_sync(0xffffffffu, ds[0], off);
-        const float a1 = __shfl_down_sync(0xffffffffu, ds[1], off);
-        if (lane + off < 32) {
-          ds[0] += a0;
-          ds[1] += a1;
+        for (int ks = 0; ks < kMaxP / 8; ++ks) {
+          float af[4], b[2];
+          frag_a<kMaxP>(ys, r0, 8 * ks, g, t, af);
+          frag_bn<kMaxP>(xs, 8 * (nj + 4 * q), 8 * ks, g, t, b);
+          mma3(acc, FragA(af), b);
+        }
+        const int u0 = 8 * (nj + 4 * q) + 2 * t;
+        const float su[2] = {step_of(st.sa, st.sb, u0),
+                             step_of(st.sa, st.sb, u0 + 1)};
+        const float du[2] = {step_of(st.da, st.db, u0),
+                             step_of(st.da, st.db, u0 + 1)};
+        float cols[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int tr = r0 + g + 8 * i;
+          const float2 cb = *reinterpret_cast<const float2*>(CBs +
+                                                            at_pair(q, i));
+          float2* zp = reinterpret_cast<float2*>(Zs + at_pair(q, i));
+          float2 z = *zp;
+          float gv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int u = u0 + e;
+            const float cbe = e ? cb.y : cb.x;
+            float zz = 0.0f, fcb = 0.0f;
+            gv[e] = 0.0f;
+            if (u <= tr) {
+              const float m = expf(fminf(s_r[i] - su[e], 0.0f));
+              const float f = acc[2 * i + e] * m;
+              zz = f * du[e];
+              fcb = f * cbe;
+              gv[e] = cbe * m * du[e];
+            }
+            (e ? z.y : z.x) += zz;
+            if (u < tr) {
+              cols[e] += fcb;
+              rows[i] += fcb * du[e];
+            } else if (u == tr) {
+              part[kPartDiag + u] = fcb;
+            }
+          }
+          *zp = z;
+          *reinterpret_cast<float2*>(Gs + at_pair(q, i)) =
+              make_float2(gv[0], gv[1]);
+        }
+        // Sum the columns over the tile's 16 rows (lanes g), in order.
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          cols[0] += __shfl_xor_sync(0xffffffffu, cols[0], off);
+          cols[1] += __shfl_xor_sync(0xffffffffu, cols[1], off);
+        }
+        if (g == 0) {
+          part[kPartCol + mi * kMaxQ + u0] = cols[0];
+          part[kPartCol + mi * kMaxQ + u0 + 1] = cols[1];
         }
       }
-      ds[0] += __shfl_sync(0xffffffffu, ds[1], 0);
-      if (lane < Q) ddelta[cell * Q + lane] = ds[0];
-      if (lane + 32 < Q) ddelta[cell * Q + lane + 32] = ds[1];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        rows[i] += __shfl_xor_sync(0xffffffffu, rows[i], 1);
+        rows[i] += __shfl_xor_sync(0xffffffffu, rows[i], 2);
+      }
+      if (t == 0) {
+        part[kPartRow + nj * kMaxQ + r0 + g] = rows[0];
+        part[kPartRow + nj * kMaxQ + r0 + g + 8] = rows[1];
+      }
+    }
+
+    // x dH^T (rows u, columns s of 32 nj + 8 n), reduced over P: dw's
+    // row sums with B, and w * (x dH^T) into dbh.
+    {
+      float acc[4][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kMaxP / 8; ++ks) {
+        float af[4];
+        frag_a<kMaxP>(xs, r0, 8 * ks, g, t, af);
+        const FragA a(af);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          float b[2];
+          frag_bn<kMaxP>(hs, 32 * nj + 8 * n, 8 * ks, g, t, b);
+          mma3(acc[n], a, b);
+        }
+      }
+      float dw[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int s0 = 32 * nj + 8 * n + 2 * t;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 bv = *reinterpret_cast<const float2*>(
+              Bs + sw<kMaxS>(r0 + g + 8 * i, s0));
+          dw[i] = fmaf(bv.x, acc[n][2 * i], dw[i]);
+          dw[i] = fmaf(bv.y, acc[n][2 * i + 1], dw[i]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            dbh[n][2 * i + e] = fmaf(w_r[i], acc[n][2 * i + e],
+                                     dbh[n][2 * i + e]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        dw[i] += __shfl_xor_sync(0xffffffffu, dw[i], 1);
+        dw[i] += __shfl_xor_sync(0xffffffffu, dw[i], 2);
+      }
+      if (t == 0) {
+        part[kPartDw + nj * kMaxQ + r0 + g] = dw[0];
+        part[kPartDw + nj * kMaxQ + r0 + g + 8] = dw[1];
+      }
+    }
+    __syncthreads();   // G is in
+
+    // dx = G^T dy + w * (B dH): rows u, columns p of 16 nj + 8 n; G^T's
+    // fragments over t >= r0.
+    {
+      float a1[2][4] = {}, a2[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kMaxQ / 8; ++ks) {
+        if (ks < 2 * mi) continue;
+        float af[4];
+        frag_at<kMaxQ>(Gs, r0, 8 * ks, g, t, af);
+        const FragA a(af);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          float b[2];
+          frag_bk<kMaxP>(ys, 16 * nj + 8 * n, 8 * ks, g, t, b);
+          mma3(a1[n], a, b);
+        }
+      }
+#pragma unroll 4
+      for (int ks = 0; ks < kMaxS / 8; ++ks) {
+        float af[4];
+        frag_a<kMaxS>(Bs, r0, 8 * ks, g, t, af);
+        const FragA a(af);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          float b[2];
+          frag_bk<kMaxP>(hs, 16 * nj + 8 * n, 8 * ks, g, t, b);
+          mma3(a2[n], a, b);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int u = r0 + g + 8 * i;
+        if (u >= Q) continue;
+        float* dxr = dx + (cell * Q + u) * P;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int p = 16 * nj + 8 * n + 2 * t;
+          const float v0 = fmaf(w_r[i], a2[n][2 * i], a1[n][2 * i]);
+          const float v1 = fmaf(w_r[i], a2[n][2 * i + 1], a1[n][2 * i + 1]);
+          if ((vec & kVecDX) && p < P) {
+            *reinterpret_cast<float2*>(dxr + p) = make_float2(v0, v1);
+          } else {
+            if (p < P) dxr[p] = v0;
+            if (p + 1 < P) dxr[p + 1] = v1;
+          }
+        }
+      }
     }
   }
-  __syncthreads();   // Z's sum over the run's heads is complete
+  __syncthreads();   // every head's sums and sum Z are in; buffers dead
 
-  // dC = Z B (rows t, u <= t) and dB = Z^T C (rows u, t >= u) plus dbh,
-  // columns s.
+  // The last head's finish, and C (row t) into a dead buffer.
+  if (warp == ((nheads - 1) & 15))
+    bwd_finish(parts + ((nheads - 1) & 1) * kPartWords,
+               cell0 + static_cast<long long>(nheads - 1) * NC, Q, lane, ddt,
+               ddelta);
+  float* C2 = hbuf[0];
+  load_sw<kMaxS>(C2, Cm + bc, Q, S, vec & kVecBCB, tid, kBwdThreads);
+  cp_async_commit();
+  zero_pad<kMaxQ, kMaxS>(C2, Q, S, tid, kBwdThreads);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dC = sum Z B (rows t, u <= t) and dB = sum Z^T C (rows u, t >= u)
+  // plus dbh, columns s of 32 nj + 8 n.
   {
-    const long long base =
-        hb * run_stride + static_cast<long long>(bgc) * Q * S;
     float ac[4][4] = {}, ab[4][4] = {};
-    const int uend = min(Q, r0 + 4);
-    for (int u = 0; u < uend; ++u) {
-      float bv[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[u * kLdB + sc[j]];
+    for (int ks = 0; ks < kMaxQ / 8; ++ks) {
+      if (ks <= 2 * mi + 1) {
+        float af[4];
+        frag_a<kMaxQ>(Zs, r0, 8 * ks, g, t, af);
+        const FragA a(af);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float z = Zs[rr[i] * kLdT + u];
+        for (int n = 0; n < 4; ++n) {
+          float b[2];
+          frag_bk<kMaxS>(Bs, 32 * nj + 8 * n, 8 * ks, g, t, b);
+          mma3(ac[n], a, b);
+        }
+      }
+      if (ks >= 2 * mi) {
+        float af[4];
+        frag_at<kMaxQ>(Zs, r0, 8 * ks, g, t, af);
+        const FragA a(af);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) ac[i][j] = fmaf(z, bv[j], ac[i][j]);
+        for (int n = 0; n < 4; ++n) {
+          float b[2];
+          frag_bk<kMaxS>(C2, 32 * nj + 8 * n, 8 * ks, g, t, b);
+          mma3(ab[n], a, b);
+        }
       }
     }
-    for (int t = r0; t < Q; ++t) {
-      float cv[4];
+    const long long base = hb * run_stride + bc;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) cv[j] = Cs[t * kLdB + sc[j]];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float z = Zs[t * kLdT + r0 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ab[i][j] = fmaf(z, cv[j], ab[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + i;
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + g + 8 * i;
       if (r >= Q) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = lane + 32 * j;
-        if (s >= S) continue;
-        oC[base + r * S + s] = ac[i][j];
-        oB[base + r * S + s] = ab[i][j] + dbh[i][j];
+      for (int n = 0; n < 4; ++n) {
+        const int s = 32 * nj + 8 * n + 2 * t;
+        const float c0 = ac[n][2 * i], c1 = ac[n][2 * i + 1];
+        const float b0 = ab[n][2 * i] + dbh[n][2 * i];
+        const float b1 = ab[n][2 * i + 1] + dbh[n][2 * i + 1];
+        float* pc = oC + base + r * S + s;
+        float* pb = oB + base + r * S + s;
+        if ((vec & kVecDBC) && s < S) {
+          *reinterpret_cast<float2*>(pc) = make_float2(c0, c1);
+          *reinterpret_cast<float2*>(pb) = make_float2(b0, b1);
+        } else {
+          if (s < S) {
+            pc[0] = c0;
+            pb[0] = b0;
+          }
+          if (s + 1 < S) {
+            pc[1] = c1;
+            pb[1] = b1;
+          }
+        }
       }
     }
   }
@@ -993,6 +1318,15 @@ extern "C" int ssd_chunk_bwd_launch(
   float* pf = static_cast<float*>(part);
   float* oB = nblk > 1 ? pf : static_cast<float*>(dB);
   float* oC = nblk > 1 ? pf + nblk * n : static_cast<float*>(dC);
+  const auto aligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  const int vec =
+      (P % 4 == 0 && aligned(x, 16) && aligned(dy, 16) && aligned(dH, 16)
+           ? kVecXH : 0) |
+      (S % 4 == 0 && aligned(Bm, 16) && aligned(Cm, 16) ? kVecBCB : 0) |
+      (P % 2 == 0 && aligned(dx, 8) ? kVecDX : 0) |
+      (S % 2 == 0 && aligned(oB, 8) && aligned(oC, 8) ? kVecDBC : 0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ssd_chunk_bwd_kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem,
                          s>>>(
@@ -1002,7 +1336,7 @@ extern "C" int ssd_chunk_bwd_launch(
       static_cast<const float*>(dH), static_cast<const float*>(des),
       static_cast<float*>(dx), static_cast<float*>(ddelta),
       static_cast<float*>(ddt), oB, oC, NC, Q, P, S, hpg, nh, nblk,
-      nblk > 1 ? n : 0);
+      nblk > 1 ? n : 0, vec);
   int e = static_cast<int>(cudaGetLastError());
   if (e != 0 || nblk == 1) return e;
   ssd_chunk_bwd_sum_kernel<<<static_cast<unsigned>((n + kSumThreads - 1) /

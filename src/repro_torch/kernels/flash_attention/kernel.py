@@ -57,21 +57,21 @@ def launch_flash_attention(q, k, v, out, *, causal: bool, window,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
 
 
-_BWD_ARGTYPES = ((_P,) * 10 + (_I,) * 7 + (_L,) * 12
+_BWD_ARGTYPES = ((_P,) * 11 + (_I,) * 7 + (_L,) * 15
                  + (_I, _I, ctypes.c_float, _P))
 
 
-def launch_flash_attention_bwd(q, k, v, do, lse, dq, dk, dv, stats, *,
+def launch_flash_attention_bwd(q, k, v, o, do, lse, dq, dk, dv, stats, *,
                                causal: bool, window, scale: float,
                                runs: int = 1, part=None) -> None:
-    """Enqueue K7's backward on the current stream: q, do [B, H, Lq, D] and
-    k, v [B, Hkv, Lk, D], float32, unit stride along D, 16-byte aligned
-    rows and other strides multiples of 4; ``lse`` the forward's [B, H, Lq]
-    float32 (``launch_flash_attention(lse=...)``); dq [B, H, Lq, D] and dk,
-    dv [B, Hkv, Lk, D] contiguous float32 outputs; ``stats`` float32
-    scratch of 2·B·Hkv·rows_pad values (rows_pad = H / Hkv · Lq rounded up
-    to a multiple of 64: each row's lse and Δ = Σ P·dP, which the sweep
-    kernel sums); ``runs`` the
+    """Enqueue K7's backward on the current stream: q, o, do [B, H, Lq, D]
+    and k, v [B, Hkv, Lk, D], float32, unit stride along D, 16-byte aligned
+    rows and other strides multiples of 4; ``o`` and ``lse`` the forward's
+    output and its [B, H, Lq] float32 log2-sum-exp
+    (``launch_flash_attention(lse=...)``); dq [B, H, Lq, D] and dk, dv [B,
+    Hkv, Lk, D] contiguous float32 outputs; ``stats`` float32 scratch of
+    2·B·Hkv·rows_pad values (rows_pad = H / Hkv · Lq rounded up to a
+    multiple of 64: each row's lse and Δ = rowsum(do ∘ o)); ``runs`` the
     dk/dv pass's runs of rows (``ops.plan_k7_bwd``) and, with more than
     one, ``part`` float32 scratch of 2·runs·B·Hkv·Lk·D values for their
     partial sums.  The wrapper in ``ops.py`` checks; raises if the launch
@@ -82,9 +82,10 @@ def launch_flash_attention_bwd(q, k, v, do, lse, dq, dk, dv, stats, *,
         fn.restype = ctypes.c_int
     B, H, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+    strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in (q, k, v, do, lse, dq, dk, dv, stats)),
+    err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
+                                      stats)),
              None if part is None else part.data_ptr(), runs,
              B, H, Hkv, Lq, Lk, D, *strides, int(causal),
              0 if window is None else window, float(scale), stream)

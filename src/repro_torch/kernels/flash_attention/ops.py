@@ -23,9 +23,11 @@ k, v requiring grad, goes through ``FlashAttention`` (a
 any group size, which then also writes each row's log2-sum-exp (the
 split kernel writes none, so a grad call of at most 16 rows a group
 takes the tensor-core kernel too), and its backward the hand-written
-backward kernels given that lse (``flash_attention_bwd``, counted as
-``"flash_attention_bwd"``).  ``flash_attention_lse`` returns the output
-and the lse of one such forward.  The backward takes float32 operands at
+backward kernels given that lse and the output (``flash_attention_bwd``,
+counted as ``"flash_attention_bwd"``; Δ = rowsum(dO ∘ o) comes from the
+saved output, which the forward accumulates without bias).
+``flash_attention_lse`` returns the output and the lse of one such
+forward.  The backward takes float32 operands at
 every head width (at 256 with tiles of its own: 32 keys a dk/dv block and
 32 rows a dq block, each walking raw tiles of 16, D split over warps); a
 grad-requiring call it does not
@@ -295,16 +297,17 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, scale):
         out, lse = _launch(q, k, v, causal=causal, window=window,
                            scale=scale, lse=True)
-        ctx.save_for_backward(q, k, v, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, scale)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, lse = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, scale = ctx.args
         dq, dk, dv = flash_attention_bwd(q, k, v, do, causal=causal,
-                                         window=window, scale=scale, lse=lse)
+                                         window=window, scale=scale, lse=lse,
+                                         o=out)
         return dq, dk, dv, None, None, None
 
 
@@ -316,21 +319,20 @@ def _aligned16(t) -> bool:
 
 
 def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window=None,
-                        scale=None, lse=None):
+                        scale=None, lse=None, o=None):
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
     output gradient ``do``: float32, dq of q's shape and dk, dv of k's
     (summed over each group's query heads).
-    ``lse``: the forward's log2-sum-exp [B, H, Lq] (``flash_attention_lse``;
-    what ``FlashAttention`` saves), or None.  On the card the backward
-    kernels (the lse staged, the sweep that sums each row's Δ = Σ P·dP
-    from the backward's own P and dP, dk/dv, dq, and one more that adds
+    ``lse`` and ``o``: the forward's log2-sum-exp [B, H, Lq] and output
+    (``flash_attention_lse``; what ``FlashAttention`` saves), given
+    together or not at all.  On the card the backward kernels (each row's
+    lse staged with Δ = rowsum(do ∘ o), dk/dv, dq, and one more that adds
     the dk/dv pass's runs when ``plan_k7_bwd`` gives more than one;
-    counted once as ``"flash_attention_bwd"``), given ``lse`` or, without
-    it, the lse of one more forward (counted as ``"flash_attention"``: the
-    same bits as the forward's, so this call and autograd agree bit for
-    bit).  Neither needs the forward's output: the sweep's Δ is the
-    reference's rowsum(do ∘ o) without the rounding o accumulated in the
-    forward.  On the CPU ``attention_bwd_ref``, which needs no lse."""
+    counted once as ``"flash_attention_bwd"``), given ``lse`` and ``o``
+    or, without them, those of one more forward (counted as
+    ``"flash_attention"``: the same bits as the forward's, so this call
+    and autograd agree bit for bit).  On the CPU ``attention_bwd_ref``,
+    which needs neither."""
     device = device_of("flash_attention_bwd", (q, k, v, do))
     B, H, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
@@ -339,6 +341,9 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window=None,
     if do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: do must be q's shape "
                          f"{tuple(q.shape)}, got {tuple(do.shape)}")
+    if (lse is None) != (o is None):
+        raise ValueError("flash_attention_bwd: give the forward's lse and "
+                         "o together, or neither")
     if device.type == "cpu":
         return attention_bwd_ref(q, k, v, do, causal=causal, window=window,
                                  scale=scale)
@@ -350,7 +355,7 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window=None,
     q, k, v, do = (t if _aligned16(t) else t.contiguous()
                    for t in (q, k, v, do))
     if lse is None:
-        _, lse = _launch(q, k, v, causal=causal, window=window, scale=scale,
+        o, lse = _launch(q, k, v, causal=causal, window=window, scale=scale,
                          lse=True)
     elif (lse.shape != (B, H, Lq) or lse.dtype != torch.float32
           or not lse.is_contiguous() or lse.device != q.device):
@@ -358,6 +363,13 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window=None,
                          f"float32 [{B}, {H}, {Lq}] on {q.device} (the "
                          f"forward's), got {lse.dtype} {tuple(lse.shape)} "
                          f"on {lse.device}")
+    elif (o.shape != q.shape or o.dtype != torch.float32
+          or o.device != q.device):
+        raise ValueError(f"flash_attention_bwd: o must be the forward's "
+                         f"float32 output of q's shape on {q.device}, got "
+                         f"{o.dtype} {tuple(o.shape)} on {o.device}")
+    elif not _aligned16(o):
+        o = o.contiguous()
     dq = torch.empty((B, H, Lq, D), dtype=torch.float32, device=device)
     dk = torch.empty((B, Hkv, Lk, D), dtype=torch.float32, device=device)
     dv = torch.empty_like(dk)
@@ -369,7 +381,7 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window=None,
     if runs > 1:
         part = torch.empty(2 * runs * dk.numel(), dtype=torch.float32,
                            device=device)
-    launch_flash_attention_bwd(q, k, v, do, lse, dq, dk, dv, stats,
+    launch_flash_attention_bwd(q, k, v, o, do, lse, dq, dk, dv, stats,
                                causal=causal, window=window, scale=scale,
                                runs=runs, part=part)
     LAUNCHES["flash_attention_bwd"] += 1

@@ -39,10 +39,13 @@ K8_TEAMS = 2
 K8_CB_COST = 0.4
 #: Team 1 starts after team 0's first scan, G_h and y: about half a head.
 K8_OFFSET_COST = 0.5
-#: The backward block's own work (C·Bᵀ, and dC = ΣZ·B, dB = ΣZᵀ·C once a
-#: run: 3·Q²S/2 multiply-adds) in units of one head's (dy·xᵀ on the
-#: triangle, x·dHᵀ, Gᵀ·dy and B·dH: ≈ Q²P + 2QSP): 0.6 at mamba2-1.3b.
-K8_BWD_BLOCK_COST = 0.6
+#: The backward block's own work in units of one head's, on the tensor
+#: cores (``ssd_chunk.cu``'s 16 warps, m16n8k8 MMAs three at a time): C·Bᵀ
+#: (960 MMAs) and dC = ΣZ·B, dB = ΣZᵀ·C once a run (1 920) against a
+#: head's dy·xᵀ and Gᵀ·dy on the triangle, x·dHᵀ and B·dH (4 032): 0.71
+#: at mamba2-1.3b, plus the loads of B, C and the first head, which no
+#: head's work hides, and C's second read: 1.
+K8_BWD_BLOCK_COST = 1.0
 
 
 def plan_k8(B: int, G: int, NC: int, hpg: int, sms: int) -> int:
@@ -79,7 +82,7 @@ def plan_k8_bwd(B: int, G: int, NC: int, hpg: int, sms: int) -> int:
     that minimises waves × (nh + ``K8_BWD_BLOCK_COST``), a wave being one
     block on each of the ``sms`` SMs over B·G·NC·⌈hpg/nh⌉ blocks; ties go
     to the larger nh (fewer runs to add).  At mamba2-1.3b's B = 2, L =
-    1024 on 132 SMs: nh = 16, 128 blocks, 4 runs a group."""
+    1024 on 132 SMs: nh = 16, 128 blocks in one wave, 4 runs a group."""
     cells = B * G * NC
 
     def cost(nh):

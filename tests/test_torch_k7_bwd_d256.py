@@ -277,7 +277,7 @@ def mirror_backward_wide(q, k, v, do, *, causal, window, scale, runs=None,
     B, H, Lq, d = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     rep, off, rows = H // Hkv, Lk - Lq, H // Hkv * Lq
-    _, lse = kd.mirror_forward(q, k, v, causal=causal, window=window,
+    o, lse = kd.mirror_forward(q, k, v, causal=causal, window=window,
                                scale=scale, terms=terms)
     c = torch.tensor(scale, dtype=torch.float32) * LOG2E
     prod = lambda a, b: tc_matmul(a, b, terms)  # noqa: E731
@@ -293,13 +293,8 @@ def mirror_backward_wide(q, k, v, do, *, causal, window, scale, runs=None,
             dO[:rows] = _rows(do[b, heads], rep, Lq)
             st = torch.zeros(pad, 2)
             st[:rows, 0] = lse[b, heads].T.reshape(rows)
-            # Δ = Σ_j P dP of each row, from the backward's own P and dP
-            # (the sweep), not from o.
-            P_ = torch.exp2(prod(Q[:rows], k[b, hk].T) * c
-                            - st[:rows, 0][:, None])
-            P_ = torch.where(kd._visible_rows(rows, rep, off, Lk, causal,
-                                           window), P_, 0.0)
-            st[:rows, 1] = (P_ * prod(dO[:rows], v[b, hk].T)).sum(1)
+            # Δ = rowsum(dO ∘ o) of each row, o the forward's output.
+            st[:rows, 1] = (dO[:rows] * _rows(o[b, heads], rep, Lq)).sum(1)
             # dk/dv: 32-key blocks, runs, 16-row tiles.
             for j0 in range(0, Lk, KEYS):
                 kn = min(j0 + KEYS, Lk) - j0
@@ -390,8 +385,8 @@ def test_wide_mirror_with_several_runs(runs):
 def test_cpu_wrappers_at_d256_are_the_plain_versions():
     q, k, v, do = _tensors(SHAPES[1])
     LAUNCHES.clear()
-    _, lse = flash_attention_lse(q, k, v, window=16)
-    got = flash_attention_bwd(q, k, v, do, window=16, lse=lse)
+    o, lse = flash_attention_lse(q, k, v, window=16)
+    got = flash_attention_bwd(q, k, v, do, window=16, lse=lse, o=o)
     for g, w in zip(got, attention_bwd_ref(q, k, v, do, window=16)):
         assert torch.equal(g, w)
     assert not LAUNCHES

@@ -11,7 +11,7 @@
   opt into, eight warps an SM at every head width.
 - A plain-torch mirror of the backward's decomposition: the lse from a
   mirror of the forward's tensor-core regime (64-row blocks, 32-key
-  tiles, online softmax), the Δ sweep (Σ P·dP of each row), the dk/dv
+  tiles, online softmax), Δ = rowsum(dO ∘ o) of its output, the dk/dv
   pass (64-key blocks, runs
   of rows, tiles of 64 rows at D = 32 and 32 above, the warp pairs'
   halves at D = 128 added in order, the runs' partials in run order), the
@@ -140,14 +140,14 @@ def test_attention_lse_ref_matches_jax_logsumexp(shape):
 
 def test_cpu_wrappers_are_the_plain_versions():
     """``flash_attention_lse`` on the CPU is (``attention_ref``,
-    ``attention_lse_ref``) and ``flash_attention_bwd`` given an lse is
-    ``attention_bwd_ref``, bit for bit, with no launch."""
+    ``attention_lse_ref``) and ``flash_attention_bwd`` given its lse and
+    output is ``attention_bwd_ref``, bit for bit, with no launch."""
     q, k, v, do = _tensors(SHAPES[6])
     LAUNCHES.clear()
     o, lse = flash_attention_lse(q, k, v, window=16)
     assert torch.equal(o, attention_ref(q, k, v, window=16))
     assert torch.equal(lse, attention_lse_ref(q, k, window=16))
-    got = flash_attention_bwd(q, k, v, do, window=16, lse=lse)
+    got = flash_attention_bwd(q, k, v, do, window=16, lse=lse, o=o)
     for g, w in zip(got, attention_bwd_ref(q, k, v, do, window=16)):
         assert torch.equal(g, w)
     assert not LAUNCHES
@@ -374,12 +374,6 @@ def _visible(pos, keys, causal, window, Lk):
     return ok
 
 
-def _visible_rows(rows, rep, off, Lk, causal, window):
-    """[rows, Lk]: flattened row f (position f // rep + off) sees key j."""
-    pos = torch.arange(rows) // rep + off
-    return _visible(pos, torch.arange(Lk), causal, window, Lk)
-
-
 def mirror_backward(q, k, v, do, *, causal, window, scale, terms=3,
                     runs=None):
     """The backward's four passes in plain torch on float32 operands;
@@ -388,7 +382,7 @@ def mirror_backward(q, k, v, do, *, causal, window, scale, terms=3,
     Hkv, Lk = k.shape[1], k.shape[2]
     rep, off, rows = H // Hkv, Lk - Lq, H // Hkv * Lq
     q, k, v, do = (t.float() for t in (q, k, v, do))
-    _, lse = mirror_forward(q, k, v, causal=causal, window=window,
+    o, lse = mirror_forward(q, k, v, causal=causal, window=window,
                             scale=scale, terms=terms)
     c = torch.tensor(scale, dtype=torch.float32) * LOG2E
     prod = lambda a, b: tc_matmul(a, b, terms)  # noqa: E731
@@ -407,13 +401,8 @@ def mirror_backward(q, k, v, do, *, causal, window, scale, terms=3,
             dO[:rows] = _rows(do[b, heads], rep, Lq)
             st = torch.zeros(pad, 2)
             st[:rows, 0] = lse[b, heads].T.reshape(rows)
-            # Δ = Σ_j P dP of each row, from the backward's own P and dP
-            # (the sweep), not from o.
-            P_ = torch.exp2(prod(Q[:rows], k[b, hk].T) * c
-                            - st[:rows, 0][:, None])
-            P_ = torch.where(_visible_rows(rows, rep, off, Lk, causal,
-                                           window), P_, 0.0)
-            st[:rows, 1] = (P_ * prod(dO[:rows], v[b, hk].T)).sum(1)
+            # Δ = rowsum(dO ∘ o) of each row, o the forward's output.
+            st[:rows, 1] = (dO[:rows] * _rows(o[b, heads], rep, Lq)).sum(1)
             # 2, 3. dk/dv: 64-key blocks, runs of rows, BR-row tiles.
             dk_sum = torch.zeros(Lk + KEYS, D)
             dv_sum = torch.zeros(Lk + KEYS, D)
@@ -546,11 +535,11 @@ def test_cuda_lse_and_backward_given_it(shape):
         pytest.skip("needs a CUDA device (the kernels have no CPU form)")
     B, H, Hkv, Lq, Lk, D, causal, window = shape
     q, k, v, do = (t.cuda() for t in _tensors(shape))
-    _, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(lse.cpu().numpy(), attention_lse_ref(
         q, k, causal=causal, window=window).cpu().numpy(), **cs.K7_LSE_TOL)
     got = flash_attention_bwd(q, k, v, do, causal=causal, window=window,
-                              lse=lse)
+                              lse=lse, o=o)
     want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         _close(name, g.cpu(), w.cpu())

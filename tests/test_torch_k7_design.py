@@ -292,12 +292,18 @@ def _operands(q, k, v, kv_last):
 def _softmax_step(m, l, acc, s, ok, vt, products):
     """One key tile of the online softmax, in the kernel's order, on
     logits ``s`` in log2 units (scaled by scale·log2 e): the new max, the
-    correction, p (0 where masked), l = l·corr + Σp, acc·corr + p·v."""
+    correction, p (0 where masked), l = l·corr + Σp, and acc·corr plus
+    the tile's p·v: ``products`` summed into a partial that starts at zero
+    for the tile, then acc·corr + partial rounded once, as the kernel's
+    fmaf does (regime A's order since F7; chaining the products into the
+    accumulator biased o towards zero)."""
     m_new = torch.maximum(m, s.amax(dim=1))
     corr = torch.exp2(m - m_new)
     p = torch.where(ok, torch.exp2(s - m_new[:, None]), torch.zeros(()))
     l = l * corr + p.sum(dim=1)
-    return m_new, l, acc * corr[:, None] + products(p, vt)
+    partial = torch.zeros_like(acc) + products(p, vt)
+    return m_new, l, (acc.double() * corr.double()[:, None]
+                      + partial.double()).float()
 
 
 def mirror_a(q, k, v, *, causal, window, scale, kv_last=None, terms=3):

@@ -16,6 +16,17 @@ rest runs; the parts overlap, so the differences do not add up.  Each
 variant runs twice, in turns.  Prints the card's name and power limit,
 each variant's registers and times, and a JSON summary last.  Needs a CUDA
 device.
+
+    python3 tools/ablate_ssd_chunk.py --backward [--baseline OLD.cu ...]
+        [--out FILE]
+
+does the same for K8's backward (``BWD_VARIANTS``: text edits, built into
+``build/ablate_ssd_chunk_bwd/``): each variant's ``ssd_chunk_bwd_launch``
+at mamba2-1.3b's training shape with the planned heads a block, in turns,
+beside the registers and spill bytes of its backward kernel, and each
+source given as ``--baseline OLD.cu`` (an earlier ``ssd_chunk.cu`` whose
+backward launcher takes the same arguments) unedited as "baseline0",
+"baseline1", ... in the order given.
 """
 from __future__ import annotations
 
@@ -238,10 +249,126 @@ def read_phases(torch, lib, go, blocks: int, heads: int, name: str) -> dict:
     return {"sm_ghz": float(ghz), "cycles": cyc}
 
 
+def _drop(text):
+    """A variant's edit: ``text`` taken out."""
+    return ((text, ""),)
+
+
+#: K8's backward's variants, name: ((text, replacement), ...): one TF32
+#: product instead of three; each product of a head cut out (its operand
+#: loads and splits go with it); G's exponentials as __expf; no warp
+#: finishing the heads; no barrier between G and dx.
+BWD_VARIANTS = {
+    "full": (),
+    "one_product": (("  mma_tf32(c, a.l, h0, h1);\n"
+                     "  mma_tf32(c, a.h, l0, l1);\n", ""),),
+    "no_dG": _drop("          mma3(acc, FragA(af), b);\n"),
+    "no_xdH": _drop("          frag_bn<kMaxP>(hs, 32 * nj + 8 * n, 8 * ks, g, "
+                    "t, b);\n          mma3(acc[n], a, b);\n"),
+    "no_GTdy": _drop("          mma3(a1[n], a, b);\n"),
+    "no_BdH": _drop("          mma3(a2[n], a, b);\n"),
+    "fast_exp": (("const float m = expf(fminf(s_r[i] - su[e], 0.0f));",
+                  "const float m = __expf(fminf(s_r[i] - su[e], 0.0f));"),),
+    "no_finish": (("    if (j > 0 && warp == ((j - 1) & 15))\n",
+                   "    if (j < 0)\n"),),
+    "no_G_barrier": _drop("    __syncthreads();   // G is in\n"),
+}
+BWD_SHAPE = (2, 1024, 64, 64, 1, 128, 64)   # B, L, H, P, G, S, chunk
+
+
+def backward(cs, torch, out, baselines=()) -> int:
+    """The ``--backward`` mode (see the module's docstring)."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._wrap import sm_count
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_ref
+    from repro_torch.kernels.ssd_chunk.kernel import _BWD_ARGTYPES
+    from repro_torch.kernels.ssd_chunk.ops import plan_k8_bwd
+
+    card = cs.card_line()
+    print(card, flush=True)
+    cs.no_tf32(torch)
+    src = open(SOURCE).read()
+    texts = {}
+    for name, edits in BWD_VARIANTS.items():     # every edit checked first
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"ablate_ssd_chunk: variant {name} does "
+                                   f"not find {old!r} once")
+            text = text.replace(old, new)
+        texts[name] = text
+    for i, path in enumerate(baselines or ()):
+        texts[f"baseline{i}"] = open(path).read()
+    out_dir = OUT_DIR + "_bwd"
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        cu = os.path.join(out_dir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        so = os.path.join(out_dir, f"{name}.so")
+        procs[name] = (so, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, regs = {}, {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"ablate_ssd_chunk: {name} failed:\n{log}")
+        m = re.search(r"ssd_chunk_bwd_kernel.*?\n.*?(\d+) bytes spill stores"
+                      r".*?\n.*?Used (\d+) registers", log, re.S)
+        regs[name] = (int(m.group(2)), int(m.group(1))) if m else None
+        print(f"{name}: registers, spill stores {regs[name]}", flush=True)
+        libs[name] = ctypes.CDLL(so)
+    B, L, H, P, G, S, chunk = BWD_SHAPE
+    args, hpg = cs.k8_bwd_operands(torch, B, L, H, P, G, S, chunk)
+    NC = L // chunk
+    nh = plan_k8_bwd(B, G, NC, hpg, sm_count(torch.device("cuda")))
+    runs = -(-hpg // nh)
+    outs = [torch.empty_like(t) for t in args[:5]]
+    part = torch.empty(2 * runs * args[3].numel(), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    want = ssd_chunk_bwd_ref(*args, heads_per_group=hpg)
+    us, err = {}, {}
+    for _ in range(2):
+        for name, lib in libs.items():
+            fn = lib.ssd_chunk_bwd_launch
+            fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+
+            def go(fn=fn):
+                e = fn(*(t.data_ptr() for t in args + outs), part.data_ptr(),
+                       B * H, NC, chunk, P, S, B, G, hpg, nh, stream)
+                if e:
+                    raise RuntimeError(f"ablate_ssd_chunk: CUDA error {e}")
+            go()
+            torch.cuda.synchronize()
+            err[name] = max(float((a - b).abs().max())
+                            for a, b in zip(outs, want))
+            us.setdefault(name, []).append(1e3 * cs.event_ms(torch, go))
+    for name, t in us.items():
+        print(f"{name}: {', '.join(f'{x:.3f}' for x in t)} us", flush=True)
+    summary = {"card": card, "shape": dict(zip(
+        "B L H P G S chunk".split(), BWD_SHAPE)), "nh": nh, "us": us,
+        "registers_spill": regs, "max_abs_err": err}
+    if out:
+        with open(out, "w") as f:
+            json.dump(summary, f, indent=1)
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the summary JSON to this file")
+    ap.add_argument("--backward", action="store_true",
+                    help="ablate K8's backward instead of its forward")
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="with --backward: also time this copy of "
+                         "ssd_chunk.cu unedited, in turns with the variants "
+                         "(may be given more than once)")
     a = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs          # puts ROOT/src first on sys.path
@@ -250,6 +377,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_ssd_chunk: no CUDA device", file=sys.stderr)
         return 2
+    if a.backward:
+        return backward(cs, torch, a.out, a.baseline)
     from repro_torch.kernels._wrap import sm_count
     from repro_torch.kernels.ssd_chunk.ops import plan_k8
 

@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""How far K7's forward output sits from the exact attention, and in which
-direction: the float32 accumulation of its tensor-core products rounds
-each partial sum towards zero, which a backward that takes Δ =
-rowsum(dO ∘ o) from this output would carry into dQ.
+"""How far K7's forward output and its backward's gradients sit from the
+exact values, and in which direction: a float32 tensor-core accumulation
+that drops low bits towards zero shrinks what it sums, and a backward
+that takes Δ = rowsum(dO ∘ o) from a shrunk output carries the error into
+dQ.
 
     python3 tools/k7_output_bias.py [--out FILE]
 
-For each shape (whisper-base's cross-attention: 64 queries over 1 500
-frames, non-causal; tinyllama-1.1b's and recurrentgemma-2b's causal
-prefills) it runs K7 (``flash_attention``, the serving forward, whose
-output the grad forward's equals bit for bit) and the plain version
-(``attention_ref``, float32) on the card, and the attention in float64 on
-the card as the exact value, on inputs from a seed.  It prints, for each
-of K7 and the plain version, the largest |o − exact| over the largest
-|exact| and the mean signed error along the exact value's sign over the
-mean |exact| (negative: shrunk towards zero), and the same two for Δ =
-rowsum(dO ∘ o) against the exact Δ, beside the card's name and power
-limit; writes them as JSON to ``--out`` if given.  Needs a CUDA device.
+At each of ``chip_smoke.K7_BIAS_SHAPES`` (whisper-base's cross-attention:
+64 queries over 1 500 frames, non-causal; tinyllama-1.1b's and
+recurrentgemma-2b's causal prefills), on inputs from a seed, it runs on
+the card:
+
+- K7's forward (``flash_attention``, the serving forward, whose output
+  the grad forward's equals bit for bit) and the plain version
+  (``attention_ref``, float32), against attention in float64
+  (``chip_smoke.k7_bias_rows``): o and Δ = rowsum(dO ∘ o);
+- K7's backward (``flash_attention_bwd`` given the forward's lse and
+  output, as a train step runs it) and the plain version
+  (``attention_bwd_ref``, float32), against float64 autograd of the same
+  attention, a head at a time: dq, dk and dv.
+
+For each it prints the largest |error| over the largest |exact| and the
+mean signed error along the exact value's sign over the mean |exact|
+(negative: shrunk towards zero), beside the card's name and power limit,
+and checks K7's output against ``chip_smoke.K7_BIAS_MAX``; writes the
+rows as JSON to ``--out`` if given.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -29,17 +38,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-#: (B, H, Hkv, Lq, Lk, D, causal, window).
-SHAPES = [(1, 8, 8, 64, 1500, 64, False, None),
-          (4, 32, 4, 1024, 1024, 64, True, None),
-          (2, 10, 1, 4096, 4096, 256, True, 2048)]
 
-
-def exact(torch, q, k, v, causal, window, scale):
-    """Attention in float64 on q's device, GQA by repeating k and v."""
-    rep = q.shape[1] // k.shape[1]
-    qd = q.double()
-    kd, vd = (t.double().repeat_interleave(rep, dim=1) for t in (k, v))
+def exact_grads(torch, q, k, v, do, causal, window, scale):
+    """(dq, dk, dv) of attention in float64 by autograd, a head at a time,
+    dk and dv summed over each group's heads in head order."""
+    H, Hkv = q.shape[1], k.shape[1]
+    rep = H // Hkv
     Lq, Lk = q.shape[2], k.shape[2]
     qpos = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
     kpos = torch.arange(Lk, device=q.device)[None, :]
@@ -48,29 +52,30 @@ def exact(torch, q, k, v, causal, window, scale):
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
-    out = []
-    for h in range(qd.shape[1]):         # a head at a time: [B, Lq, Lk]
-        s = torch.einsum("bqd,bkd->bqk", qd[:, h], kd[:, h]) * scale
+    dq = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float64, device=q.device)
+    dv = torch.zeros(k.shape, dtype=torch.float64, device=q.device)
+    for h in range(H):
+        qh, kh, vh = (t.double().requires_grad_(True)
+                      for t in (q[:, h], k[:, h // rep], v[:, h // rep]))
+        s = torch.matmul(qh, kh.transpose(1, 2)) * scale
         p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
-        out.append(torch.einsum("bqk,bkd->bqd", p, vd[:, h]))
-    return torch.stack(out, dim=1)
-
-
-def errors(got, want):
-    """(max |got − want| / max |want|, mean signed error along want's sign
-    over mean |want|)."""
-    d = got.double() - want
-    return (float(d.abs().max() / want.abs().max()),
-            float((d * want.sign()).mean() / want.abs().mean()))
+        gq, gk, gv = torch.autograd.grad(torch.matmul(p, vh), (qh, kh, vh),
+                                         do[:, h].double())
+        dq[:, h] = gq
+        dk[:, h // rep] += gk
+        dv[:, h // rep] += gv
+        del s, p, gq, gk, gv
+    return dq, dk, dv
 
 
 def main(argv=None) -> int:
-    import numpy as np
     import torch
 
     import chip_smoke as cs
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bwd,
+                                                     flash_attention_lse)
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -81,34 +86,32 @@ def main(argv=None) -> int:
     card = cs.card_line()
     print(card, flush=True)
     cs.no_tf32(torch)
-    rows = []
-    for B, H, Hkv, Lq, Lk, D, causal, window in SHAPES:
-        rng = np.random.RandomState(Lq + Lk + D)
-        q, k, v, do = (torch.from_numpy(rng.randn(*s).astype(np.float32)
-                                        * sc).cuda()
-                       for s, sc in (((B, H, Lq, D), 0.5), ((B, Hkv, Lk, D),
-                                                            0.5),
-                                     ((B, Hkv, Lk, D), 1.0),
-                                     ((B, H, Lq, D), 1.0)))
-        scale = D ** -0.5
-        want = exact(torch, q, k, v, causal, window, scale)
-        delta = (do.double() * want).sum(-1)
-        row = {"shape": [B, H, Hkv, Lq, Lk, D], "causal": causal,
-               "window": window}
-        with torch.no_grad():
-            for name, o in (("k7", flash_attention(q, k, v, causal=causal,
-                                                   window=window)),
-                            ("plain", attention_ref(q, k, v, causal=causal,
-                                                    window=window))):
-                row[name] = {"o": errors(o, want),
-                             "delta": errors((do * o).sum(-1), delta)}
-        rows.append(row)
+    rows = cs.k7_bias_rows(torch)
+    for row, shape, limit in zip(rows, cs.K7_BIAS_SHAPES, cs.K7_BIAS_MAX):
+        B, H, Hkv, Lq, Lk, D, causal, window = shape
+        q, k, v, do = cs.k7_bias_inputs(torch, B, H, Hkv, Lq, Lk, D)
+        want = exact_grads(torch, q, k, v, do, causal, window, D ** -0.5)
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+        for name, got in (
+                ("k7", flash_attention_bwd(q, k, v, do, causal=causal,
+                                           window=window, lse=lse, o=o)),
+                ("plain", attention_bwd_ref(q, k, v, do, causal=causal,
+                                            window=window))):
+            row[name].update({n: cs.signed_error(g, w)
+                              for n, g, w in zip(("dq", "dk", "dv"), got,
+                                                 want)})
+        row["limit"] = limit
         print(json.dumps(row), flush=True)
-        del want, delta
+        del q, k, v, do, want, o, lse
         torch.cuda.empty_cache()
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "rows": rows}, f, indent=1)
+    bad = [r["shape"] for r in rows if abs(r["k7"]["o"][1]) > r["limit"]]
+    if bad:
+        print(f"k7_output_bias: the output's bias exceeds K7_BIAS_MAX at "
+              f"{bad}", file=sys.stderr)
+        return 1
     return 0
 
 

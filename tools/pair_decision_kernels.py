@@ -128,21 +128,27 @@ def profiled(torch, simulate, wl, cl, cfg, dyn) -> dict:
             "decision_launches": len(kern)}
 
 
-def pair_main(child_fn, description: str, script: str) -> int:
+def pair_main(child_fn, description: str, script: str,
+              flags: dict = None) -> int:
     """Run ``script OLD NEW [--out FILE]``: one child process of
     ``script`` per measurement, in the order old, new, new, old, each
     printing ``child_fn(root)`` as a ``RESULT`` JSON line; print each
     child's line and, last, a summary beside the card's name and power
-    limit."""
+    limit.  ``flags``: {name: help} of on/off options, each passed on to
+    the children and to ``child_fn`` as a keyword."""
+    flags = flags or {}
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("old")
     ap.add_argument("new")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None,
                     help="also write the summary JSON to this file")
+    for name, text in flags.items():
+        ap.add_argument(f"--{name}", action="store_true", help=text)
     a = ap.parse_args()
+    on = {name: getattr(a, name) for name in flags}
     if a.child:
-        print("RESULT " + json.dumps(child_fn(a.old)), flush=True)
+        print("RESULT " + json.dumps(child_fn(a.old, **on)), flush=True)
         return 0
     import torch
 
@@ -158,14 +164,16 @@ def pair_main(child_fn, description: str, script: str) -> int:
     for label in ("old", "new", "new", "old"):
         root = os.path.abspath(getattr(a, label))
         out = subprocess.run(
-            [sys.executable, os.path.abspath(script), root, root, "--child"],
+            [sys.executable, os.path.abspath(script), root, root, "--child",
+             *(f"--{name}" for name, v in on.items() if v)],
             capture_output=True, text=True, check=True)
         line = next(x for x in out.stdout.splitlines()
                     if x.startswith("RESULT "))
         res = dict(json.loads(line[len("RESULT "):]), version=label)
         print(json.dumps(res), flush=True)
         runs.append(res)
-    summary = {"card": card, "order": "old, new, new, old", "runs": runs}
+    summary = {"card": card, "order": "old, new, new, old", "runs": runs,
+               **{name: v for name, v in on.items() if v}}
     if a.out:
         with open(a.out, "w") as f:
             json.dump(summary, f, indent=1)

@@ -12,8 +12,9 @@ measurement in the order old, new, new, old, each building its
 checkout's K7.  A child times ``flash_attention`` with CUDA events
 (``event_ms`` of its ``chip_smoke.py``) at the reference's seven pins
 (``K7_PINS``), tinyllama-1.1b's prefill (``K7_PREFILL``) and decode at
-Lk = 1024 (``K7_DECODE``), recurrentgemma-2b's prefill and decode at
-head width 256 (``K7_RG_PREFILL``, ``K7_RG_DECODE``), and the serving
+Lk = 1024 (``K7_DECODE``), qwen3-moe's prefill at head width 128
+(``K7_MOE``), recurrentgemma-2b's prefill and decode at head width 256
+(``K7_RG_PREFILL``, ``K7_RG_DECODE``), and the serving
 decode over a bf16 cache
 read in place with the step's own key and value as the last row
 (``K7_CACHE``); then runs phase 18's ``forward`` of tinyllama-1.1b on
@@ -24,10 +25,22 @@ checkouts whose kernels should compute the same bits can be seen to.  It
 prints one JSON line per child and, last, a JSON summary with every
 child's numbers beside the card's name and power limit.  Needs a CUDA
 device.
+
+    python3 tools/pair_flash_attention.py OLD_ROOT NEW_ROOT --backward
+        [--out FILE]
+
+times K7's backward instead, at the timed shapes of phases 26 and 27
+(``K7_BWD_TIMED``: D = 64 and 128; ``K7_RG_PREFILL``: D = 256 with a
+2048-key window), on each checkout's ``k7_bwd_inputs``: the backward
+given what that checkout's train step gives it (the forward's lse, and
+its output where ``flash_attention_bwd`` takes ``o``), then SDPA's
+backward (``torch.autograd.grad`` on a retained graph; a window as a
+mask) in the same child, with a digest of each backward's outputs.
 """
 from __future__ import annotations
 
 import hashlib
+import inspect
 import os
 import sys
 import time
@@ -36,7 +49,48 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from pair_decision_kernels import pair_main  # noqa: E402
 
 
-def child(root: str) -> dict:
+def time_backward(cs, torch, bits) -> dict:
+    """K7's backward and SDPA's at the timed training shapes (µs)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_lse)
+
+    takes_o = "o" in inspect.signature(flash_attention_bwd).parameters
+    us, sdpa_us = {}, {}
+    for B, H, Hkv, Lq, Lk, D, causal, window in (list(cs.K7_BWD_TIMED)
+                                                 + [cs.K7_RG_PREFILL]):
+        q, k, v, do = cs.k7_bwd_inputs(torch, B, H, Hkv, Lq, Lk, D)
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+        given = dict(lse=lse, o=o) if takes_o else dict(lse=lse)
+        key = (f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} D={D} causal={causal} "
+               f"window={window}")
+
+        def call():
+            return flash_attention_bwd(q, k, v, do, causal=causal,
+                                       window=window, **given)
+
+        us[key] = 1e3 * cs.event_ms(torch, call, reps=20)
+        bits(key, torch.cat([g.flatten() for g in call()]))
+        qpos = np.arange(Lq)[:, None] + (Lk - Lq)
+        kpos = np.arange(Lk)[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        kw = (dict(is_causal=True) if window is None else
+              dict(attn_mask=torch.from_numpy(mask).cuda()))
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        os_ = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                             **kw)
+        sdpa_us[key] = 1e3 * cs.event_ms(torch, lambda: torch.autograd.grad(
+            os_, (qs, ks, vs), do, retain_graph=True), reps=20)
+        del os_, qs, ks, vs, q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return {"k7_bwd_us": us, "sdpa_bwd_us": sdpa_us, "takes_o": takes_o}
+
+
+def child(root: str, backward: bool = False) -> dict:
     """Measure the checkout at ``root`` (run in a process of its own)."""
     sys.path.insert(0, root)
     import chip_smoke as cs          # puts root/src first on sys.path
@@ -57,8 +111,12 @@ def child(root: str) -> dict:
             t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
         ).hexdigest()[:16]
 
+    if backward:
+        return dict(time_backward(cs, torch, bits), root=root,
+                    digest=digest)
     for B, H, Hkv, Lq, Lk, D, causal, window in (
             list(cs.K7_PINS) + [cs.K7_PREFILL, cs.K7_DECODE,
+                                cs.K7_MOE["qwen3-moe-235b-a22b"],
                                 cs.K7_RG_PREFILL, cs.K7_RG_DECODE]):
         rng = np.random.RandomState(Lq + Lk)
         q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
@@ -102,4 +160,5 @@ def child(root: str) -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(pair_main(child, __doc__.splitlines()[0], __file__))
+    sys.exit(pair_main(child, __doc__.splitlines()[0], __file__,
+                       {"backward": "time K7's backward instead"}))

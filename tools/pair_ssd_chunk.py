@@ -17,9 +17,19 @@ from seed 0) after a warm-up, three times, on the host clock ending in a
 sync.  It prints one JSON line per child and, last, a JSON summary with
 every child's numbers beside the card's name and power limit.  Needs a
 CUDA device.
+
+    python3 tools/pair_ssd_chunk.py OLD_ROOT NEW_ROOT --backward
+        [--out FILE]
+
+times K8's backward instead (``ssd_chunk_bwd`` on the operands and output
+gradients of each checkout's ``chip_smoke.k8_bwd_operands``) at every
+shape of ``K8_SHAPES`` and at mamba2-1.3b's training shape
+(``TRAIN_SSM_SHAPE``: B = 2, L = 1024), with a digest of each output so
+that equal bits show, and no forward.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 import time
@@ -28,7 +38,28 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from pair_decision_kernels import pair_main  # noqa: E402
 
 
-def child(root: str) -> dict:
+def time_backward(cs, torch) -> dict:
+    """K8's backward at ``K8_SHAPES`` and the training shape: µs and a
+    digest of each output a shape."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+
+    us, digest = {}, {}
+    B, L = cs.TRAIN_SSM_SHAPE
+    for shape in list(cs.K8_SHAPES) + [(B, L, 64, 64, 1, 128, 64)]:
+        args, hpg = cs.k8_bwd_operands(torch, *shape)
+        key = "B={} L={} H={} P={} G={} S={} Q={}".format(*shape)
+        us[key] = 1e3 * cs.event_ms(
+            torch, lambda: ssd_chunk_bwd(*args, heads_per_group=hpg))
+        h = hashlib.sha256()
+        for t in ssd_chunk_bwd(*args, heads_per_group=hpg):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digest[key] = h.hexdigest()[:16]
+        del args
+        torch.cuda.empty_cache()
+    return {"k8_bwd_us": us, "digest": digest}
+
+
+def child(root: str, backward: bool = False) -> dict:
     """Measure the checkout at ``root`` (run in a process of its own)."""
     sys.path.insert(0, root)
     import chip_smoke as cs          # puts root/src first on sys.path
@@ -42,6 +73,8 @@ def child(root: str) -> dict:
 
     _build.build(("ssd_chunk",))
     cs.no_tf32(torch)
+    if backward:
+        return dict(time_backward(cs, torch), root=root)
     us = {}
     for B, L, H, P, G, S, chunk in cs.K8_SHAPES:
         x, dt, A, Bm, Cm = (torch.from_numpy(a).cuda() for a in
@@ -73,4 +106,5 @@ def child(root: str) -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(pair_main(child, __doc__.splitlines()[0], __file__))
+    sys.exit(pair_main(child, __doc__.splitlines()[0], __file__,
+                       {"backward": "time K8's backward instead"}))

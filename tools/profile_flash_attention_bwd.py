@@ -2,7 +2,8 @@
 """Where K7's backward spends its time: each of its kernels (Δ, dk/dv,
 the sum of the dk/dv runs, dq) timed on the card under
 ``torch.profiler``, and the whole call with CUDA events, given the
-forward's lse (``flash_attention_lse``, as a train step runs it), at
+forward's lse and output (``flash_attention_lse``, as a train step runs
+it), at
 tinyllama-1.1b's prefill (B, H, Hkv, L, D) = (4, 32, 4, 1024, 64),
 qwen3-moe's (4, 64, 4, 1024, 128) and recurrentgemma-2b's (2, 10, 1,
 4096, 256) with its 2048-key window (the D = 256 passes), causal.
@@ -52,10 +53,11 @@ def main(argv=None) -> int:
     out = []
     for B, H, Hkv, L, D, window in SHAPES:
         q, k, v, do = cs.k7_bwd_inputs(torch, B, H, Hkv, L, L, D)
-        _, lse = flash_attention_lse(q, k, v, window=window)
+        o, lse = flash_attention_lse(q, k, v, window=window)
 
         def call():
-            return flash_attention_bwd(q, k, v, do, window=window, lse=lse)
+            return flash_attention_bwd(q, k, v, do, window=window, lse=lse,
+                                       o=o)
 
         ms = cs.event_ms(torch, call, reps=20)
         from torch.profiler import ProfilerActivity, profile
