@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100 (any
 ``sm_90a`` card) and the CUDA toolkit.  It imports neither JAX nor the JAX
-package, and runs twenty-seven phases; any failure raises and exits non-zero
+package, and runs twenty-eight phases; any failure raises and exits non-zero
 (``--only`` runs the build and the listed phases, and prints no result):
 
 1. build — compiles every CUDA kernel of the port from ``src/repro_torch/
@@ -51,7 +51,8 @@ package, and runs twenty-seven phases; any failure raises and exits non-zero
    choices exact; with γ = 0 each form equals K1 (K2) bit for bit; then
    the edge cases with 8 and 40 parents, without windows and with 8;
 9. DAG testbed — the frontier loop on the testbed (FunctionBench m=2400
-   at 60 qps, b=50): the chain (on the first 800 tasks: 800 waves),
+   at 60 qps, b=50): the chain (on the first ``CHAIN_TASKS`` tasks, a
+   wave each),
    fan-out and map-reduce shapes of the DAG
    benchmark without a LocalityModel and with γ = 2, a layered DAG under
    γ/bandwidth = 0.7/1.3, and map-reduce under γ = 2 and 25 outages (the
@@ -138,14 +139,15 @@ package, and runs twenty-seven phases; any failure raises and exits non-zero
    (48 K8 launches), ``decode_step`` launching no kernel (the one-token
    recurrence, as in the reference), decode within 5e-3 and its default
    cache float32;
-20. profiled scale runs — phases 4 and 7's card runs once more under
+20. profiled scale runs — phases 4 and 7's card runs once more, on their
+   first ``PROFILED_TASKS`` tasks, under
    ``torch.profiler`` (device activity): the decision kernel's total
    device time and launches, the device's busy share of the wall time,
    and the wall (inflated by the profiler); the timed runs of phases 4
    and 7 stay unprofiled;
 21. sequential oracle — ``simulate(mode="sequential")`` on the testbed
-   (the first 1 200 tasks of FunctionBench m=4000 at 300 qps, b=50) for
-   random, PoT, dodoor,
+   (the first ``SEQ_TASKS`` tasks of FunctionBench m=4000 at 300 qps,
+   b=50) for random, PoT, dodoor,
    (1+β) and Prequal on the card, each against the same run on the CPU
    (the ledger exact, placements exact or a candidate flip as in phase
    3, every time plane within rtol 1e-6 / atol 1e-3 up to a divergence)
@@ -288,6 +290,19 @@ package, and runs twenty-seven phases; any failure raises and exits non-zero
    qwen3-moe-235b-a22b (1 layer, a batch whose routes agree on both
    devices), qwen2-vl-2b and whisper-base, card against CPU, within phase
    26's gates.
+28. sizing and dry-run — (a) ``train.abstract_train_state`` (meta
+   tensors) of tinyllama-1.1b, mamba2-1.3b and the 6-layer
+   recurrentgemma-2b equal, leaf for leaf in shape and dtype, to the
+   state phases 26–27 trained; (b) the cost model
+   (``launch/costmodel.py`` on ``MeshDims(1, 1, 1)``, the roofline at
+   the H100's FP32 peak) and ``launch.dryrun.state_bytes`` at the
+   shapes those phases trained, beside each run's step time and peak
+   memory (the predicted state at most the peak), and recurrentgemma-2b's
+   state at full depth; (c) a world-1 NCCL group on an in-process store,
+   a (1, 1) ``DeviceMesh``, smollm-135m's parameters laid out by
+   ``sharding.to_shardings`` and resharded by ``ft.reshard`` onto
+   ``survivor_mesh(0, data=1, model=1)``, every value bit for bit; the
+   group destroyed after.
 
 The edge cases of the decision template (K1–K4 share it) hold the kernel
 to its plain version, every output exact, at (T, N) = (50, 1), (50, 31),
@@ -309,8 +324,8 @@ after: one launch per block.
 It prints the card's name and power limit, every phase's wall time, a
 ``profile`` JSON line of phase 20's readings, phase 21's
 ``message_reduction`` line and phase 22's ``message_reduction_batched``
-line, the readings of phases 23 to 27, a JSON line of per-kernel
-measurements, and as its last line
+line, the readings of phases 23 to 28 (phase 28's as a ``sizing`` JSON
+line), a JSON line of per-kernel measurements, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -327,10 +342,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Peak rates of one H100 SXM (NVIDIA data sheet) for the roofline bound.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-TF32_OPS_PER_S = 495e12
+# Peak rates of one H100 SXM (NVIDIA data sheet) for the roofline bound,
+# from the port's one source of them.
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_FP32 as FP32_OPS_PER_S,
+    PEAK_FLOPS_TF32 as TF32_OPS_PER_S)
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dodoor_fused_sparse.cu"
 KERNEL_SOURCES = {
     "rl_score_matrix": "src/repro_torch/kernels/csrc/rl_score.cu",
@@ -812,8 +828,9 @@ def testbed_phase(torch) -> None:
 #: card against the CPU on the first SCALE_CPU_TASKS of them (a run of the
 #: prefix on each device); phase 12 runs SCALE_CPU_TASKS tasks.  The
 #: script's time limit: at 200 000 the four CPU runs took 54–79 s each,
-#: and the whole script 1 118 s, on a slow host.
-SCALE_CPU_TASKS = 50_000
+#: and the whole script 1 118 s, on a slow host; 50 000 until the script
+#: passed 875 s again (948 s with 27 phases).
+SCALE_CPU_TASKS = 25_000
 
 
 def cpu_prefix(wl, cluster, cfg, dynamics=None, dag=None) -> tuple:
@@ -1034,8 +1051,15 @@ def busy_us(spans) -> float:
     return total
 
 
+#: Phase 20 profiles the first 50 000 of the 200 000 tasks of phases 4 and
+#: 7: the profiler's post-pass over 160 000 device events took ~70 s of
+#: the phase's 83 s (948 s for the whole script with 27 phases).
+PROFILED_TASKS = 50_000
+
+
 def profiled_phase(torch) -> dict:
-    """Phases 4 and 7 once more, untimed by them, under ``torch.profiler``
+    """Phases 4 and 7 once more on their first ``PROFILED_TASKS`` tasks,
+    untimed by them, under ``torch.profiler``
     (device activity only): the decision kernel's total device time and
     launches, the device's busy time (the union of its kernels' spans)
     and its share of the run's wall time, and the wall, which the
@@ -1050,6 +1074,7 @@ def profiled_phase(torch) -> dict:
     for name, setup in (("4 scale", scale_setup),
                         ("7 scale with dynamics", scale_dynamics_setup)):
         wl, cl, cfg, dyn = setup()
+        wl = head(wl, PROFILED_TASKS)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1117,10 +1142,11 @@ def gate_check(name, gpu, plan) -> None:
     check(np.isfinite(gpu.finish_ms).all(), f"{name}: non-finite finish")
 
 
-#: Phase 9's chain runs on the trace's first 800 tasks (800 waves of the
+#: Phase 9's chain runs on the trace's first 400 tasks (400 waves of the
 #: DAG benchmark's 2 400): the script's time limit (at 1 200 tasks here
-#: and 2 000 in phase 21 the whole script took 1 111 s on a slow host).
-CHAIN_TASKS = 800
+#: and 2 000 in phase 21 the whole script took 1 111 s on a slow host; at
+#: 800 here and 1 200 in phase 21, 948 s with 27 phases).
+CHAIN_TASKS = 400
 
 
 def dag_phase(torch, m: int = 2400) -> int:
@@ -2651,10 +2677,10 @@ def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
 # --------------------------------------------------------------------------
 
 SEQ_POLICIES = ("random", "pot", "dodoor", "one_plus_beta", "prequal")
-#: Phase 21's testbed runs take the first 1 200 tasks of phase 3's
+#: Phase 21's testbed runs take the first 800 tasks of phase 3's
 #: FunctionBench trace (m = 4 000): the script's time limit (see
 #: ``CHAIN_TASKS``).
-SEQ_TASKS = 1200
+SEQ_TASKS = 800
 #: tests/test_engine_batched.py:22's bound on the time planes.
 SEQ_RTOL, SEQ_ATOL = 1e-6, 1e-3
 #: The message-reduction point of benchmarks/bench_faults.py:86-145 (the
@@ -4070,7 +4096,16 @@ def train_run(torch, cfg, holder: dict, shape=None, want=None) -> dict:
           f"steps 1-{TRAIN_STEPS - 1}; first {walls[0] * 1e3:.1f} ms), "
           f"{B * L / ms * 1e3:.1f} tokens/s, peak memory "
           f"{peak / 1e9:.2f} GB, launches {counts}", flush=True)
-    return {"params": params, "counts": counts, "ms": ms, "peak": peak}
+    return {"params": params, "counts": counts, "ms": ms, "peak": peak,
+            "cfg": cfg, "shape": (B, L), "state": state_shapes((params, opt))}
+
+
+def state_shapes(tree) -> dict:
+    """{path: (shape, dtype)} of a tree of tensors (meta ones included)."""
+    from repro_torch.sharding import leaves_with_paths
+
+    return {path: (tuple(x.shape), x.dtype)
+            for path, x in leaves_with_paths(tree)}
 
 
 def train_copy(torch, cfg, params) -> None:
@@ -4216,7 +4251,7 @@ def training_phase(torch) -> tuple:
     refusals, and the forward's bias (F7), (b) tinyllama-1.1b training,
     (c) its 2-layer copy card against CPU, (d) the launcher twice, (e) the
     bf16 forward.  Returns (K7 forward launches, K7 backward launches,
-    backward rows)."""
+    backward rows, (b)'s run record for phase 28)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import registry
 
@@ -4237,7 +4272,7 @@ def training_phase(torch) -> tuple:
     torch.cuda.empty_cache()
     launcher_train_runs(torch)
     return (run["counts"]["flash_attention"],
-            run["counts"]["flash_attention_bwd"], rows)
+            run["counts"]["flash_attention_bwd"], rows, run)
 
 
 # --------------------------------------------------------------------------
@@ -4484,7 +4519,7 @@ def family_training_phase(torch) -> tuple:
     """Phase 27: (a) K8's backward, (b) K7's backward at head width 256,
     (c) mamba2-1.3b and recurrentgemma-2b trained on the card, (d) five
     copies card against CPU.  Returns (launches by kernel in (c), rows of
-    the kernels line)."""
+    the kernels line, (c)'s run records for phase 28)."""
     from dataclasses import replace
 
     from repro_torch.configs import ARCHS
@@ -4500,7 +4535,7 @@ def family_training_phase(torch) -> tuple:
     rows.append(dict(k7_bwd_case(torch, *K7_RG_PREFILL, timed=True),
                      name="flash_attention_bwd_d256"))
     torch.cuda.empty_cache()
-    launches = {}
+    launches, records = {}, []
     ssm = ARCHS["mamba2-1.3b"]
     hybrid = replace(ARCHS["recurrentgemma-2b"],
                      n_layers=TRAIN_HYBRID_LAYERS)
@@ -4516,12 +4551,157 @@ def family_training_phase(torch) -> tuple:
         run = train_run(torch, cfg, holder, shape=shape, want=want)
         for k, n in run["counts"].items():
             launches[k] = launches.get(k, 0) + n
-        del run, holder
+        del run["params"], holder
+        records.append(run)
         torch.cuda.empty_cache()
     for name in TRAIN_COPIES:
         family_copy(torch, name)
         torch.cuda.empty_cache()
-    return launches, rows
+    return launches, rows, records
+
+
+# --------------------------------------------------------------------------
+# phase 28: sizing and the dry-run's tooling beside what the card did
+# --------------------------------------------------------------------------
+
+#: (c): the model whose parameters go through ``to_shardings`` and
+#: ``reshard`` on the card (full width and depth: 135 M parameters).
+SHARD_ARCH = "smollm-135m"
+
+
+def sizing_phase(torch, trained) -> dict:
+    """Phase 28: (a) ``abstract_train_state`` of every model phases 26-27
+    trained (``trained``: their run records) against the state they
+    allocated, leaf for leaf in shape and dtype; (b) the cost model and
+    ``state_bytes`` of each run on one card beside its measured step and
+    peak memory (predicted state ≤ peak), and recurrentgemma-2b's state at
+    full depth; (c) a world-1 NCCL group and a (1, 1) ``DeviceMesh``:
+    ``SHARD_ARCH``'s parameters laid out by ``to_shardings``, resharded
+    through ``survivor_mesh(0, data=1, model=1)``, bit for bit.  Returns
+    the figures of (b)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import costmodel as cm
+    from repro_torch.launch.dryrun import state_bytes
+    from repro_torch.launch.hlo_analysis import roofline_terms
+    from repro_torch.launch.mesh import (HBM_BW, LINK_BW, PEAK_FLOPS_BF16,
+                                         make_mesh)
+    from repro_torch.train import abstract_train_state
+
+    check(trained and all(r is not None for r in trained),
+          "phase 28 reads phases 26 and 27's runs: run it with them "
+          "(--only 26,27,28)")
+    one = make_mesh((1, 1), ("data", "model"))
+    dims = cm.MeshDims(data=1, model=1, chips=1)
+    figures = []
+    for run in trained:
+        cfg, (B, L) = run["cfg"], run["shape"]
+        t0 = time.perf_counter()
+        meta = state_shapes(abstract_train_state(cfg))
+        check(meta == run["state"], f"sizing {cfg.name}: the meta state "
+              f"differs from the trained one in "
+              f"{sorted(set(meta.items()) ^ set(run['state'].items()))[:4]}")
+        shape = ShapeSpec(f"train_{B}x{L}", L, B, "train")
+        # The port checkpoints each layer of the transformer families
+        # only; the SSM and the hybrid keep their activations.
+        opts = cm.PerfOpts(remat=cfg.family in ("dense", "moe", "vlm"))
+        flops = cm.flops_per_device(cfg, shape, dims, opts)
+        nbytes = cm.bytes_per_device(cfg, shape, dims, opts)
+        terms = roofline_terms(flops, nbytes, 0.0,
+                               peak_flops=PEAK_FLOPS_BF16 * opts.peak_scale,
+                               hbm_bw=HBM_BW, link_bw=LINK_BW)
+        parts = state_bytes(cfg, shape, one)
+        predicted = sum(parts.values())
+        sized_s = time.perf_counter() - t0
+        bound_ms = 1e3 * max(terms["compute_s"], terms["memory_s"])
+        check(predicted <= run["peak"], f"sizing {cfg.name}: predicted "
+              f"state {predicted} B above the measured peak {run['peak']} B")
+        row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, L],
+               "remat": opts.remat, "flops": flops, "hbm_bytes": nbytes,
+               "compute_s": terms["compute_s"],
+               "memory_s": terms["memory_s"], "state_bytes": predicted,
+               "state_bytes_by_part": parts, "step_ms": run["ms"],
+               "peak_bytes": run["peak"],
+               "measured_over_bound": run["ms"] / bound_ms}
+        figures.append(row)
+        print(f"sizing {cfg.name} ({cfg.n_layers} layers, {B} x {L}, remat "
+              f"{opts.remat}): meta state = trained state ({len(meta)} "
+              f"leaves); cost model {flops / 1e12:.3f} Tflop, "
+              f"{nbytes / 1e9:.3f} GB of HBM traffic: compute_s "
+              f"{terms['compute_s']:.6f} (FP32 peak), memory_s "
+              f"{terms['memory_s']:.6f}; measured {run['ms']:.1f} ms a step "
+              f"= {row['measured_over_bound']:.3f}x the bound; state "
+              f"{predicted / 1e9:.3f} GB predicted ({parts}) against a "
+              f"{run['peak'] / 1e9:.3f} GB peak "
+              f"({predicted / run['peak']:.3f}); sized in {sized_s:.2f} s",
+              flush=True)
+    rg = ARCHS["recurrentgemma-2b"]
+    parts = state_bytes(rg, ShapeSpec("train_1x4096", 4096, 1, "train"), one)
+    full = {"arch": rg.name, "layers": rg.n_layers,
+            "state_bytes": sum(parts.values()), "state_bytes_by_part": parts,
+            "seven_copies_bytes": 7 * parts["params"]}
+    figures.append(full)
+    print(f"sizing {rg.name} at full depth ({rg.n_layers} layers) on one "
+          f"card: params + AdamW state + a 1 x 4096 batch "
+          f"{full['state_bytes'] / 1e9:.3f} GB ({parts}); with gradients "
+          f"and AdamW's new state beside the old (7 float32 copies) "
+          f"{full['seven_copies_bytes'] / 1e9:.3f} GB against "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.3f} "
+          f"GB on the card", flush=True)
+    shard_round_trip(torch, "nccl", "cuda")
+    return {"sizing": figures}
+
+
+def shard_round_trip(torch, backend: str, device: str) -> None:
+    """(c): a world-1 process group on an in-process store (no address, no
+    port) and the loopback device, a (1, 1) ``DeviceMesh`` on ``device``,
+    ``SHARD_ARCH``'s parameters placed by ``to_shardings`` and resharded
+    through ``survivor_mesh(0, data=1, model=1)``: every value bit for bit
+    on ``device``.  The group is destroyed after, also on failure."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.ft import reshard, survivor_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.sharding import (leaves_with_paths, param_specs,
+                                      to_shardings)
+
+    check(not dist.is_initialized(), "a process group is already up")
+    for var in ("NCCL_SOCKET_IFNAME", "GLOO_SOCKET_IFNAME"):
+        os.environ.setdefault(var, "lo")
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        dm = mesh.device_mesh(device)
+        params = registry.init_params(ARCHS[SHARD_ARCH], 0, device=device)
+        shardings = dict(leaves_with_paths(to_shardings(
+            param_specs(params, mesh), dm)))
+        placed = {path: distribute_tensor(x, dm, shardings[path].placements)
+                  for path, x in leaves_with_paths(params)}
+        new_mesh, new_data = survivor_mesh(0, data=1, model=1)
+        check(new_data == 1, f"survivor mesh: {new_data} data slices")
+        out = reshard(placed, new_mesh)
+        leaves = dict(leaves_with_paths(params))
+        for path, x in out.items():
+            check(isinstance(x, DTensor)
+                  and x.device_mesh.mesh_dim_names == ("data", "model"),
+                  f"reshard: {path} is not a DTensor on the survivor mesh")
+            full = x.full_tensor()
+            check(full.device.type == device
+                  and full.dtype == leaves[path].dtype
+                  and torch.equal(full, leaves[path]),
+                  f"reshard: {path} differs after the round trip")
+        n = sum(x.numel() for x in leaves.values())
+    finally:
+        dist.destroy_process_group()
+    print(f"sharding on {device} ({backend}, world 1): {len(leaves)} "
+          f"tensors, {n} values of {SHARD_ARCH} through to_shardings and "
+          f"reshard onto survivor_mesh(0, data=1, model=1), bit for bit, in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def head_of(res, k: int):
@@ -4537,7 +4717,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-27) to run after "
+                    help="comma-separated phase numbers (2-28) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -4614,6 +4794,9 @@ def main(argv=None) -> int:
     fam = phase("25 VLM, hybrid and audio serving", families_phase)
     train = phase("26 training", training_phase)
     fam_train = phase("27 training of every family", family_training_phase)
+    sizing = phase("28 sizing and dry-run", sizing_phase,
+                   [train and train[3], *(fam_train[2] if fam_train
+                                          else [None])])
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "
@@ -4647,6 +4830,7 @@ def main(argv=None) -> int:
             "bound_by": big["bound_by"],
             "library_ms": big.get("library_ms")})
     print("profile " + json.dumps({"profiled": profiled}), flush=True)
+    print("sizing " + json.dumps(sizing), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

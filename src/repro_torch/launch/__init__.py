@@ -1,3 +1,4 @@
 """repro_torch.launch — command-line entry points of the port (``serve``,
-``train``), counterpart of ``repro.launch``.  The reference's dry-run,
-mesh and cost-model entry points are not ported (ROADMAP §1 item 7)."""
+``train``, ``dryrun``), the H100 mesh and its peak rates (``mesh``) and
+the analytic cost model (``costmodel``, ``hlo_analysis.roofline_terms``),
+counterpart of ``repro.launch``."""

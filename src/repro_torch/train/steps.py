@@ -10,9 +10,9 @@ Gradients come from ``torch.autograd`` through the port's forward: on the
 card every attention layer's forward is K7 and its backward the
 hand-written backward kernels (``kernels.flash_attention``), and every
 Mamba-2 mixer's intra-chunk block K8 with its hand-written backward
-(``kernels.ssd_chunk``); a bf16 call needing a gradient raises.  The
-reference's ``abstract_train_state`` is dry-run tooling and is not
-ported (ROADMAP §1 item 7).
+(``kernels.ssd_chunk``); a bf16 call needing a gradient raises.
+``abstract_train_state`` gives the state's shapes and dtypes on the
+``meta`` device, with no storage, for the dry-run.
 """
 from __future__ import annotations
 
@@ -121,4 +121,11 @@ def init_train_state(cfg: ModelConfig, seed=0, *, device=None):
     """(params, AdamW state) from a seed, on the card unless the caller
     passes ``device="cpu"``."""
     params = registry.init_params(cfg, seed, device=device)
+    return params, adamw_init(params)
+
+
+def abstract_train_state(cfg: ModelConfig):
+    """(params, AdamW state) on the ``meta`` device: the reference's
+    shapes and dtypes, with no storage (the dry-run's path)."""
+    params = registry.abstract_params(cfg)
     return params, adamw_init(params)
