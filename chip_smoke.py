@@ -50,8 +50,8 @@ package, and runs twenty-eight phases; any failure raises and exits non-zero
    non-integer MB and γ/bandwidth = 0.7/1.3: candidates, scores and
    choices exact; with γ = 0 each form equals K1 (K2) bit for bit; then
    the edge cases with 8 and 40 parents, without windows and with 8;
-9. DAG testbed — the frontier loop on the testbed (FunctionBench m=2400
-   at 60 qps, b=50): the chain (on the first ``CHAIN_TASKS`` tasks, a
+9. DAG testbed — the frontier loop on the testbed (FunctionBench
+   m=``DAG_TASKS`` at 60 qps, b=50): the chain (on the first ``CHAIN_TASKS`` tasks, a
    wave each),
    fan-out and map-reduce shapes of the DAG
    benchmark without a LocalityModel and with γ = 2, a layered DAG under
@@ -162,8 +162,9 @@ package, and runs twenty-eight phases; any failure raises and exits non-zero
    bins, β ∈ {1, 0.5}), its loads against the CPU's bit for bit, with no
    more host syncs for 300 balls than for 100.
 22. batched probing and serving — PoT's speculative commit and Prequal's
-   segment scan on the batched driver: on the testbed (FunctionBench
-   m=4000 at 300 qps, b=50) each card run against its CPU run bit for
+   segment scan on the batched driver: on the testbed (the first
+   ``PROBE_TASKS`` tasks of FunctionBench m=4000 at 300 qps, b=50) each
+   card run against its CPU run bit for
    bit and against the sequential oracle on the CPU (ledger and
    placements exact, time planes within rtol 1e-6 / atol 1e-3, printed
    whether bit for bit), no kernel launched, and no host sync beyond one
@@ -195,7 +196,8 @@ package, and runs twenty-eight phases; any failure raises and exits non-zero
    each against its CPU run and launching no kernel, and the service
    under the same dynamics against ``simulate`` on the card; (c)
    ``benchmarks/bench_study.py``'s 18-point grid (seeds 0, 1 × α 0.3,
-   0.5, 0.7 × steady / bursty MMPP / outage storm, m = 3000) through
+   0.5, 0.7 × steady / bursty MMPP / outage storm, m = ``STUDY_TASKS``)
+   through
    ``run_study`` on the card, every point equal to the card's
    ``run_scenario`` (both walls printed, K1 and K2 launches counted),
    ``simulate_many`` traced over b ∈ {25, 50} × α ∈ {0.5, 1.0} against
@@ -253,7 +255,8 @@ package, and runs twenty-eight phases; any failure raises and exits non-zero
    against ``attention_lse_ref`` and its output equal to the forward's
    without lse, two calls bit for bit, the backward given the forward's
    lse and output timed beside the plain version and SDPA's backward; a
-   bf16 call and ``kv_last`` under grad each raise before any launch; the
+   bf16 call at head width 256 and ``kv_last`` under grad each raise
+   before any launch; the
    forward's output against float64 attention at ``K7_BIAS_SHAPES``, its
    mean signed error within ``K7_BIAS_MAX`` (F7); (b)
    tinyllama-1.1b trained at full width and depth
@@ -284,8 +287,10 @@ package, and runs twenty-eight phases; any failure raises and exits non-zero
    width and depth and recurrentgemma-2b at full width
    (``TRAIN_HYBRID_LAYERS`` deep) trained ``TRAIN_STEPS`` steps on
    ``SyntheticLM`` (lr 1e-3, cosine): finite losses, the last below the
-   first, launches a step 48 K8 and 48 K8 backward, and one K7 forward
-   and one backward an attention layer; ms a step, tokens/s, peak memory;
+   first, launches a step (remat checkpoints every layer or block, F9)
+   96 K8 (48 and their recomputation) and 48 K8 backward, and two K7
+   forwards and one backward an attention layer; ms a step, tokens/s,
+   peak memory beside the peaks without remat (``NO_REMAT_PEAK_GB``);
    (d) one train step of cut copies of mamba2-1.3b, recurrentgemma-2b,
    qwen3-moe-235b-a22b (1 layer, a batch whose routes agree on both
    devices), qwen2-vl-2b and whisper-base, card against CPU, within phase
@@ -294,8 +299,9 @@ package, and runs twenty-eight phases; any failure raises and exits non-zero
    tensors) of tinyllama-1.1b, mamba2-1.3b and the 6-layer
    recurrentgemma-2b equal, leaf for leaf in shape and dtype, to the
    state phases 26–27 trained; (b) the cost model
-   (``launch/costmodel.py`` on ``MeshDims(1, 1, 1)``, the roofline at
-   the H100's FP32 peak) and ``launch.dryrun.state_bytes`` at the
+   (``launch/costmodel.py`` on ``MeshDims(1, 1, 1)`` with remat for
+   every family, the roofline at the H100's FP32 peak) and
+   ``launch.dryrun.state_bytes`` at the
    shapes those phases trained, beside each run's step time and peak
    memory (the predicted state at most the peak), and recurrentgemma-2b's
    state at full depth; (c) a world-1 NCCL group on an in-process store,
@@ -303,6 +309,26 @@ package, and runs twenty-eight phases; any failure raises and exits non-zero
    ``sharding.to_shardings`` and resharded by ``ft.reshard`` onto
    ``survivor_mesh(0, data=1, model=1)``, every value bit for bit; the
    group destroyed after.
+29. bf16 training — (a) K7's bf16 backward (bf16 q, k, v, dO; the
+   forward under grad also writes its output unrounded in float32)
+   against ``attention_bwd_ref`` on the widened operands at
+   ``K7_BWD_CASES``, each of dq, dk, dv within 2e-4·|ref| +
+   2e-5·max|ref| plus one bf16 rounding of |ref|, bf16, autograd equal to
+   the wrapper, the bf16 output the float32 one rounded once; at
+   ``K7_BWD_TIMED`` two calls bit for bit and the backward timed beside
+   the plain version, the float32 backward on the same values and SDPA's
+   bf16 backward; (b) tinyllama-1.1b trained as in phase 26 (b) under
+   ``precision.options(dtype=torch.bfloat16)``: finite, falling losses,
+   44 K7 forwards and 22 bf16 backwards a step, ms a step, tokens/s, peak
+   memory beside the cost model's bf16 bound; (c) qwen3-moe-235b-a22b at
+   full width cut to ``BF16_MOE_LAYERS`` layers, ``BF16_MOE_STEPS``
+   bf16 steps of ``loss_and_grads`` and a sign update on one batch (its
+   AdamW state does not fit): finite, falling losses, two K7 forwards
+   and one backward a layer-step, ms, tokens/s, peak, bound; (d) bf16
+   copies of tinyllama-1.1b (2 layers) and qwen3-moe (1 layer, a batch
+   whose routes agree), card against CPU, within the band of
+   ``tests/test_torch_bf16_grad.py``; a ``bf16`` JSON line of (b) and
+   (c).
 
 The edge cases of the decision template (K1–K4 share it) hold the kernel
 to its plain version, every output exact, at (T, N) = (50, 1), (50, 31),
@@ -324,8 +350,9 @@ after: one launch per block.
 It prints the card's name and power limit, every phase's wall time, a
 ``profile`` JSON line of phase 20's readings, phase 21's
 ``message_reduction`` line and phase 22's ``message_reduction_batched``
-line, the readings of phases 23 to 28 (phase 28's as a ``sizing`` JSON
-line), a JSON line of per-kernel measurements, and as its last line
+line, the readings of phases 23 to 29 (phase 28's as a ``sizing`` JSON
+line, phase 29's as a ``bf16`` one), a JSON line of per-kernel
+measurements, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -345,14 +372,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # Peak rates of one H100 SXM (NVIDIA data sheet) for the roofline bound,
 # from the port's one source of them.
 from repro_torch.launch.mesh import (  # noqa: E402
-    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_FP32 as FP32_OPS_PER_S,
-    PEAK_FLOPS_TF32 as TF32_OPS_PER_S)
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_OPS_PER_S,
+    PEAK_FLOPS_FP32 as FP32_OPS_PER_S, PEAK_FLOPS_TF32 as TF32_OPS_PER_S)
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dodoor_fused_sparse.cu"
 KERNEL_SOURCES = {
     "rl_score_matrix": "src/repro_torch/kernels/csrc/rl_score.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_bwd_d256":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd_bf16":
         "src/repro_torch/kernels/csrc/flash_attention.cu",
     "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
     "ssd_chunk_bwd": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
@@ -374,6 +403,8 @@ KERNEL_REPLACES = {
     # the reference differentiates its jnp attention instead.
     "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:87",
     "flash_attention_bwd_d256":
+        "src/repro/kernels/flash_attention/kernel.py:87",
+    "flash_attention_bwd_bf16":
         "src/repro/kernels/flash_attention/kernel.py:87",
     "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:65",
     # K8's backward: the Pallas kernel has no backward either; the
@@ -829,8 +860,9 @@ def testbed_phase(torch) -> None:
 #: prefix on each device); phase 12 runs SCALE_CPU_TASKS tasks.  The
 #: script's time limit: at 200 000 the four CPU runs took 54–79 s each,
 #: and the whole script 1 118 s, on a slow host; 50 000 until the script
-#: passed 875 s again (948 s with 27 phases).
-SCALE_CPU_TASKS = 25_000
+#: passed 875 s again (948 s with 27 phases), 25 000 until the whole
+#: script took 924.6 s on a slow host with 29 phases.
+SCALE_CPU_TASKS = 12_500
 
 
 def cpu_prefix(wl, cluster, cfg, dynamics=None, dag=None) -> tuple:
@@ -1051,10 +1083,12 @@ def busy_us(spans) -> float:
     return total
 
 
-#: Phase 20 profiles the first 50 000 of the 200 000 tasks of phases 4 and
-#: 7: the profiler's post-pass over 160 000 device events took ~70 s of
-#: the phase's 83 s (948 s for the whole script with 27 phases).
-PROFILED_TASKS = 50_000
+#: Phase 20 profiles the first PROFILED_TASKS of the 200 000 tasks of
+#: phases 4 and 7: the profiler's post-pass over 160 000 device events took
+#: ~70 s of the phase's 83 s (948 s for the whole script with 27 phases);
+#: 50 000 until the script took 924.6 s on a slow host with 29 phases
+#: (the phase 16.9-24.9 s).
+PROFILED_TASKS = 25_000
 
 
 def profiled_phase(torch) -> dict:
@@ -1147,9 +1181,15 @@ def gate_check(name, gpu, plan) -> None:
 #: and 2 000 in phase 21 the whole script took 1 111 s on a slow host; at
 #: 800 here and 1 200 in phase 21, 948 s with 27 phases).
 CHAIN_TASKS = 400
+#: Phase 9's other shapes run on a FunctionBench trace of DAG_TASKS tasks
+#: (the DAG benchmark's 2 400 before phase 29): the script's time limit.
+#: With phase 29 and 2 400 tasks the whole script took 933.0 s on a slow
+#: host (H100 80GB HBM3, 700 W), phase 9 83.3 s of it, half of it the CPU
+#: runs.
+DAG_TASKS = 1200
 
 
-def dag_phase(torch, m: int = 2400) -> int:
+def dag_phase(torch, m: int = DAG_TASKS) -> int:
     """Phase 9: the shapes of the DAG benchmark on the testbed, each
     without a LocalityModel and with γ = 2 (the chain cut to
     ``CHAIN_TASKS``); a layered DAG under γ/bw = 0.7/1.3 with non-integer
@@ -2677,10 +2717,10 @@ def serving_phase(torch, name: str, kernel: str, B: int, L: int) -> int:
 # --------------------------------------------------------------------------
 
 SEQ_POLICIES = ("random", "pot", "dodoor", "one_plus_beta", "prequal")
-#: Phase 21's testbed runs take the first 800 tasks of phase 3's
+#: Phase 21's testbed runs take the first SEQ_TASKS tasks of phase 3's
 #: FunctionBench trace (m = 4 000): the script's time limit (see
-#: ``CHAIN_TASKS``).
-SEQ_TASKS = 800
+#: ``CHAIN_TASKS`` and ``DAG_TASKS``; 1 200 with 27 phases, 800 with 28).
+SEQ_TASKS = 400
 #: tests/test_engine_batched.py:22's bound on the time planes.
 SEQ_RTOL, SEQ_ATOL = 1e-6, 1e-3
 #: The message-reduction point of benchmarks/bench_faults.py:86-145 (the
@@ -2949,6 +2989,14 @@ def served(torch, wl, cluster, cfg, chunk: int) -> tuple:
     return svc, res, wall, dict(LAUNCHES)
 
 
+#: Phase 22's testbed runs (a, d) take the first PROBE_TASKS tasks of
+#: phase 3's FunctionBench trace (m = 4 000 before phase 29): the script's
+#: time limit (see ``DAG_TASKS``; at 4 000 the phase took 86.8-125.4 s on
+#: an H100 80GB HBM3 at 700 W).  The service's checkpoint stays at task
+#: 2 000.
+PROBE_TASKS = 2400
+
+
 def probing_phase(torch) -> dict:
     """Phase 22: (a) PoT and Prequal on the batched driver on the testbed,
     each card run against its CPU run (bit for bit) and against the
@@ -2965,7 +3013,7 @@ def probing_phase(torch) -> dict:
 
     out = {}
     tb = make_testbed()
-    wl = functionbench.synthesize(m=4000, qps=300.0)
+    wl = head(functionbench.synthesize(m=4000, qps=300.0), PROBE_TASKS)
     m = wl.r_submit.shape[0]
     for policy in ("pot", "prequal"):
         cfg = EngineConfig(policy=policy, b=50)
@@ -3294,6 +3342,13 @@ def fault_runs(torch) -> dict:
     return out
 
 
+#: Phase 23 (c)'s trace: FunctionBench m = STUDY_TASKS at 60 qps
+#: (bench_study.py's 3 000 before phase 29): the script's time limit (see
+#: ``DAG_TASKS``).  Every point is held to its ``run_scenario``, which no
+#: trace length changes.
+STUDY_TASKS = 1500
+
+
 def grid_runs(torch) -> dict:
     """Phase 23 (c): ``bench_study.py``'s 18-point grid on the card, each
     point against the card's ``run_scenario`` (walls of both); the
@@ -3313,7 +3368,7 @@ def grid_runs(torch) -> dict:
     out = {}
     tb = make_testbed()
     n, qps = tb.num_servers, 60.0
-    base = functionbench.synthesize(m=3000, qps=qps, seed=0)
+    base = functionbench.synthesize(m=STUDY_TASKS, qps=qps, seed=0)
     H = float(base.submit_ms[-1])
     # benchmarks/bench_study.py:53-65
     configs = tuple(EngineConfig(policy="dodoor", b=n // 2, alpha=a)
@@ -3344,15 +3399,15 @@ def grid_runs(torch) -> dict:
             for ki, sc in enumerate(scens):
                 exact_check(f"study point {si},{gi},{sc.name}",
                             st.point(si, gi, ki), next(it))
-    blocks = 3000 // 50
+    blocks = STUDY_TASKS // 50
     want = {"dodoor_fused_sparse": 2 * 3 * 2 * blocks,
             "dodoor_fused_sparse_masked": 2 * 3 * blocks}
     check(counts == want, f"study launches {counts}, want {want}")
     points = len(loop)
     out["study"] = (w_study, w_loop)
-    print(f"study: {points} points (bench_study grid, m=3000) in "
+    print(f"study: {points} points (bench_study grid, m={STUDY_TASKS}) in "
           f"{w_study:.3f} s, nested run_scenario loop {w_loop:.3f} s "
-          f"({w_loop / w_study:.3f}x), {points * 3000 / w_study:.1f} "
+          f"({w_loop / w_study:.3f}x), {points * STUDY_TASKS / w_study:.1f} "
           f"decisions/s, launches {counts}, every point bit for bit equal "
           f"to run_scenario on the card", flush=True)
 
@@ -4023,8 +4078,9 @@ def k7_bwd_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
 
 def k7_bwd_refusals(torch) -> None:
     """What the card cannot differentiate raises before any launch: a
-    bf16 call and ``kv_last`` under grad (head width 256 and K8 have
-    backwards since phase 27's kernels, which it checks)."""
+    bf16 call at head width 256 (the bf16 backward is built for 32-128,
+    phase 29) and ``kv_last`` under grad (head width 256 in float32 and
+    K8 have backwards since phase 27's kernels, which it checks)."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -4046,7 +4102,7 @@ def k7_bwd_refusals(torch) -> None:
         return lambda: flash_attention(q.requires_grad_(True), k, v,
                                        kv_last=kv)
 
-    refused("bf16 backward", attn(64, torch.bfloat16))
+    refused("bf16 backward at head width 256", attn(256, torch.bfloat16))
     refused("kv_last with grad", attn(64, torch.float32, last=True))
 
 
@@ -4294,10 +4350,14 @@ K8_BWD_NAMES = ("dx", "ddelta", "ddt", "dB", "dC")
 #: cumulative sum of differences.
 K8_BWD_RTOL, K8_BWD_ATOL_OF_MAX = 2e-4, 2e-5
 #: (c): mamba2-1.3b trained at full width and depth (48 layers) on B × L
-#: tokens a step; K8's backward is timed at this shape in (a).  remat has
-#: no effect in the family (as in the reference), so every layer keeps its
-#: activations for the backward.
+#: tokens a step; K8's backward is timed at this shape in (a).  With remat
+#: (F9 closed) each layer is checkpointed, as the reference's is:
+#: K8 runs twice a layer-step (the forward and its recomputation).
 TRAIN_SSM_SHAPE = (2, 1024)
+#: Phase 27's peaks while ``remat`` did nothing in these families (F9;
+#: H100 80GB HBM3 at 700 W), printed beside this run's: every layer's
+#: activations were kept.
+NO_REMAT_PEAK_GB = {"mamba2-1.3b": 52.45, "recurrentgemma-2b": 37.37}
 #: (b): K7's backward at head width 256 against ``attention_bwd_ref``:
 #: GQA over one KV head, causal with a window and Lq < Lk, non-causal,
 #: non-causal Lq < Lk with a window, a group of 16 rows, and 5 000 rows a
@@ -4320,9 +4380,10 @@ TRAIN_HYBRID_LAYERS = 6
 TRAIN_HYBRID_SHAPE = (1, 4096)
 #: (d): the copies, card against CPU, (B, L) each: mamba2 and qwen2-vl at
 #: 2 layers, recurrentgemma one (R, R, A) block, whisper two encoder and
-#: two decoder layers (``two_layers``), qwen3-moe 1 layer.
+#: two decoder layers (``two_layers``), qwen3-moe 1 layer (1 × 128: at
+#: 1 × 256 its CPU side took 20.4 s).
 TRAIN_COPIES = {"mamba2-1.3b": (2, 256), "recurrentgemma-2b": (1, 300),
-                "qwen3-moe-235b-a22b": (1, 256), "qwen2-vl-2b": (1, 128),
+                "qwen3-moe-235b-a22b": (1, 128), "qwen2-vl-2b": (1, 128),
                 "whisper-base": (1, 64)}
 #: The MoE copy's batch: seeds tried in turn until every (token, choice)
 #: route of the forward agrees, card and CPU (a flipped route moves the
@@ -4438,21 +4499,35 @@ def copy_config(cfg):
     return replace(cfg, n_layers=2)
 
 
-def family_copy(torch, name: str) -> None:
+def family_copy(torch, name: str, shape=None, dtype=None,
+                loss_rtol: float = TRAIN_LOSS_RTOL,
+                grad_of_max: float = TRAIN_GRAD_OF_MAX,
+                seeds: int = TRAIN_MOE_SEEDS) -> None:
     """(d): one train step's loss and gradients (``loss_and_grads``) of a
     cut copy of ``name`` at full width, weights from a seed, on the card
-    against the CPU: the loss within ``TRAIN_LOSS_RTOL`` and each
-    gradient leaf within ``TRAIN_GRAD_OF_MAX`` of its largest value.  The
-    MoE's batch is the first of ``TRAIN_MOE_SEEDS`` whose routes agree on
-    both devices (and the step's own routes are compared again)."""
+    against the CPU: the loss within ``loss_rtol`` and each gradient leaf
+    within ``grad_of_max`` of its largest value.  The MoE's batch is the
+    first of ``seeds`` whose routes agree on both devices (read from a
+    ``forward`` without the unembedding, which no route depends on; the
+    step's own routes are compared again); in float32 each try's share
+    of differing routes is also bounded by ``MOE_ROUTE_SHARE``.
+    ``shape``: (B, L), ``TRAIN_COPIES``' by default; ``dtype``: the
+    compute dtype of both sides (``precision.options``; phase 29's bf16
+    copies), float32 by default."""
+    import contextlib
+
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.models import registry
+    from repro_torch.models import precision, registry
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.train import loss_and_grads
 
     cfg = copy_config(ARCHS[name])
-    B, L = TRAIN_COPIES[name]
+    B, L = shape or TRAIN_COPIES[name]
+
+    def opts():
+        return (precision.options(dtype=dtype) if dtype is not None
+                else contextlib.nullcontext())
     params = registry.init_params(cfg, 1, device="cuda")
     t0 = time.perf_counter()
     cpu_p = tree_map(lambda a: a.cpu(), params)
@@ -4464,43 +4539,55 @@ def family_copy(torch, name: str) -> None:
                                for r in rec]) if rec else None
 
     seed, tries = 11, []
-    for seed in range(11, 11 + (TRAIN_MOE_SEEDS if moe else 1)):
+    if moe:
+        # The probes' weights, cast to the compute dtype once (``forward``
+        # casts them again, which leaves a tensor of that dtype as it is).
+        with opts():
+            probe_p, probe_c = (precision.cast_params(p)
+                                for p in (params, cpu_p))
+    for seed in range(11, 11 + (seeds if moe else 1)):
         batch = family_train_batch(torch, cfg, B, L, seed, "cuda")
         cpu_b = {k: v.cpu() for k, v in batch.items()}
         if not moe:
             break
-        with torch.no_grad():
-            _, g_r = routes(lambda: registry.forward(cfg, params, batch))
-            _, c_r = routes(lambda: registry.forward(cfg, cpu_p, cpu_b))
+        with torch.no_grad(), opts():
+            _, g_r = routes(lambda: registry.forward(cfg, probe_p, batch,
+                                                     unembed=False))
+            _, c_r = routes(lambda: registry.forward(cfg, probe_c, cpu_b,
+                                                     unembed=False))
         share = float((g_r != c_r).float().mean())
-        check(share <= MOE_ROUTE_SHARE, f"train copy {name}: {share:.4g} of "
-              f"the routes differ (bound {MOE_ROUTE_SHARE})")
+        check(dtype is not None or share <= MOE_ROUTE_SHARE, f"train copy "
+              f"{name}: {share:.4g} of the routes differ (bound "
+              f"{MOE_ROUTE_SHARE})")
         tries.append(share)
         if share == 0.0:
             break
     else:
         raise RuntimeError(f"chip_smoke: train copy {name}: no batch of "
-                           f"{TRAIN_MOE_SEEDS} seeds with every route equal "
+                           f"{seeds} seeds with every route equal "
                            f"(shares {tries})")
+    if moe:
+        del probe_p, probe_c
     LAUNCHES.clear()
-    (total, ce, g_card), g_r = routes(lambda: loss_and_grads(cfg, params,
-                                                             batch))
-    torch.cuda.synchronize()
-    counts = dict(LAUNCHES)
-    (c_total, c_ce, g_cpu), c_r = routes(lambda: loss_and_grads(
-        cfg, cpu_p, cpu_b))
+    with opts():
+        (total, ce, g_card), g_r = routes(lambda: loss_and_grads(
+            cfg, params, batch))
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        (c_total, c_ce, g_cpu), c_r = routes(lambda: loss_and_grads(
+            cfg, cpu_p, cpu_b))
     cpu_s = time.perf_counter() - t0
     if moe:
         check(torch.equal(g_r, c_r), f"train copy {name}: the step's routes "
               f"differ, card against CPU")
     rel = abs(float(ce) - float(c_ce)) / abs(float(c_ce))
-    check(rel <= TRAIN_LOSS_RTOL, f"train copy {name}: loss {float(ce)!r} on "
+    check(rel <= loss_rtol, f"train copy {name}: loss {float(ce)!r} on "
           f"the card, {float(c_ce)!r} on the CPU (rel {rel:.3g})")
     worst = 0.0
     for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
         scale = float(b.abs().max())
         err = float((a.cpu() - b).abs().max())
-        check(err <= TRAIN_GRAD_OF_MAX * scale, f"train copy {name}: a "
+        check(err <= grad_of_max * scale, f"train copy {name}: a "
               f"gradient leaf {tuple(b.shape)} differs by {err:.3g} (max "
               f"{scale:.3g})")
         worst = max(worst, err / max(scale, 1e-30))
@@ -4509,7 +4596,8 @@ def family_copy(torch, name: str) -> None:
           f"train copy {name}: launches {counts}")
     extra = (f"; routes equal on seed {seed} (shares of the tries {tries})"
              if moe else "")
-    print(f"train copy {name} ({cfg.n_layers} layers) card vs CPU on {B} x "
+    print(f"train copy {name} ({cfg.n_layers} layers"
+          f"{'' if dtype is None else ', ' + str(dtype)}) card vs CPU on {B} x "
           f"{L}: loss {float(ce):.6f} / {float(c_ce):.6f} (rel {rel:.3g}); "
           f"gradients within {worst:.3g} of each leaf's largest value; "
           f"launches {counts}{extra}; CPU side {cpu_s:.1f} s", flush=True)
@@ -4540,15 +4628,21 @@ def family_training_phase(torch) -> tuple:
     hybrid = replace(ARCHS["recurrentgemma-2b"],
                      n_layers=TRAIN_HYBRID_LAYERS)
     attn = sum(1 for k in hybrid._layer_kinds() if k == "attn")
+    # F9's gates: every mixer and attention layer sits in a checkpointed
+    # unit (two (R, R, A) blocks, no remainder), so its forward kernel
+    # runs twice a step and its backward once.
     for cfg, shape, want in (
             (ssm, TRAIN_SSM_SHAPE,
-             {"ssd_chunk": ssm.n_layers * TRAIN_STEPS,
+             {"ssd_chunk": 2 * ssm.n_layers * TRAIN_STEPS,
               "ssd_chunk_bwd": ssm.n_layers * TRAIN_STEPS}),
             (hybrid, TRAIN_HYBRID_SHAPE,
-             {"flash_attention": attn * TRAIN_STEPS,
+             {"flash_attention": 2 * attn * TRAIN_STEPS,
               "flash_attention_bwd": attn * TRAIN_STEPS})):
         holder = {"params": registry.init_params(cfg, 0, device="cuda")}
         run = train_run(torch, cfg, holder, shape=shape, want=want)
+        print(f"train {cfg.name}: peak memory {run['peak'] / 1e9:.2f} GB "
+              f"with remat (F9) against {NO_REMAT_PEAK_GB[cfg.name]:.2f} GB "
+              f"without", flush=True)
         for k, n in run["counts"].items():
             launches[k] = launches.get(k, 0) + n
         del run["params"], holder
@@ -4581,18 +4675,14 @@ def sizing_phase(torch, trained) -> dict:
     the figures of (b)."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.shapes import ShapeSpec
-    from repro_torch.launch import costmodel as cm
     from repro_torch.launch.dryrun import state_bytes
-    from repro_torch.launch.hlo_analysis import roofline_terms
-    from repro_torch.launch.mesh import (HBM_BW, LINK_BW, PEAK_FLOPS_BF16,
-                                         make_mesh)
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import abstract_train_state
 
     check(trained and all(r is not None for r in trained),
           "phase 28 reads phases 26 and 27's runs: run it with them "
           "(--only 26,27,28)")
     one = make_mesh((1, 1), ("data", "model"))
-    dims = cm.MeshDims(data=1, model=1, chips=1)
     figures = []
     for run in trained:
         cfg, (B, L) = run["cfg"], run["shape"]
@@ -4601,31 +4691,25 @@ def sizing_phase(torch, trained) -> dict:
         check(meta == run["state"], f"sizing {cfg.name}: the meta state "
               f"differs from the trained one in "
               f"{sorted(set(meta.items()) ^ set(run['state'].items()))[:4]}")
-        shape = ShapeSpec(f"train_{B}x{L}", L, B, "train")
-        # The port checkpoints each layer of the transformer families
-        # only; the SSM and the hybrid keep their activations.
-        opts = cm.PerfOpts(remat=cfg.family in ("dense", "moe", "vlm"))
-        flops = cm.flops_per_device(cfg, shape, dims, opts)
-        nbytes = cm.bytes_per_device(cfg, shape, dims, opts)
-        terms = roofline_terms(flops, nbytes, 0.0,
-                               peak_flops=PEAK_FLOPS_BF16 * opts.peak_scale,
-                               hbm_bw=HBM_BW, link_bw=LINK_BW)
-        parts = state_bytes(cfg, shape, one)
+        # Every family checkpoints its layers (blocks) under remat, as
+        # the reference does (F9).
+        bound_ms, flops, nbytes, terms = cost_terms(cfg, B, L)
+        parts = state_bytes(cfg, ShapeSpec(f"train_{B}x{L}", L, B, "train"),
+                            one)
         predicted = sum(parts.values())
         sized_s = time.perf_counter() - t0
-        bound_ms = 1e3 * max(terms["compute_s"], terms["memory_s"])
         check(predicted <= run["peak"], f"sizing {cfg.name}: predicted "
               f"state {predicted} B above the measured peak {run['peak']} B")
         row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, L],
-               "remat": opts.remat, "flops": flops, "hbm_bytes": nbytes,
+               "remat": True, "flops": flops, "hbm_bytes": nbytes,
                "compute_s": terms["compute_s"],
                "memory_s": terms["memory_s"], "state_bytes": predicted,
                "state_bytes_by_part": parts, "step_ms": run["ms"],
                "peak_bytes": run["peak"],
                "measured_over_bound": run["ms"] / bound_ms}
         figures.append(row)
-        print(f"sizing {cfg.name} ({cfg.n_layers} layers, {B} x {L}, remat "
-              f"{opts.remat}): meta state = trained state ({len(meta)} "
+        print(f"sizing {cfg.name} ({cfg.n_layers} layers, {B} x {L}, "
+              f"remat): meta state = trained state ({len(meta)} "
               f"leaves); cost model {flops / 1e12:.3f} Tflop, "
               f"{nbytes / 1e9:.3f} GB of HBM traffic: compute_s "
               f"{terms['compute_s']:.6f} (FP32 peak), memory_s "
@@ -4704,6 +4788,277 @@ def shard_round_trip(torch, backend: str, device: str) -> None:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 29: bf16 training (K7's bf16 backward, bf16 train steps, copies)
+# --------------------------------------------------------------------------
+
+#: (a): the pin of K7's bf16 backward against ``attention_bwd_ref`` on the
+#: widened bf16 operands: phase 26's, plus one bf16 rounding of |ref|
+#: (2⁻⁸·|ref|), since the kernel rounds its float32 sums once to bf16 and
+#: the plain version returns them unrounded.  At every case of
+#: ``K7_BWD_CASES`` (each D ≤ 128) and timed at ``K7_BWD_TIMED``.
+K7_BF16_ROUND = 2.0 ** -8
+#: (c): qwen3-moe-235b-a22b at full width cut to BF16_MOE_LAYERS of its 94
+#: layers on BF16_MOE_BATCH tokens.  AdamW's state does not fit at this
+#: width (6.2 B float32 parameters; with gradients, m, v and the new
+#: state 7 copies, 174 GB), so each step is ``loss_and_grads`` followed by
+#: an in-place update p −= BF16_MOE_LR · sign(g) (AdamW's first step) on
+#: one fixed batch.
+BF16_MOE_ARCH = "qwen3-moe-235b-a22b"
+BF16_MOE_LAYERS = 2
+BF16_MOE_BATCH = (2, 1024)
+BF16_MOE_STEPS = 4
+BF16_MOE_LR = 1e-4
+#: (d): the bf16 copies card against CPU, (B, L) each: tinyllama-1.1b at
+#: 2 layers, qwen3-moe at 1 layer on the first of BF16_MOE_SEEDS batches
+#: whose routes agree.  Its router's logits are bf16 products, and a
+#: float32 sum in another order rounds to the neighbouring bf16 value now
+#: and then: 0.1-0.9 % of the (token, choice) routes differed, card
+#: against CPU, on seven of the first eight 1 x 128 batches (H100 80GB
+#: HBM3, 700 W), where the float32 copy's agree on its first seed.  Fewer tokens
+#: do not help: the loss is a mean over the tokens of bf16 logits of a
+#: 151 936-word vocabulary, and on 1 x 32 tokens it stood 1.34e-4 apart
+#: on the same card, outside the band, where 1 x 128 gave 4.47e-5.
+BF16_COPIES = {"tinyllama-1.1b": TRAIN_COPY, "qwen3-moe-235b-a22b": (1, 128)}
+BF16_MOE_SEEDS = 32
+#: The band of tests/test_torch_bf16_grad.py (the port's bf16 step against
+#: the reference's on the CPU: losses within 3.4e-5–4.6e-5 relative, the
+#: worst leaf 2.05e-2–2.41e-2 of its largest value): the loss within 1e-4
+#: relative and each gradient leaf within 3e-2 of its largest value.
+BF16_LOSS_RTOL, BF16_GRAD_OF_MAX = 1e-4, 3e-2
+
+
+def k7_bwd_bf16_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
+                     timed: bool = False):
+    """K7's bf16 backward: q, k, v, dO rounded to bf16; through autograd
+    (one forward, which writes the lse and the float32 output, and one
+    backward launch) and through the wrapper (given no lse), against
+    ``attention_bwd_ref`` on the widened operands within phase 26's pin
+    plus ``K7_BF16_ROUND``; autograd equal to the wrapper, dq, dk, dv
+    bf16; the forward's bf16 output its float32 one rounded once, and
+    equal to the forward without lse where both take the tensor-core
+    kernel.  With ``timed`` also two calls bit for bit, and the backward
+    given the forward's lse and float32 output timed beside the plain
+    version, the float32 backward on the same values and SDPA's bf16
+    backward.  Returns a kernels-line row (timed) or None."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, attention_lse_ref, flash_attention,
+        flash_attention_bwd, flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ops import K7_SPLIT_ROWS
+
+    bf = torch.bfloat16
+    q, k, v, do = (t.to(bf) for t in k7_bwd_inputs(torch, B, H, Hkv, Lq,
+                                                     Lk, D))
+    want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    shape = (f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} D={D} causal={causal} "
+             f"window={window} bf16")
+    o32, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    check(o32.dtype == torch.float32, f"flash_attention_lse {shape}: "
+          f"output {o32.dtype}, not float32")
+    close(f"flash_attention lse {shape}", lse,
+          attention_lse_ref(q, k, causal=causal, window=window),
+          **K7_LSE_TOL)
+    if (H // Hkv) * Lq > K7_SPLIT_ROWS:
+        check(torch.equal(o32.to(bf), flash_attention(q, k, v, causal=causal,
+                                                      window=window)),
+              f"flash_attention {shape}: o with and without the lse differ")
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    LAUNCHES.clear()
+    o = flash_attention(qg, kg, vg, causal=causal, window=window)
+    o.backward(do)
+    torch.cuda.synchronize()
+    check(dict(LAUNCHES) == {"flash_attention": 1, "flash_attention_bwd": 1},
+          f"flash_attention bf16 backward: launches {dict(LAUNCHES)}")
+    check(o.dtype == bf and torch.equal(o.detach(), o32.to(bf)),
+          f"flash_attention {shape}: the grad forward's bf16 o is not "
+          f"flash_attention_lse's float32 output rounded once")
+    got = flash_attention_bwd(q, k, v, do, causal=causal, window=window)
+    err = 0.0
+    for name, a, b, w in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad),
+                             got, want):
+        check(a.dtype == bf and b.dtype == bf, f"flash_attention_bwd "
+              f"{shape} {name}: dtype {a.dtype} / {b.dtype}")
+        atol = K7_BWD_ATOL_OF_MAX * float(w.abs().max())
+        err = max(err, close(f"flash_attention_bwd {shape} {name}", b, w,
+                             rtol=K7_BWD_RTOL + K7_BF16_ROUND, atol=atol))
+        check(torch.equal(a, b), f"flash_attention_bwd {shape} {name}: "
+              f"autograd and the wrapper differ")
+    if not timed:
+        print(f"kernel flash_attention_bwd {shape}: max |Δ| {err:.3g} "
+              f"(within rtol {K7_BWD_RTOL} + 2^-8 + {K7_BWD_ATOL_OF_MAX} of "
+              f"max)", flush=True)
+        return None
+    again = flash_attention_bwd(q, k, v, do, causal=causal, window=window,
+                                lse=lse, o=o32)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd {shape}: two calls differ")
+    ms = event_ms(torch, lambda: flash_attention_bwd(
+        q, k, v, do, causal=causal, window=window, lse=lse, o=o32), reps=20)
+    plain_ms = event_ms(torch, lambda: attention_bwd_ref(
+        q, k, v, do, causal=causal, window=window), reps=10, warmup=2)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    of, lf = flash_attention_lse(qf, kf, vf, causal=causal, window=window)
+    f32_ms = event_ms(torch, lambda: flash_attention_bwd(
+        qf, kf, vf, dof, causal=causal, window=window, lse=lf, o=of),
+        reps=20)
+    del qf, kf, vf, dof, of, lf
+    check(causal and Lq == Lk and window is None, "the timed bf16 cases "
+          "are causal prefills")
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                         is_causal=True)
+    lib_ms = event_ms(torch, lambda: torch.autograd.grad(
+        os_, (qs, ks, vs), do, retain_graph=True), reps=20)
+    del os_
+    pairs = B * H * Lq * (Lq + 1) // 2
+    # bf16 q, k, v, dO read and dq, dk, dv written, float32 o read.  An
+    # unmasked pair: q·k and dO·v have bf16 operands on both sides, 4·D
+    # flops at the bf16 tensor-core rate (exact products, float32 sums);
+    # P·dO, dS·k and dS·q have a float32 operand (P, dS), two TF32 MMAs
+    # each (split into hi + lo), 12·D flops at the TF32 rate.
+    nbytes = 2 * (3 * B * H * Lq + 4 * B * Hkv * Lk) * D + 4 * B * H * Lq * D
+    ops = 16 * D * pairs
+    op_s = pairs * (4 * D / BF16_OPS_PER_S + 12 * D / TF32_OPS_PER_S)
+    row = row_of("flash_attention_bwd_bf16", B * H, Lk, ms, plain_ms, nbytes,
+                 ops, err, library_ms=lib_ms, op_rate=ops / op_s, Lq=Lq,
+                 D=D, rep=H // Hkv)
+    row["f32_ms"] = f32_ms
+    print(f"kernel flash_attention_bwd {shape}: {ms * 1e3:.3f} us against "
+          f"the float32 backward's {f32_ms * 1e3:.3f} us on the same values "
+          f"and SDPA's bf16 backward {lib_ms * 1e3:.3f} us; "
+          f"{row['bound_ms'] / ms:.4f} of its bound; given the forward's lse "
+          f"and float32 output; two calls bit for bit", flush=True)
+    return row
+
+
+def cost_terms(cfg, B: int, L: int, bf16: bool = False) -> tuple:
+    """The cost model's remat train step of ``cfg`` on B × L tokens on one
+    card (``launch/costmodel.py`` on ``MeshDims(1, 1, 1)``; the bf16 or
+    the FP32 peak): (bound ms, flops, HBM bytes, roofline terms)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import costmodel as cm
+    from repro_torch.launch.hlo_analysis import roofline_terms
+    from repro_torch.launch.mesh import HBM_BW, LINK_BW, PEAK_FLOPS_BF16
+
+    opts = cm.PerfOpts(bf16=bf16, remat=True)
+    dims = cm.MeshDims(data=1, model=1, chips=1)
+    shape = ShapeSpec(f"train_{B}x{L}", L, B, "train")
+    flops = cm.flops_per_device(cfg, shape, dims, opts)
+    nbytes = cm.bytes_per_device(cfg, shape, dims, opts)
+    terms = roofline_terms(flops, nbytes, 0.0,
+                           peak_flops=PEAK_FLOPS_BF16 * opts.peak_scale,
+                           hbm_bw=HBM_BW, link_bw=LINK_BW)
+    return (1e3 * max(terms["compute_s"], terms["memory_s"]), flops, nbytes,
+            terms)
+
+
+def bf16_moe_run(torch) -> dict:
+    """(c): ``BF16_MOE_STEPS`` bf16 steps of the cut qwen3-moe on one
+    batch (``loss_and_grads`` under bf16, then p −= lr·sign(g) in place):
+    finite, falling losses, two K7 forwards and one bf16 backward a layer
+    a step, ms a step, tokens/s, peak memory."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import precision, registry
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import loss_and_grads
+
+    cfg = replace(ARCHS[BF16_MOE_ARCH], n_layers=BF16_MOE_LAYERS)
+    B, L = BF16_MOE_BATCH
+    params = registry.init_params(cfg, 0, device="cuda")
+    leaves = tree_leaves(params)
+    batch = SyntheticLM(cfg.vocab, L, B, seed=0, device="cuda").batch(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    losses, walls = [], []
+    with precision.options(dtype=torch.bfloat16):
+        for _ in range(BF16_MOE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, ce, grads = loss_and_grads(cfg, params, batch)
+            with torch.no_grad():
+                for p, g in zip(leaves, tree_leaves(grads)):
+                    p.add_(torch.sign(g, out=g), alpha=-BF16_MOE_LR)
+            del grads
+            losses.append(float(ce))
+            walls.append(time.perf_counter() - t0)
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": 2 * cfg.n_layers * BF16_MOE_STEPS,
+            "flash_attention_bwd": cfg.n_layers * BF16_MOE_STEPS}
+    check(counts == want, f"bf16 {cfg.name}: launches {counts}, want {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"bf16 {cfg.name}: losses {losses}")
+    ms = 1e3 * float(np.median(walls[1:]))
+    bound, flops, nbytes, _ = cost_terms(cfg, B, L, bf16=True)
+    print(f"train bf16 {cfg.name}: {cfg.n_layers} layers at full width, "
+          f"batch {B} x {L}, {BF16_MOE_STEPS} steps (remat; loss_and_grads "
+          f"then p -= {BF16_MOE_LR} sign(g)): losses "
+          f"{[round(x, 4) for x in losses]}; {ms:.1f} ms a step (median of "
+          f"steps 1-{BF16_MOE_STEPS - 1}; first {walls[0] * 1e3:.1f} ms), "
+          f"{B * L / ms * 1e3:.1f} tokens/s, peak memory {peak / 1e9:.2f} "
+          f"GB, launches {counts}; cost model bf16 {flops / 1e12:.3f} Tflop "
+          f"{nbytes / 1e9:.3f} GB: bound {bound:.1f} ms ({ms / bound:.2f}x)",
+          flush=True)
+    del params, leaves, batch
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, L],
+            "step_ms": ms, "peak_bytes": peak, "bound_ms": bound,
+            "losses": losses, "counts": counts}
+
+
+def bf16_training_phase(torch) -> tuple:
+    """Phase 29: (a) K7's bf16 backward at phase 26's cases and timed at
+    its two prefills; (b) tinyllama-1.1b trained ``TRAIN_STEPS`` steps in
+    bf16 (phase 26 (b)'s run under ``precision.options(dtype=bf16)``)
+    beside the cost model's bf16 bound; (c) the cut qwen3-moe's bf16
+    steps; (d) the bf16 copies card against CPU.  Returns (K7 forward
+    launches, K7 bf16 backward launches, the kernels-line row, the
+    figures)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import precision, registry
+
+    no_tf32(torch)
+    for case in K7_BWD_CASES:
+        k7_bwd_bf16_case(torch, *case)
+    rows = [k7_bwd_bf16_case(torch, *case, timed=True)
+            for case in K7_BWD_TIMED]
+    torch.cuda.empty_cache()
+    cfg = ARCHS[TRAIN_ARCH]
+    holder = {"params": registry.init_params(cfg, 0, device="cuda")}
+    with precision.options(dtype=torch.bfloat16):
+        run = train_run(torch, cfg, holder)
+    del run["params"], holder
+    torch.cuda.empty_cache()
+    bound, flops, nbytes, _ = cost_terms(cfg, *TRAIN_BATCH,
+                                         bf16=True)
+    print(f"train bf16 {cfg.name}: {run['ms']:.1f} ms a step, peak "
+          f"{run['peak'] / 1e9:.2f} GB; cost model bf16 {flops / 1e12:.3f} "
+          f"Tflop {nbytes / 1e9:.3f} GB: bound {bound:.1f} ms "
+          f"({run['ms'] / bound:.2f}x)", flush=True)
+    figures = [{"arch": cfg.name, "layers": cfg.n_layers,
+                "batch": list(TRAIN_BATCH), "step_ms": run["ms"],
+                "peak_bytes": run["peak"], "bound_ms": bound},
+               bf16_moe_run(torch)]
+    for name, shape in BF16_COPIES.items():
+        family_copy(torch, name, shape=shape, dtype=torch.bfloat16,
+                    loss_rtol=BF16_LOSS_RTOL, grad_of_max=BF16_GRAD_OF_MAX,
+                    seeds=BF16_MOE_SEEDS)
+        torch.cuda.empty_cache()
+    fwd = run["counts"]["flash_attention"] + figures[1]["counts"][
+        "flash_attention"]
+    bwd = run["counts"]["flash_attention_bwd"] + figures[1]["counts"][
+        "flash_attention_bwd"]
+    return fwd, bwd, rows[0], figures
+
+
 def head_of(res, k: int):
     """A result's tasks from ``k`` on, ledger kept."""
     arrays = {f: getattr(res, f)[k:] for f in ("server",) + TIME_PLANES}
@@ -4717,7 +5072,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phase numbers (2-28) to run after "
+                    help="comma-separated phase numbers (2-29) to run after "
                          "the build; a partial run prints no result line")
     only = {int(p) for p in ap.parse_args(argv).only.split(",") if p}
 
@@ -4797,6 +5152,7 @@ def main(argv=None) -> int:
     sizing = phase("28 sizing and dry-run", sizing_phase,
                    [train and train[3], *(fam_train[2] if fam_train
                                           else [None])])
+    bf16 = phase("29 bf16 training", bf16_training_phase)
     print(f"phase walls: {json.dumps(walls)}", flush=True)
     if only:
         print(f"chip_smoke: phases {sorted(only)} passed (partial run: no "
@@ -4804,7 +5160,9 @@ def main(argv=None) -> int:
         return 0
 
     launches["flash_attention"] += (moe[0] + fam[0] + train[0]
-                                    + fam_train[0]["flash_attention"])
+                                    + fam_train[0]["flash_attention"]
+                                    + bf16[0])
+    launches["flash_attention_bwd_bf16"] = bf16[1]
     launches["flash_attention_bwd"] = train[1]
     launches["ssd_chunk"] += fam_train[0]["ssd_chunk"]
     launches["ssd_chunk_bwd"] = fam_train[0]["ssd_chunk_bwd"]
@@ -4816,10 +5174,11 @@ def main(argv=None) -> int:
     # Each kernel's row at its largest shape (K6 at K = 2; K7 and its
     # backward at tinyllama-1.1b's prefill, K8 at mamba2-1.3b's forward,
     # K8's backward at mamba2-1.3b's training shape, K7's backward at
-    # head width 256 at recurrentgemma-2b's prefill).
+    # head width 256 at recurrentgemma-2b's prefill, its bf16 form at
+    # tinyllama-1.1b's).
     for big in (k1[-1], k2[-1], k3[3], k3[-1], k5[0][-1], k4[0][2],
                 k4[0][-1], k6[0][2], k7[0], k8[0], train[2][0],
-                *fam_train[1]):
+                *fam_train[1], bf16[2]):
         kernels.append({
             "name": big["name"], "route": "cuda",
             "source": KERNEL_SOURCES.get(big["name"], KERNEL_SOURCE),
@@ -4831,6 +5190,7 @@ def main(argv=None) -> int:
             "library_ms": big.get("library_ms")})
     print("profile " + json.dumps({"profiled": profiled}), flush=True)
     print("sizing " + json.dumps(sizing), flush=True)
+    print("bf16 " + json.dumps({"bf16": bf16[3]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

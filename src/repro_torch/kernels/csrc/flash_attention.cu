@@ -101,11 +101,12 @@
 // No atomics and a fixed order of every sum: two calls give the same bits.
 //
 // Under grad, regime A also writes each row's log2-sum-exp (`lse`, m +
-// log2(l) of the online softmax) for the backward, at any group size;
-// without it a call runs exactly as above.  The backward
-// (flash_attention_bwd_launch, float32, every head width) is three or four
-// more kernels at the end of this file, with tiles of their own at D = 256;
-// its note is there.
+// log2(l) of the online softmax) for the backward, at any group size, and
+// for a bf16 q its output unrounded in float32 beside the bf16 one;
+// without them a call runs exactly as above.  The backward
+// (flash_attention_bwd_launch: float32 at every head width, bf16 at D <=
+// 128) is three or four more kernels at the end of this file, with tiles
+// of their own at D = 256; its note is there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,6 +137,7 @@ struct Args {
   int splits;  // regime B: runs of keys a group (1 in regime A)
   int vec;     // k and v rows may be copied in 16-byte pieces
   float* lse;  // nullptr, or [B, H, Lq]: each row's log2-sum-exp (regime A)
+  float* o32;  // nullptr, or [B, H, Lq, D]: o in float32 (regime A, lse)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -322,6 +324,14 @@ __device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
   const uint2 v = *reinterpret_cast<const uint2*>(p);
   x[0] = bf_lo(v.x); x[1] = bf_hi(v.x); x[2] = bf_lo(v.y); x[3] = bf_hi(v.y);
+}
+
+// Two consecutive float32 values stored as E (rounded once to bf16).
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // ----------------------------------------------------- regime A: prefill
@@ -676,6 +686,22 @@ attn_tc_kernel(const Args a) {
     for (int n = 0; n < NN; ++n) {
       orow[8 * n + 2 * t] = from_f<TQ>(acc[n][2 * i] * inv_l);
       orow[8 * n + 2 * t + 1] = from_f<TQ>(acc[n][2 * i + 1] * inv_l);
+    }
+  }
+  // Under grad with a bf16 q: o also unrounded in float32, for the
+  // backward's Delta; the bf16 output above is it rounded once.
+  if (kLse && a.o32 != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (fr[i] >= rows) continue;
+      const int h = hk * rep + fr[i] % rep, pos = fr[i] / rep;
+      const float inv_l = 1.0f / fmaxf(l[i], 1e-30f);
+      float* orow =
+          a.o32 + ((static_cast<long long>(b) * a.H + h) * a.Lq + pos) * D;
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+        store2(orow + 8 * n + 2 * t, acc[n][2 * i] * inv_l,
+               acc[n][2 * i + 1] * inv_l);
     }
   }
   // Under grad: each row's log2-sum-exp of its scaled logits, m + log2(l)
@@ -1053,8 +1079,9 @@ template <typename TQ, typename TKV, int D>
 int launch_regime(const Args& a, cudaStream_t stream) {
   const int rows = (a.H / a.Hkv) * a.Lq;
   if (a.lse != nullptr) {
-    // Built for what the backward takes only: float32.
-    if constexpr (sizeof(TQ) == 4 && sizeof(TKV) == 4)
+    // Built for what the backward takes only: q, k, v of one type,
+    // float32 at every width, bf16 at D <= 128.
+    if constexpr (sizeof(TQ) == sizeof(TKV) && (sizeof(TQ) == 4 || D <= 128))
       return launch_tc<TQ, TKV, D, true>(a, stream);
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1095,9 +1122,9 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 // dK and dV summed over the rep query heads of each key/value head.  The
 // reference's Pallas kernel has no custom_vjp, so there is no TPU
 // backward to replace: the reference trains through its jnp attention,
-// and this backward lets the port train through K7.  Float32 operands, no
-// atomics and a fixed order of every sum, so two calls give the same
-// bits.  P is recomputed from the log2-sum-exp that the forward wrote
+// and this backward lets the port train through K7.  Float32 operands, or
+// bf16 ones (below), no atomics and a fixed order of every sum, so two
+// calls give the same bits.  P is recomputed from the log2-sum-exp that the forward wrote
 // under grad (regime A's `lse`): P = 2^(s * scale * log2(e) - lse).
 //
 // Bound on this card: 10 * D flops an unmasked (query, key) pair (q.k,
@@ -1194,6 +1221,22 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 // paired, on an H100 80GB HBM3 at 700 W): a block of 32 halves the
 // walked operand's traffic from L2.
 // Head widths 32, 64, 128 and 256.
+//
+// bf16 operands (q, k, v and dO bf16; a train step under
+// precision.options(dtype=bf16)), at D <= 128: the passes above are
+// templated on the operands' type.  Their raw tiles hold bf16 (half the
+// bytes read and copied), widened exactly as they are split.  A bf16
+// value is exact in TF32 (its lo part is 0), so S = Q K^T and dP = dO V^T
+// take one MMA each, and dV = P^T dO, dK = dS^T Q and dQ = dS K split
+// only P or dS into hi + lo: two MMAs each.  P and dS stay float32, as the
+// reference's jnp attention keeps them (FlashAttention-2 rounds P to bf16
+// for a bf16 MMA: another function).  Delta is taken from the forward's
+// float32 output o32, not the bf16 o it returns.  Accumulation is float32
+// with the same rounding-add landing of partials, and dq, dk, dv are
+// rounded once to bf16, as autograd of the plain version rounds them.
+// Bound: 16 * D TF32 flops an unmasked pair (two products at one MMA,
+// three at two) against bf16 q, k, v, dO and float32 o read and bf16 dq,
+// dk, dv written once.
 
 constexpr int kBwdKeys = 64;       // dk/dv: keys a block, 16 a warp group
 constexpr int kBwdRows = 64;       // dq: rows a block, 16 a warp group
@@ -1209,17 +1252,18 @@ __host__ __device__ constexpr int bwd_threads() { return 128 * bwd_pair<D>(); }
 template <int D>
 __host__ __device__ constexpr int bwd_br() { return D > 32 ? 32 : 64; }
 
-// K, V split (64 keys), Q, dO split and raw (BR rows), raw and current
-// (lse, Delta) and the positions of the BR rows.
-template <int D>
+// K, V split (64 keys), Q, dO split and raw (BR rows; raw in the
+// operands' type TO), raw and current (lse, Delta) and the positions of
+// the BR rows.
+template <typename TO, int D>
 __host__ __device__ constexpr size_t smem_bwd_dkdv() {
-  return 2 * kBwdKeys * D * 8 + 2 * bwd_br<D>() * D * 12 +
+  return 2 * kBwdKeys * D * 8 + 2 * bwd_br<D>() * D * (8 + sizeof(TO)) +
          bwd_br<D>() * (2 * sizeof(float2) + sizeof(int));
 }
 // Q, dO split (64 rows), K, V split and raw (32 keys).
-template <int D>
+template <typename TO, int D>
 __host__ __device__ constexpr size_t smem_bwd_dq() {
-  return 2 * kBwdRows * D * 8 + 2 * kBwdBK * D * 12;
+  return 2 * kBwdRows * D * 8 + 2 * kBwdBK * D * (8 + sizeof(TO));
 }
 
 struct BwdArgs {
@@ -1349,6 +1393,19 @@ __device__ __forceinline__ void mma3_add(float (&c)[4],
   for (int e = 0; e < 4; ++e) c[e] += p[e];
 }
 
+// mma3_add for an exact TF32 b (a bf16 operand, whose lo part is 0):
+// lo_a hi_b + hi_a hi_b.
+__device__ __forceinline__ void mma2_add(float (&c)[4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         uint32_t b0h, uint32_t b1h) {
+  float p[4];
+  mma_tf32_z(p, al, b0h, b1h);
+  mma_tf32(p, ah, b0h, b1h);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += p[e];
+}
+
 // A C fragment split into the A fragment of a product reduced over its
 // columns: A columns t and t + 4 are the C fragment's columns 2t, 2t + 1.
 __device__ __forceinline__ void c_to_a(const float (&c)[4], uint32_t (&ah)[4],
@@ -1359,39 +1416,40 @@ __device__ __forceinline__ void c_to_a(const float (&c)[4], uint32_t (&ah)[4],
   split(c[3], ah[3], al[3]);
 }
 
-// Rows [0, n) of a split tile from row(r), a row pointer or nullptr (a
-// row of zeros), read directly.
+// Rows [0, n) of a split tile from row(r), a row pointer (float32 or
+// bf16, widened exactly) or nullptr (a row of zeros), read directly.
 template <int D, int NT, typename Row>
 __device__ __forceinline__ void bwd_load_split(uint4* T, int n, Row row) {
   for (int idx = threadIdx.x; idx < n * (D / 4); idx += NT) {
     const int r = idx / (D / 4), d = (idx % (D / 4)) * 4;
-    const float* p = row(r);
-    const float4 x = p != nullptr ? *reinterpret_cast<const float4*>(p + d)
-                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    st_put4<D>(T, r, d, x);
+    const auto* p = row(r);
+    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (p != nullptr) load4(p + d, x);
+    st_put4<D>(T, r, d, make_float4(x[0], x[1], x[2], x[3]));
   }
 }
 
-// Enqueues (cp.async) the rows r of [0, n) for which row(r) is not
-// nullptr into the raw tile [n][D].
-template <int D, int NT, typename Row>
-__device__ __forceinline__ void bwd_issue(float* raw, int n, Row row) {
-  for (int idx = threadIdx.x; idx < n * (D / 4); idx += NT) {
-    const int r = idx / (D / 4), e = (idx % (D / 4)) * 4;
-    const float* p = row(r);
+// Enqueues (cp.async, 16 bytes a piece) the rows r of [0, n) for which
+// row(r) is not nullptr into the raw tile [n][D] of their type E.
+template <int D, int NT, typename E, typename Row>
+__device__ __forceinline__ void bwd_issue(E* raw, int n, Row row) {
+  constexpr int EPV = 16 / sizeof(E);
+  for (int idx = threadIdx.x; idx < n * (D / EPV); idx += NT) {
+    const int r = idx / (D / EPV), e = (idx % (D / EPV)) * EPV;
+    const E* p = row(r);
     if (p != nullptr) cp_async16(raw + r * D + e, p + e);
   }
 }
 
 // The split pass: raw rows [0, n) into a split tile, zeros where !ok(r).
-template <int D, int NT, typename Ok>
-__device__ __forceinline__ void bwd_split(uint4* T, const float* raw, int n,
+template <int D, int NT, typename E, typename Ok>
+__device__ __forceinline__ void bwd_split(uint4* T, const E* raw, int n,
                                           Ok ok) {
   for (int idx = threadIdx.x; idx < n * (D / 4); idx += NT) {
     const int r = idx / (D / 4), d = (idx % (D / 4)) * 4;
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (ok(r)) x = *reinterpret_cast<const float4*>(raw + r * D + d);
-    st_put4<D>(T, r, d, x);
+    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (ok(r)) load4(raw + r * D + d, x);
+    st_put4<D>(T, r, d, make_float4(x[0], x[1], x[2], x[3]));
   }
 }
 
@@ -1411,9 +1469,10 @@ __device__ __forceinline__ bool bwd_full(const BwdArgs& a, int p0, int p1,
 
 // Row f of a group (b, hk) of a [B, H, Lq, D] tensor at `base` (batch
 // applied) with head and position strides sh, sl.
-__device__ __forceinline__ const float* bwd_qrow(const float* base,
-                                                 long long sh, long long sl,
-                                                 int hk, int rep, int f) {
+template <typename E>
+__device__ __forceinline__ const E* bwd_qrow(const E* base, long long sh,
+                                             long long sl, int hk, int rep,
+                                             int f) {
   return base + (hk * rep + f % rep) * sh +
          static_cast<long long>(f / rep) * sl;
 }
@@ -1444,15 +1503,17 @@ __device__ __forceinline__ void bwd_pair_sum(float (&x)[N][4], float* red,
 
 // Each flattened row's (lse, Delta) at stats[(b * Hkv + hk) * rows_pad +
 // f], zeros for f >= rep * Lq: the forward's lse, and Delta = rowsum(dO *
-// o) of the forward's output o, summed in float32 in a fixed order: L =
-// min(D / 4, 32) lanes a row, each adding the products of its D / (4 L)
-// float4 pieces of o and dO in order, then a shuffle tree over the L
-// lanes.  One read of o and dO.
-template <int D>
+// o) of the forward's float32 output o (unrounded also when the operands
+// are bf16: a Delta from the bf16 output would carry its 2^-9 rounding
+// into every dS) and dO of the operands' type TO, widened, summed in
+// float32 in a fixed order: L = min(D / 4, 32) lanes a row, each adding
+// the products of its D / (4 L) pieces of four in order, then a shuffle
+// tree over the L lanes.  One read of o and dO.
+template <typename TO, int D>
 __global__ void __launch_bounds__(kBwdAux)
     attn_bwd_delta_kernel(const BwdArgs a) {
   constexpr int L = D / 4 < 32 ? D / 4 : 32;   // lanes a row
-  constexpr int NV = D / (4 * L);              // float4 pieces a lane
+  constexpr int NV = D / (4 * L);              // pieces of four a lane
   const int rep = a.H / a.Hkv, rows = rep * a.Lq;
   const long long n = static_cast<long long>(a.B) * a.Hkv * a.rows_pad;
   const long long i = static_cast<long long>(blockIdx.x) * (kBwdAux / L) +
@@ -1464,16 +1525,18 @@ __global__ void __launch_bounds__(kBwdAux)
   if (i < n && f < rows) {
     const int b = grp / a.Hkv, hk = grp % a.Hkv;
     const float* orow = bwd_qrow(a.o + b * a.osb, a.osh, a.osl, hk, rep, f);
-    const float* drow = bwd_qrow(a.dO + b * a.dsb, a.dsh, a.dsl, hk, rep, f);
+    const TO* drow = bwd_qrow(reinterpret_cast<const TO*>(a.dO) + b * a.dsb,
+                              a.dsh, a.dsl, hk, rep, f);
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int d = 4 * (lane + L * j);
       const float4 x = *reinterpret_cast<const float4*>(orow + d);
-      const float4 y = *reinterpret_cast<const float4*>(drow + d);
-      sum = fmaf(x.x, y.x, sum);
-      sum = fmaf(x.y, y.y, sum);
-      sum = fmaf(x.z, y.z, sum);
-      sum = fmaf(x.w, y.w, sum);
+      float y[4];
+      load4(drow + d, y);
+      sum = fmaf(x.x, y[0], sum);
+      sum = fmaf(x.y, y[1], sum);
+      sum = fmaf(x.z, y[2], sum);
+      sum = fmaf(x.w, y[3], sum);
     }
     if (lane == 0) {
       const int h = hk * rep + f % rep, pos = f / rep;
@@ -1485,10 +1548,15 @@ __global__ void __launch_bounds__(kBwdAux)
   if (i < n && lane == 0) a.stats[i] = make_float2(lse, sum);
 }
 
-template <int D>
+// TO: the operands' type.  Under bf16 a value is exact in TF32 (its lo
+// part is 0), so a product of two operands (S^T, dP^T) is one MMA and one
+// of P or dS with an operand (dV, dK) two: the MMAs that would carry an
+// operand's lo are not issued.
+template <typename TO, int D>
 __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
     attn_bwd_dkdv_kernel(const BwdArgs a) {
   constexpr int P = bwd_pair<D>(), NT = bwd_threads<D>(), BR = bwd_br<D>();
+  constexpr bool kLo = sizeof(TO) == 4;   // operands have lo parts
   constexpr int NS = D / 8;          // k-steps over d; 8-column tiles of dK
   constexpr int NTW = BR / 8 / P;    // 8-row tiles of a row tile a warp takes
   static_assert(P == 1 || 2 * NS * 4 * 128 * 4 <= 2 * BR * D * 8,
@@ -1498,8 +1566,8 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   uint4* Vs = Ks + kBwdKeys * D / 2;
   uint4* Qs = Vs + kBwdKeys * D / 2;                     // [BR][D] split
   uint4* Os = Qs + BR * D / 2;                           // dO
-  float* Qr = reinterpret_cast<float*>(Os + BR * D / 2);  // [BR][D] raw
-  float* Or = Qr + BR * D;
+  TO* Qr = reinterpret_cast<TO*>(Os + BR * D / 2);       // [BR][D] raw
+  TO* Or = Qr + BR * D;
   float2* Sr = reinterpret_cast<float2*>(Or + BR * D);   // [BR] raw stats
   float2* Sc = Sr + BR;                                  // [BR] the tile's
   int* Pc = reinterpret_cast<int*>(Sc + BR);             // [BR] positions
@@ -1522,17 +1590,17 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   const int run_rows = (rows + a.runs - 1) / a.runs;
   const int f_beg = p_lo * rep + run * run_rows;
   const int f_end = min(p_hi * rep, f_beg + run_rows);
-  const float* qb = a.q + b * a.qsb;
-  const float* ob = a.dO + b * a.dsb;
+  const TO* qb = reinterpret_cast<const TO*>(a.q) + b * a.qsb;
+  const TO* ob = reinterpret_cast<const TO*>(a.dO) + b * a.dsb;
   const float2* sb = a.stats + static_cast<long long>(grp) * a.rows_pad;
 
   // Rows [f0, f0 + BR) of the run: Q, dO and (lse, Delta) by cp.async.
   auto issue = [&](int f0) {
-    bwd_issue<D, NT>(Qr, BR, [&](int r) -> const float* {
+    bwd_issue<D, NT>(Qr, BR, [&](int r) -> const TO* {
       return f0 + r < f_end ? bwd_qrow(qb, a.qsh, a.qsl, hk, rep, f0 + r)
                             : nullptr;
     });
-    bwd_issue<D, NT>(Or, BR, [&](int r) -> const float* {
+    bwd_issue<D, NT>(Or, BR, [&](int r) -> const TO* {
       return f0 + r < f_end ? bwd_qrow(ob, a.dsh, a.dsl, hk, rep, f0 + r)
                             : nullptr;
     });
@@ -1551,13 +1619,13 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   if (f_beg < f_end) {
     issue(f_beg);
     cp_async_commit();
-    const float* kh = a.k + b * a.ksb + hk * a.ksh;
-    const float* vh = a.v + b * a.vsb + hk * a.vsh;
-    bwd_load_split<D, NT>(Ks, kBwdKeys, [&](int r) -> const float* {
+    const TO* kh = reinterpret_cast<const TO*>(a.k) + b * a.ksb + hk * a.ksh;
+    const TO* vh = reinterpret_cast<const TO*>(a.v) + b * a.vsb + hk * a.vsh;
+    bwd_load_split<D, NT>(Ks, kBwdKeys, [&](int r) -> const TO* {
       return j0 + r < a.Lk ? kh + static_cast<long long>(j0 + r) * a.ksl
                            : nullptr;
     });
-    bwd_load_split<D, NT>(Vs, kBwdKeys, [&](int r) -> const float* {
+    bwd_load_split<D, NT>(Vs, kBwdKeys, [&](int r) -> const TO* {
       return j0 + r < a.Lk ? vh + static_cast<long long>(j0 + r) * a.vsl
                            : nullptr;
     });
@@ -1599,8 +1667,13 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
         const int r0 = 8 * (half * NTW + n);
         const uint4 xq = L.pair(Qs, r0, s);
         const uint4 xo = L.pair(Os, r0, s);
-        mma3(st[n], kh, kl, xq.x, xq.z, xq.y, xq.w);
-        mma3(dp[n], vh, vl, xo.x, xo.z, xo.y, xo.w);
+        if (kLo) {
+          mma3(st[n], kh, kl, xq.x, xq.z, xq.y, xq.w);
+          mma3(dp[n], vh, vl, xo.x, xo.z, xo.y, xo.w);
+        } else {
+          mma_tf32(st[n], kh, xq.x, xq.z);
+          mma_tf32(dp[n], vh, xo.x, xo.z);
+        }
       }
     }
     // P^T and dS^T in place: element e is key key0 + 8 (e >> 1), row r +
@@ -1652,9 +1725,9 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
           mma_tf32(pv, pl[n], o0.x, o1.x);
           mma_tf32(pk, sl[n], q0.x, q1.x);
         }
-        mma_tf32(pv, ph[n], o0.y, o1.y);
+        if (kLo) mma_tf32(pv, ph[n], o0.y, o1.y);
         mma_tf32(pv, ph[n], o0.x, o1.x);
-        mma_tf32(pk, sh[n], q0.y, q1.y);
+        if (kLo) mma_tf32(pk, sh[n], q0.y, q1.y);
         mma_tf32(pk, sh[n], q0.x, q1.x);
       }
 #pragma unroll
@@ -1669,12 +1742,10 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
     bwd_pair_sum<NS>(dv, reinterpret_cast<float*>(Qs), kw, half, lane);
   }
   if (half != 0) return;
-  // One run: the gradients.  Several: this run's partial sums (zeros if
-  // it saw none of the tile's keys), which the reduction adds in order.
+  // One run: the gradients, rounded once to the operands' type.  Several:
+  // this run's float32 partial sums (zeros if it saw none of the tile's
+  // keys), which the reduction adds in order.
   const long long n = static_cast<long long>(a.B) * a.Hkv * a.Lk * D;
-  float* out_k = a.runs == 1 ? a.dk : a.part + run * n;
-  float* out_v = a.runs == 1 ? a.dv : a.part + (a.runs + run) * n;
-  const float sk = a.runs == 1 ? a.scale : 1.0f;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int j = key0 + 8 * i;
@@ -1683,16 +1754,24 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
         ((static_cast<long long>(b) * a.Hkv + hk) * a.Lk + j) * D + 2 * t;
 #pragma unroll
     for (int m = 0; m < NS; ++m) {
-      *reinterpret_cast<float2*>(out_k + base + 8 * m) =
-          make_float2(dk[m][2 * i] * sk, dk[m][2 * i + 1] * sk);
-      *reinterpret_cast<float2*>(out_v + base + 8 * m) =
-          make_float2(dv[m][2 * i], dv[m][2 * i + 1]);
+      if (a.runs == 1) {
+        store2(reinterpret_cast<TO*>(a.dk) + base + 8 * m,
+               dk[m][2 * i] * a.scale, dk[m][2 * i + 1] * a.scale);
+        store2(reinterpret_cast<TO*>(a.dv) + base + 8 * m, dv[m][2 * i],
+               dv[m][2 * i + 1]);
+      } else {
+        store2(a.part + run * n + base + 8 * m, dk[m][2 * i],
+               dk[m][2 * i + 1]);
+        store2(a.part + (a.runs + run) * n + base + 8 * m, dv[m][2 * i],
+               dv[m][2 * i + 1]);
+      }
     }
   }
 }
 
 // dK = scale * (sum of the runs' partials), dV = the sum, each element's
-// runs added in run order.
+// runs added in run order, each rounded once to the operands' type TO.
+template <typename TO>
 __global__ void __launch_bounds__(kBwdAux)
     attn_bwd_reduce_kernel(const BwdArgs a, long long n) {
   const long long e =
@@ -1703,14 +1782,16 @@ __global__ void __launch_bounds__(kBwdAux)
     sk += a.part[r * n + e];
     sv += a.part[(a.runs + r) * n + e];
   }
-  a.dk[e] = sk * a.scale;
-  a.dv[e] = sv;
+  reinterpret_cast<TO*>(a.dk)[e] = from_f<TO>(sk * a.scale);
+  reinterpret_cast<TO*>(a.dv)[e] = from_f<TO>(sv);
 }
 
-template <int D>
+// TO as in the dk/dv pass: under bf16 S and dP take one MMA, dS K two.
+template <typename TO, int D>
 __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
     attn_bwd_dq_kernel(const BwdArgs a) {
   constexpr int P = bwd_pair<D>(), NT = bwd_threads<D>();
+  constexpr bool kLo = sizeof(TO) == 4;   // operands have lo parts
   constexpr int NS = D / 8;               // k-steps over d; tiles of dQ
   constexpr int NTW = kBwdBK / 8 / P;     // 8-key tiles a warp takes
   static_assert(P == 1 || NS * 4 * 128 * 4 <= 2 * kBwdBK * D * 8,
@@ -1720,8 +1801,8 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   uint4* Os = Qs + kBwdRows * D / 2;                      // dO
   uint4* Ks = Os + kBwdRows * D / 2;                      // [32][D] split
   uint4* Vs = Ks + kBwdBK * D / 2;
-  float* Kr = reinterpret_cast<float*>(Vs + kBwdBK * D / 2);  // [32][D] raw
-  float* Vr = Kr + kBwdBK * D;
+  TO* Kr = reinterpret_cast<TO*>(Vs + kBwdBK * D / 2);    // [32][D] raw
+  TO* Vr = Kr + kBwdBK * D;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -1739,29 +1820,29 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   const int hi = a.causal ? min(a.Lk, p1 + 1) : a.Lk;
   const int kt0 = (lo / kBwdBK) * kBwdBK;
   const int ntiles = hi > kt0 ? (hi - kt0 + kBwdBK - 1) / kBwdBK : 0;
-  const float* kh = a.k + b * a.ksb + hk * a.ksh;
-  const float* vh = a.v + b * a.vsb + hk * a.vsh;
+  const TO* kh = reinterpret_cast<const TO*>(a.k) + b * a.ksb + hk * a.ksh;
+  const TO* vh = reinterpret_cast<const TO*>(a.v) + b * a.vsb + hk * a.vsh;
 
   // Keys [kt, kt + 32) of K and V by cp.async (none past Lk).
   auto issue = [&](int kt) {
-    bwd_issue<D, NT>(Kr, kBwdBK, [&](int r) -> const float* {
+    bwd_issue<D, NT>(Kr, kBwdBK, [&](int r) -> const TO* {
       return kt + r < a.Lk ? kh + static_cast<long long>(kt + r) * a.ksl
                            : nullptr;
     });
-    bwd_issue<D, NT>(Vr, kBwdBK, [&](int r) -> const float* {
+    bwd_issue<D, NT>(Vr, kBwdBK, [&](int r) -> const TO* {
       return kt + r < a.Lk ? vh + static_cast<long long>(kt + r) * a.vsl
                            : nullptr;
     });
   };
   if (ntiles > 0) issue(kt0);
   cp_async_commit();
-  const float* qb = a.q + b * a.qsb;
-  const float* ob = a.dO + b * a.dsb;
-  bwd_load_split<D, NT>(Qs, kBwdRows, [&](int r) -> const float* {
+  const TO* qb = reinterpret_cast<const TO*>(a.q) + b * a.qsb;
+  const TO* ob = reinterpret_cast<const TO*>(a.dO) + b * a.dsb;
+  bwd_load_split<D, NT>(Qs, kBwdRows, [&](int r) -> const TO* {
     return f0 + r < rows ? bwd_qrow(qb, a.qsh, a.qsl, hk, rep, f0 + r)
                          : nullptr;
   });
-  bwd_load_split<D, NT>(Os, kBwdRows, [&](int r) -> const float* {
+  bwd_load_split<D, NT>(Os, kBwdRows, [&](int r) -> const TO* {
     return f0 + r < rows ? bwd_qrow(ob, a.dsh, a.dsl, hk, rep, f0 + r)
                          : nullptr;
   });
@@ -1810,8 +1891,13 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
         const int r0 = 8 * (half * NTW + n);
         const uint4 xk = L.pair(Ks, r0, ks);
         const uint4 xv = L.pair(Vs, r0, ks);
-        mma3(s[n], qh, ql, xk.x, xk.z, xk.y, xk.w);
-        mma3(dp[n], oh, ol, xv.x, xv.z, xv.y, xv.w);
+        if (kLo) {
+          mma3(s[n], qh, ql, xk.x, xk.z, xk.y, xk.w);
+          mma3(dp[n], oh, ol, xv.x, xv.z, xv.y, xv.w);
+        } else {
+          mma_tf32(s[n], qh, xk.x, xk.z);
+          mma_tf32(dp[n], oh, xv.x, xv.z);
+        }
       }
     }
     // dS in place: element e is row g + 8 (e >> 1), key kj + (e & 1).
@@ -1836,7 +1922,10 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
       for (int m = 0; m < NS; ++m) {
         const uint2 k0 = L.one(Ks, r0, 0, m);
         const uint2 k1 = L.one(Ks, r0, 1, m);
-        mma3_add(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);
+        if (kLo)
+          mma3_add(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);
+        else
+          mma2_add(acc[m], dh, dl, k0.x, k1.x);
       }
     }
   }
@@ -1847,12 +1936,13 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   for (int i = 0; i < 2; ++i) {
     const int f = fr + 8 * i;
     if (f >= rows) continue;
-    float* out = a.dq + ((static_cast<long long>(b) * a.H + hk * rep +
-                          f % rep) * a.Lq + f / rep) * D + 2 * t;
+    TO* out = reinterpret_cast<TO*>(a.dq) +
+              ((static_cast<long long>(b) * a.H + hk * rep + f % rep) * a.Lq +
+               f / rep) * D + 2 * t;
 #pragma unroll
     for (int m = 0; m < NS; ++m)
-      *reinterpret_cast<float2*>(out + 8 * m) =
-          make_float2(acc[m][2 * i] * a.scale, acc[m][2 * i + 1] * a.scale);
+      store2(out + 8 * m, acc[m][2 * i] * a.scale,
+             acc[m][2 * i + 1] * a.scale);
   }
 }
 
@@ -2276,13 +2366,17 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
-template <int D>
+// The backward's launches for operands of type TO (float32 at every head
+// width, bf16 at D <= 128: the wide passes are built for float32 only).
+template <typename TO, int D>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   constexpr bool kWide = D > 128;
+  static_assert(!kWide || sizeof(TO) == 4, "the wide passes are float32");
   constexpr int NT = kWide ? kWideThreads : bwd_threads<D>();
   constexpr size_t sm_dkdv =
-      kWide ? smem_bwd_dkdv_wide<D>() : smem_bwd_dkdv<D>();
-  constexpr size_t sm_dq = kWide ? smem_bwd_dq_wide<D>() : smem_bwd_dq<D>();
+      kWide ? smem_bwd_dkdv_wide<D>() : smem_bwd_dkdv<TO, D>();
+  constexpr size_t sm_dq =
+      kWide ? smem_bwd_dq_wide<D>() : smem_bwd_dq<TO, D>();
   constexpr int kRowsBlk = kWide ? kWideRows : kBwdRows;
   constexpr int kKeysBlk = kWide ? kWideKeys : kBwdKeys;
   constexpr int kRowsAux = kBwdAux / (D / 4 < 32 ? D / 4 : 32);
@@ -2292,8 +2386,8 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
     dkdv = attn_bwd_dkdv_wide_kernel<D>;
     dq = attn_bwd_dq_wide_kernel<D>;
   } else {
-    dkdv = attn_bwd_dkdv_kernel<D>;
-    dq = attn_bwd_dq_kernel<D>;
+    dkdv = attn_bwd_dkdv_kernel<TO, D>;
+    dq = attn_bwd_dq_kernel<TO, D>;
   }
   const int groups = a.B * a.Hkv;
   const int rtiles = ((a.H / a.Hkv) * a.Lq + kRowsBlk - 1) / kRowsBlk;
@@ -2302,7 +2396,7 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   if (err == 0) err = opt_in(dq, sm_dq);
   if (err != 0) return err;
   const long long nst = static_cast<long long>(groups) * a.rows_pad;
-  attn_bwd_delta_kernel<D>
+  attn_bwd_delta_kernel<TO, D>
       <<<static_cast<int>((nst + kRowsAux - 1) / kRowsAux), kBwdAux, 0,
          stream>>>(a);
   err = static_cast<int>(cudaGetLastError());
@@ -2313,7 +2407,7 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   if (a.runs > 1) {
     const long long n = static_cast<long long>(a.B) * a.Hkv * a.Lk * D;
     const int blocks = static_cast<int>((n + kBwdAux - 1) / kBwdAux);
-    attn_bwd_reduce_kernel<<<blocks, kBwdAux, 0, stream>>>(a, n);
+    attn_bwd_reduce_kernel<TO><<<blocks, kBwdAux, 0, stream>>>(a, n);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
@@ -2338,7 +2432,10 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 // regime A and needs splits = 1.  `lse`: nullptr, or float32 [B, H, Lq],
 // contiguous, which then receives each row's log2-sum-exp of its logits
 // scaled by scale * log2(e) (what the backward reads); such a call takes
-// regime A at any group size, and float32 q, k, v (the backward's).  Launches on `stream` and returns
+// regime A at any group size, and q, k, v of one type (the backward's:
+// float32, or bf16 at D <= 128).  `o32`: nullptr, or float32 [B, H, Lq,
+// D], contiguous, which a call with `lse` fills with o unrounded (for a
+// bf16 q, whose o is it rounded once).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or the error of the shared-memory
 // opt-in, or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int flash_attention_launch(
@@ -2348,14 +2445,15 @@ extern "C" int flash_attention_launch(
     long long ksh, long long ksl, long long vsb, long long vsh,
     long long vsl, long long klsb, long long klsh, long long vlsb,
     long long vlsh, int causal, int window, float scale, int q_bf16,
-    int kv_bf16, void* part, int splits, void* lse, void* stream) {
+    int kv_bf16, void* part, int splits, void* lse, void* o32,
+    void* stream) {
   if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   if ((kl == nullptr) != (vl == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool split_regime =
       lse == nullptr && (H / Hkv) * static_cast<long long>(Lq) <= kRowsB;
   if (splits < 1 || (!split_regime && splits != 1) ||
-      (splits > 1 && part == nullptr))
+      (splits > 1 && part == nullptr) || (o32 != nullptr && lse == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || Lq <= 0) return static_cast<int>(cudaGetLastError());
   const int elt = kv_bf16 ? 2 : 4;
@@ -2364,19 +2462,21 @@ extern "C" int flash_attention_launch(
   const Args a{q, k, v, o, kl, vl, static_cast<float*>(part), B, H, Hkv, Lq,
                Lk, qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, klsb, klsh,
                vlsb, vlsh, causal, window, scale, splits, vec,
-               static_cast<float*>(lse)};
+               static_cast<float*>(lse), static_cast<float*>(o32)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return q_bf16 ? launch_kv<__nv_bfloat16>(a, D, kv_bf16, s)
                 : launch_kv<float>(a, D, kv_bf16, s);
 }
 
-// The backward of flash_attention_launch's function for float32 q [B, H,
-// Lq, D], k, v [B, Hkv, Lk, D], its output o [B, H, Lq, D], the gradient
-// dO [B, H, Lq, D] of that output and its log2-sum-exp lse [B, H, Lq]
-// (contiguous, as flash_attention_launch writes it): q, k, v, o and dO
-// with unit stride along D, 16-byte aligned rows and the given element
-// strides (multiples of 4) for batch, head and position.  Writes dq [B,
-// H, Lq, D] and dk, dv [B, Hkv, Lk, D], contiguous float32, for the same
+// The backward of flash_attention_launch's function for q [B, H, Lq, D],
+// k, v [B, Hkv, Lk, D] and the gradient dO [B, H, Lq, D] of its output, all
+// float32, or all bf16 when bf16 != 0 (then D <= 128); its float32 output
+// o [B, H, Lq, D] (for bf16 operands the unrounded o32 of the forward)
+// and its log2-sum-exp lse [B, H, Lq] (contiguous, as
+// flash_attention_launch writes it): q, k, v, o and dO with unit stride
+// along D, 16-byte aligned rows and the given element strides (multiples
+// of 16 bytes) for batch, head and position.  Writes dq [B, H, Lq, D] and
+// dk, dv [B, Hkv, Lk, D], contiguous, of the operands' type, for the same
 // causal mask, window (<= 0 for none) and right-aligned queries (Lq <=
 // Lk) as the forward.  `stats` is float32 scratch of 2 * B * Hkv *
 // rows_pad values, rows_pad = H / Hkv * Lq rounded up to a multiple of 64;
@@ -2394,15 +2494,16 @@ extern "C" int flash_attention_bwd_launch(
     long long ksb, long long ksh, long long ksl, long long vsb,
     long long vsh, long long vsl, long long osb, long long osh,
     long long osl, long long dsb, long long dsh, long long dsl, int causal,
-    int window, float scale, void* stream) {
+    int window, float scale, int bf16, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0 || Lq > Lk || stats == nullptr ||
       lse == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (runs < 1 || (runs > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!aligned16(q, qsb, qsh, qsl, 4) || !aligned16(k, ksb, ksh, ksl, 4) ||
-      !aligned16(v, vsb, vsh, vsl, 4) || !aligned16(o, osb, osh, osl, 4) ||
-      !aligned16(dO, dsb, dsh, dsl, 4))
+  const int elt = bf16 ? 2 : 4;
+  if (!aligned16(q, qsb, qsh, qsl, elt) || !aligned16(k, ksb, ksh, ksl, elt) ||
+      !aligned16(v, vsb, vsh, vsl, elt) || !aligned16(o, osb, osh, osl, 4) ||
+      !aligned16(dO, dsb, dsh, dsl, elt))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || Lq <= 0) return static_cast<int>(cudaGetLastError());
   const int rows_pad = ((H / Hkv) * Lq + kBwdRows - 1) / kBwdRows * kBwdRows;
@@ -2416,11 +2517,19 @@ extern "C" int flash_attention_bwd_launch(
                   vsb, vsh, vsl, dsb, dsh, dsl, osb, osh, osl, causal, window,
                   scale, runs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    switch (D) {
+      case 32: return launch_bwd<__nv_bfloat16, 32>(a, s);
+      case 64: return launch_bwd<__nv_bfloat16, 64>(a, s);
+      case 128: return launch_bwd<__nv_bfloat16, 128>(a, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (D) {
-    case 32: return launch_bwd<32>(a, s);
-    case 64: return launch_bwd<64>(a, s);
-    case 128: return launch_bwd<128>(a, s);
-    case 256: return launch_bwd<256>(a, s);
+    case 32: return launch_bwd<float, 32>(a, s);
+    case 64: return launch_bwd<float, 64>(a, s);
+    case 128: return launch_bwd<float, 128>(a, s);
+    case 256: return launch_bwd<float, 256>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,12 +12,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = ((_P,) * 6 + (_I,) * 6 + (_L,) * 13
-             + (_I, _I, ctypes.c_float, _I, _I, _P, _I, _P, _P))
+             + (_I, _I, ctypes.c_float, _I, _I, _P, _I, _P, _P, _P))
 
 
 def launch_flash_attention(q, k, v, out, *, causal: bool, window,
                            scale: float, kv_last=None, splits: int = 1,
-                           part=None, lse=None) -> None:
+                           part=None, lse=None, o32=None) -> None:
     """Enqueue K7 on the current stream of the tensors' device: q [B, H,
     Lq, D] float32 or bfloat16; k, v [B, Hkv, Lk, D] of one of those
     dtypes, read in q's; each with unit stride along D (any strides
@@ -31,7 +31,10 @@ def launch_flash_attention(q, k, v, out, *, causal: bool, window,
     ``lse``: None, or float32 [B, H, Lq] contiguous, which receives each
     row's log2-sum-exp of its logits scaled by scale·log2 e (the
     backward's input); such a call takes the tensor-core kernel at any
-    group size, float32 q, k, v only, and ``splits`` = 1.  The wrapper in ``ops.py``
+    group size, q, k, v of one dtype (float32, or bfloat16 at D ≤ 128),
+    and ``splits`` = 1.  ``o32``: None, or float32 [B, H, Lq, D]
+    contiguous, which such a call fills with the output unrounded (a
+    bfloat16 q's ``out`` is it rounded once).  The wrapper in ``ops.py``
     checks; raises if the launch is refused."""
     fn = load("flash_attention").flash_attention_launch
     if fn.argtypes is None:          # first use of this library handle
@@ -52,24 +55,28 @@ def launch_flash_attention(q, k, v, out, *, causal: bool, window,
              0 if window is None else window, float(scale),
              int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
              None if part is None else part.data_ptr(), splits,
-             None if lse is None else lse.data_ptr(), stream)
+             None if lse is None else lse.data_ptr(),
+             None if o32 is None else o32.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
 
 
 _BWD_ARGTYPES = ((_P,) * 11 + (_I,) * 7 + (_L,) * 15
-                 + (_I, _I, ctypes.c_float, _P))
+                 + (_I, _I, ctypes.c_float, _I, _P))
 
 
 def launch_flash_attention_bwd(q, k, v, o, do, lse, dq, dk, dv, stats, *,
                                causal: bool, window, scale: float,
                                runs: int = 1, part=None) -> None:
-    """Enqueue K7's backward on the current stream: q, o, do [B, H, Lq, D]
-    and k, v [B, Hkv, Lk, D], float32, unit stride along D, 16-byte aligned
-    rows and other strides multiples of 4; ``o`` and ``lse`` the forward's
-    output and its [B, H, Lq] float32 log2-sum-exp
+    """Enqueue K7's backward on the current stream: q, do [B, H, Lq, D]
+    and k, v [B, Hkv, Lk, D] of one dtype, float32 or (at D ≤ 128)
+    bfloat16, and o [B, H, Lq, D] float32, each with unit stride along D,
+    16-byte aligned rows and other strides multiples of 16 bytes; ``o``
+    and ``lse`` the forward's float32 output (a bfloat16 call's
+    unrounded ``o32``) and its [B, H, Lq] float32 log2-sum-exp
     (``launch_flash_attention(lse=...)``); dq [B, H, Lq, D] and dk, dv [B,
-    Hkv, Lk, D] contiguous float32 outputs; ``stats`` float32 scratch of
+    Hkv, Lk, D] contiguous outputs of the operands' dtype; ``stats``
+    float32 scratch of
     2·B·Hkv·rows_pad values (rows_pad = H / Hkv · Lq rounded up to a
     multiple of 64: each row's lse and Δ = rowsum(do ∘ o)); ``runs`` the
     dk/dv pass's runs of rows (``ops.plan_k7_bwd``) and, with more than
@@ -88,7 +95,8 @@ def launch_flash_attention_bwd(q, k, v, o, do, lse, dq, dk, dv, stats, *,
                                       stats)),
              None if part is None else part.data_ptr(), runs,
              B, H, Hkv, Lq, Lk, D, *strides, int(causal),
-             0 if window is None else window, float(scale), stream)
+             0 if window is None else window, float(scale),
+             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err}")

@@ -26,14 +26,18 @@ takes the tensor-core kernel too), and its backward the hand-written
 backward kernels given that lse and the output (``flash_attention_bwd``,
 counted as ``"flash_attention_bwd"``; Δ = rowsum(dO ∘ o) comes from the
 saved output, which the forward accumulates without bias).
-``flash_attention_lse`` returns the output and the lse of one such
-forward.  The backward takes float32 operands at
+``flash_attention_lse`` returns the output (unrounded in float32) and
+the lse of one such forward.  The backward takes float32 operands at
 every head width (at 256 with tiles of its own: 32 keys a dk/dv block and
-32 rows a dq block, each walking raw tiles of 16, D split over warps); a
-grad-requiring call it does not
-take (bf16, or ``kv_last``, which is decode only) raises before any
-launch, never quietly differentiating the plain form.  On the CPU the plain form
-differentiates under autograd as it is.
+32 rows a dq block, each walking raw tiles of 16, D split over warps) and
+bfloat16 ones at ``BWD_BF16_HEAD_DIMS`` (a train step under
+``precision.options(dtype=bf16)``: its forward also writes the output
+unrounded in float32, which Δ is taken from, and dq, dk, dv come back in
+bfloat16, rounded once); a grad-requiring call it does not take (bf16 at
+head width 256, q, k, v of mixed dtypes, or ``kv_last``, which is decode
+only) raises before any launch, never quietly differentiating the plain
+form or widening to float32.  On the CPU the plain form differentiates
+under autograd as it is.
 """
 from __future__ import annotations
 
@@ -47,8 +51,13 @@ from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 #: The head widths the kernel is built for.
 HEAD_DIMS = (32, 64, 128, 256)
-#: The head widths (and dtype) the backward kernels take.
+#: The head widths the backward kernels take float32 operands at.
 BWD_HEAD_DIMS = (32, 64, 128, 256)
+#: The head widths they take bfloat16 operands at: every width of a family
+#: that honours ``precision``'s compute dtype (dense, MoE, VLM: 64 or 128;
+#: 32 in the smoke copies).  recurrentgemma-2b's 256 trains in float32 in
+#: both packages, so its bf16 form is not built.
+BWD_BF16_HEAD_DIMS = (32, 64, 128)
 #: The backward's dk/dv pass cuts a group's flattened rows (H / Hkv · Lq)
 #: into runs of at most this many, one block per (key tile, run), and
 #: adds the runs' partial sums in a fixed order.  ``plan_k7_bwd`` alone
@@ -230,30 +239,33 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 
 def flash_attention_lse(q, k, v, *, causal: bool = True, window=None,
                         scale=None):
-    """``flash_attention``'s output and each query row's log2-sum-exp of
-    its logits scaled by scale·log₂ e (float32 [B, H, Lq]): the forward
-    that training runs, whose lse ``flash_attention_bwd`` takes.  No
-    gradient flows through it.  On the card one counted
-    ``"flash_attention"`` call of the tensor-core kernel at any group
-    size, for what the backward takes (float32; else ``check_backward``
-    raises); on the CPU the plain versions,
-    ``attention_ref`` and ``attention_lse_ref``."""
+    """``flash_attention``'s output unrounded in float32 and each query
+    row's log2-sum-exp of its logits scaled by scale·log₂ e (float32
+    [B, H, Lq]): the forward that training runs, whose output and lse
+    ``flash_attention_bwd`` takes as ``o`` and ``lse`` (a bfloat16 call's
+    output is this one rounded once).  No gradient flows through it.  On
+    the card one counted ``"flash_attention"`` call of the tensor-core
+    kernel at any group size, for what the backward takes (else
+    ``check_backward`` raises); on the CPU the plain versions,
+    ``attention_ref`` on float32 q and ``attention_lse_ref``."""
     device = _check("flash_attention_lse", q, k, v, causal, window, None)
     scale = scale if scale is not None else q.shape[3] ** -0.5
     if device.type == "cpu":
-        return (_plain(q, k, v, causal=causal, window=window, scale=scale,
-                       kv_last=None),
+        return (_plain(q.float(), k, v, causal=causal, window=window,
+                       scale=scale, kv_last=None),
                 attention_lse_ref(q, k, causal=causal, window=window,
                                   scale=scale))
     check_backward(q, k, v)
     with torch.no_grad():
-        return _launch(q, k, v, causal=causal, window=window, scale=scale,
-                       lse=True)
+        _, lse, o32 = _launch(q, k, v, causal=causal, window=window,
+                              scale=scale, lse=True)
+    return o32, lse
 
 
 def _launch(q, k, v, *, causal, window, scale, kv_last=None, lse=False):
     """K7 on checked CUDA operands: one counted call.  With ``lse`` the
-    tensor-core kernel at any group size, returning (o, lse)."""
+    tensor-core kernel at any group size, returning (o, lse, o32): o32 is
+    the output unrounded in float32 (o itself for float32 operands)."""
     B, H, Lq, D = q.shape
     Hkv = k.shape[1]
     out = torch.empty((B, H, Lq, D), dtype=q.dtype, device=q.device)
@@ -261,43 +273,50 @@ def _launch(q, k, v, *, causal, window, scale, kv_last=None, lse=False):
             plan_k7(B, H, Hkv, Lq, k.shape[2], window, sm_count(q.device)))
     lse_t = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
              if lse else None)
+    o32 = (torch.empty((B, H, Lq, D), dtype=torch.float32, device=q.device)
+           if lse and q.dtype != torch.float32 else None)
     part = None
     if plan.splits > 1:
         part = torch.empty(B * Hkv * plan.splits * (H // Hkv) * Lq * (D + 2),
                            dtype=torch.float32, device=q.device)
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            scale=scale, kv_last=kv_last, splits=plan.splits,
-                           part=part, lse=lse_t)
+                           part=part, lse=lse_t, o32=o32)
     LAUNCHES["flash_attention"] += 1
-    return (out, lse_t) if lse else out
+    return (out, lse_t, out if o32 is None else o32) if lse else out
 
 
 def check_backward(q, k, v) -> None:
     """Raise ``NotImplementedError`` for a grad-requiring call on the card
-    that the backward kernels do not take: bf16 operands (the reference's
-    trainer never trains under bf16), or a head width outside
-    ``BWD_HEAD_DIMS``."""
+    that the backward kernels do not take: a head width outside
+    ``BWD_HEAD_DIMS``, q, k, v of mixed dtypes, or bfloat16 operands at a
+    head width outside ``BWD_BF16_HEAD_DIMS``."""
     D = q.shape[3]
     if D not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention: K7 has no backward at head width {D} (it "
             f"takes {BWD_HEAD_DIMS})")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in DTYPES:
         raise NotImplementedError(
-            f"flash_attention: K7's backward takes float32 q, k, v, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}; the bfloat16 backward is "
-            f"not written yet")
+            f"flash_attention: K7's backward takes q, k, v of one dtype "
+            f"(float32 or bfloat16), got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype == torch.bfloat16 and D not in BWD_BF16_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention: K7's backward takes bfloat16 q, k, v at head "
+            f"widths {BWD_BF16_HEAD_DIMS}, got {D} (no family that trains "
+            f"under a bf16 compute dtype has it)")
 
 
 class FlashAttention(torch.autograd.Function):
-    """K7 with its hand-written backward, for CUDA float32 operands at
-    ``BWD_HEAD_DIMS`` (checked by the caller)."""
+    """K7 with its hand-written backward, for CUDA operands that
+    ``check_backward`` passes (checked by the caller).  It saves the
+    output unrounded in float32, which the backward's Δ is taken from."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out, lse = _launch(q, k, v, causal=causal, window=window,
-                           scale=scale, lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, o32 = _launch(q, k, v, causal=causal, window=window,
+                                scale=scale, lse=True)
+        ctx.save_for_backward(q, k, v, o32, lse)
         ctx.args = (causal, window, scale)
         return out
 
@@ -313,26 +332,31 @@ class FlashAttention(torch.autograd.Function):
 
 def _aligned16(t) -> bool:
     """Whether the backward reads ``t`` as it lies: unit stride along D,
-    16-byte aligned rows, other strides multiples of 4 floats."""
+    16-byte aligned rows, other strides multiples of 16 bytes (4 floats,
+    8 bfloat16 values)."""
+    per = 16 // t.element_size()
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all(s % 4 == 0 for s in t.stride()[:3]))
+            and all(s % per == 0 for s in t.stride()[:3]))
 
 
 def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window=None,
                         scale=None, lse=None, o=None):
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
-    output gradient ``do``: float32, dq of q's shape and dk, dv of k's
-    (summed over each group's query heads).
-    ``lse`` and ``o``: the forward's log2-sum-exp [B, H, Lq] and output
-    (``flash_attention_lse``; what ``FlashAttention`` saves), given
-    together or not at all.  On the card the backward kernels (each row's
+    output gradient ``do``: dq of q's shape and dk, dv of k's (summed over
+    each group's query heads), in the operands' dtype (float32, or
+    bfloat16 rounded once from float32 sums, as autograd of the plain
+    version gives them; ``do`` is read in that dtype).
+    ``lse`` and ``o``: the forward's log2-sum-exp [B, H, Lq] and float32
+    output (``flash_attention_lse``'s; what ``FlashAttention`` saves), given together or not at all.  On the card
+    the backward kernels (each row's
     lse staged with Δ = rowsum(do ∘ o), dk/dv, dq, and one more that adds
     the dk/dv pass's runs when ``plan_k7_bwd`` gives more than one;
     counted once as ``"flash_attention_bwd"``), given ``lse`` and ``o``
     or, without them, those of one more forward (counted as
     ``"flash_attention"``: the same bits as the forward's, so this call
     and autograd agree bit for bit).  On the CPU ``attention_bwd_ref``,
-    which needs neither."""
+    which needs neither, its float32 gradients rounded to the operands'
+    dtypes."""
     device = device_of("flash_attention_bwd", (q, k, v, do))
     B, H, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
@@ -345,18 +369,19 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window=None,
         raise ValueError("flash_attention_bwd: give the forward's lse and "
                          "o together, or neither")
     if device.type == "cpu":
-        return attention_bwd_ref(q, k, v, do, causal=causal, window=window,
-                                 scale=scale)
+        dq, dk, dv = attention_bwd_ref(q, k, v, do, causal=causal,
+                                       window=window, scale=scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     check_backward(q, k, v)
-    do = do.float()
+    do = do.to(q.dtype)
     if H % Hkv or k.shape != v.shape:
         raise ValueError(f"flash_attention_bwd: k, v must be [B, Hkv, Lk, "
                          f"D] with H={H} a multiple of Hkv")
     q, k, v, do = (t if _aligned16(t) else t.contiguous()
                    for t in (q, k, v, do))
     if lse is None:
-        o, lse = _launch(q, k, v, causal=causal, window=window, scale=scale,
-                         lse=True)
+        _, lse, o = _launch(q, k, v, causal=causal, window=window,
+                            scale=scale, lse=True)
     elif (lse.shape != (B, H, Lq) or lse.dtype != torch.float32
           or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
@@ -366,12 +391,13 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window=None,
     elif (o.shape != q.shape or o.dtype != torch.float32
           or o.device != q.device):
         raise ValueError(f"flash_attention_bwd: o must be the forward's "
-                         f"float32 output of q's shape on {q.device}, got "
+                         f"float32 output (unrounded for bfloat16 "
+                         f"operands) of q's shape on {q.device}, got "
                          f"{o.dtype} {tuple(o.shape)} on {o.device}")
     elif not _aligned16(o):
         o = o.contiguous()
-    dq = torch.empty((B, H, Lq, D), dtype=torch.float32, device=device)
-    dk = torch.empty((B, Hkv, Lk, D), dtype=torch.float32, device=device)
+    dq = torch.empty((B, H, Lq, D), dtype=q.dtype, device=device)
+    dk = torch.empty((B, Hkv, Lk, D), dtype=q.dtype, device=device)
     dv = torch.empty_like(dk)
     rows_pad = -(-(H // Hkv) * Lq // K7_BWD_ROWS) * K7_BWD_ROWS
     stats = torch.empty(2 * B * Hkv * rows_pad, dtype=torch.float32,

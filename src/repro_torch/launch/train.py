@@ -9,8 +9,12 @@ Wires the port's substrate together: config → model → synthetic pipeline
 → straggler monitor.  It runs on the card unless ``--device cpu`` is
 given; on the card every attention layer runs K7 forward and its
 backward kernels, and every Mamba-2 mixer K8 and its backward, so every
-family trains there (in float32: a bf16 call needing a gradient
-raises).
+family trains there.  The launcher trains in float32, as the
+reference's does; a caller that trains under
+``models.precision.options(dtype=torch.bfloat16)`` (the library's
+``make_train_step``) gets K7's bf16 backward at head widths 32–128, and
+a bf16 call it does not take (head width 256) raises before any
+launch.
 
 The resume path replays the reference's, fault included (ROADMAP §3,
 R5): the checkpoint saved at step s holds the state *after* step s's

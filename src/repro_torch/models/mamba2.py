@@ -17,6 +17,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
@@ -216,16 +217,28 @@ def init_params(cfg: ModelConfig, seed=0, *, device=None) -> Params:
     }
 
 
+def _layer_fn(cfg: ModelConfig, lp, h):
+    return h + mixer_apply(lp["mixer"], rms_norm(h, lp["ln"], cfg.norm_eps),
+                           cfg)
+
+
 def forward(cfg: ModelConfig, p: Params, batch, *, remat: bool = True,
             unembed: bool = True):
-    """Prefill forward → (logits [B, L, V], {}).  ``remat`` has no effect
-    in the port's inference path."""
+    """Prefill / training forward → (logits [B, L, V], {}).  ``remat``:
+    while grad mode is on, each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant), as the reference wraps its layer in
+    ``jax.checkpoint``: the backward recomputes the layer (K8 launched
+    again on the card) instead of keeping its activations; without grad
+    mode it changes nothing."""
     tokens = torch.as_tensor(batch["tokens"], device=p["embed"].device)
     x = p["embed"][tokens]
+    remat = remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         lp = layer(p["layers"], i)
-        x = x + mixer_apply(lp["mixer"], rms_norm(x, lp["ln"], cfg.norm_eps),
-                            cfg)
+        if remat:
+            x = checkpoint(_layer_fn, cfg, lp, x, use_reentrant=False)
+        else:
+            x = _layer_fn(cfg, lp, x)
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
     return (x @ p["embed"].T if unembed else x), {}
 

@@ -38,6 +38,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._arith import fma
 from .._device import resolve_device
@@ -245,26 +246,36 @@ def _sublayer(cfg: ModelConfig, kind: str, sp, x, positions):
                          cfg.act)
 
 
-def _layers(cfg: ModelConfig, p: Params):
-    """(kind, sublayer params) of every layer in order: the blocks', then
-    the remainder's."""
-    n_blocks, _ = _counts(cfg)
-    for bi in range(n_blocks):
-        bp = layer(p["blocks"], bi)
-        yield from zip(cfg.block_pattern, bp)
-    yield from zip(cfg.block_pattern, p.get("rem", ()))
+def _block_fn(cfg: ModelConfig, bp, x, positions):
+    """The sublayers of one ``block_pattern`` block (or of the remainder,
+    ``rem``) in order."""
+    for kind, sp in zip(cfg.block_pattern, bp):
+        x = _sublayer(cfg, kind, sp, x, positions)
+    return x
 
 
 def forward(cfg: ModelConfig, p: Params, batch, *, remat: bool = True,
             unembed: bool = True):
-    """batch: tokens [B, L] → (logits [B, L, V], {}).  ``remat`` has no
-    effect in the port's inference path."""
+    """batch: tokens [B, L] → (logits [B, L, V], {}).  ``remat``: while
+    grad mode is on, each ``block_pattern`` block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+    block in ``jax.checkpoint``; the remainder's sublayers (``rem``) run
+    outside it, as the reference's do.  Without grad mode it changes
+    nothing."""
     tokens = torch.as_tensor(batch["tokens"], device=p["embed"].device)
     x = p["embed"][tokens]
     B, L = tokens.shape
     positions = torch.arange(L, device=x.device)[None].expand(B, L)
-    for kind, sp in _layers(cfg, p):
-        x = _sublayer(cfg, kind, sp, x, positions)
+    remat = remat and torch.is_grad_enabled()
+    n_blocks, _ = _counts(cfg)
+    for bi in range(n_blocks):
+        bp = layer(p["blocks"], bi)
+        if remat:
+            x = checkpoint(_block_fn, cfg, bp, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _block_fn(cfg, bp, x, positions)
+    x = _block_fn(cfg, p.get("rem", ()), x, positions)
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
     return (x @ p["embed"].T if unembed else x), {}
 

@@ -211,13 +211,17 @@ def moe_group_apply(p, x, cfg: ModelConfig, load):
     h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     ye = torch.bmm(h, p["w_down"]).view(E * cap, d)
     slot = torch.where(keep, slot, 0)
-    gate = vals * keep
-    y = torch.zeros_like(x)
+    # The reference's combine einsum in x's dtype: each gate rounded to it,
+    # the k products summed in float32 in choice order, the sum rounded
+    # once (under bf16 the float32 gates would otherwise promote the
+    # residual stream to float32; in float32 every cast is the identity).
+    gate = (vals * keep).to(x.dtype).float()
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for j in range(k):                                    # choice order
-        y = y + ye[slot[:, j]] * gate[:, j, None]
+        y = y + ye[slot[:, j]].float() * gate[:, j, None]
     # Aux load-balance loss (Switch): E · Σ_e f_e · P_e.
     aux = E * torch.sum(counts / g * probs.mean(0))
-    return y, aux, counts
+    return y.to(x.dtype), aux, counts
 
 
 def moe_apply(p, x, cfg: ModelConfig, group: int = 2048):

@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
@@ -113,22 +114,34 @@ def encode(cfg: ModelConfig, p: Params, frames):
     return rms_norm(x, p["ln_enc"], cfg.norm_eps)
 
 
+def _dec_layer_fn(cfg: ModelConfig, lp, x, enc):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + _mha(lp["self"], cfg, h, h, causal=True)
+    x = x + _mha(lp["cross"], cfg, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                 enc, causal=False)
+    return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln3"], cfg.norm_eps),
+                         "gelu")
+
+
 def forward(cfg: ModelConfig, p: Params, batch, *, remat: bool = True,
             unembed: bool = True):
     """batch: frames [B, F, d] and tokens [B, L] → (logits [B, L, V], {}).
-    ``remat`` has no effect in the port's inference path."""
+    ``remat``: while grad mode is on, each decoder layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+    decoder layer in ``jax.checkpoint``; the encoder is not checkpointed,
+    as the reference's is not.  Without grad mode it changes nothing."""
     enc = encode(cfg, p, batch["frames"])
     tokens = torch.as_tensor(batch["tokens"], device=p["embed"].device)
     L = tokens.shape[1]
     x = p["embed"][tokens] + p["pos_dec"][None, :L]
+    remat = remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         lp = layer(p["dec_layers"], i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + _mha(lp["self"], cfg, h, h, causal=True)
-        x = x + _mha(lp["cross"], cfg, rms_norm(x, lp["ln2"], cfg.norm_eps),
-                     enc, causal=False)
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln3"], cfg.norm_eps),
-                          "gelu")
+        if remat:
+            x = checkpoint(_dec_layer_fn, cfg, lp, x, enc,
+                           use_reentrant=False)
+        else:
+            x = _dec_layer_fn(cfg, lp, x, enc)
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
     return (x @ p["embed"].T if unembed else x), {}
 

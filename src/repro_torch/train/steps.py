@@ -10,7 +10,11 @@ Gradients come from ``torch.autograd`` through the port's forward: on the
 card every attention layer's forward is K7 and its backward the
 hand-written backward kernels (``kernels.flash_attention``), and every
 Mamba-2 mixer's intra-chunk block K8 with its hand-written backward
-(``kernels.ssd_chunk``); a bf16 call needing a gradient raises.
+(``kernels.ssd_chunk``).  Under ``precision.options(dtype=bf16)`` the
+transformer families (dense, MoE, VLM) train in bf16 with K7's bf16
+backward (head widths 32–128); mamba2, recurrentgemma and whisper
+ignore the compute dtype, as the reference's do.  With ``remat`` every
+family checkpoints the units the reference wraps in ``jax.checkpoint``.
 ``abstract_train_state`` gives the state's shapes and dtypes on the
 ``meta`` device, with no storage, for the dry-run.
 """

@@ -137,7 +137,7 @@ _MMA3_ADD = ("  float p[4];\n"
              "  mma_tf32(p, ah, b0h, b1h);\n"
              "#pragma unroll\n"
              "  for (int e = 0; e < 4; ++e) c[e] += p[e];\n")
-_DQ_ADD = "        mma3_add(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);\n"
+_DQ_ADD = "          mma3_add(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);\n"
 #: The dk/dv pass's products (D <= 128): a partial a row tile, the
 #: 8-column tiles m of dK, dV outer and the tile's row fragments inner.
 _DKDV_TILE = """    uint32_t ph[NTW][4], pl[NTW][4], sh[NTW][4], sl[NTW][4];
@@ -163,9 +163,9 @@ _DKDV_TILE = """    uint32_t ph[NTW][4], pl[NTW][4], sh[NTW][4], sl[NTW][4];
           mma_tf32(pv, pl[n], o0.x, o1.x);
           mma_tf32(pk, sl[n], q0.x, q1.x);
         }
-        mma_tf32(pv, ph[n], o0.y, o1.y);
+        if (kLo) mma_tf32(pv, ph[n], o0.y, o1.y);
         mma_tf32(pv, ph[n], o0.x, o1.x);
-        mma_tf32(pk, sh[n], q0.y, q1.y);
+        if (kLo) mma_tf32(pk, sh[n], q0.y, q1.y);
         mma_tf32(pk, sh[n], q0.x, q1.x);
       }
 #pragma unroll
@@ -214,7 +214,7 @@ BWD_VARIANTS = {
     # the D = 256 passes (D split over the warps) at D = 128 (tried, and
     # slower: 10.5 against 8.3 ms at qwen3-moe's prefill)
     "wide128": (("  constexpr bool kWide = D > 128;",
-                 "  constexpr bool kWide = D > 64;"),),
+                 "  constexpr bool kWide = D > 64 && sizeof(TO) == 4;"),),
     # every accumulator chained (the biased order before the partials)
     "running": ((_DKDV_TILE, _dkdv_loop("mma3")),
                 (_MMA3_ADD, "  mma3(c, ah, al, b0h, b1h, b0l, b1l);\n")),
@@ -285,7 +285,7 @@ def backward(cs, torch, out, baseline=None) -> int:
     card = cs.card_line()
     print(card, flush=True)
     cs.no_tf32(torch)
-    kernels = [f"attn_bwd_{k}_kernelILi{D}EEEvNS_7BwdArgsE"
+    kernels = [f"attn_bwd_{k}_kernelIfLi{D}EEEvNS_7BwdArgsE"
                for k in ("dkdv", "dq") for D in (64, 128)] + [
         f"attn_bwd_{k}_wide_kernelILi256EEEvNS_7BwdArgsE"
         for k in ("dkdv", "dq")]
@@ -318,7 +318,7 @@ def backward(cs, torch, out, baseline=None) -> int:
                     e = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse)
                              + outs), stats.data_ptr(), part.data_ptr(),
                            runs, B, H, Hkv, Lq, Lk, D, *strides, int(causal),
-                           window or 0, float(D ** -0.5), stream)
+                           window or 0, float(D ** -0.5), 0, stream)
                     if e:
                         raise RuntimeError(f"ablate_flash_attention: CUDA "
                                            f"error {e}")
@@ -399,7 +399,7 @@ def main() -> int:
                 None, None, B, H, Hkv, Lq, Lk, D, *q.stride()[:3],
                 *k.stride()[:3], *v.stride()[:3], 0, 0, 0, 0, int(causal),
                 0 if window is None else window, float(D ** -0.5), 0, 0,
-                part.data_ptr(), splits, None, stream)
+                part.data_ptr(), splits, None, None, stream)
 
         def go():
             err = fn(*args)
