@@ -317,7 +317,11 @@ package, and runs twenty-eight phases; any failure raises and exits non-zero
    the wrapper, the bf16 output the float32 one rounded once; at
    ``K7_BWD_TIMED`` two calls bit for bit and the backward timed beside
    the plain version, the float32 backward on the same values and SDPA's
-   bf16 backward; (b) tinyllama-1.1b trained as in phase 26 (b) under
+   bf16 backward, and the bf16 grad forward (``flash_attention_lse``,
+   which writes lse and the float32 output) beside SDPA's bf16 forward;
+   the bf16 passes' registers, local (spilled) bytes, shared memory and
+   blocks an SM at each head width, none spilling; (b) tinyllama-1.1b
+   trained as in phase 26 (b) under
    ``precision.options(dtype=torch.bfloat16)``: finite, falling losses,
    44 K7 forwards and 22 bf16 backwards a step, ms a step, tokens/s, peak
    memory beside the cost model's bf16 bound; (c) qwen3-moe-235b-a22b at
@@ -4899,6 +4903,11 @@ def k7_bwd_bf16_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
         q, k, v, do, causal=causal, window=window, lse=lse, o=o32), reps=20)
     plain_ms = event_ms(torch, lambda: attention_bwd_ref(
         q, k, v, do, causal=causal, window=window), reps=10, warmup=2)
+    fwd_ms = event_ms(torch, lambda: flash_attention_lse(
+        q, k, v, causal=causal, window=window), reps=20)
+    with torch.no_grad():
+        fwd_lib_ms = event_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True, is_causal=True), reps=20)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     of, lf = flash_attention_lse(qf, kf, vf, causal=causal, window=window)
     f32_ms = event_ms(torch, lambda: flash_attention_bwd(
@@ -4915,23 +4924,62 @@ def k7_bwd_bf16_case(torch, B, H, Hkv, Lq, Lk, D, causal, window,
     del os_
     pairs = B * H * Lq * (Lq + 1) // 2
     # bf16 q, k, v, dO read and dq, dk, dv written, float32 o read.  An
-    # unmasked pair: q·k and dO·v have bf16 operands on both sides, 4·D
-    # flops at the bf16 tensor-core rate (exact products, float32 sums);
-    # P·dO, dS·k and dS·q have a float32 operand (P, dS), two TF32 MMAs
-    # each (split into hi + lo), 12·D flops at the TF32 rate.
+    # unmasked pair: q·k and dO·v have bf16 operands on both sides, one
+    # product each (2·D flops); P·dO, dS·k and dS·q have a float32 operand
+    # (P, dS) that enters as three bf16 pieces, three products each: 22·D
+    # flops at the bf16 tensor-core rate.
     nbytes = 2 * (3 * B * H * Lq + 4 * B * Hkv * Lk) * D + 4 * B * H * Lq * D
-    ops = 16 * D * pairs
-    op_s = pairs * (4 * D / BF16_OPS_PER_S + 12 * D / TF32_OPS_PER_S)
     row = row_of("flash_attention_bwd_bf16", B * H, Lk, ms, plain_ms, nbytes,
-                 ops, err, library_ms=lib_ms, op_rate=ops / op_s, Lq=Lq,
-                 D=D, rep=H // Hkv)
-    row["f32_ms"] = f32_ms
+                 22 * D * pairs, err, library_ms=lib_ms,
+                 op_rate=BF16_OPS_PER_S, Lq=Lq, D=D, rep=H // Hkv)
+    # The grad forward: bf16 q, k, v read, bf16 o, float32 o32 and lse
+    # written; q·k one product, P·v (P float32) three: 8·D flops a pair at
+    # the bf16 rate.
+    fwd_bytes = (2 * (2 * B * H * Lq + 2 * B * Hkv * Lk) * D
+                 + 4 * B * H * Lq * (D + 1))
+    fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S,
+                    8 * D * pairs / BF16_OPS_PER_S) * 1e3
+    row.update(f32_ms=f32_ms, fwd_ms=fwd_ms, fwd_library_ms=fwd_lib_ms,
+               fwd_bound_ms=fwd_bound)
     print(f"kernel flash_attention_bwd {shape}: {ms * 1e3:.3f} us against "
           f"the float32 backward's {f32_ms * 1e3:.3f} us on the same values "
           f"and SDPA's bf16 backward {lib_ms * 1e3:.3f} us; "
           f"{row['bound_ms'] / ms:.4f} of its bound; given the forward's lse "
           f"and float32 output; two calls bit for bit", flush=True)
+    print(f"kernel flash_attention_lse {shape}: {fwd_ms * 1e3:.3f} us "
+          f"(the bf16 grad forward, o32 and lse written) against SDPA's bf16 "
+          f"forward {fwd_lib_ms * 1e3:.3f} us; bound {fwd_bound * 1e3:.3f} us "
+          f"(8·D a pair at the bf16 rate)", flush=True)
     return row
+
+
+def k7_bwd_bf16_attrs(torch) -> dict:
+    """The bf16 backward's passes as built for this card at each of
+    ``BWD_BF16_HEAD_DIMS``: registers, local bytes (spills), dynamic shared
+    memory and blocks an SM, against ``plan_k7_bwd_bf16``; none may spill
+    and each must keep eight warps an SM."""
+    from repro_torch.kernels.flash_attention.kernel import bwd_bf16_attrs
+    from repro_torch.kernels.flash_attention.ops import (BWD_BF16_HEAD_DIMS,
+                                                         plan_k7_bwd_bf16)
+
+    out = {}
+    for D in BWD_BF16_HEAD_DIMS:
+        attrs = bwd_bf16_attrs(D)
+        plan = plan_k7_bwd_bf16(D)
+        for name, want in (("dkdv", plan.smem_dkdv), ("dq", plan.smem_dq)):
+            a = attrs[name]
+            print(f"flash_attention_bwd bf16 {name} D={D}: {a['registers']} "
+                  f"registers, {a['local_bytes']} local bytes, "
+                  f"{a['smem_bytes']} B shared memory, {a['blocks_per_sm']} "
+                  f"blocks an SM", flush=True)
+            check(a["smem_bytes"] == want, f"bf16 {name} D={D}: shared memory "
+                  f"{a['smem_bytes']}, plan_k7_bwd_bf16 says {want}")
+            check(a["local_bytes"] == 0, f"bf16 {name} D={D}: "
+                  f"{a['local_bytes']} local (spilled) bytes")
+            warps = (8 if name == "dkdv" else 4) * a["blocks_per_sm"]
+            check(warps >= 8, f"bf16 {name} D={D}: {warps} warps an SM")
+        out[D] = attrs
+    return out
 
 
 def cost_terms(cfg, B: int, L: int, bf16: bool = False) -> tuple:
@@ -5025,11 +5073,15 @@ def bf16_training_phase(torch) -> tuple:
     from repro_torch.configs import ARCHS
     from repro_torch.models import precision, registry
 
+    from repro_torch.kernels.flash_attention.ops import BWD_BF16_HEAD_DIMS
+
     no_tf32(torch)
     for case in K7_BWD_CASES:
-        k7_bwd_bf16_case(torch, *case)
+        if case[5] in BWD_BF16_HEAD_DIMS:
+            k7_bwd_bf16_case(torch, *case)
     rows = [k7_bwd_bf16_case(torch, *case, timed=True)
             for case in K7_BWD_TIMED]
+    attrs = k7_bwd_bf16_attrs(torch)
     torch.cuda.empty_cache()
     cfg = ARCHS[TRAIN_ARCH]
     holder = {"params": registry.init_params(cfg, 0, device="cuda")}
@@ -5046,7 +5098,12 @@ def bf16_training_phase(torch) -> tuple:
     figures = [{"arch": cfg.name, "layers": cfg.n_layers,
                 "batch": list(TRAIN_BATCH), "step_ms": run["ms"],
                 "peak_bytes": run["peak"], "bound_ms": bound},
-               bf16_moe_run(torch)]
+               bf16_moe_run(torch),
+               {"k7_bwd_bf16": [
+                   {k: r[k] for k in ("D", "ms", "f32_ms", "library_ms",
+                                      "bound_ms", "fwd_ms", "fwd_library_ms",
+                                      "fwd_bound_ms")} for r in rows],
+                "attrs": attrs}]
     for name, shape in BF16_COPIES.items():
         family_copy(torch, name, shape=shape, dtype=torch.bfloat16,
                     loss_rtol=BF16_LOSS_RTOL, grad_of_max=BF16_GRAD_OF_MAX,

@@ -1222,21 +1222,9 @@ bool aligned16(const void* p, long long s0, long long s1, long long s2,
 // walked operand's traffic from L2.
 // Head widths 32, 64, 128 and 256.
 //
-// bf16 operands (q, k, v and dO bf16; a train step under
-// precision.options(dtype=bf16)), at D <= 128: the passes above are
-// templated on the operands' type.  Their raw tiles hold bf16 (half the
-// bytes read and copied), widened exactly as they are split.  A bf16
-// value is exact in TF32 (its lo part is 0), so S = Q K^T and dP = dO V^T
-// take one MMA each, and dV = P^T dO, dK = dS^T Q and dQ = dS K split
-// only P or dS into hi + lo: two MMAs each.  P and dS stay float32, as the
-// reference's jnp attention keeps them (FlashAttention-2 rounds P to bf16
-// for a bf16 MMA: another function).  Delta is taken from the forward's
-// float32 output o32, not the bf16 o it returns.  Accumulation is float32
-// with the same rounding-add landing of partials, and dq, dk, dv are
-// rounded once to bf16, as autograd of the plain version rounds them.
-// Bound: 16 * D TF32 flops an unmasked pair (two products at one MMA,
-// three at two) against bf16 q, k, v, dO and float32 o read and bf16 dq,
-// dk, dv written once.
+// bf16 operands (q, k, v and dO bf16) at D <= 128 have passes of their
+// own, built for the bf16 tensor cores; their note follows the D = 256
+// passes.
 
 constexpr int kBwdKeys = 64;       // dk/dv: keys a block, 16 a warp group
 constexpr int kBwdRows = 64;       // dq: rows a block, 16 a warp group
@@ -1252,18 +1240,17 @@ __host__ __device__ constexpr int bwd_threads() { return 128 * bwd_pair<D>(); }
 template <int D>
 __host__ __device__ constexpr int bwd_br() { return D > 32 ? 32 : 64; }
 
-// K, V split (64 keys), Q, dO split and raw (BR rows; raw in the
-// operands' type TO), raw and current (lse, Delta) and the positions of
-// the BR rows.
-template <typename TO, int D>
+// K, V split (64 keys), Q, dO split and raw (BR rows), raw and current
+// (lse, Delta) and the positions of the BR rows.
+template <int D>
 __host__ __device__ constexpr size_t smem_bwd_dkdv() {
-  return 2 * kBwdKeys * D * 8 + 2 * bwd_br<D>() * D * (8 + sizeof(TO)) +
+  return 2 * kBwdKeys * D * 8 + 2 * bwd_br<D>() * D * 12 +
          bwd_br<D>() * (2 * sizeof(float2) + sizeof(int));
 }
 // Q, dO split (64 rows), K, V split and raw (32 keys).
-template <typename TO, int D>
+template <int D>
 __host__ __device__ constexpr size_t smem_bwd_dq() {
-  return 2 * kBwdRows * D * 8 + 2 * kBwdBK * D * (8 + sizeof(TO));
+  return 2 * kBwdRows * D * 8 + 2 * kBwdBK * D * 12;
 }
 
 struct BwdArgs {
@@ -1393,19 +1380,6 @@ __device__ __forceinline__ void mma3_add(float (&c)[4],
   for (int e = 0; e < 4; ++e) c[e] += p[e];
 }
 
-// mma3_add for an exact TF32 b (a bf16 operand, whose lo part is 0):
-// lo_a hi_b + hi_a hi_b.
-__device__ __forceinline__ void mma2_add(float (&c)[4],
-                                         const uint32_t (&ah)[4],
-                                         const uint32_t (&al)[4],
-                                         uint32_t b0h, uint32_t b1h) {
-  float p[4];
-  mma_tf32_z(p, al, b0h, b1h);
-  mma_tf32(p, ah, b0h, b1h);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += p[e];
-}
-
 // A C fragment split into the A fragment of a product reduced over its
 // columns: A columns t and t + 4 are the C fragment's columns 2t, 2t + 1.
 __device__ __forceinline__ void c_to_a(const float (&c)[4], uint32_t (&ah)[4],
@@ -1416,40 +1390,39 @@ __device__ __forceinline__ void c_to_a(const float (&c)[4], uint32_t (&ah)[4],
   split(c[3], ah[3], al[3]);
 }
 
-// Rows [0, n) of a split tile from row(r), a row pointer (float32 or
-// bf16, widened exactly) or nullptr (a row of zeros), read directly.
+// Rows [0, n) of a split tile from row(r), a row pointer or nullptr (a
+// row of zeros), read directly.
 template <int D, int NT, typename Row>
 __device__ __forceinline__ void bwd_load_split(uint4* T, int n, Row row) {
   for (int idx = threadIdx.x; idx < n * (D / 4); idx += NT) {
     const int r = idx / (D / 4), d = (idx % (D / 4)) * 4;
-    const auto* p = row(r);
-    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (p != nullptr) load4(p + d, x);
-    st_put4<D>(T, r, d, make_float4(x[0], x[1], x[2], x[3]));
+    const float* p = row(r);
+    const float4 x = p != nullptr ? *reinterpret_cast<const float4*>(p + d)
+                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    st_put4<D>(T, r, d, x);
   }
 }
 
-// Enqueues (cp.async, 16 bytes a piece) the rows r of [0, n) for which
-// row(r) is not nullptr into the raw tile [n][D] of their type E.
-template <int D, int NT, typename E, typename Row>
-__device__ __forceinline__ void bwd_issue(E* raw, int n, Row row) {
-  constexpr int EPV = 16 / sizeof(E);
-  for (int idx = threadIdx.x; idx < n * (D / EPV); idx += NT) {
-    const int r = idx / (D / EPV), e = (idx % (D / EPV)) * EPV;
-    const E* p = row(r);
+// Enqueues (cp.async) the rows r of [0, n) for which row(r) is not
+// nullptr into the raw tile [n][D].
+template <int D, int NT, typename Row>
+__device__ __forceinline__ void bwd_issue(float* raw, int n, Row row) {
+  for (int idx = threadIdx.x; idx < n * (D / 4); idx += NT) {
+    const int r = idx / (D / 4), e = (idx % (D / 4)) * 4;
+    const float* p = row(r);
     if (p != nullptr) cp_async16(raw + r * D + e, p + e);
   }
 }
 
 // The split pass: raw rows [0, n) into a split tile, zeros where !ok(r).
-template <int D, int NT, typename E, typename Ok>
-__device__ __forceinline__ void bwd_split(uint4* T, const E* raw, int n,
+template <int D, int NT, typename Ok>
+__device__ __forceinline__ void bwd_split(uint4* T, const float* raw, int n,
                                           Ok ok) {
   for (int idx = threadIdx.x; idx < n * (D / 4); idx += NT) {
     const int r = idx / (D / 4), d = (idx % (D / 4)) * 4;
-    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (ok(r)) load4(raw + r * D + d, x);
-    st_put4<D>(T, r, d, make_float4(x[0], x[1], x[2], x[3]));
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (ok(r)) x = *reinterpret_cast<const float4*>(raw + r * D + d);
+    st_put4<D>(T, r, d, x);
   }
 }
 
@@ -1548,15 +1521,10 @@ __global__ void __launch_bounds__(kBwdAux)
   if (i < n && lane == 0) a.stats[i] = make_float2(lse, sum);
 }
 
-// TO: the operands' type.  Under bf16 a value is exact in TF32 (its lo
-// part is 0), so a product of two operands (S^T, dP^T) is one MMA and one
-// of P or dS with an operand (dV, dK) two: the MMAs that would carry an
-// operand's lo are not issued.
-template <typename TO, int D>
+template <int D>
 __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
     attn_bwd_dkdv_kernel(const BwdArgs a) {
   constexpr int P = bwd_pair<D>(), NT = bwd_threads<D>(), BR = bwd_br<D>();
-  constexpr bool kLo = sizeof(TO) == 4;   // operands have lo parts
   constexpr int NS = D / 8;          // k-steps over d; 8-column tiles of dK
   constexpr int NTW = BR / 8 / P;    // 8-row tiles of a row tile a warp takes
   static_assert(P == 1 || 2 * NS * 4 * 128 * 4 <= 2 * BR * D * 8,
@@ -1566,8 +1534,8 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   uint4* Vs = Ks + kBwdKeys * D / 2;
   uint4* Qs = Vs + kBwdKeys * D / 2;                     // [BR][D] split
   uint4* Os = Qs + BR * D / 2;                           // dO
-  TO* Qr = reinterpret_cast<TO*>(Os + BR * D / 2);       // [BR][D] raw
-  TO* Or = Qr + BR * D;
+  float* Qr = reinterpret_cast<float*>(Os + BR * D / 2);  // [BR][D] raw
+  float* Or = Qr + BR * D;
   float2* Sr = reinterpret_cast<float2*>(Or + BR * D);   // [BR] raw stats
   float2* Sc = Sr + BR;                                  // [BR] the tile's
   int* Pc = reinterpret_cast<int*>(Sc + BR);             // [BR] positions
@@ -1590,17 +1558,17 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   const int run_rows = (rows + a.runs - 1) / a.runs;
   const int f_beg = p_lo * rep + run * run_rows;
   const int f_end = min(p_hi * rep, f_beg + run_rows);
-  const TO* qb = reinterpret_cast<const TO*>(a.q) + b * a.qsb;
-  const TO* ob = reinterpret_cast<const TO*>(a.dO) + b * a.dsb;
+  const float* qb = a.q + b * a.qsb;
+  const float* ob = a.dO + b * a.dsb;
   const float2* sb = a.stats + static_cast<long long>(grp) * a.rows_pad;
 
   // Rows [f0, f0 + BR) of the run: Q, dO and (lse, Delta) by cp.async.
   auto issue = [&](int f0) {
-    bwd_issue<D, NT>(Qr, BR, [&](int r) -> const TO* {
+    bwd_issue<D, NT>(Qr, BR, [&](int r) -> const float* {
       return f0 + r < f_end ? bwd_qrow(qb, a.qsh, a.qsl, hk, rep, f0 + r)
                             : nullptr;
     });
-    bwd_issue<D, NT>(Or, BR, [&](int r) -> const TO* {
+    bwd_issue<D, NT>(Or, BR, [&](int r) -> const float* {
       return f0 + r < f_end ? bwd_qrow(ob, a.dsh, a.dsl, hk, rep, f0 + r)
                             : nullptr;
     });
@@ -1619,13 +1587,13 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   if (f_beg < f_end) {
     issue(f_beg);
     cp_async_commit();
-    const TO* kh = reinterpret_cast<const TO*>(a.k) + b * a.ksb + hk * a.ksh;
-    const TO* vh = reinterpret_cast<const TO*>(a.v) + b * a.vsb + hk * a.vsh;
-    bwd_load_split<D, NT>(Ks, kBwdKeys, [&](int r) -> const TO* {
+    const float* kh = a.k + b * a.ksb + hk * a.ksh;
+    const float* vh = a.v + b * a.vsb + hk * a.vsh;
+    bwd_load_split<D, NT>(Ks, kBwdKeys, [&](int r) -> const float* {
       return j0 + r < a.Lk ? kh + static_cast<long long>(j0 + r) * a.ksl
                            : nullptr;
     });
-    bwd_load_split<D, NT>(Vs, kBwdKeys, [&](int r) -> const TO* {
+    bwd_load_split<D, NT>(Vs, kBwdKeys, [&](int r) -> const float* {
       return j0 + r < a.Lk ? vh + static_cast<long long>(j0 + r) * a.vsl
                            : nullptr;
     });
@@ -1667,13 +1635,8 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
         const int r0 = 8 * (half * NTW + n);
         const uint4 xq = L.pair(Qs, r0, s);
         const uint4 xo = L.pair(Os, r0, s);
-        if (kLo) {
-          mma3(st[n], kh, kl, xq.x, xq.z, xq.y, xq.w);
-          mma3(dp[n], vh, vl, xo.x, xo.z, xo.y, xo.w);
-        } else {
-          mma_tf32(st[n], kh, xq.x, xq.z);
-          mma_tf32(dp[n], vh, xo.x, xo.z);
-        }
+        mma3(st[n], kh, kl, xq.x, xq.z, xq.y, xq.w);
+        mma3(dp[n], vh, vl, xo.x, xo.z, xo.y, xo.w);
       }
     }
     // P^T and dS^T in place: element e is key key0 + 8 (e >> 1), row r +
@@ -1725,9 +1688,9 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
           mma_tf32(pv, pl[n], o0.x, o1.x);
           mma_tf32(pk, sl[n], q0.x, q1.x);
         }
-        if (kLo) mma_tf32(pv, ph[n], o0.y, o1.y);
+        mma_tf32(pv, ph[n], o0.y, o1.y);
         mma_tf32(pv, ph[n], o0.x, o1.x);
-        if (kLo) mma_tf32(pk, sh[n], q0.y, q1.y);
+        mma_tf32(pk, sh[n], q0.y, q1.y);
         mma_tf32(pk, sh[n], q0.x, q1.x);
       }
 #pragma unroll
@@ -1742,10 +1705,12 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
     bwd_pair_sum<NS>(dv, reinterpret_cast<float*>(Qs), kw, half, lane);
   }
   if (half != 0) return;
-  // One run: the gradients, rounded once to the operands' type.  Several:
-  // this run's float32 partial sums (zeros if it saw none of the tile's
-  // keys), which the reduction adds in order.
+  // One run: the gradients.  Several: this run's partial sums (zeros if
+  // it saw none of the tile's keys), which the reduction adds in order.
   const long long n = static_cast<long long>(a.B) * a.Hkv * a.Lk * D;
+  float* out_k = a.runs == 1 ? a.dk : a.part + run * n;
+  float* out_v = a.runs == 1 ? a.dv : a.part + (a.runs + run) * n;
+  const float sk = a.runs == 1 ? a.scale : 1.0f;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int j = key0 + 8 * i;
@@ -1754,17 +1719,10 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
         ((static_cast<long long>(b) * a.Hkv + hk) * a.Lk + j) * D + 2 * t;
 #pragma unroll
     for (int m = 0; m < NS; ++m) {
-      if (a.runs == 1) {
-        store2(reinterpret_cast<TO*>(a.dk) + base + 8 * m,
-               dk[m][2 * i] * a.scale, dk[m][2 * i + 1] * a.scale);
-        store2(reinterpret_cast<TO*>(a.dv) + base + 8 * m, dv[m][2 * i],
-               dv[m][2 * i + 1]);
-      } else {
-        store2(a.part + run * n + base + 8 * m, dk[m][2 * i],
-               dk[m][2 * i + 1]);
-        store2(a.part + (a.runs + run) * n + base + 8 * m, dv[m][2 * i],
-               dv[m][2 * i + 1]);
-      }
+      *reinterpret_cast<float2*>(out_k + base + 8 * m) =
+          make_float2(dk[m][2 * i] * sk, dk[m][2 * i + 1] * sk);
+      *reinterpret_cast<float2*>(out_v + base + 8 * m) =
+          make_float2(dv[m][2 * i], dv[m][2 * i + 1]);
     }
   }
 }
@@ -1786,12 +1744,10 @@ __global__ void __launch_bounds__(kBwdAux)
   reinterpret_cast<TO*>(a.dv)[e] = from_f<TO>(sv);
 }
 
-// TO as in the dk/dv pass: under bf16 S and dP take one MMA, dS K two.
-template <typename TO, int D>
+template <int D>
 __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
     attn_bwd_dq_kernel(const BwdArgs a) {
   constexpr int P = bwd_pair<D>(), NT = bwd_threads<D>();
-  constexpr bool kLo = sizeof(TO) == 4;   // operands have lo parts
   constexpr int NS = D / 8;               // k-steps over d; tiles of dQ
   constexpr int NTW = kBwdBK / 8 / P;     // 8-key tiles a warp takes
   static_assert(P == 1 || NS * 4 * 128 * 4 <= 2 * kBwdBK * D * 8,
@@ -1801,8 +1757,8 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   uint4* Os = Qs + kBwdRows * D / 2;                      // dO
   uint4* Ks = Os + kBwdRows * D / 2;                      // [32][D] split
   uint4* Vs = Ks + kBwdBK * D / 2;
-  TO* Kr = reinterpret_cast<TO*>(Vs + kBwdBK * D / 2);    // [32][D] raw
-  TO* Vr = Kr + kBwdBK * D;
+  float* Kr = reinterpret_cast<float*>(Vs + kBwdBK * D / 2);  // [32][D] raw
+  float* Vr = Kr + kBwdBK * D;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -1820,29 +1776,29 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   const int hi = a.causal ? min(a.Lk, p1 + 1) : a.Lk;
   const int kt0 = (lo / kBwdBK) * kBwdBK;
   const int ntiles = hi > kt0 ? (hi - kt0 + kBwdBK - 1) / kBwdBK : 0;
-  const TO* kh = reinterpret_cast<const TO*>(a.k) + b * a.ksb + hk * a.ksh;
-  const TO* vh = reinterpret_cast<const TO*>(a.v) + b * a.vsb + hk * a.vsh;
+  const float* kh = a.k + b * a.ksb + hk * a.ksh;
+  const float* vh = a.v + b * a.vsb + hk * a.vsh;
 
   // Keys [kt, kt + 32) of K and V by cp.async (none past Lk).
   auto issue = [&](int kt) {
-    bwd_issue<D, NT>(Kr, kBwdBK, [&](int r) -> const TO* {
+    bwd_issue<D, NT>(Kr, kBwdBK, [&](int r) -> const float* {
       return kt + r < a.Lk ? kh + static_cast<long long>(kt + r) * a.ksl
                            : nullptr;
     });
-    bwd_issue<D, NT>(Vr, kBwdBK, [&](int r) -> const TO* {
+    bwd_issue<D, NT>(Vr, kBwdBK, [&](int r) -> const float* {
       return kt + r < a.Lk ? vh + static_cast<long long>(kt + r) * a.vsl
                            : nullptr;
     });
   };
   if (ntiles > 0) issue(kt0);
   cp_async_commit();
-  const TO* qb = reinterpret_cast<const TO*>(a.q) + b * a.qsb;
-  const TO* ob = reinterpret_cast<const TO*>(a.dO) + b * a.dsb;
-  bwd_load_split<D, NT>(Qs, kBwdRows, [&](int r) -> const TO* {
+  const float* qb = a.q + b * a.qsb;
+  const float* ob = a.dO + b * a.dsb;
+  bwd_load_split<D, NT>(Qs, kBwdRows, [&](int r) -> const float* {
     return f0 + r < rows ? bwd_qrow(qb, a.qsh, a.qsl, hk, rep, f0 + r)
                          : nullptr;
   });
-  bwd_load_split<D, NT>(Os, kBwdRows, [&](int r) -> const TO* {
+  bwd_load_split<D, NT>(Os, kBwdRows, [&](int r) -> const float* {
     return f0 + r < rows ? bwd_qrow(ob, a.dsh, a.dsl, hk, rep, f0 + r)
                          : nullptr;
   });
@@ -1891,13 +1847,8 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
         const int r0 = 8 * (half * NTW + n);
         const uint4 xk = L.pair(Ks, r0, ks);
         const uint4 xv = L.pair(Vs, r0, ks);
-        if (kLo) {
-          mma3(s[n], qh, ql, xk.x, xk.z, xk.y, xk.w);
-          mma3(dp[n], oh, ol, xv.x, xv.z, xv.y, xv.w);
-        } else {
-          mma_tf32(s[n], qh, xk.x, xk.z);
-          mma_tf32(dp[n], oh, xv.x, xv.z);
-        }
+        mma3(s[n], qh, ql, xk.x, xk.z, xk.y, xk.w);
+        mma3(dp[n], oh, ol, xv.x, xv.z, xv.y, xv.w);
       }
     }
     // dS in place: element e is row g + 8 (e >> 1), key kj + (e & 1).
@@ -1922,10 +1873,7 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
       for (int m = 0; m < NS; ++m) {
         const uint2 k0 = L.one(Ks, r0, 0, m);
         const uint2 k1 = L.one(Ks, r0, 1, m);
-        if (kLo)
-          mma3_add(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);
-        else
-          mma2_add(acc[m], dh, dl, k0.x, k1.x);
+        mma3_add(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);
       }
     }
   }
@@ -1936,13 +1884,12 @@ __global__ void __launch_bounds__(bwd_threads<D>(), D <= 64 ? 2 : 1)
   for (int i = 0; i < 2; ++i) {
     const int f = fr + 8 * i;
     if (f >= rows) continue;
-    TO* out = reinterpret_cast<TO*>(a.dq) +
-              ((static_cast<long long>(b) * a.H + hk * rep + f % rep) * a.Lq +
-               f / rep) * D + 2 * t;
+    float* out = a.dq + ((static_cast<long long>(b) * a.H + hk * rep +
+                          f % rep) * a.Lq + f / rep) * D + 2 * t;
 #pragma unroll
     for (int m = 0; m < NS; ++m)
-      store2(out + 8 * m, acc[m][2 * i] * a.scale,
-             acc[m][2 * i + 1] * a.scale);
+      *reinterpret_cast<float2*>(out + 8 * m) =
+          make_float2(acc[m][2 * i] * a.scale, acc[m][2 * i + 1] * a.scale);
   }
 }
 
@@ -2366,28 +2313,764 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
-// The backward's launches for operands of type TO (float32 at every head
-// width, bf16 at D <= 128: the wide passes are built for float32 only).
+// ------------------------------------------ backward on bf16 operands
+//
+// bf16 operands (q, k, v and dO bf16; a train step under
+// precision.options(dtype=bf16)), at D <= 128, have two passes of their
+// own, built for the card's bf16 tensor cores.  The reference's jnp
+// attention keeps P and dS in float32 (FlashAttention-2 rounds P to bf16
+// for a bf16 MMA: another function), so the products stay
+// float32-accurate.
+//  * Q, dO, K and V stay bf16 in shared memory, 2 B an element, rows of D
+//    values whose 16-byte chunks sit at chunk c ^ bf_sw(r) (r & 7 at D >=
+//    64; (r >> 1) & 3 at D = 32, whose rows are four chunks), so the
+//    eight rows one ldmatrix phase reads at one chunk fall on the 32
+//    banks once, plain or .trans.  They land by 16-byte cp.async, the
+//    walked operand one tile ahead into the other of two buffers: no
+//    split pass, one block barrier a tile.
+//  * Every product is mma.sync m16n8k16 bf16 with float32 accumulation,
+//    its fragments loaded by ldmatrix.x4.  A product reduced over D (S^T
+//    = K Q^T and dP^T = V dO^T; S and dP) is one MMA a tile: both
+//    operands are bf16.  The B operand of a product reduced over rows or
+//    keys (dO and Q of dV = P^T dO and dK = dS^T Q, K of dQ = dS K) comes
+//    by ldmatrix.x4.trans from the same tiles, with no transposed copy.
+//  * P and dS stay float32 in registers and enter their products as
+//    three bf16 pieces (split3): hi = bf16_rn(x), mid = bf16_rn(x - hi),
+//    lo = bf16_rn(x - hi - mid), 24 significant bits, so x = hi + mid +
+//    lo exactly for |x| >= 2^-110 (below it the bits under bf16's least
+//    subnormal, 2^-133, drop).  Two n8 C fragments make one k16 A
+//    fragment (C columns 2t, 2t + 1 of tiles 2s and 2s + 1 are A columns
+//    2t, 2t + 1 and 2t + 8, 2t + 9 of k-step s), so the pieces are packed
+//    from the C fragments in place.  Three MMAs a product: lo, then mid,
+//    then hi over the tile's k-steps, into a partial that starts at zero
+//    and lands in the accumulator by a rounding add (F7).
+//  * dk/dv: a block of 4 warps takes 64 keys, 16 a warp with its 16 x D
+//    dK and dV in registers, and walks the rows of its run (runs and
+//    their sum as in the float32 passes), bf_br rows a tile: 32 at D <=
+//    64, 16 at D = 128, where dK and dV take 128 registers.  dq: a block
+//    of 4 warps takes 64 rows, 16 a warp, and walks the keys they see,
+//    bf_bk a tile: 64 at D <= 64, 32 at D = 128.
+//  * P = 2^x by ex2.approx (as the forward; its 2^-22 is far below the
+//    bf16 rounding of the gradients, and it was 2 % faster than exp2f).
+//    Tiles that need no mask take a path without one (bf_p_ds_t, bf_ds),
+//    and a walked row's head and position take one division for its Q
+//    and dO pieces together: with a generic loop and a division a piece
+//    the pass's integer work outweighed its MMAs.
+//  * As in the float32 passes: Delta from the forward's float32 output
+//    o32 (one from the bf16 o would carry its 2^-9 rounding into every
+//    dS), a fixed order of every sum; dq, dk, dv rounded once to bf16.
+// Bound: 22 * D bf16 flops an unmasked pair (S and dP at one MMA, dV, dK
+// and dQ at three; the passes run 26 * D) at 989 T op/s, against bf16 q,
+// k, v, dO and float32 o read and bf16 dq, dk, dv written once.  Shared
+// memory: dk/dv 16 896 / 33 280 / 49 408 B and dq 24 576 / 49 152 /
+// 65 536 B at D = 32 / 64 / 128 (ops.plan_k7_bwd_bf16), so at least two
+// blocks an SM; registers set how many more fit
+// (flash_attention_bwd_bf16_attrs reports them).  At tinyllama-1.1b's
+// prefill 502.4-502.5 us, at qwen3-moe's 1 990.6-1 991.0 us, where the
+// float32 passes templated on bf16 operands (split tiles with a zero lo
+// half, TF32 MMAs) took 1 835.8-1 841.1 / 8 624.5-8 683.2 us and SDPA's
+// bf16 backward 226.7-229.0 / 637.9-640.8 (tools/pair_flash_attention.py
+// --backward --bf16, paired, on an H100 80GB HBM3 at 700 W).
+
+constexpr int kBfKeys = 64;      // dk/dv: keys a block, 16 a warp
+constexpr int kBfRows = 64;      // dq: rows a block, 16 a warp
+constexpr int kBfThreads = 128;  // 4 warps
+
+// dk/dv: rows a tile; dq: keys a tile.
+template <int D>
+__host__ __device__ constexpr int bf_br() { return D > 64 ? 16 : 32; }
+template <int D>
+__host__ __device__ constexpr int bf_bk() { return D > 64 ? 32 : 64; }
+
+// K, V (64 keys), two buffers of Q, dO (BR rows) and of their (lse,
+// Delta).
+template <int D>
+__host__ __device__ constexpr size_t smem_bwd_dkdv_bf16() {
+  return 2 * kBfKeys * D * 2 + 2 * 2 * bf_br<D>() * D * 2 +
+         2 * bf_br<D>() * sizeof(float2);
+}
+// Q, dO (64 rows), two buffers of K, V (BK keys).
+template <int D>
+__host__ __device__ constexpr size_t smem_bwd_dq_bf16() {
+  return 2 * kBfRows * D * 2 + 2 * 2 * bf_bk<D>() * D * 2;
+}
+
+// A shared-memory address as ldmatrix takes it (32 bits on the card; the
+// host form reads through a pointer).
+#ifdef __CUDA_ARCH__
+using saddr = uint32_t;
+__device__ __forceinline__ saddr smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+#else
+using saddr = unsigned long long;
+__device__ __forceinline__ saddr smem_addr(const void* p) {
+  return reinterpret_cast<unsigned long long>(p);
+}
+#endif
+
+// The swizzle of the 16-byte chunks of row r of a [rows][D] bf16 tile.
+template <int D>
+__host__ __device__ constexpr int bf_sw(int r) {
+  return D >= 64 ? (r & 7) : ((r >> 1) & 3);
+}
+
+// Byte offset of chunk c (values 8c .. 8c + 7) of row r.
+template <int D>
+__device__ __forceinline__ int bf_at(int r, int c) {
+  return r * (2 * D) + ((c ^ bf_sw<D>(r)) << 4);
+}
+
+// Lane l's part of an ldmatrix.x4 address, so that each fragment's
+// address is a base, a constant and one of four registers.  "a" reads
+// rows r0 + (l & 15) at chunks c + (l >> 4): an A fragment (16 rows, a
+// k16 step of two chunks) or, with .trans, the B fragments of two
+// 8-column tiles over a k16 step of rows.  "b" reads rows r0 + (l & 7) +
+// 8 (l >> 4) at chunks c + ((l >> 3) & 1): the B fragments of two 8-row
+// tiles over a k16 step along D.  With r0 a multiple of 8 and c even, the
+// row's swizzle is the lane's own, and its chunk (c + bit) ^ sw = (c &
+// ~7) + ((c & 7) ^ x) with x = bit ^ sw < 8: pa, pb hold the lane's row
+// offset plus ((c & 7) ^ x) << 4 for the four even values of c & 7 (a
+// swizzle computed at every load made the compiler keep one register
+// per chunk).
+template <int D>
+struct BfLane {
+  int pa[4], pb[4];
+  __device__ __forceinline__ explicit BfLane(int l) {
+    const int ra = l & 15, rb = (l & 7) + 8 * (l >> 4);
+    const int xa = (l >> 4) ^ bf_sw<D>(ra);
+    const int xb = ((l >> 3) & 1) ^ bf_sw<D>(rb);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pa[i] = ra * 2 * D + (((2 * i) ^ xa) << 4);
+      pb[i] = rb * 2 * D + (((2 * i) ^ xb) << 4);
+    }
+  }
+  __device__ __forceinline__ saddr a(saddr T, int r0, int c) const {
+    return T + r0 * 2 * D + ((c & ~7) << 4) + pa[(c & 7) >> 1];
+  }
+  __device__ __forceinline__ saddr b(saddr T, int r0, int c) const {
+    return T + r0 * 2 * D + ((c & ~7) << 4) + pb[(c & 7) >> 1];
+  }
+};
+
+#ifndef __CUDA_ARCH__
+// ldmatrix from the lanes' addresses, gathered by shuffles.
+__device__ __forceinline__ void ldsm4_host(uint32_t (&r)[4], saddr u,
+                                           bool trans) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t lo = static_cast<uint32_t>(u);
+  const uint32_t hi = static_cast<uint32_t>(u >> 32);
+  const auto row = [&](int src) {
+    const unsigned long long h = __shfl_sync(0xffffffffu, hi, src);
+    return reinterpret_cast<const uint16_t*>(
+        (h << 32) | __shfl_sync(0xffffffffu, lo, src));
+  };
+  for (int i = 0; i < 4; ++i) {
+    if (trans) {
+      const uint16_t* r0 = row(8 * i + 2 * t);
+      const uint16_t* r1 = row(8 * i + 2 * t + 1);
+      r[i] = static_cast<uint32_t>(r0[g]) | (static_cast<uint32_t>(r1[g]) << 16);
+    } else {
+      r[i] = reinterpret_cast<const uint32_t*>(row(8 * i + g))[t];
+    }
+  }
+}
+#endif
+
+// ldmatrix.x4: lane (g, t) receives in r[i], of the 8 x 8 bf16 matrix i
+// whose rows lanes 8i .. 8i + 7 address, row g's elements 2t and 2t + 1
+// (the first in the low half); ldsm4_t (.trans) its elements (2t, g) and
+// (2t + 1, g).
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], saddr s) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+#else
+  ldsm4_host(r, s, false);
+#endif
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], saddr s) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+#else
+  ldsm4_host(r, s, true);
+#endif
+}
+
+// c += A (16 x 16, row) * B (16 x 8, col), bf16 in, float32 accumulate.
+// Lane (g, t) holds a = {A[g][2t, 2t+1], A[g+8][2t, 2t+1], A[g][2t+8,
+// 2t+9], A[g+8][2t+8, 2t+9]} and b = {B[2t, 2t+1][g], B[2t+8, 2t+9][g]},
+// two bf16 a word (the lower index in the low half), and c as mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#else
+  // The same product from the lanes' fragments, gathered by shuffles (a
+  // product of two bf16 values is exact in float32).
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const auto dot = [](uint32_t x, uint32_t y) {
+    return bf_lo(x) * bf_lo(y) + bf_hi(x) * bf_hi(y);
+  };
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int s = 0; s < 4; ++s) {   // k = 2s, 2s + 1 and 2s + 8, 2s + 9
+    const uint32_t a0 = __shfl_sync(0xffffffffu, a[0], 4 * g + s);
+    const uint32_t a1 = __shfl_sync(0xffffffffu, a[1], 4 * g + s);
+    const uint32_t a2 = __shfl_sync(0xffffffffu, a[2], 4 * g + s);
+    const uint32_t a3 = __shfl_sync(0xffffffffu, a[3], 4 * g + s);
+    const uint32_t c00 = __shfl_sync(0xffffffffu, b0, 8 * t + s);
+    const uint32_t c01 = __shfl_sync(0xffffffffu, b1, 8 * t + s);
+    const uint32_t c10 = __shfl_sync(0xffffffffu, b0, 8 * t + 4 + s);
+    const uint32_t c11 = __shfl_sync(0xffffffffu, b1, 8 * t + 4 + s);
+    acc[0] += dot(a0, c00) + dot(a2, c01);
+    acc[1] += dot(a0, c10) + dot(a2, c11);
+    acc[2] += dot(a1, c00) + dot(a3, c01);
+    acc[3] += dot(a1, c10) + dot(a3, c11);
+  }
+  for (int i = 0; i < 4; ++i) c[i] += acc[i];
+#endif
+}
+
+// c = A B, bf16 in, float32 out (an accumulator of zeros as an input
+// operand, as mma_tf32_z).
+__device__ __forceinline__ void mma_bf16_z(float (&c)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
+#else
+  for (int i = 0; i < 4; ++i) c[i] = 0.0f;
+  mma_bf16(c, a, b0, b1);
+#endif
+}
+
+// x and y rounded to bf16 (to nearest, ties to even) in one word, x in
+// the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+#ifdef __CUDA_ARCH__
+  uint32_t u;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(y), "f"(x));
+  return u;
+#else
+  const auto rn = [](float f) {
+    const uint32_t u = __float_as_uint(f);
+    return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+  };
+  return (rn(y) << 16) | rn(x);
+#endif
+}
+
+// The three bf16 pieces of x and y (x in the low halves): x = hi + mid +
+// lo (exact for |x| >= 2^-110; each difference is exact in float32).
+__device__ __forceinline__ void split3(float x, float y, uint32_t& h,
+                                       uint32_t& m, uint32_t& l) {
+  h = pack_bf16(x, y);
+  x -= bf_lo(h);
+  y -= bf_hi(h);
+  m = pack_bf16(x, y);
+  x -= bf_lo(m);
+  y -= bf_hi(m);
+  l = pack_bf16(x, y);
+}
+
+// The pieces of k-step s of a product reduced over the columns of C
+// fragments c0 = c[2s] and c1 = c[2s + 1], as A fragments: C columns 2t,
+// 2t + 1 of c0 are A columns 2t, 2t + 1, those of c1 A columns 2t + 8, 2t
+// + 9.
+__device__ __forceinline__ void c_to_a3(const float (&c0)[4],
+                                        const float (&c1)[4],
+                                        uint32_t (&h)[4], uint32_t (&m)[4],
+                                        uint32_t (&l)[4]) {
+  split3(c0[0], c0[1], h[0], m[0], l[0]);
+  split3(c0[2], c0[3], h[1], m[1], l[1]);
+  split3(c1[0], c1[1], h[2], m[2], l[2]);
+  split3(c1[2], c1[3], h[3], m[3], l[3]);
+}
+
+// acc[m] += (hi + mid + lo) B for the 8-column tiles m of a product
+// reduced over NR k16 steps of the rows of tile T (B's rows, read by
+// ldmatrix.x4.trans): a partial of the whole tile, lo, then mid, then hi
+// over the k-steps, landing by a rounding add.
+template <int D, int NR>
+__device__ __forceinline__ void bf_rows_product(
+    float (&acc)[D / 8][4], const uint32_t (&h)[NR][4],
+    const uint32_t (&mid)[NR][4], const uint32_t (&l)[NR][4], saddr T,
+    const BfLane<D>& L) {
+#pragma unroll
+  for (int m = 0; m < D / 8; m += 2) {
+    uint32_t bt[NR][4];
+#pragma unroll
+    for (int s = 0; s < NR; ++s) ldsm4_t(bt[s], L.a(T, 16 * s, m));
+    float p0[4], p1[4];
+    mma_bf16_z(p0, l[0], bt[0][0], bt[0][1]);
+    mma_bf16_z(p1, l[0], bt[0][2], bt[0][3]);
+#pragma unroll
+    for (int s = 1; s < NR; ++s) {
+      mma_bf16(p0, l[s], bt[s][0], bt[s][1]);
+      mma_bf16(p1, l[s], bt[s][2], bt[s][3]);
+    }
+#pragma unroll
+    for (int s = 0; s < NR; ++s) {
+      mma_bf16(p0, mid[s], bt[s][0], bt[s][1]);
+      mma_bf16(p1, mid[s], bt[s][2], bt[s][3]);
+    }
+#pragma unroll
+    for (int s = 0; s < NR; ++s) {
+      mma_bf16(p0, h[s], bt[s][0], bt[s][1]);
+      mma_bf16(p1, h[s], bt[s][2], bt[s][3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[m][e] += p0[e];
+      acc[m + 1][e] += p1[e];
+    }
+  }
+}
+
+// blockIdx.x read anew by a volatile read, which the compiler cannot
+// carry over a loop: what is needed only after a pass's main loop is
+// formed from it there instead of held in registers across the loop.
+__device__ __forceinline__ int block_x() {
+#ifdef __CUDA_ARCH__
+  int r;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(r));
+  return r;
+#else
+  return static_cast<int>(blockIdx.x);
+#endif
+}
+
+// Rows [0, n) of a swizzled bf16 tile from row(r) by 16-byte cp.async,
+// zeros where row(r) is nullptr.
+template <int D, int NT, typename Row>
+__device__ __forceinline__ void bf_issue(char* T, int n, Row row) {
+  for (int idx = threadIdx.x; idx < n * (D / 8); idx += NT) {
+    const int r = idx / (D / 8), c = idx % (D / 8);
+    char* dst = T + bf_at<D>(r, c);
+    const __nv_bfloat16* p = row(r);
+    if (p != nullptr)
+      cp_async16(dst, p + 8 * c);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// dk/dv: P^T = 2^(S^T c - lse) and dS^T = P^T (dP^T - Delta) in place;
+// element e of fragment j is key key0 + 8 (e >> 1), row 8j + 2t + (e &
+// 1) of the tile at f0, whose (lse, Delta) are Sc.  With kMask the keys
+// a row does not see get P = 0 (a tile that crosses the diagonal, a
+// window's edge or the ragged end; the others take the straight path).
+template <bool kMask, int NJ>
+__device__ __forceinline__ void bf_p_ds_t(float (&st)[NJ][4],
+                                          float (&dp)[NJ][4],
+                                          const float2* Sc, const BwdArgs& a,
+                                          float c, int t, int f0, int rep,
+                                          int off, int key0) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int r = 8 * j + 2 * t;
+    const float4 sv = *reinterpret_cast<const float4*>(Sc + r);
+    int pos[2] = {0, 0};
+    if (kMask) {
+      pos[0] = (f0 + r) / rep + off;
+      pos[1] = (f0 + r + 1) / rep + off;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lse = (e & 1) ? sv.z : sv.x;
+      const float del = (e & 1) ? sv.w : sv.y;
+      float p = ex2(st[j][e] * c - lse);
+      if (kMask && !bwd_sees(a, pos[e & 1], key0 + 8 * (e >> 1))) p = 0.0f;
+      st[j][e] = p;
+      dp[j][e] = p * (dp[j][e] - del);
+    }
+  }
+}
+
+// dq: dS = P (dP - Delta) in s, P = 2^(S c - lse); element e of fragment
+// j is row 8 (e >> 1) of the lane's two (at positions ap, with (lse,
+// Delta) sv), key kt + 8j + 2t + (e & 1).  kMask as bf_p_ds_t.
+template <bool kMask, int NJ>
+__device__ __forceinline__ void bf_ds(float (&s)[NJ][4],
+                                      const float (&dp)[NJ][4],
+                                      const float2 (&sv)[2],
+                                      const int (&ap)[2], const BwdArgs& a,
+                                      float c, int t, int kt) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int kj = kt + 8 * j + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 w = sv[e >> 1];
+      float p = ex2(s[j][e] * c - w.x);
+      if (kMask && !bwd_sees(a, ap[e >> 1], kj + (e & 1))) p = 0.0f;
+      s[j][e] = p * (dp[j][e] - w.y);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBfThreads, 2)
+    attn_bwd_dkdv_bf16_kernel(const BwdArgs a) {
+  using bf = __nv_bfloat16;
+  constexpr int NT = kBfThreads, BR = bf_br<D>(), NK = kBfKeys;
+  constexpr int NS = D / 16;       // k16 steps over D
+  constexpr int NM = D / 8;        // 8-column tiles of dK, dV
+  constexpr int NJ = BR / 8;       // 8-row tiles of a row tile
+  constexpr int NR = BR / 16;      // k16 steps over a row tile
+  constexpr int TB = BR * D * 2;   // bytes of a Q or dO tile
+  extern __shared__ uint4 smem_u4[];
+  char* Ks = reinterpret_cast<char*>(smem_u4);         // [64][D]
+  char* Vs = Ks + NK * D * 2;
+  char* R = Vs + NK * D * 2;                           // [2][Q, dO][BR][D]
+  float2* St = reinterpret_cast<float2*>(R + 4 * TB);  // [2][BR]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int groups = a.B * a.Hkv, rep = a.H / a.Hkv, rows = rep * a.Lq;
+  const int grp = blockIdx.x % groups, b = grp / a.Hkv, hk = grp % a.Hkv;
+  // Groups fastest, then runs, then key tiles in order (as the float32
+  // pass).
+  const int run = (static_cast<int>(blockIdx.x) / groups) % a.runs;
+  const int j0 = (static_cast<int>(blockIdx.x) / groups / a.runs) * NK;
+  const int j1 = min(j0 + NK, a.Lk);
+  const int off = a.Lk - a.Lq;
+  const int p_lo = a.causal ? max(0, j0 - off) : 0;
+  const int p_hi = a.window > 0 ? min(a.Lq, j1 - 1 + a.window - off) : a.Lq;
+  const int run_rows = (rows + a.runs - 1) / a.runs;
+  const int f_beg = p_lo * rep + run * run_rows;
+  const int f_end = min(p_hi * rep, f_beg + run_rows);
+  const float2* sb = a.stats + static_cast<long long>(grp) * a.rows_pad;
+  // The thread's pieces of a walked tile: chunk ci of rows ri + k KS, k <
+  // KP, one division a row for its Q and dO pieces together (a division
+  // a piece, and a generic loop over the pieces, were most of the pass's
+  // integer work).  The operands' base pointers are formed at each issue,
+  // not held across the loop (with them held, and the rows' quotients,
+  // the D = 128 pass spilled).
+  constexpr int CPR = D / 8, KS = NT / CPR, KP = BR / KS;
+  static_assert(KP >= 1 && BR % KS == 0, "a tile's pieces fill the block");
+  const int ci = tid % CPR, ri = tid / CPR;
+
+  // Rows [f0, f0 + BR) of the run into buffer u: Q, dO and (lse, Delta)
+  // by cp.async, zeros past f_end.
+  auto issue = [&](int f0, int u) {
+    char* Qt = R + u * 2 * TB;
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      const int r = ri + k * KS;
+      char* dst = Qt + bf_at<D>(r, ci);
+      const int fd = (f0 + r) / rep, fm = f0 + r - fd * rep;
+      if (f0 + r < f_end) {
+        const long long h = hk * rep + fm;
+        cp_async16(dst, reinterpret_cast<const bf*>(a.q) + b * a.qsb +
+                            h * a.qsh + fd * a.qsl + 8 * ci);
+        cp_async16(dst + TB, reinterpret_cast<const bf*>(a.dO) + b * a.dsb +
+                                 h * a.dsh + fd * a.dsl + 8 * ci);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(dst + TB) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    if (tid < BR) {                    // BR <= NT: one row a thread
+      if (f0 + tid < f_end)
+        cp_async8(St + u * BR + tid, sb + f0 + tid);
+      else
+        St[u * BR + tid] = make_float2(0.0f, 0.0f);
+    }
+  };
+
+  float dk[NM][4], dv[NM][4];
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[m][e] = 0.0f;
+      dv[m][e] = 0.0f;
+    }
+  if (f_beg < f_end) {
+    const bf* kh = reinterpret_cast<const bf*>(a.k) + b * a.ksb + hk * a.ksh;
+    const bf* vh = reinterpret_cast<const bf*>(a.v) + b * a.vsb + hk * a.vsh;
+    bf_issue<D, NT>(Ks, NK, [&](int r) -> const bf* {
+      return j0 + r < a.Lk ? kh + static_cast<long long>(j0 + r) * a.ksl
+                           : nullptr;
+    });
+    bf_issue<D, NT>(Vs, NK, [&](int r) -> const bf* {
+      return j0 + r < a.Lk ? vh + static_cast<long long>(j0 + r) * a.vsl
+                           : nullptr;
+    });
+    issue(f_beg, 0);
+    cp_async_commit();
+  }
+  const float c = a.scale * kLog2e;
+  const int key0 = j0 + 16 * warp + g;   // this lane's keys: key0, key0 + 8
+  const BfLane<D> L(lane);
+  const saddr Ka = smem_addr(Ks), Va = smem_addr(Vs), Ra = smem_addr(R);
+  int u = 0;                             // the buffer of this tile
+  for (int f0 = f_beg; f0 < f_end; f0 += BR, u ^= 1) {
+    cp_async_wait0();
+    __syncthreads();   // tile f0 landed; every warp is done with the other
+    if (f0 + BR < f_end) issue(f0 + BR, u ^ 1);
+    cp_async_commit();
+    const saddr Qt = Ra + u * 2 * TB, Ot = Qt + TB;
+    const float2* Sc = St + u * BR;
+    const bool full =
+        bwd_full(a, f0 / rep + off, (f0 + BR - 1) / rep + off, j0, NK);
+
+    // S^T = K_w Q^T and dP^T = V_w dO^T: 8 rows a fragment.
+    float st[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      uint32_t ka[4], va[4];
+      ldsm4(ka, L.a(Ka, 16 * warp, 2 * s));
+      ldsm4(va, L.a(Va, 16 * warp, 2 * s));
+#pragma unroll
+      for (int j = 0; j < NJ; j += 2) {
+        uint32_t qf[4], of[4];
+        ldsm4(qf, L.b(Qt, 8 * j, 2 * s));
+        ldsm4(of, L.b(Ot, 8 * j, 2 * s));
+        if (s == 0) {
+          mma_bf16_z(st[j], ka, qf[0], qf[1]);
+          mma_bf16_z(st[j + 1], ka, qf[2], qf[3]);
+          mma_bf16_z(dp[j], va, of[0], of[1]);
+          mma_bf16_z(dp[j + 1], va, of[2], of[3]);
+        } else {
+          mma_bf16(st[j], ka, qf[0], qf[1]);
+          mma_bf16(st[j + 1], ka, qf[2], qf[3]);
+          mma_bf16(dp[j], va, of[0], of[1]);
+          mma_bf16(dp[j + 1], va, of[2], of[3]);
+        }
+      }
+    }
+    if (full)
+      bf_p_ds_t<false>(st, dp, Sc, a, c, t, f0, rep, off, key0);
+    else
+      bf_p_ds_t<true>(st, dp, Sc, a, c, t, f0, rep, off, key0);
+    // dV += P^T dO, then dK += dS^T Q: k-step s takes rows 16s .. 16s +
+    // 15 of the tile, the fragments' own columns.
+    {
+      uint32_t h[NR][4], m[NR][4], l[NR][4];
+#pragma unroll
+      for (int s = 0; s < NR; ++s)
+        c_to_a3(st[2 * s], st[2 * s + 1], h[s], m[s], l[s]);
+      bf_rows_product<D, NR>(dv, h, m, l, Ot, L);
+    }
+    {
+      uint32_t h[NR][4], m[NR][4], l[NR][4];
+#pragma unroll
+      for (int s = 0; s < NR; ++s)
+        c_to_a3(dp[2 * s], dp[2 * s + 1], h[s], m[s], l[s]);
+      bf_rows_product<D, NR>(dk, h, m, l, Qt, L);
+    }
+  }
+  // One run: the gradients, rounded once to bf16.  Several: this run's
+  // float32 partial sums (zeros if it saw none of the tile's keys), which
+  // the reduction adds in order.  The group and the run are formed anew
+  // (block_x): held across the loop, they spilled at D = 128.
+  const long long n = static_cast<long long>(a.B) * a.Hkv * a.Lk * D;
+  const int bx = block_x();
+  const int grp_e = bx % groups, run_e = (bx / groups) % a.runs;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = key0 + 8 * i;
+    if (j >= a.Lk) continue;
+    const long long base =
+        (static_cast<long long>(grp_e) * a.Lk + j) * D + 2 * t;
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      if (a.runs == 1) {
+        store2(reinterpret_cast<bf*>(a.dk) + base + 8 * m,
+               dk[m][2 * i] * a.scale, dk[m][2 * i + 1] * a.scale);
+        store2(reinterpret_cast<bf*>(a.dv) + base + 8 * m, dv[m][2 * i],
+               dv[m][2 * i + 1]);
+      } else {
+        store2(a.part + run_e * n + base + 8 * m, dk[m][2 * i],
+               dk[m][2 * i + 1]);
+        store2(a.part + (a.runs + run_e) * n + base + 8 * m, dv[m][2 * i],
+               dv[m][2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBfThreads, 2)
+    attn_bwd_dq_bf16_kernel(const BwdArgs a) {
+  using bf = __nv_bfloat16;
+  constexpr int BK = bf_bk<D>(), BQ = kBfRows;
+  constexpr int NS = D / 16;       // k16 steps over D
+  constexpr int NM = D / 8;        // 8-column tiles of dQ
+  constexpr int NJ = BK / 8;       // 8-key tiles of a key tile
+  constexpr int NR = BK / 16;      // k16 steps over a key tile
+  constexpr int TB = BK * D * 2;   // bytes of a K or V tile
+  extern __shared__ uint4 smem_u4[];
+  char* Qs = reinterpret_cast<char*>(smem_u4);   // [64][D]
+  char* Os = Qs + BQ * D * 2;
+  char* R = Os + BQ * D * 2;                     // [2][K, V][BK][D]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int groups = a.B * a.Hkv, rep = a.H / a.Hkv, rows = rep * a.Lq;
+  const int rtiles = (rows + BQ - 1) / BQ;
+  const int grp = blockIdx.x % groups, b = grp / a.Hkv, hk = grp % a.Hkv;
+  // Groups fastest, the last row tiles (which see the most keys) first.
+  const int f0 = (rtiles - 1 - static_cast<int>(blockIdx.x) / groups) * BQ;
+  const int f_last = min(f0 + BQ, rows) - 1;
+  const int off = a.Lk - a.Lq;
+  const int p0 = f0 / rep + off, p1 = f_last / rep + off;
+  const int lo = a.window > 0 ? max(0, p0 - a.window + 1) : 0;
+  const int hi = a.causal ? min(a.Lk, p1 + 1) : a.Lk;
+  const int kt0 = (lo / BK) * BK;
+  const int ntiles = hi > kt0 ? (hi - kt0 + BK - 1) / BK : 0;
+  const bf* kh = reinterpret_cast<const bf*>(a.k) + b * a.ksb + hk * a.ksh;
+  const bf* vh = reinterpret_cast<const bf*>(a.v) + b * a.vsb + hk * a.vsh;
+
+  // Keys [kt, kt + BK) of K and V into buffer u (zeros past Lk).
+  auto issue = [&](int kt, int u) {
+    char* Kt = R + u * 2 * TB;
+    bf_issue<D, kBfThreads>(Kt, BK, [&](int r) -> const bf* {
+      return kt + r < a.Lk ? kh + static_cast<long long>(kt + r) * a.ksl
+                           : nullptr;
+    });
+    bf_issue<D, kBfThreads>(Kt + TB, BK, [&](int r) -> const bf* {
+      return kt + r < a.Lk ? vh + static_cast<long long>(kt + r) * a.vsl
+                           : nullptr;
+    });
+  };
+  if (ntiles > 0) {
+    const bf* qb = reinterpret_cast<const bf*>(a.q) + b * a.qsb;
+    const bf* ob = reinterpret_cast<const bf*>(a.dO) + b * a.dsb;
+    bf_issue<D, kBfThreads>(Qs, BQ, [&](int r) -> const bf* {
+      return f0 + r < rows ? bwd_qrow(qb, a.qsh, a.qsl, hk, rep, f0 + r)
+                           : nullptr;
+    });
+    bf_issue<D, kBfThreads>(Os, BQ, [&](int r) -> const bf* {
+      return f0 + r < rows ? bwd_qrow(ob, a.dsh, a.dsl, hk, rep, f0 + r)
+                           : nullptr;
+    });
+    issue(kt0, 0);
+    cp_async_commit();
+  }
+  // This lane's rows f0 + 16 warp + g and + 8: (lse, Delta) and positions
+  // (the padding past `rows` holds zeros).
+  const int fr = f0 + 16 * warp + g;
+  const float2* sb = a.stats + static_cast<long long>(grp) * a.rows_pad;
+  const float2 sv[2] = {sb[fr], sb[fr + 8]};
+  const int ap[2] = {fr / rep + off, (fr + 8) / rep + off};
+  const float c = a.scale * kLog2e;
+  const BfLane<D> L(lane);
+  const saddr Qa = smem_addr(Qs), Oa = smem_addr(Os), Ra = smem_addr(R);
+
+  float acc[NM][4];
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int kt = kt0 + it * BK, u = it & 1;
+    cp_async_wait0();
+    __syncthreads();   // tile it landed; every warp is done with the other
+    if (it + 1 < ntiles) issue(kt + BK, u ^ 1);
+    cp_async_commit();
+    const saddr Kt = Ra + u * 2 * TB, Vt = Kt + TB;
+    const bool full = bwd_full(a, p0, p1, kt, BK);
+
+    // S = Q_w K^T and dP = dO_w V^T: 8 keys a fragment.
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int ks = 0; ks < NS; ++ks) {
+      uint32_t qa[4], oa[4];
+      ldsm4(qa, L.a(Qa, 16 * warp, 2 * ks));
+      ldsm4(oa, L.a(Oa, 16 * warp, 2 * ks));
+#pragma unroll
+      for (int j = 0; j < NJ; j += 2) {
+        uint32_t kf[4], vf[4];
+        ldsm4(kf, L.b(Kt, 8 * j, 2 * ks));
+        ldsm4(vf, L.b(Vt, 8 * j, 2 * ks));
+        if (ks == 0) {
+          mma_bf16_z(s[j], qa, kf[0], kf[1]);
+          mma_bf16_z(s[j + 1], qa, kf[2], kf[3]);
+          mma_bf16_z(dp[j], oa, vf[0], vf[1]);
+          mma_bf16_z(dp[j + 1], oa, vf[2], vf[3]);
+        } else {
+          mma_bf16(s[j], qa, kf[0], kf[1]);
+          mma_bf16(s[j + 1], qa, kf[2], kf[3]);
+          mma_bf16(dp[j], oa, vf[0], vf[1]);
+          mma_bf16(dp[j + 1], oa, vf[2], vf[3]);
+        }
+      }
+    }
+    if (full)
+      bf_ds<false>(s, dp, sv, ap, a, c, t, kt);
+    else
+      bf_ds<true>(s, dp, sv, ap, a, c, t, kt);
+    // dQ += dS K: k-step s takes keys 16s .. 16s + 15 of the tile.
+    uint32_t h[NR][4], m[NR][4], l[NR][4];
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      c_to_a3(s[2 * r], s[2 * r + 1], h[r], m[r], l[r]);
+    bf_rows_product<D, NR>(acc, h, m, l, Kt, L);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int f = fr + 8 * i;
+    if (f >= rows) continue;
+    bf* out = reinterpret_cast<bf*>(a.dq) +
+              ((static_cast<long long>(b) * a.H + hk * rep + f % rep) * a.Lq +
+               f / rep) * D + 2 * t;
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+      store2(out + 8 * m, acc[m][2 * i] * a.scale,
+             acc[m][2 * i + 1] * a.scale);
+  }
+}
+
+// The backward's launches for operands of type TO: float32 at every head
+// width (the wide passes at 256), bf16 at D <= 128 (the passes above).
 template <typename TO, int D>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  constexpr bool kWide = D > 128;
-  static_assert(!kWide || sizeof(TO) == 4, "the wide passes are float32");
+  constexpr bool kBf = sizeof(TO) == 2, kWide = D > 128;
+  static_assert(!kBf || !kWide, "the bf16 passes are built for D <= 128");
   constexpr int NT = kWide ? kWideThreads : bwd_threads<D>();
-  constexpr size_t sm_dkdv =
-      kWide ? smem_bwd_dkdv_wide<D>() : smem_bwd_dkdv<TO, D>();
-  constexpr size_t sm_dq =
-      kWide ? smem_bwd_dq_wide<D>() : smem_bwd_dq<TO, D>();
-  constexpr int kRowsBlk = kWide ? kWideRows : kBwdRows;
-  constexpr int kKeysBlk = kWide ? kWideKeys : kBwdKeys;
+  constexpr int NT_dkdv = kBf ? kBfThreads : NT;
+  constexpr int NT_dq = NT_dkdv;
+  constexpr size_t sm_dkdv = kBf     ? smem_bwd_dkdv_bf16<D>()
+                             : kWide ? smem_bwd_dkdv_wide<D>()
+                                     : smem_bwd_dkdv<D>();
+  constexpr size_t sm_dq = kBf     ? smem_bwd_dq_bf16<D>()
+                           : kWide ? smem_bwd_dq_wide<D>()
+                                   : smem_bwd_dq<D>();
+  constexpr int kRowsBlk = kBf ? kBfRows : kWide ? kWideRows : kBwdRows;
+  constexpr int kKeysBlk = kBf ? kBfKeys : kWide ? kWideKeys : kBwdKeys;
   constexpr int kRowsAux = kBwdAux / (D / 4 < 32 ? D / 4 : 32);
   void (*dkdv)(BwdArgs);   // the passes of the head width (one built each)
   void (*dq)(BwdArgs);
-  if constexpr (kWide) {
+  if constexpr (kBf) {
+    dkdv = attn_bwd_dkdv_bf16_kernel<D>;
+    dq = attn_bwd_dq_bf16_kernel<D>;
+  } else if constexpr (kWide) {
     dkdv = attn_bwd_dkdv_wide_kernel<D>;
     dq = attn_bwd_dq_wide_kernel<D>;
   } else {
-    dkdv = attn_bwd_dkdv_kernel<TO, D>;
-    dq = attn_bwd_dq_kernel<TO, D>;
+    dkdv = attn_bwd_dkdv_kernel<D>;
+    dq = attn_bwd_dq_kernel<D>;
   }
   const int groups = a.B * a.Hkv;
   const int rtiles = ((a.H / a.Hkv) * a.Lq + kRowsBlk - 1) / kRowsBlk;
@@ -2401,7 +3084,7 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
          stream>>>(a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  dkdv<<<ktiles * a.runs * groups, NT, sm_dkdv, stream>>>(a);
+  dkdv<<<ktiles * a.runs * groups, NT_dkdv, sm_dkdv, stream>>>(a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   if (a.runs > 1) {
@@ -2411,8 +3094,33 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
-  dq<<<rtiles * groups, NT, sm_dq, stream>>>(a);
+  dq<<<rtiles * groups, NT_dq, sm_dq, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the bf16 passes of head width D take on this card: out = {dk/dv's
+// registers, local (spilled) bytes, dynamic shared memory, blocks an SM;
+// the same four of dq}.
+template <int D>
+int bwd_bf16_attrs(int* out) {
+  void (*k[2])(BwdArgs) = {attn_bwd_dkdv_bf16_kernel<D>,
+                           attn_bwd_dq_bf16_kernel<D>};
+  const size_t sm[2] = {smem_bwd_dkdv_bf16<D>(), smem_bwd_dq_bf16<D>()};
+  for (int i = 0; i < 2; ++i) {
+    int err = opt_in(k[i], sm[i]);
+    cudaFuncAttributes fa;
+    if (err == 0) err = static_cast<int>(cudaFuncGetAttributes(&fa, k[i]));
+    int blocks = 0;
+    if (err == 0)
+      err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, k[i], kBfThreads, sm[i]));
+    if (err != 0) return err;
+    out[4 * i] = fa.numRegs;
+    out[4 * i + 1] = static_cast<int>(fa.localSizeBytes);
+    out[4 * i + 2] = static_cast<int>(sm[i]);
+    out[4 * i + 3] = blocks;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -2530,6 +3238,19 @@ extern "C" int flash_attention_bwd_launch(
     case 64: return launch_bwd<float, 64>(a, s);
     case 128: return launch_bwd<float, 128>(a, s);
     case 256: return launch_bwd<float, 256>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The registers, local (spilled) bytes, dynamic shared memory and blocks
+// an SM of the bf16 backward's dk/dv and dq passes at head width D (32,
+// 64 or 128), into out[0..3] and out[4..7].  Returns a CUDA error, or
+// cudaErrorInvalidValue for another D.
+extern "C" int flash_attention_bwd_bf16_attrs(int D, int* out) {
+  switch (D) {
+    case 32: return bwd_bf16_attrs<32>(out);
+    case 64: return bwd_bf16_attrs<64>(out);
+    case 128: return bwd_bf16_attrs<128>(out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -100,3 +100,23 @@ def launch_flash_attention_bwd(q, k, v, o, do, lse, dq, dk, dv, stats, *,
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {err}")
+
+
+def bwd_bf16_attrs(D: int) -> dict:
+    """What the bf16 backward's two passes take on the current card at
+    head width D (32, 64 or 128), from ``cudaFuncGetAttributes`` and the
+    occupancy calculator: ``{"dkdv": {...}, "dq": {...}}``, each with
+    ``registers``, ``local_bytes`` (spills land in local memory),
+    ``smem_bytes`` (dynamic) and ``blocks_per_sm``."""
+    fn = load("flash_attention").flash_attention_bwd_bf16_attrs
+    if fn.argtypes is None:          # first use of this library handle
+        fn.argtypes = (_I, ctypes.POINTER(ctypes.c_int))
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    err = fn(D, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_bf16_attrs({D}): CUDA "
+                           f"error {err}")
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, name in enumerate(("dkdv", "dq"))}

@@ -33,9 +33,12 @@ every head width (at 256 with tiles of its own: 32 keys a dk/dv block and
 bfloat16 ones at ``BWD_BF16_HEAD_DIMS`` (a train step under
 ``precision.options(dtype=bf16)``: its forward also writes the output
 unrounded in float32, which Δ is taken from, and dq, dk, dv come back in
-bfloat16, rounded once); a grad-requiring call it does not take (bf16 at
-head width 256, q, k, v of mixed dtypes, or ``kv_last``, which is decode
-only) raises before any launch, never quietly differentiating the plain
+bfloat16, rounded once).  The bfloat16 operands have passes of their own
+on the bf16 tensor cores (``plan_k7_bwd_bf16`` gives their tiles,
+``plan_k7_bwd(..., bf16=True)`` the dk/dv pass's runs).  A
+grad-requiring call it does not take (bf16 at head width 256, q, k, v of
+mixed dtypes, or ``kv_last``, which is decode only) raises before any
+launch, never quietly differentiating the plain
 form or widening to float32.  On the CPU the plain form differentiates
 under autograd as it is.
 """
@@ -65,10 +68,51 @@ BWD_BF16_HEAD_DIMS = (32, 64, 128)
 K7_BWD_RUN_ROWS = 1024
 #: The same at D = 256, whose dk/dv blocks hold 32 keys instead of 64.
 K7_BWD_RUN_ROWS_WIDE = 4096
+#: The same for bfloat16 operands, by head width: each run writes its
+#: float32 partial dK, dV, and the bf16 passes take a run's rows faster,
+#: so longer runs: at tinyllama-1.1b's prefill 707–718 µs with runs of
+#: 1 024 rows, 662–665 with 4 096 (two runs); at qwen3-moe's 2 002–2 005
+#: with 1 024, 1 951–1 952 with 2 048, 2 003–2 007 with 4 096
+#: (``tools/ablate_flash_attention.py --backward --bf16``, an H100 80GB
+#: HBM3 at 700 W).
+K7_BWD_BF16_RUN_ROWS = {32: 4096, 64: 4096, 128: 2048}
 #: Flattened rows a block of the backward's dq pass; each group's rows of
 #: its (lse, Δ) scratch are padded to a multiple of this.
 K7_BWD_ROWS = 64
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+class K7BwdBf16Tiles(NamedTuple):
+    """The blocks of the bf16 backward's passes at one head width
+    (``flash_attention.cu``, "backward on bf16 operands"): 4 warps a
+    block; the dk/dv pass holds ``keys`` keys and walks its run's rows
+    ``rows`` a tile, the dq pass holds ``dq_rows`` rows and walks their
+    keys ``dq_keys`` a tile; each pass's dynamic shared memory in bytes
+    (bf16 tiles, the walked one in two buffers)."""
+    keys: int
+    rows: int
+    dq_rows: int
+    dq_keys: int
+    smem_dkdv: int
+    smem_dq: int
+
+
+def plan_k7_bwd_bf16(D: int) -> K7BwdBf16Tiles:
+    """The bf16 backward's tiles at head width D (32, 64 or 128): rows a
+    dk/dv tile 32 at D ≤ 64 and 16 at 128, where a warp's dK and dV take
+    128 registers, and keys a dq tile 64 at D ≤ 64 and 32 at 128; 64 keys
+    a dk/dv block and 64 rows a dq block.  At least two blocks an SM by
+    shared memory at each width (16 896 / 33 280 / 49 408 B dk/dv,
+    24 576 / 49 152 / 65 536 B dq)."""
+    if D not in BWD_BF16_HEAD_DIMS:
+        raise ValueError(f"plan_k7_bwd_bf16: head widths "
+                         f"{BWD_BF16_HEAD_DIMS}, got {D}")
+    keys, dq_rows = 64, 64
+    rows, dq_keys = (32, 64) if D <= 64 else (16, 32)
+    return K7BwdBf16Tiles(
+        keys, rows, dq_rows, dq_keys,
+        smem_dkdv=2 * keys * D * 2 + 2 * 2 * rows * D * 2 + 2 * rows * 8,
+        smem_dq=2 * dq_rows * D * 2 + 2 * 2 * dq_keys * D * 2)
 #: Keys a tile of the split kernel; its runs are whole tiles.
 K7_TILE = 64
 #: The most rows (H / Hkv · Lq) a group may have for the split kernel.
@@ -133,14 +177,19 @@ def plan_k7(B: int, H: int, Hkv: int, Lq: int, Lk: int, window,
     return K7Plan("decode", -(-tiles // per))
 
 
-def plan_k7_bwd(H: int, Hkv: int, Lq: int, D: int = 64) -> int:
+def plan_k7_bwd(H: int, Hkv: int, Lq: int, D: int = 64,
+                bf16: bool = False) -> int:
     """The runs of rows of the backward's dk/dv pass: ⌈H / Hkv · Lq /
     ``K7_BWD_RUN_ROWS``⌉ (8 at tinyllama-1.1b's prefill, 16 at
     qwen3-moe's), and at D = 256 ⌈H / Hkv · Lq / ``K7_BWD_RUN_ROWS_WIDE``⌉
-    (10 at recurrentgemma-2b's 4 096 positions).  Under a causal mask one
-    block a key tile would make the first tiles, which every row sees, the
-    pass's critical path."""
-    per = K7_BWD_RUN_ROWS_WIDE if D > 128 else K7_BWD_RUN_ROWS
+    (10 at recurrentgemma-2b's 4 096 positions); for bfloat16 operands
+    (``bf16``) by ``K7_BWD_BF16_RUN_ROWS`` (2 at tinyllama-1.1b's, 8 at
+    qwen3-moe's).  Under a causal mask one block a key tile would make the
+    first tiles, which every row sees, the pass's critical path."""
+    if bf16:
+        per = K7_BWD_BF16_RUN_ROWS[D]
+    else:
+        per = K7_BWD_RUN_ROWS_WIDE if D > 128 else K7_BWD_RUN_ROWS
     return max(1, -(-(H // Hkv) * Lq // per))
 
 
@@ -402,7 +451,7 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window=None,
     rows_pad = -(-(H // Hkv) * Lq // K7_BWD_ROWS) * K7_BWD_ROWS
     stats = torch.empty(2 * B * Hkv * rows_pad, dtype=torch.float32,
                         device=device)
-    runs = plan_k7_bwd(H, Hkv, Lq, D)
+    runs = plan_k7_bwd(H, Hkv, Lq, D, bf16=q.dtype == torch.bfloat16)
     part = None
     if runs > 1:
         part = torch.empty(2 * runs * dk.numel(), dtype=torch.float32,

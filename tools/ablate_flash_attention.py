@@ -33,6 +33,16 @@ at recurrentgemma-2b's (``K7_RG_PREFILL``: D = 256, window 2048), the
 unchanged kernel also with the dk/dv pass's rows cut into runs of
 ``BWD_RUN_ROWS`` (D ≤ 128), and the registers and spill bytes of the
 dk/dv and dq kernels at D = 64 and 128 and of the D = 256 passes.
+
+    python3 tools/ablate_flash_attention.py --backward --bf16 [--baseline
+        OLD.cu] [--out FILE]
+
+does it for the bf16 backward (``BWD_BF16_VARIANTS``: P and dS in two
+bf16 pieces or one, twice the rows a dk/dv tile, registers bounded for
+more blocks an SM, P by exp2f; built into
+``build/ablate_flash_attention_bwd_bf16/``) on bf16 operands at
+``K7_BWD_TIMED``, with each gradient's mean signed error against the
+plain version.
 """
 from __future__ import annotations
 
@@ -137,7 +147,7 @@ _MMA3_ADD = ("  float p[4];\n"
              "  mma_tf32(p, ah, b0h, b1h);\n"
              "#pragma unroll\n"
              "  for (int e = 0; e < 4; ++e) c[e] += p[e];\n")
-_DQ_ADD = "          mma3_add(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);\n"
+_DQ_ADD = "        mma3_add(acc[m], dh, dl, k0.x, k1.x, k0.y, k1.y);\n"
 #: The dk/dv pass's products (D <= 128): a partial a row tile, the
 #: 8-column tiles m of dK, dV outer and the tile's row fragments inner.
 _DKDV_TILE = """    uint32_t ph[NTW][4], pl[NTW][4], sh[NTW][4], sl[NTW][4];
@@ -163,9 +173,9 @@ _DKDV_TILE = """    uint32_t ph[NTW][4], pl[NTW][4], sh[NTW][4], sl[NTW][4];
           mma_tf32(pv, pl[n], o0.x, o1.x);
           mma_tf32(pk, sl[n], q0.x, q1.x);
         }
-        if (kLo) mma_tf32(pv, ph[n], o0.y, o1.y);
+        mma_tf32(pv, ph[n], o0.y, o1.y);
         mma_tf32(pv, ph[n], o0.x, o1.x);
-        if (kLo) mma_tf32(pk, sh[n], q0.y, q1.y);
+        mma_tf32(pk, sh[n], q0.y, q1.y);
         mma_tf32(pk, sh[n], q0.x, q1.x);
       }
 #pragma unroll
@@ -213,12 +223,55 @@ BWD_VARIANTS = {
     "running_dq": ((_DQ_ADD, _DQ_ADD.replace("mma3_add(", "mma3(")),),
     # the D = 256 passes (D split over the warps) at D = 128 (tried, and
     # slower: 10.5 against 8.3 ms at qwen3-moe's prefill)
-    "wide128": (("  constexpr bool kWide = D > 128;",
-                 "  constexpr bool kWide = D > 64 && sizeof(TO) == 4;"),),
+    "wide128": (("  constexpr bool kBf = sizeof(TO) == 2, kWide = D > 128;",
+                 "  constexpr bool kBf = sizeof(TO) == 2, "
+                 "kWide = D > 64 && !kBf;"),),
     # every accumulator chained (the biased order before the partials)
     "running": ((_DKDV_TILE, _dkdv_loop("mma3")),
                 (_MMA3_ADD, "  mma3(c, ah, al, b0h, b1h, b0l, b1l);\n")),
 }
+_BF_LO = """    mma_bf16_z(p0, l[0], bt[0][0], bt[0][1]);
+    mma_bf16_z(p1, l[0], bt[0][2], bt[0][3]);
+#pragma unroll
+    for (int s = 1; s < NR; ++s) {
+      mma_bf16(p0, l[s], bt[s][0], bt[s][1]);
+      mma_bf16(p1, l[s], bt[s][2], bt[s][3]);
+    }
+"""
+_BF_MID = """#pragma unroll
+    for (int s = 0; s < NR; ++s) {
+      mma_bf16(p0, mid[s], bt[s][0], bt[s][1]);
+      mma_bf16(p1, mid[s], bt[s][2], bt[s][3]);
+    }
+"""
+_BF_ZERO = """#pragma unroll
+    for (int e = 0; e < 4; ++e) p0[e] = p1[e] = 0.0f;
+"""
+#: The bf16 backward's variants (``--backward --bf16``): name: ((text,
+#: replacement), ...).
+BWD_BF16_VARIANTS = {
+    "full": (),
+    # P and dS as two bf16 pieces (hi, mid: 16 bits), or one (hi)
+    "two_piece": ((_BF_LO, _BF_ZERO),),
+    "one_piece": ((_BF_LO, _BF_ZERO), (_BF_MID, "")),
+    # twice the rows a dk/dv tile
+    "br_x2": (("constexpr int bf_br() { return D > 64 ? 16 : 32; }",
+               "constexpr int bf_br() { return D > 64 ? 32 : 64; }"),),
+    # P = 2^x by exp2f instead of ex2.approx.ftz
+    "exp2f": (("      float p = ex2(st[j][e] * c - lse);",
+               "      float p = exp2f(st[j][e] * c - lse);"),
+              ("      float p = ex2(s[j][e] * c - w.x);",
+               "      float p = exp2f(s[j][e] * c - w.x);")),
+    # registers bounded for three blocks an SM at D <= 64, in each pass
+    "blocks3": (
+        ("__launch_bounds__(kBfThreads, 2)\n    attn_bwd_dkdv_bf16_kernel",
+         "__launch_bounds__(kBfThreads, D > 64 ? 2 : 3)\n"
+         "    attn_bwd_dkdv_bf16_kernel"),
+        ("__launch_bounds__(kBfThreads, 2)\n    attn_bwd_dq_bf16_kernel",
+         "__launch_bounds__(kBfThreads, D > 64 ? 2 : 3)\n"
+         "    attn_bwd_dq_bf16_kernel")),
+}
+
 #: Rows a run of the dk/dv pass the unchanged backward is also timed at.
 BWD_RUN_ROWS = (512, 2048, 4096)
 
@@ -274,8 +327,9 @@ def build_variants(variants=None, out_dir=OUT_DIR, kernels=(
     return libs
 
 
-def backward(cs, torch, out, baseline=None) -> int:
-    """The ``--backward`` mode (see the module's docstring)."""
+def backward(cs, torch, out, baseline=None, bf16=False) -> int:
+    """The ``--backward`` mode, with ``bf16`` its bf16 form (see the
+    module's docstring)."""
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      flash_attention_lse)
     from repro_torch.kernels.flash_attention.kernel import _BWD_ARGTYPES
@@ -285,16 +339,26 @@ def backward(cs, torch, out, baseline=None) -> int:
     card = cs.card_line()
     print(card, flush=True)
     cs.no_tf32(torch)
-    kernels = [f"attn_bwd_{k}_kernelIfLi{D}EEEvNS_7BwdArgsE"
-               for k in ("dkdv", "dq") for D in (64, 128)] + [
-        f"attn_bwd_{k}_wide_kernelILi256EEEvNS_7BwdArgsE"
-        for k in ("dkdv", "dq")]
-    libs = build_variants(BWD_VARIANTS, OUT_DIR + "_bwd", kernels, baseline)
+    if bf16:
+        kernels = [f"attn_bwd_{k}_bf16_kernelILi{D}EEEvNS_7BwdArgsE"
+                   for k in ("dkdv", "dq") for D in (64, 128)]
+        libs = build_variants(BWD_BF16_VARIANTS, OUT_DIR + "_bwd_bf16",
+                              kernels, baseline)
+    else:
+        kernels = [f"attn_bwd_{k}_kernelILi{D}EEEvNS_7BwdArgsE"
+                   for k in ("dkdv", "dq") for D in (64, 128)] + [
+            f"attn_bwd_{k}_wide_kernelILi256EEEvNS_7BwdArgsE"
+            for k in ("dkdv", "dq")]
+        libs = build_variants(BWD_VARIANTS, OUT_DIR + "_bwd", kernels,
+                              baseline)
     stream = torch.cuda.current_stream().cuda_stream
     us, err = {}, {}
-    for shape in list(cs.K7_BWD_TIMED) + [cs.K7_RG_PREFILL]:
+    shapes = list(cs.K7_BWD_TIMED) + ([] if bf16 else [cs.K7_RG_PREFILL])
+    for shape in shapes:
         B, H, Hkv, Lq, Lk, D, causal, window = shape
         q, k, v, do = cs.k7_bwd_inputs(torch, B, H, Hkv, Lq, Lk, D)
+        if bf16:
+            q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
         o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
         want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
         rows = H // Hkv * Lq
@@ -302,9 +366,13 @@ def backward(cs, torch, out, baseline=None) -> int:
         stats = torch.empty(2 * B * Hkv * rows_pad, device="cuda")
         outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(k))
         strides = [x for t in (q, k, v, o, do) for x in t.stride()[:3]]
-        runs_of = {None: plan_k7_bwd(H, Hkv, Lq, D)}
+        runs_of = {None: plan_k7_bwd(H, Hkv, Lq, D, bf16=bf16)}
         if D <= 128:
             runs_of.update({r: -(-rows // r) for r in BWD_RUN_ROWS})
+        # the backward's error against the plain version, and with bf16
+        # each gradient's bias against it (the mean signed error along
+        # the plain value's sign over its mean magnitude)
+        bias = {}
         for name, (lib, _) in libs.items():
             fn = lib.flash_attention_bwd_launch
             fn.argtypes = _BWD_ARGTYPES
@@ -318,7 +386,7 @@ def backward(cs, torch, out, baseline=None) -> int:
                     e = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse)
                              + outs), stats.data_ptr(), part.data_ptr(),
                            runs, B, H, Hkv, Lq, Lk, D, *strides, int(causal),
-                           window or 0, float(D ** -0.5), 0, stream)
+                           window or 0, float(D ** -0.5), int(bf16), stream)
                     if e:
                         raise RuntimeError(f"ablate_flash_attention: CUDA "
                                            f"error {e}")
@@ -326,14 +394,21 @@ def backward(cs, torch, out, baseline=None) -> int:
                                          f" runs of {rr} rows")
                 go()
                 torch.cuda.synchronize()
-                err[key] = max(float((a - b).abs().max())
+                err[key] = max(float((a.float() - b).abs().max())
                                for a, b in zip(outs, want))
+                if bf16:
+                    bias[key] = [cs.signed_error(a, b)[1]
+                                 for a, b in zip(outs, want)]
                 us[key] = [1e3 * cs.event_ms(torch, go, reps=20)
                            for _ in range(2)]
                 print(f"{key}: {', '.join(f'{t:.3f}' for t in us[key])} us, "
-                      f"max |Δ| {err[key]:.3g}", flush=True)
+                      f"max |Δ| {err[key]:.3g}"
+                      + (f", bias dq dk dv {bias[key]}" if bf16 else ""),
+                      flush=True)
     summary = {"card": card, "us": us, "max_abs_err": err,
                "registers": {n: r for n, (_, r) in libs.items()}}
+    if bf16:
+        summary["bias"] = bias
     if out:
         with open(out, "w") as f:
             json.dump(summary, f, indent=1)
@@ -352,6 +427,10 @@ def main() -> int:
                          "flash_attention.cu (say, the parent commit's; its "
                          "flash_attention_bwd_launch must take the same "
                          "arguments) unedited, in turns with the variants")
+    ap.add_argument("--bf16", action="store_true",
+                    help="with --backward: the bf16 backward's variants "
+                         "(BWD_BF16_VARIANTS) on bf16 operands at "
+                         "K7_BWD_TIMED")
     a = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs          # puts ROOT/src first on sys.path
@@ -362,7 +441,7 @@ def main() -> int:
         print("ablate_flash_attention: no CUDA device", file=sys.stderr)
         return 2
     if a.backward:
-        return backward(cs, torch, a.out, a.baseline)
+        return backward(cs, torch, a.out, a.baseline, a.bf16)
     from repro_torch.kernels._wrap import sm_count
     from repro_torch.kernels.flash_attention.kernel import _ARGTYPES
     from repro_torch.kernels.flash_attention.ops import plan_k7

@@ -36,6 +36,15 @@ given what that checkout's train step gives it (the forward's lse, and
 its output where ``flash_attention_bwd`` takes ``o``), then SDPA's
 backward (``torch.autograd.grad`` on a retained graph; a window as a
 mask) in the same child, with a digest of each backward's outputs.
+
+    python3 tools/pair_flash_attention.py OLD_ROOT NEW_ROOT --backward --bf16
+        [--out FILE]
+
+times K7's bf16 backward instead, at ``K7_BWD_TIMED`` on each checkout's
+``k7_bwd_inputs`` rounded to bf16: the backward given the bf16 grad
+forward's lse and float32 output, SDPA's bf16 backward in the same child,
+a digest of each backward's outputs, and the bf16 grad forward
+(``flash_attention_lse``) beside SDPA's bf16 forward.
 """
 from __future__ import annotations
 
@@ -49,8 +58,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from pair_decision_kernels import pair_main  # noqa: E402
 
 
-def time_backward(cs, torch, bits) -> dict:
-    """K7's backward and SDPA's at the timed training shapes (µs)."""
+def time_backward(cs, torch, bits, bf16: bool = False) -> dict:
+    """K7's backward and SDPA's at the timed training shapes (µs); with
+    ``bf16`` the bf16 backward at ``K7_BWD_TIMED`` and the bf16 grad
+    forward beside SDPA's."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -58,10 +69,12 @@ def time_backward(cs, torch, bits) -> dict:
                                                      flash_attention_lse)
 
     takes_o = "o" in inspect.signature(flash_attention_bwd).parameters
-    us, sdpa_us = {}, {}
-    for B, H, Hkv, Lq, Lk, D, causal, window in (list(cs.K7_BWD_TIMED)
-                                                 + [cs.K7_RG_PREFILL]):
+    us, sdpa_us, fwd_us, sdpa_fwd_us = {}, {}, {}, {}
+    shapes = list(cs.K7_BWD_TIMED) + ([] if bf16 else [cs.K7_RG_PREFILL])
+    for B, H, Hkv, Lq, Lk, D, causal, window in shapes:
         q, k, v, do = cs.k7_bwd_inputs(torch, B, H, Hkv, Lq, Lk, D)
+        if bf16:
+            q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
         o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
         given = dict(lse=lse, o=o) if takes_o else dict(lse=lse)
         key = (f"B={B} H={H} Hkv={Hkv} Lq={Lq} Lk={Lk} D={D} causal={causal} "
@@ -85,12 +98,22 @@ def time_backward(cs, torch, bits) -> dict:
                                              **kw)
         sdpa_us[key] = 1e3 * cs.event_ms(torch, lambda: torch.autograd.grad(
             os_, (qs, ks, vs), do, retain_graph=True), reps=20)
+        if bf16:
+            fwd_us[key] = 1e3 * cs.event_ms(torch, lambda: flash_attention_lse(
+                q, k, v, causal=causal, window=window), reps=20)
+            with torch.no_grad():
+                sdpa_fwd_us[key] = 1e3 * cs.event_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, enable_gqa=True, **kw), reps=20)
         del os_, qs, ks, vs, q, k, v, do, o, lse
         torch.cuda.empty_cache()
-    return {"k7_bwd_us": us, "sdpa_bwd_us": sdpa_us, "takes_o": takes_o}
+    out = {"k7_bwd_us": us, "sdpa_bwd_us": sdpa_us, "takes_o": takes_o}
+    if bf16:
+        out.update(k7_fwd_us=fwd_us, sdpa_fwd_us=sdpa_fwd_us)
+    return out
 
 
-def child(root: str, backward: bool = False) -> dict:
+def child(root: str, backward: bool = False, bf16: bool = False) -> dict:
     """Measure the checkout at ``root`` (run in a process of its own)."""
     sys.path.insert(0, root)
     import chip_smoke as cs          # puts root/src first on sys.path
@@ -112,7 +135,7 @@ def child(root: str, backward: bool = False) -> dict:
         ).hexdigest()[:16]
 
     if backward:
-        return dict(time_backward(cs, torch, bits), root=root,
+        return dict(time_backward(cs, torch, bits, bf16=bf16), root=root,
                     digest=digest)
     for B, H, Hkv, Lq, Lk, D, causal, window in (
             list(cs.K7_PINS) + [cs.K7_PREFILL, cs.K7_DECODE,
@@ -161,4 +184,5 @@ def child(root: str, backward: bool = False) -> dict:
 
 if __name__ == "__main__":
     sys.exit(pair_main(child, __doc__.splitlines()[0], __file__,
-                       {"backward": "time K7's backward instead"}))
+                       {"backward": "time K7's backward instead",
+                        "bf16": "with --backward: its bf16 form"}))

@@ -8,7 +8,12 @@ tinyllama-1.1b's prefill (B, H, Hkv, L, D) = (4, 32, 4, 1024, 64),
 qwen3-moe's (4, 64, 4, 1024, 128) and recurrentgemma-2b's (2, 10, 1,
 4096, 256) with its 2048-key window (the D = 256 passes), causal.
 
-    python3 tools/profile_flash_attention_bwd.py [--out FILE]
+    python3 tools/profile_flash_attention_bwd.py [--bf16] [--out FILE]
+
+With ``--bf16`` the operands are rounded to bf16 and the bf16 passes run
+(tinyllama-1.1b's and qwen3-moe's shapes; the bound as
+``chip_smoke.k7_bwd_bf16_case`` counts it: 22·D bf16 flops an unmasked
+pair at 989 T op/s).
 
 Prints the card's name and power limit, then per shape the device time
 of each kernel (mean of ``REPS`` calls), the event time of the whole
@@ -44,6 +49,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--bf16", action="store_true",
+                    help="the bf16 backward on bf16 operands (D <= 128)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_flash_attention_bwd: no CUDA device", file=sys.stderr)
@@ -52,7 +59,11 @@ def main(argv=None) -> int:
     cs.no_tf32(torch)
     out = []
     for B, H, Hkv, L, D, window in SHAPES:
+        if args.bf16 and D > 128:
+            continue
         q, k, v, do = cs.k7_bwd_inputs(torch, B, H, Hkv, L, L, D)
+        if args.bf16:
+            q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
         o, lse = flash_attention_lse(q, k, v, window=window)
 
         def call():
@@ -81,6 +92,10 @@ def main(argv=None) -> int:
                "bound_ms": 3 * ops / cs.TF32_OPS_PER_S * 1e3,
                "bound_fp32_ms": ops / cs.FP32_OPS_PER_S * 1e3,
                "tops": ops / ms / 1e9}
+        if args.bf16:
+            row.update(dtype="bfloat16",
+                       bound_ms=22 * D * pairs / cs.BF16_OPS_PER_S * 1e3)
+            del row["bound_fp32_ms"]
         out.append(row)
         print(json.dumps(row), flush=True)
     if args.out:

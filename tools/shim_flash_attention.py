@@ -110,6 +110,18 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class F>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* fa, F) {
+  *fa = {0, 0};
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t) {
+  *n = 0;
+  return cudaSuccess;
+}
 template <class F, class... A>
 void shim_launch(F f, int grid, int threads, size_t smem, A... args) {
   std::vector<uint32_t> buf(smem / 4 + 16);
@@ -186,7 +198,8 @@ def run_case(torch, K, ops, ref, B, H, Hkv, Lq, Lk, D, causal, window,
                                              window=window)).abs().max())
     rows = H // Hkv * Lq
     rows_pad = -(-rows // ops.K7_BWD_ROWS) * ops.K7_BWD_ROWS
-    runs = runs or ops.plan_k7_bwd(H, Hkv, Lq, D)
+    runs = runs or ops.plan_k7_bwd(H, Hkv, Lq, D,
+                                   bf16=dtype == torch.bfloat16)
     runs = max(1, min(runs, rows))
     part = (torch.full((2 * runs * B * Hkv * Lk * D,), nan) if runs > 1
             else None)
